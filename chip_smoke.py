@@ -17,11 +17,20 @@ Phases:
    product on the host (within 1e-2 of max|C|), and time the kernel,
    the plain version and ``torch.matmul`` (the library yardstick, which
    the port never calls) as medians of CUDA-event-timed runs.
-3. Set every launch count to 0 and drive the port's main path in
-   process, through the CLI entry point: ``profile`` gemm:v00, v01 and
-   v02 into one session, then ``diff`` iter0 iter1 and ``report`` iter1.
-   Each must exit 0, the diff must show false sharing on C fixed, and
-   every kernel must have been launched by that run.
+   Then the same for the GRAMSCHM kernels (naive, opt) and the TTM
+   kernels (scratch, fused), each at the registry's shape and at a
+   timing shape whose operands exceed the card's 50 MB L2: compare with
+   the plain version (GRAMSCHM max abs error <= 1e-3, TTM <= 1e-5 of
+   max|Y|) and, at the registry's shape, with the float64 product on the
+   host (the same tolerances); time the kernel, the plain version and
+   the library yardstick (``torch.mv``, ``torch.bmm``).
+3. For each family (gemm, gramschm, ttm): set every launch count to 0
+   and drive the port's main path in process, through the CLI entry
+   point: ``profile`` each rung into the family's session, then ``diff``
+   the first two iterations and ``report`` the second.  Each must exit
+   0, the diff must show the family's pattern fixed (false sharing on C,
+   strided on q, scratch abuse on Y_shr), and every kernel of the family
+   must have been launched by that run.
 4. Print one JSON line describing every kernel, then the result line.
 
 There is no fallback: without a CUDA device, or outside a checkout of
@@ -53,8 +62,26 @@ REPLACES = {
     "v00": "src/repro/kernels/gemm.py:40",
     "v01": "src/repro/kernels/gemm.py:81",
     "v02": "src/repro/kernels/gemm.py:123",
+    "gramschm_k3_naive": "src/repro/kernels/gramschm.py:29",
+    "gramschm_k3_opt": "src/repro/kernels/gramschm.py:60",
+    "ttm_scratch": "src/repro/kernels/ttm.py:36",
+    "ttm_fused": "src/repro/kernels/ttm.py:46",
 }
 SOURCE = "src/repro_torch/kernels/csrc/gemm.cu"
+
+# the case-study families' timing shapes, beside the registry's: their
+# operands exceed the 50 MB L2, so a launch streams from device memory
+TIMING_SHAPES = {
+    "gramschm": (4096, 4096, 4096),  # (ni, nj, nk)
+    "ttm": (262144, 8, 32),  # (f, nf, r)
+}
+
+# the story each family's diff must tell (phase 3)
+FIXED = {
+    "gemm": "[fixed] false-sharing on C",
+    "gramschm": "[fixed] strided on q",
+    "ttm": "[fixed] scratch-abuse on Y_shr",
+}
 
 
 def fail(msg: str) -> int:
@@ -62,11 +89,134 @@ def fail(msg: str) -> int:
     return 1
 
 
+def bound_of(n_bytes: int, ops: int, dtype: str = "float32"):
+    """(bound_ms, bound_by): the least time for work that must move
+    ``n_bytes`` and do ``ops`` operations of ``dtype`` on this card."""
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def bound(m: int, n: int, k: int, dtype: str, itemsize: int):
     """(bound_ms, bound_by): the least time for C = A·B on this card."""
-    bytes_ms = (m * k + k * n + m * n) * itemsize / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 2 * m * n * k / PEAK_OPS_PER_S[dtype] * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return bound_of((m * k + k * n + m * n) * itemsize, 2 * m * n * k, dtype)
+
+
+def case_inputs(family: str, shape, dev):
+    """One family's case at ``shape``, on inputs from a fixed numpy seed:
+    {kernel name: (wrapper, args, kwargs)}, the float64 host product, the
+    plain and library calls, and the bytes and FLOPs of the work."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import GRAMSCHM_K, gramschm, ttm
+
+    rng = np.random.default_rng(1)
+    if family == "gramschm":
+        ni, nj, nk = shape
+        k = GRAMSCHM_K
+        q_np = rng.standard_normal((ni, nk), dtype=np.float32)
+        a_np = rng.standard_normal((ni, nj), dtype=np.float32)
+        q = torch.from_numpy(q_np).to(dev)
+        qt = q.t().contiguous()
+        a = torch.from_numpy(a_np).to(dev)
+        qk = q[:, k].contiguous()
+        return dict(
+            kernels={
+                "gramschm_k3_naive": (gramschm.gramschm_k3_naive, (q, a), {"k": k}),
+                "gramschm_k3_opt": (gramschm.gramschm_k3_opt, (qt, a), {"k": k}),
+            },
+            exact=lambda: q_np[:, k].astype(np.float64) @ a_np.astype(np.float64),
+            plain=lambda: gramschm.gramschm_k3_plain(q, a, k),
+            library=lambda: torch.mv(a.t(), qk),
+            bytes=4 * (ni * nj + ni + nj),
+            flops=2 * ni * nj,
+            source="src/repro_torch/kernels/csrc/gramschm.cu",
+        )
+    f, nf, r = shape
+    vals_np = rng.standard_normal((f, nf), dtype=np.float32)
+    urows_np = rng.standard_normal((f, nf, r), dtype=np.float32)
+    vals = torch.from_numpy(vals_np).to(dev)
+    urows = torch.from_numpy(urows_np).to(dev)
+    return dict(
+        kernels={
+            "ttm_scratch": (ttm.ttm_scratch, (vals, urows), {}),
+            "ttm_fused": (ttm.ttm_fused, (vals, urows), {}),
+        },
+        exact=lambda: np.einsum(
+            "fn,fnr->fr", vals_np.astype(np.float64), urows_np.astype(np.float64)
+        ),
+        plain=lambda: ttm.ttm_plain(vals, urows),
+        library=lambda: torch.bmm(vals.unsqueeze(1), urows).squeeze(1),
+        bytes=4 * (f * nf + f * nf * r + f * r),
+        flops=2 * f * nf * r,
+        source="src/repro_torch/kernels/csrc/ttm.cu",
+    )
+
+
+def check_cases(kreg, dev):
+    """Phase 2 for the case-study kernels: {kernel name: record}, or a
+    failure message."""
+    import numpy as np
+    import torch
+
+    rows = {}
+    registry_shapes = {"gramschm": kreg.GRAMSCHM_SHAPE, "ttm": kreg.TTM_SHAPE}
+    for family, large in TIMING_SHAPES.items():
+        for which, shape in (("registry", registry_shapes[family]), ("large", large)):
+            case = case_inputs(family, shape, dev)
+            want = case["plain"]()
+            library = case["library"]()
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            # GRAMSCHM: float32 sums of up to 4096 N(0,1) products in another
+            # order; TTM: sums of 8 products, so the error is relative to |Y|
+            tol = 1e-3 if family == "gramschm" else 1e-5 * scale
+            exact = case["exact"]() if which == "registry" else None
+            err_lib = float((library - want).abs().max())
+            if not err_lib <= tol:
+                return f"{family} {shape}: library call off by {err_lib} > {tol}"
+            plain_ms = kreg.cuda_time_ms(case["plain"], ITERS)
+            library_ms = kreg.cuda_time_ms(case["library"], ITERS)
+            bms, bby = bound_of(case["bytes"], case["flops"])
+            for name, (fn, args, kwargs) in case["kernels"].items():
+                got = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != torch.float32:
+                    return f"{name} {shape}: output {tuple(got.shape)} {got.dtype}"
+                if not bool(torch.isfinite(got).all()):
+                    return f"{name} {shape}: non-finite output"
+                err = float((got - want).abs().max())
+                rec = dict(
+                    shape=list(shape), max_abs_err=err,
+                    ms=kreg.cuda_time_ms(lambda: fn(*args, **kwargs), ITERS),
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                    library_ms=library_ms,
+                )
+                line = (
+                    f"{name} {which} {shape}: max|err| {err:.3e} (tol {tol:.3e})"
+                )
+                if exact is not None:
+                    rec["max_abs_err_vs_float64"] = float(
+                        np.abs(got.double().cpu().numpy() - exact).max()
+                    )
+                    line += f", vs float64 {rec['max_abs_err_vs_float64']:.3e}"
+                print(
+                    f"{line}, median {rec['ms']:.4f} ms over {ITERS}, plain "
+                    f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                    f"{bms:.5f} ms ({bby}), {bms / rec['ms']:.1%} of bound"
+                )
+                if not err <= tol:
+                    return f"{name} {shape}: max|err| {err} > {tol}"
+                if exact is not None and not rec["max_abs_err_vs_float64"] <= tol:
+                    return f"{name} {shape}: vs float64 {rec['max_abs_err_vs_float64']} > {tol}"
+                if which == "registry":
+                    rows[name] = dict(source=case["source"], **rec)
+                else:
+                    rows[name]["large"] = rec
+            del case, want, library
+            torch.cuda.empty_cache()
+    return rows
 
 
 def run_cli(cli, argv):
@@ -90,7 +240,7 @@ def main() -> int:
     from repro_torch import cli
     from repro_torch import kernels as kreg
     from repro_torch.core.session import load_iteration
-    from repro_torch.kernels import _build, gemm
+    from repro_torch.kernels import _build, gemm, gramschm, ttm
 
     # -- phase 1: the card, and the build ----------------------------------
     smi = subprocess.run(
@@ -164,34 +314,49 @@ def main() -> int:
             if not err_exact <= tol_exact:
                 return fail(f"gemm_{v} {dname}: vs float64 {err_exact} > {tol_exact}")
 
+    cases = check_cases(kreg, dev)
+    if isinstance(cases, str):
+        return fail(cases)
+
     # -- phase 3: the main path, profile -> diff -> report --------------------
-    sess = ROOT / "build" / "chip_smoke_session"
-    shutil.rmtree(sess, ignore_errors=True)
-    gemm.reset_launch_counts()
-    for v in gemm.KERNELS:
-        rc, _ = run_cli(cli, ["profile", "-k", f"gemm:{v}", "--out", str(sess), "-q"])
+    families = {
+        "gemm": {f"gemm_{v}": (f"gemm:{v}", fn) for v, fn in gemm.KERNELS.items()},
+        "gramschm": {
+            f"gramschm_k3_{v}": (f"gramschm:{v}", fn)
+            for v, fn in gramschm.KERNELS.items()
+        },
+        "ttm": {f"ttm_{v}": (f"ttm:{v}", fn) for v, fn in ttm.KERNELS.items()},
+    }
+    launches = {}
+    for family, members in families.items():
+        sess = ROOT / "build" / "chip_smoke_session" / family
+        shutil.rmtree(sess, ignore_errors=True)
+        kreg.reset_launch_counts()
+        for ref, _ in members.values():
+            rc, _ = run_cli(cli, ["profile", "-k", ref, "--out", str(sess), "-q"])
+            if rc != 0:
+                return fail(f"profile {ref} exited {rc}")
+        counts = {name: fn.launches for name, (_, fn) in members.items()}
+        rc, out = run_cli(cli, ["diff", str(sess / "iter0"), str(sess / "iter1")])
         if rc != 0:
-            return fail(f"profile gemm:{v} exited {rc}")
-    launches = {v: fn.launches for v, fn in gemm.KERNELS.items()}
-    rc, out = run_cli(cli, ["diff", str(sess / "iter0"), str(sess / "iter1")])
-    if rc != 0:
-        return fail(f"diff exited {rc}")
-    if "[fixed] false-sharing on C" not in out:
-        return fail("diff gemm:v00 -> v01 does not show false sharing on C fixed")
-    rc, _ = run_cli(cli, ["report", str(sess / "iter1")])
-    if rc != 0:
-        return fail(f"report exited {rc}")
-    print(f"main-path launches: {launches}")
-    for v, count in launches.items():
-        if count < 1:
-            return fail(f"gemm_{v} was not launched by the main path")
-    for i, v in enumerate(gemm.KERNELS):
-        pk = load_iteration(sess / f"iter{i}").kernels[0]
-        classes = sorted(f"{r.pattern}@{r.region}" for r in pk.reports)
-        print(
-            f"gemm:{v} modeled transfers {pk.transactions}, patterns "
-            f"{classes}, measured {pk.run['ms']:.4f} ms on {pk.run['device']}"
-        )
+            return fail(f"diff {family} exited {rc}")
+        if FIXED[family] not in out:
+            return fail(f"diff {family} does not show {FIXED[family]!r}")
+        rc, _ = run_cli(cli, ["report", str(sess / "iter1")])
+        if rc != 0:
+            return fail(f"report {family} exited {rc}")
+        print(f"main-path launches ({family}): {counts}")
+        for name, count in counts.items():
+            if count < 1:
+                return fail(f"{name} was not launched by the main path")
+        launches.update(counts)
+        for i, (ref, _) in enumerate(members.values()):
+            pk = load_iteration(sess / f"iter{i}").kernels[0]
+            classes = sorted(f"{r.pattern}@{r.region}" for r in pk.reports)
+            print(
+                f"{ref} modeled transfers {pk.transactions}, patterns "
+                f"{classes}, measured {pk.run['ms']:.4f} ms on {pk.run['device']}"
+            )
 
     # -- phase 4: the record --------------------------------------------------
     kernels = []
@@ -200,8 +365,15 @@ def main() -> int:
         kernels.append(
             dict(
                 name=f"gemm_{v}", route="cuda", source=SOURCE,
-                replaces=REPLACES[v], launches=launches[v], **row,
+                replaces=REPLACES[v], launches=launches[f"gemm_{v}"], **row,
                 bf16=rows[(v, "bfloat16")],
+            )
+        )
+    for name, row in cases.items():
+        kernels.append(
+            dict(
+                name=name, route="cuda", replaces=REPLACES[name],
+                launches=launches[name], **row,
             )
         )
     print(f"card: {smi}")

@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.collector import KernelSpec
 from repro_torch.core.trace import GridSampler
 
-from . import gemm, ops, ref
+from . import gemm, gramschm, ops, ref, ttm
 
 #: Inputs of one launch: ``(device, generator) -> positional tensors``.
 InputMaker = Callable[[torch.device, torch.Generator], Tuple[torch.Tensor, ...]]
@@ -38,7 +38,9 @@ class KernelVariant:
     ``kernel`` is the wrapper that launches the variant's CUDA kernel,
     ``plain`` its plain PyTorch version, and ``inputs`` makes seeded
     inputs at the registry's shapes; all three are ``None`` for a
-    spec-only variant.
+    spec-only variant.  ``kwargs`` holds the non-tensor arguments that
+    both ``kernel`` and ``plain`` take by keyword (gramschm's column
+    ``k``), as ``(name, value)`` pairs.
     """
 
     name: str
@@ -50,6 +52,7 @@ class KernelVariant:
     plain: Optional[Callable[..., torch.Tensor]] = None
     inputs: Optional[InputMaker] = None
     atol: float = 0.0  # max |kernel - plain| accepted on the registry inputs
+    kwargs: Tuple[Tuple[str, object], ...] = ()
 
     def spec(self) -> KernelSpec:
         """Build the KernelSpec at the registry's default shapes."""
@@ -129,6 +132,57 @@ def _gemm_variant(name: str, role: str, note: str) -> KernelVariant:
     )
 
 
+GRAMSCHM_SHAPE = (512, 512, 512)  # (ni, nj, nk)
+GRAMSCHM_K = 3
+TTM_SHAPE = (512, 8, 32)  # (f, nf, r)
+
+
+def _gramschm_inputs(transposed: bool) -> InputMaker:
+    def make(device: torch.device, gen: torch.Generator):
+        ni, nj, nk = GRAMSCHM_SHAPE
+        q = torch.randn((ni, nk), generator=gen, device=device, dtype=torch.float32)
+        a = torch.randn((ni, nj), generator=gen, device=device, dtype=torch.float32)
+        return (q.t().contiguous() if transposed else q), a
+
+    return make
+
+
+def _gramschm_variant(name: str, role: str, note: str) -> KernelVariant:
+    return KernelVariant(
+        name,
+        lambda: getattr(gramschm, f"k3_{name}_spec")(*GRAMSCHM_SHAPE, k=GRAMSCHM_K),
+        role=role,
+        note=note,
+        kernel=gramschm.KERNELS[name],
+        plain=gramschm.PLAIN[name],
+        inputs=_gramschm_inputs(transposed=name == "opt"),
+        # float32 sums of 512 N(0,1) products (|r| < ~80) in another order
+        atol=1e-3,
+        kwargs=(("k", GRAMSCHM_K),),
+    )
+
+
+def _ttm_inputs(device: torch.device, gen: torch.Generator):
+    f, nf, r = TTM_SHAPE
+    vals = torch.randn((f, nf), generator=gen, device=device, dtype=torch.float32)
+    urows = torch.randn((f, nf, r), generator=gen, device=device, dtype=torch.float32)
+    return vals, urows
+
+
+def _ttm_variant(name: str, role: str, note: str) -> KernelVariant:
+    return KernelVariant(
+        name,
+        lambda: getattr(ttm, f"ttm_{name}_spec")(*TTM_SHAPE),
+        role=role,
+        note=note,
+        kernel=ttm.KERNELS[name],
+        plain=ttm.ttm_plain,
+        inputs=_ttm_inputs,
+        # float32 sums of 8 N(0,1) products (|Y| < ~20), fused or not
+        atol=1e-4,
+    )
+
+
 REGISTRY: Dict[str, RegistryEntry] = {
     e.name: e
     for e in (
@@ -149,6 +203,49 @@ REGISTRY: Dict[str, RegistryEntry] = {
                 _gemm_variant(
                     "v02", "optimized",
                     "64x64x16 shared-memory tiles + 4x4 register micro-tiles",
+                ),
+            ),
+            sampler=_full,
+        ),
+        RegistryEntry(
+            name="gramschm",
+            summary="Gram-Schmidt kernel3: stride-N q column walk vs the "
+            "transposed contiguous walk (paper §VI-B)",
+            variants=(
+                _gramschm_variant(
+                    "naive", "baseline",
+                    "q read with stride NK: one warm word per sector",
+                ),
+                _gramschm_variant("opt", "optimized", "qT read contiguously"),
+            ),
+            sampler=_full,
+            region_map=(("q", "qT"),),
+        ),
+        RegistryEntry(
+            name="ttm",
+            summary="PASTA TTM: per-thread shared-memory partials (abuse) vs "
+            "the fused register accumulation",
+            variants=(
+                _ttm_variant(
+                    "scratch", "baseline",
+                    "Y_shr holds warp-local partials: abuse",
+                ),
+                _ttm_variant(
+                    "fused", "optimized",
+                    "accumulate in registers, drop the shared memory",
+                ),
+            ),
+            sampler=_full,
+        ),
+        RegistryEntry(
+            name="cuszp",
+            summary="cuSZp-style compression: one scalar per warp parked in "
+            "shared memory",
+            variants=(
+                KernelVariant(
+                    "like",
+                    lambda: ttm.cuszp_like_spec(64),
+                    note="exclusive-sum broadcast via shared memory",
                 ),
             ),
             sampler=_full,
@@ -188,6 +285,14 @@ def build(ref: str) -> Tuple[KernelSpec, Optional[Dict[str, np.ndarray]]]:
     return variant.spec(), variant.dynamic_context()
 
 
+def reset_launch_counts() -> None:
+    """Set the launch count of every registered kernel's wrapper to 0."""
+    for entry in REGISTRY.values():
+        for variant in entry.variants:
+            if variant.kernel is not None:
+                variant.kernel.launches = 0
+
+
 class KernelMismatch(RuntimeError):
     """A kernel's output disagreed with its plain version."""
 
@@ -223,27 +328,29 @@ def run_variant(
     On a CUDA device the kernel runs once against its plain version
     (float32 products without TF32), then ``iters`` more times under CUDA
     events; the record carries the device name, the launches made, the
-    median time and the largest absolute error.  On the CPU the wrapper
-    takes the plain version, so nothing is launched or timed.  Raises
-    :class:`KernelMismatch` when the error exceeds ``variant.atol``.
+    median time and the largest absolute error, and the variant's
+    non-tensor arguments under ``kwargs`` when it has any.  On the CPU the
+    wrapper takes the plain version, so nothing is launched or timed.
+    Raises :class:`KernelMismatch` when the error exceeds ``variant.atol``.
     """
     if variant.kernel is None:
         raise ValueError(f"variant {variant.name!r} has no kernel to run")
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     args = variant.inputs(device, gen)
+    kwargs = dict(variant.kwargs)
     on_card = device.type == "cuda"
     before = getattr(variant.kernel, "launches", 0)
     if on_card:
         allow_tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            want = variant.plain(*args)
+            want = variant.plain(*args, **kwargs)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     else:
-        want = variant.plain(*args)
-    got = variant.kernel(*args)
+        want = variant.plain(*args, **kwargs)
+    got = variant.kernel(*args, **kwargs)
     if on_card:
         torch.cuda.synchronize(device)
     err = float((got.float() - want.float()).abs().max())
@@ -259,15 +366,21 @@ def run_variant(
         "max_abs_err": err,
         "ms": None,
     }
+    if kwargs:
+        run["kwargs"] = kwargs
     if on_card:
         with torch.cuda.device(device):
-            run["ms"] = cuda_time_ms(lambda: variant.kernel(*args), iters=iters)
+            run["ms"] = cuda_time_ms(
+                lambda: variant.kernel(*args, **kwargs), iters=iters
+            )
     run["launches"] = getattr(variant.kernel, "launches", 0) - before
     return run
 
 
 __all__ = [
     "GEMM_SHAPE",
+    "GRAMSCHM_K",
+    "GRAMSCHM_SHAPE",
     "KernelMismatch",
     "KernelVariant",
     "REGISTRY",
@@ -276,9 +389,13 @@ __all__ = [
     "cuda_time_ms",
     "gemm",
     "get",
+    "gramschm",
     "names",
     "ops",
     "ref",
+    "reset_launch_counts",
     "resolve",
     "run_variant",
+    "TTM_SHAPE",
+    "ttm",
 ]

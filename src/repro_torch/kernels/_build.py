@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -108,3 +108,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _LOADED[name] = lib
         return lib
+
+
+def call(name: str, symbol: str, argtypes: Sequence, *args) -> None:
+    """Call the C entry point ``symbol`` of ``csrc/<name>.cu``.
+
+    Every entry point returns ``cudaGetLastError()`` right after its
+    launch, so a launch the device refuses raises ``RuntimeError`` here.
+    """
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{symbol} launch failed: cuda error {err}: {msg}")

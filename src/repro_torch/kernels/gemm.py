@@ -78,25 +78,20 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
 def _launch(symbol: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    lib = _build.load("gemm")
-    fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
     m, k = a.shape
     n = b.shape[1]
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(
+        _build.call(
+            "gemm", symbol, _ARGTYPES,
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
             _DTYPES[a.dtype], stream,
         )
-    if err != 0:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{symbol} launch failed: cuda error {err}: {msg}")
     return c
 
 

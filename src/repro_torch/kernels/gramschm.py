@@ -1,0 +1,190 @@
+"""Gram-Schmidt kernel3 (PolyBench/GPU GRAMSCHM) — the strided case study.
+
+Two CUDA kernels in ``csrc/gramschm.cu`` compute ``r[j] = Σᵢ q[i,k]·a[i,j]``
+with PolyBench/GPU's ``gramschmidt_kernel3`` mapping: one thread per
+column ``j``, a loop over ``i``, ``r[j]`` stored once (paper §VI-B):
+
+  naive  reads ``q[i*NK + k]``: every step touches a new 32 B sector of
+         ``q`` for one 4 B word — the strided walk.
+  opt    reads ``qt[k*NI + i]`` from the transposed ``q``: contiguous.
+
+Each kernel has a wrapper (``gramschm_k3_naive(q, a, k)``,
+``gramschm_k3_opt(qt, a, k)``) that checks its operands, launches on the
+current stream and counts its launches in a plain integer attribute.  A
+wrapper given CPU tensors computes the plain version instead; given CUDA
+tensors it launches the kernel or raises.
+
+The ``*_spec`` functions describe what each *warp* of the CUDA kernels touches,
+under the H100 sector geometry; the walker's "program" is the warp.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import operator
+
+import numpy as np
+import torch
+
+from repro_torch.core.collector import KernelSpec, OperandSpec
+
+from . import _build
+
+_INT_MAX = 2**31 - 1
+_WARP = 32
+
+
+def _check_operands(q: torch.Tensor, a: torch.Tensor, k, transposed: bool) -> int:
+    """Raise on anything the kernels do not take; returns ``k`` as an int."""
+    name = "qt" if transposed else "q"
+    if not isinstance(q, torch.Tensor) or not isinstance(a, torch.Tensor):
+        raise TypeError(f"gramschm operands {name} and a must be torch tensors")
+    if q.dim() != 2 or a.dim() != 2:
+        raise ValueError(
+            f"gramschm needs 2-D {name} and a, got {tuple(q.shape)} and "
+            f"{tuple(a.shape)}"
+        )
+    if q.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(
+            f"gramschm takes float32 operands, got {q.dtype} and {a.dtype}"
+        )
+    nk, ni = q.shape if transposed else q.shape[::-1]
+    if ni != a.shape[0]:
+        raise ValueError(
+            f"{name} {tuple(q.shape)} does not match a {tuple(a.shape)}: "
+            f"both need NI = {a.shape[0]} rows of q"
+        )
+    if q.device != a.device or q.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"operands must share one cpu or cuda device, got {q.device} "
+            f"and {a.device}"
+        )
+    if not (q.is_contiguous() and a.is_contiguous()):
+        raise ValueError("gramschm operands must be contiguous (row-major)")
+    k = operator.index(k)
+    if not 0 <= k < nk:
+        raise ValueError(f"column k={k} is outside 0 <= k < NK = {nk}")
+    nj = a.shape[1]
+    if min(ni, nj, nk) < 1 or max(ni, nj, nk) > _INT_MAX:
+        raise ValueError(f"unsupported gramschm shape ni={ni} nj={nj} nk={nk}")
+    return k
+
+
+def gramschm_k3_plain(q: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain PyTorch version: ``r = q[:, k] · a`` in float32, shape (NJ,)."""
+    return (q[:, k, None].float() * a.float()).sum(0)
+
+
+def gramschm_k3_opt_plain(qt: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain version from the transposed ``qt`` (NK, NI): row k of qt."""
+    return gramschm_k3_plain(qt.t(), a, k)
+
+
+_ARGTYPES = {
+    "repro_gramschm_k3_naive": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "repro_gramschm_k3_opt": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+}
+
+
+def _launch(symbol: str, q: torch.Tensor, a: torch.Tensor, *ints: int) -> torch.Tensor:
+    r = torch.empty((a.shape[1],), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        _build.call(
+            "gramschm", symbol, _ARGTYPES[symbol],
+            q.data_ptr(), a.data_ptr(), r.data_ptr(), *ints, stream,
+        )
+    return r
+
+
+def gramschm_k3_naive(q: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
+    """r[j] = Σᵢ q[i,k]·a[i,j] reading q's column k (strided); q is (NI, NK)."""
+    k = _check_operands(q, a, k, transposed=False)
+    if a.device.type == "cpu":
+        return gramschm_k3_plain(q, a, k)
+    ni, nk = q.shape
+    r = _launch("repro_gramschm_k3_naive", q, a, ni, a.shape[1], nk, k)
+    gramschm_k3_naive.launches += 1
+    return r
+
+
+def gramschm_k3_opt(qt: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
+    """The same r reading row k of ``qt`` = q transposed, (NK, NI)."""
+    k = _check_operands(qt, a, k, transposed=True)
+    if a.device.type == "cpu":
+        return gramschm_k3_opt_plain(qt, a, k)
+    r = _launch("repro_gramschm_k3_opt", qt, a, qt.shape[1], a.shape[1], k)
+    gramschm_k3_opt.launches += 1
+    return r
+
+
+gramschm_k3_naive.launches = 0
+gramschm_k3_opt.launches = 0
+
+KERNELS = {"naive": gramschm_k3_naive, "opt": gramschm_k3_opt}
+PLAIN = {"naive": gramschm_k3_plain, "opt": gramschm_k3_opt_plain}
+
+
+# ---------------------------------------------------------------------------
+# profiler specs: what each warp of the CUDA kernels touches
+# ---------------------------------------------------------------------------
+
+
+def k3_naive_spec(ni: int, nj: int, nk: int, k: int = 0) -> KernelSpec:
+    """Warp footprints of ``gramschm_k3_naive_kernel`` (Level-2 q walk).
+
+    Blocks of 256 threads with one thread per column, so warp ``w``
+    computes columns ``32w .. 32w+31`` over a grid ``(ceil(nj/32),)``
+    (warps wholly past ``nj`` return at once and touch nothing).  At
+    step ``i`` all its lanes read ``q[i*NK + k]``: the flat walk below
+    is the kernel's exact address stream.  It reads the ``a`` column
+    strip ``32w .. +31`` (block ``(ni, 32)``) and stores that strip of
+    ``r`` (block ``(32,)``).
+    """
+
+    def q_stride_walk(pid, **_):
+        return np.arange(ni, dtype=np.int64) * nk + k
+
+    return KernelSpec(
+        name="gramschm_k3_naive",
+        grid=(math.ceil(nj / _WARP),),
+        operands=(
+            OperandSpec("q", (ni, nk), np.float32, (ni, nk), lambda w: (0, 0)),
+            OperandSpec("a", (ni, nj), np.float32, (ni, _WARP), lambda w: (0, w)),
+            OperandSpec("r", (nj,), np.float32, (_WARP,), lambda w: (w,), kind="store"),
+        ),
+        dynamic=(("q", q_stride_walk),),
+    )
+
+
+def k3_naive_block_spec(ni: int, nj: int, nk: int, k: int = 0) -> KernelSpec:
+    """The naive kernel's warps as 2-D blocks: q column k is block
+    ``(ni, 1)`` at ``(0, k)``.  The same sectors as :func:`k3_naive_spec`,
+    walked by the Level-1 block walker instead of the address stream."""
+    return KernelSpec(
+        name="gramschm_k3_naive_blocks",
+        grid=(math.ceil(nj / _WARP),),
+        operands=(
+            OperandSpec("q", (ni, nk), np.float32, (ni, 1), lambda w: (0, k)),
+            OperandSpec("a", (ni, nj), np.float32, (ni, _WARP), lambda w: (0, w)),
+            OperandSpec("r", (nj,), np.float32, (_WARP,), lambda w: (w,), kind="store"),
+        ),
+    )
+
+
+def k3_opt_spec(ni: int, nj: int, nk: int, k: int = 0) -> KernelSpec:
+    """Warp footprints of ``gramschm_k3_opt_kernel``: as the naive kernel,
+    but every warp reads row ``k`` of ``qT`` (block ``(1, ni)``), whole
+    sectors in a row."""
+    return KernelSpec(
+        name="gramschm_k3_opt",
+        grid=(math.ceil(nj / _WARP),),
+        operands=(
+            OperandSpec("qT", (nk, ni), np.float32, (1, ni), lambda w: (k, 0)),
+            OperandSpec("a", (ni, nj), np.float32, (ni, _WARP), lambda w: (0, w)),
+            OperandSpec("r", (nj,), np.float32, (_WARP,), lambda w: (w,), kind="store"),
+        ),
+    )

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 
 from . import gemm as _gemm
+from . import gramschm as _gs
+from . import ttm as _ttm
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, variant: str = "v02") -> torch.Tensor:
@@ -21,3 +23,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor, variant: str = "v02") -> torch.Tens
             f"unknown gemm variant {variant!r}; have {sorted(_gemm.KERNELS)}"
         ) from None
     return kernel(a, b)
+
+
+def ttm(vals: torch.Tensor, urows: torch.Tensor, use_scratch: bool = False) -> torch.Tensor:
+    """Y = Σₙ vals[:, n]·urows[:, n, :], with the scratch (abuse) or fused kernel."""
+    return (_ttm.ttm_scratch if use_scratch else _ttm.ttm_fused)(vals, urows)
+
+
+def gramschm_k3(
+    q_or_qt: torch.Tensor, a: torch.Tensor, k: int = 0, naive: bool = True
+) -> torch.Tensor:
+    """r = q[:, k]·a: ``naive`` reads q (NI, NK), else q transposed (NK, NI)."""
+    fn = _gs.gramschm_k3_naive if naive else _gs.gramschm_k3_opt
+    return fn(q_or_qt, a, k)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch import kernels as kreg
-from repro_torch.kernels import gemm
+from repro_torch.kernels import gemm, gramschm, ttm
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -52,10 +52,61 @@ def test_cuda_wrappers_reject_mixed_devices(card):
     for fn in gemm.KERNELS.values():
         with pytest.raises(ValueError, match="device"):
             fn(torch.randn(4, 4, device=card), torch.randn(4, 4))
+    for fn in gramschm.KERNELS.values():
+        with pytest.raises(ValueError, match="device"):
+            fn(torch.randn(4, 4, device=card), torch.randn(4, 4), 0)
+    for fn in ttm.KERNELS.values():
+        with pytest.raises(ValueError, match="device"):
+            fn(torch.randn(4, 2, device=card), torch.randn(4, 2, 3))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ref", ["gemm:v00", "gemm:v01", "gemm:v02"])
+@pytest.mark.parametrize("k", [0, 3])
+@pytest.mark.parametrize(
+    "ni, nj, nk", [(64, 256, 32), (512, 512, 512), (40, 300, 7), (1, 1, 4)]
+)
+def test_cuda_gramschm_matches_plain_version(card, ni, nj, nk, k):
+    if k >= nk:
+        k = nk - 1
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((ni, nk), dtype=np.float32)).to(card)
+    a = torch.from_numpy(rng.standard_normal((ni, nj), dtype=np.float32)).to(card)
+    want = gramschm.gramschm_k3_plain(q, a, k)
+    for fn, qq in ((gramschm.gramschm_k3_naive, q), (gramschm.gramschm_k3_opt, q.t().contiguous())):
+        before = fn.launches
+        got = fn(qq, a, k)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.shape == (nj,) and got.dtype == torch.float32
+        # float32 sums of ni products in another order
+        torch.testing.assert_close(got, want, atol=2e-5 * ni, rtol=2e-5 * ni)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "f, nf, r", [(16, 8, 32), (512, 8, 32), (32, 4, 64), (13, 3, 70), (9, 1, 1)]
+)
+def test_cuda_ttm_matches_plain_version(card, f, nf, r):
+    rng = np.random.default_rng(0)
+    vals = torch.from_numpy(rng.standard_normal((f, nf), dtype=np.float32)).to(card)
+    urows = torch.from_numpy(rng.standard_normal((f, nf, r), dtype=np.float32)).to(card)
+    want = ttm.ttm_plain(vals, urows)
+    for fn in ttm.KERNELS.values():
+        before = fn.launches
+        got = fn(vals, urows)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.shape == (f, r) and got.dtype == torch.float32
+        # float32 sums of nf products, fused or not
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "ref",
+    ["gemm:v00", "gemm:v01", "gemm:v02", "gramschm:naive", "gramschm:opt",
+     "ttm:scratch", "ttm:fused"],
+)
 def test_run_variant_launches_and_times_on_the_card(card, ref):
     variant = kreg.resolve(ref)[1]
     run = kreg.run_variant(variant, device=card, iters=3)

@@ -18,11 +18,10 @@ from repro_torch.core.advisor import advise
 from repro_torch.core.collector import analyze, probe_affine_map
 from repro_torch.core.diff import diff
 from repro_torch.core.patterns import FALSE_SHARING, HOT, detect_all
-from repro_torch.core.tiles import H100Sector
 from repro_torch.core.trace import GridSampler, sampled_grid_array
 from repro_torch.kernels import gemm
 
-from torch_parity import assert_heatmaps_match, to_port_spec
+from torch_parity import assert_heatmaps_match, heat_of_warps, to_port_spec
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -35,6 +34,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch, repro_torch.cli, repro_torch.kernels\n"
         "import repro_torch.core.api, repro_torch.core.session\n"
         "import repro_torch.core.render, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.gramschm, repro_torch.kernels.ttm\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
@@ -253,23 +253,6 @@ def _emulate_v02(m, n, k):
     return acc
 
 
-def _heat(per_warp, shape, itemsize):
-    """(tags, word temps, sector temps, warps) from per-warp flat indices."""
-    geom = H100Sector(shape, itemsize)
-    wps = geom.words_per_sector
-    word_keys, sector_keys = [], []
-    for parts in per_warp.values():
-        tags, words = geom.flat_to_touch_arrays(np.concatenate(parts))
-        keys = np.unique(tags * wps + words)
-        word_keys.append(keys)
-        sector_keys.append(np.unique(keys // wps))
-    wk, wcount = np.unique(np.concatenate(word_keys), return_counts=True)
-    tags, scount = np.unique(np.concatenate(sector_keys), return_counts=True)
-    wt = np.zeros((tags.size, wps), np.int64)
-    wt[np.searchsorted(tags, wk // wps), wk % wps] = wcount
-    return tags, wt, scount, len(per_warp)
-
-
 @pytest.mark.parametrize("mnk", [(64, 128, 32), (40, 72, 24)])
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 @pytest.mark.parametrize("variant", ["v00", "v01", "v02"])
@@ -286,7 +269,7 @@ def test_spec_matches_kernel_thread_mapping(variant, dtype, mnk):
     hm = analyze(spec, GridSampler(None))
     shapes = {"A": (m, k), "B": (k, n), "C": (m, n)}
     for name in ("A", "B", "C"):
-        tags, wt, st, warps = _heat(acc[name], shapes[name], itemsize)
+        tags, wt, st, warps = heat_of_warps(acc[name], shapes[name], itemsize)
         rh = hm.region(name)
         np.testing.assert_array_equal(rh.tags_array, tags, err_msg=name)
         np.testing.assert_array_equal(rh.word_temps_matrix, wt, err_msg=name)

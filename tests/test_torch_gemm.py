@@ -99,7 +99,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_library_name_tracks_the_source():
-    assert set(_build.sources()) == {"gemm"}
+    assert set(_build.sources()) == {"gemm", "gramschm", "ttm"}
     path = _build.library_path("gemm")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libgemm-") and path.suffix == ".so"

@@ -9,6 +9,7 @@ same spec.
 import numpy as np
 
 from repro_torch.core import collector as pc
+from repro_torch.core.tiles import H100Sector
 
 
 def to_port_spec(spec, geometry_kind="tpu-tile"):
@@ -69,3 +70,20 @@ def assert_heatmaps_match(got, want):
         )
     assert got.sector_transactions() == want.sector_transactions()
     assert got.waste_ratio() == want.waste_ratio()
+
+
+def heat_of_warps(per_warp, shape, itemsize):
+    """(tags, word temps, sector temps, warps) from per-warp flat indices."""
+    geom = H100Sector(shape, itemsize)
+    wps = geom.words_per_sector
+    word_keys, sector_keys = [], []
+    for parts in per_warp.values():
+        tags, words = geom.flat_to_touch_arrays(np.concatenate(parts))
+        keys = np.unique(tags * wps + words)
+        word_keys.append(keys)
+        sector_keys.append(np.unique(keys // wps))
+    wk, wcount = np.unique(np.concatenate(word_keys), return_counts=True)
+    tags, scount = np.unique(np.concatenate(sector_keys), return_counts=True)
+    wt = np.zeros((tags.size, wps), np.int64)
+    wt[np.searchsorted(tags, wk // wps), wk % wps] = wcount
+    return tags, wt, scount, len(per_warp)
