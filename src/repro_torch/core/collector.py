@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, ClassVar, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -98,7 +98,10 @@ class ScratchSpec:
     """User-managed scratch (shared memory) with an access model.
 
     ``access_model(program_id)`` returns (row_start, row_stop, col_start,
-    col_stop) slices the program touches, or None for "whole buffer".
+    col_stop) slices the program touches, or None for "whole buffer".  A
+    scratch buffer named in ``KernelSpec.dynamic`` is walked from its
+    concrete indices instead, as a dynamic operand is (a shared-memory
+    histogram scattered by data).
     """
 
     name: str
@@ -107,6 +110,8 @@ class ScratchSpec:
     access_model: Optional[Callable[..., Iterable[Tuple[int, int, int, int]]]] = None
     kind: str = "accum"
     geometry_kind: str = DEFAULT_GEOMETRY
+    space: ClassVar[str] = "vmem_scratch"
+    origin: ClassVar[Tuple[int, int]] = (0, 0)
 
     @property
     def geometry(self) -> Geometry:
@@ -124,7 +129,7 @@ class KernelSpec:
     grid: Tuple[int, ...]
     operands: Tuple[OperandSpec, ...]
     scratch: Tuple[ScratchSpec, ...] = ()
-    # optional dynamic access models keyed by operand name:
+    # optional dynamic access models keyed by operand or scratch name:
     # fn(program_id, **context_arrays) -> iterable of flat element indices
     dynamic: Tuple[Tuple[str, Callable[..., Iterable[int]]], ...] = ()
 
@@ -348,6 +353,8 @@ def collect(
 
     # -- scratch: group programs by their access-model slice set -------------
     for sc in kernel.scratch:
+        if sc.name in dyn_fns:
+            continue  # handled below with concrete indices
         site = SiteInfo(sc.name, f"{kernel.name}/{sc.name}", "vmem_scratch",
                         sc.kind)
         group = TraceBuffer.new_group()
@@ -378,8 +385,8 @@ def collect(
             tags, words = _dedupe_touches(tags, words, geom.words_per_sector)
             buf.append_block(site, pids[idxs], tags, words, group=group)
 
-    # -- dynamic operands: concrete per-program indices (CSR chunk) ----------
-    for op in kernel.operands:
+    # -- dynamic operands and scratch: concrete per-program indices (CSR chunk)
+    for op in (*kernel.operands, *kernel.scratch):
         fn = dyn_fns.get(op.name)
         if fn is None:
             continue

@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.collector import KernelSpec
 from repro_torch.core.trace import GridSampler
 
-from . import gemm, gramschm, ops, ref, ttm
+from . import gemm, gramschm, histogram, ops, ref, spmv, ttm
 
 #: Inputs of one launch: ``(device, generator) -> positional tensors``.
 InputMaker = Callable[[torch.device, torch.Generator], Tuple[torch.Tensor, ...]]
@@ -132,6 +132,48 @@ def _gemm_variant(name: str, role: str, note: str) -> KernelVariant:
     )
 
 
+SPMV_SHAPE = (65536, 36417)  # (n_rows, n_cols)
+HIST_SHAPE = (65536, 2048)  # (cells, n_bins)
+
+
+def _spmv_context() -> Dict[str, np.ndarray]:
+    n_rows, n_cols = SPMV_SHAPE
+    rng = np.random.default_rng(0)
+    return {"col_indices": rng.integers(0, n_cols, size=n_rows).astype(np.int32)}
+
+
+def _hist_context() -> Dict[str, np.ndarray]:
+    n, n_bins = HIST_SHAPE
+    rng = np.random.default_rng(0)
+    return {"cells": rng.integers(0, n_bins, size=n).astype(np.int64)}
+
+
+def _hist_inputs(device: torch.device, gen: torch.Generator):
+    # the launched cells are the profiled cells: the heat map walks them
+    cells = _hist_context()["cells"].astype(np.int32)
+    return (torch.from_numpy(cells).to(device),)
+
+
+def _hist_variant(name: str, role: str, note: str) -> KernelVariant:
+    # every rung walks the seeded cells, as every CUDA kernel scatters by
+    # data (the reference's partials and scratch rungs model dense blocks)
+    spec = {"naive": histogram.hist_naive_spec, "partials": histogram.hist_opt_spec,
+            "scratch": histogram.hist_opt2_spec}[name]
+    return KernelVariant(
+        name,
+        lambda: spec(*HIST_SHAPE),
+        context=_hist_context,
+        role=role,
+        note=note,
+        kernel=histogram.KERNELS[name],
+        plain=histogram.PLAIN[name],
+        inputs=_hist_inputs,
+        # integer counts below 2**24 are exact in float32, in any order
+        atol=0.0,
+        kwargs=(("n_bins", HIST_SHAPE[1]),),
+    )
+
+
 GRAMSCHM_SHAPE = (512, 512, 512)  # (ni, nj, nk)
 GRAMSCHM_K = 3
 TTM_SHAPE = (512, 8, 32)  # (f, nf, r)
@@ -203,6 +245,47 @@ REGISTRY: Dict[str, RegistryEntry] = {
                 _gemm_variant(
                     "v02", "optimized",
                     "64x64x16 shared-memory tiles + 4x4 register micro-tiles",
+                ),
+            ),
+            sampler=_full,
+        ),
+        RegistryEntry(
+            name="spmv",
+            summary="CSR SpMV: misaligned rowOffsets view + x gather vs "
+            "the zigzag duplicated-pairs fix (paper Fig. 7); spec only",
+            variants=(
+                KernelVariant(
+                    "csr",
+                    lambda: spmv.spmv_csr_spec(*SPMV_SHAPE),
+                    context=_spmv_context,
+                    note="shifted rowOffsets load straddles five sectors",
+                ),
+                KernelVariant(
+                    "zigzag",
+                    lambda: spmv.spmv_zigzag_spec(*SPMV_SHAPE),
+                    context=_spmv_context,
+                    role="optimized",
+                    note="duplicated (start,end) pairs, one aligned load",
+                ),
+            ),
+            sampler=_full,
+        ),
+        RegistryEntry(
+            name="histogram",
+            summary="GPUMD-style scatter histogram: global scatter vs "
+            "per-block partials vs shared-memory accumulator",
+            variants=(
+                _hist_variant(
+                    "naive", "baseline",
+                    "every warp scatters into the global bins",
+                ),
+                _hist_variant(
+                    "partials", "optimized",
+                    "per-block partial rows, summed afterwards",
+                ),
+                _hist_variant(
+                    "scratch", "optimized",
+                    "shared-memory histogram per block, one flush each",
                 ),
             ),
             sampler=_full,
@@ -286,11 +369,11 @@ def build(ref: str) -> Tuple[KernelSpec, Optional[Dict[str, np.ndarray]]]:
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count of every registered kernel's wrapper to 0."""
-    for entry in REGISTRY.values():
-        for variant in entry.variants:
-            if variant.kernel is not None:
-                variant.kernel.launches = 0
+    """Set the launch count of every kernel wrapper to 0: the registry's,
+    and ``spmv_ell``, which only ``ops.spmv`` reaches."""
+    for module in (gemm, spmv, histogram, gramschm, ttm):
+        for fn in module.KERNELS.values():
+            fn.launches = 0
 
 
 class KernelMismatch(RuntimeError):
@@ -381,6 +464,7 @@ __all__ = [
     "GEMM_SHAPE",
     "GRAMSCHM_K",
     "GRAMSCHM_SHAPE",
+    "HIST_SHAPE",
     "KernelMismatch",
     "KernelVariant",
     "REGISTRY",
@@ -390,12 +474,15 @@ __all__ = [
     "gemm",
     "get",
     "gramschm",
+    "histogram",
     "names",
     "ops",
     "ref",
     "reset_launch_counts",
     "resolve",
     "run_variant",
+    "SPMV_SHAPE",
+    "spmv",
     "TTM_SHAPE",
     "ttm",
 ]

@@ -11,6 +11,8 @@ import torch
 
 from . import gemm as _gemm
 from . import gramschm as _gs
+from . import histogram as _hist
+from . import spmv as _spmv
 from . import ttm as _ttm
 
 
@@ -25,6 +27,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor, variant: str = "v02") -> torch.Tens
     return kernel(a, b)
 
 
+def spmv(vals: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
+    """ELL SpMV y[r] = Σₖ vals[r,k]·xg[r,k], x gathered beforehand (R, K)."""
+    return _spmv.spmv_ell(vals, xg)
+
+
 def ttm(vals: torch.Tensor, urows: torch.Tensor, use_scratch: bool = False) -> torch.Tensor:
     """Y = Σₙ vals[:, n]·urows[:, n, :], with the scratch (abuse) or fused kernel."""
     return (_ttm.ttm_scratch if use_scratch else _ttm.ttm_fused)(vals, urows)
@@ -36,3 +43,10 @@ def gramschm_k3(
     """r = q[:, k]·a: ``naive`` reads q (NI, NK), else q transposed (NK, NI)."""
     fn = _gs.gramschm_k3_naive if naive else _gs.gramschm_k3_opt
     return fn(q_or_qt, a, k)
+
+
+def histogram(cells: torch.Tensor, n_bins: int, naive: bool = False) -> torch.Tensor:
+    """Counts of int32 ``cells`` in [0, n_bins): ``naive`` scatters into one
+    global histogram, else per-block partial rows (``hist_opt``)."""
+    fn = _hist.hist_naive if naive else _hist.hist_opt
+    return fn(cells, n_bins)

@@ -2,13 +2,37 @@
 
 Counterpart of ``repro/kernels/ref.py``.  Each oracle is its kernel's
 plain version, defined beside the kernel; oracles for the other kernels
-come with their ports.
+come with their ports.  ``hist_ref`` drops ids outside ``[0, n_bins)``,
+as the Pallas histogram kernels and the port's kernels do; the JAX
+package's ``hist_ref`` (``.at[cells].add``) wraps a negative id round to
+the top bins instead.  ``spmv_csr_ref`` is the numpy CSR oracle.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from .gemm import gemm_plain as gemm_ref
 from .gramschm import gramschm_k3_plain as gramschm_k3_ref
+from .histogram import hist_plain as hist_ref
+from .spmv import spmv_ell_plain as spmv_ref
 from .ttm import ttm_plain as ttm_ref
 
-__all__ = ["gemm_ref", "gramschm_k3_ref", "ttm_ref"]
+
+def spmv_csr_ref(row_offsets, col_indices, values, x) -> np.ndarray:
+    """numpy CSR oracle: y[r] = values[s:e] · x[col_indices[s:e]].
+
+    As the reference's, in float32 for float32 inputs; float64 inputs give
+    a float64 y (the host product ``chip_smoke.py`` holds the card against).
+    """
+    n = len(row_offsets) - 1
+    y = np.zeros(n, np.promote_types(np.result_type(values, x), np.float32))
+    for r in range(n):
+        s, e = row_offsets[r], row_offsets[r + 1]
+        y[r] = np.dot(values[s:e], x[col_indices[s:e]])
+    return y
+
+
+__all__ = [
+    "gemm_ref", "gramschm_k3_ref", "hist_ref", "spmv_csr_ref", "spmv_ref", "ttm_ref",
+]

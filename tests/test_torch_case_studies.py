@@ -301,7 +301,7 @@ def test_story_parity_diff(family, before, after, tx, verdict):
 
 
 def test_registry_semantics():
-    assert kreg.names() == ("gemm", "gramschm", "ttm", "cuszp")
+    assert kreg.names() == ("gemm", "spmv", "histogram", "gramschm", "ttm", "cuszp")
     entry, variant = kreg.resolve("gramschm")
     assert variant.name == "naive" and variant.role == "baseline"
     assert [v.name for _, v in entry.ladder()] == ["opt"]

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch import kernels as kreg
-from repro_torch.kernels import gemm, gramschm, ttm
+from repro_torch.kernels import _build, gemm, gramschm, histogram, ops, spmv, ttm
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -58,6 +58,10 @@ def test_cuda_wrappers_reject_mixed_devices(card):
     for fn in ttm.KERNELS.values():
         with pytest.raises(ValueError, match="device"):
             fn(torch.randn(4, 2, device=card), torch.randn(4, 2, 3))
+    with pytest.raises(ValueError, match="device"):
+        ops.spmv(torch.randn(4, 2, device=card), torch.randn(4, 2))
+    with pytest.raises(ValueError, match="device"):
+        ops.spmv(torch.randn(4, 2), torch.randn(4, 2, device=card))
 
 
 @pytest.mark.gpu
@@ -103,9 +107,67 @@ def test_cuda_ttm_matches_plain_version(card, f, nf, r):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
+    "n, n_bins, lo, hi",
+    [
+        (65536, 2048, 0, 2048),  # the registry's shape
+        (3000, 64, -3, 70),  # ragged, with ids outside [0, n_bins)
+        (1, 1, 0, 1),
+        (300 * 1024 + 17, 12288, -1, 12290),  # more blocks than opt2's grid
+        (1 << 20, 5, 0, 5),  # heavy contention on five bins
+    ],
+)
+def test_cuda_histogram_matches_plain_version(card, n, n_bins, lo, hi):
+    rng = np.random.default_rng(n)
+    cells = torch.from_numpy(rng.integers(lo, hi, size=n).astype(np.int32)).to(card)
+    want = histogram.hist_plain(cells, n_bins)
+    for fn in histogram.KERNELS.values():
+        before = fn.launches
+        got = fn(cells, n_bins)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.shape == (n_bins,) and got.dtype == torch.float32
+        # integer counts below 2**24: exact in float32 in any order of atomics
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_histogram_drops_out_of_range_ids(card):
+    cells = torch.tensor([-1, 0, 1, 63, 64, 70, 5, 5] * 128, dtype=torch.int32, device=card)
+    for fn in histogram.KERNELS.values():
+        got = fn(cells, 64).cpu()
+        assert got.sum() == 640 and got[63] == 128 and got[5] == 256
+
+
+@pytest.mark.gpu
+def test_opt2_grid_cap_matches_the_kernel_source(card):
+    lib = _build.load("histogram")
+    assert lib.repro_hist_opt2_max_blocks() == histogram.OPT2_MAX_BLOCKS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "r, k", [(8, 4), (32, 16), (64, 33), (30, 5), (65536, 16), (1, 1), (1000, 100)]
+)
+def test_cuda_spmv_matches_plain_version(card, r, k):
+    rng = np.random.default_rng(0)
+    vals = torch.from_numpy(rng.standard_normal((r, k), dtype=np.float32)).to(card)
+    xg = torch.from_numpy(rng.standard_normal((r, k), dtype=np.float32)).to(card)
+    want = spmv.spmv_ell_plain(vals, xg)
+    before = spmv.spmv_ell.launches
+    got = ops.spmv(vals, xg)
+    torch.cuda.synchronize()
+    assert spmv.spmv_ell.launches == before + 1
+    assert got.shape == (r,) and got.dtype == torch.float32
+    # float32 sums of k products in another order
+    torch.testing.assert_close(got, want, atol=1e-5 * k, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
     "ref",
     ["gemm:v00", "gemm:v01", "gemm:v02", "gramschm:naive", "gramschm:opt",
-     "ttm:scratch", "ttm:fused"],
+     "ttm:scratch", "ttm:fused", "histogram:naive", "histogram:partials",
+     "histogram:scratch"],
 )
 def test_run_variant_launches_and_times_on_the_card(card, ref):
     variant = kreg.resolve(ref)[1]
@@ -113,3 +175,5 @@ def test_run_variant_launches_and_times_on_the_card(card, ref):
     assert run["device"] == torch.cuda.get_device_name(card)
     assert run["launches"] == 1 + 2 + 3  # the check, the warm-up, the timed runs
     assert run["ms"] > 0 and run["max_abs_err"] <= variant.atol
+    if ref.startswith("histogram"):
+        assert run["max_abs_err"] == 0 and run["kwargs"] == {"n_bins": 2048}

@@ -35,6 +35,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.api, repro_torch.core.session\n"
         "import repro_torch.core.render, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.gramschm, repro_torch.kernels.ttm\n"
+        "import repro_torch.kernels.histogram, repro_torch.kernels.spmv\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
