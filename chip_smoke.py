@@ -31,6 +31,15 @@ Phases:
    yardstick ``torch.linalg.vecdot``), at the registry's size and at a
    timing size larger than L2; and every histogram kernel must drop ids
    outside [0, n_bins).
+   Then the model path's kernels: flash attention, the grouped matmul
+   and the SSD chunk, each at the registry's shape (against the plain
+   version and a float64 host product) and at a timing shape from
+   Jamba-v0.1-52B's widths at batch 1, seq 4096 (flash (32, 4096, 4096,
+   128) causal and gmm M = 4096, K = 4096, N = 14336 over 16 experts, in
+   float32 and bfloat16; ssd (128, 16, 256, 64, 16) in float32), timed
+   beside the plain version and the library yardstick
+   (``F.scaled_dot_product_attention``; for gmm a dense ``torch.matmul``
+   of the same FLOPs, not the same function; ssd has none).
 3. For each family (gemm, spmv, histogram, gramschm, ttm): set every
    launch count to 0 and drive the port's main path in process, through
    the CLI entry point: ``profile`` each rung into the family's session,
@@ -41,6 +50,16 @@ Phases:
    kernel of the family must have been launched by that run (spmv is
    spec-only: it has no kernel).  Then set the counts to 0 again and
    drive ``ops.spmv``, the entry point of ``spmv_ell``, once.
+   Then the model path, each run with the counts set to 0 just before it
+   and read just after: ``model`` on the three registry models (each
+   must launch its kernels: flash and gemm_v01; flash, gmm and gemm_v01;
+   ssd and gemm_v01); the full-width run, ``model moe-tiny`` with
+   Jamba-v0.1-52B's widths and layout at one hybrid period (8 layers: its
+   per-layer table must have the nine rows of that period, and flash,
+   gmm, ssd and gemm_v01 must run at Jamba's widths within their
+   tolerances), and ``report`` on it; ``profile`` of the attn and moe
+   rungs of the model families, each pair diffed; and ``profile -k flash
+   -k gmm -k ssd``.
 4. Print one JSON line describing every kernel, then the result line.
 
 There is no fallback: without a CUDA device, or outside a checkout of
@@ -80,6 +99,9 @@ REPLACES = {
     "hist_opt": "src/repro/kernels/histogram.py:72",
     "hist_opt2": "src/repro/kernels/histogram.py:97",
     "spmv_ell": "src/repro/kernels/spmv.py:31",
+    "flash_attention": "src/repro/kernels/flash.py:28",
+    "gmm": "src/repro/kernels/gmm.py:49",
+    "ssd_chunk": "src/repro/kernels/ssd.py:31",
 }
 SOURCE = "src/repro_torch/kernels/csrc/gemm.cu"
 
@@ -90,6 +112,26 @@ TIMING_SHAPES = {
     "ttm": (262144, 8, 32),  # (f, nf, r)
     "histogram": (16777216, 2048),  # (cells, n_bins): 64 MiB of ids
     "spmv": (1048576, 32),  # (rows, ELL width): 256 MiB of vals and xg
+}
+# the model path's timing shapes: Jamba-v0.1-52B's widths
+# (src/repro_torch/configs/archs.py:jamba_52b) at batch 1, seq 4096
+MODEL_TIMING_SHAPES = {
+    "flash": (32, 4096, 4096, 128),  # (bh, sq, skv, d): 32 heads of 128, causal
+    "gmm": (4096, 4096, 14336, 16, 32),  # (m, k, n, experts, bm)
+    "ssd": (128, 16, 256, 64, 16),  # (bh, chunks, l, p, n): 128 SSD heads
+}
+# Jamba-v0.1-52B's fields that layout() and kind_spec read; the full-width
+# run applies them to moe-tiny at one hybrid period (8 layers)
+JAMBA_FIELDS = (
+    "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab", "head_dim",
+    "vocab_pad_multiple", "ssm_state", "ssm_head_dim", "ssm_expand", "ssm_chunk",
+    "hybrid_period", "hybrid_attn_index", "n_experts", "top_k", "moe_period",
+    "n_dense_layers",
+)
+JAMBA_LAYERS = {
+    "layer0": ["ssm", "mlp"], "layer1": ["ssm", "moe"], "layer2": ["ssm", "mlp"],
+    "layer3": ["ssm", "moe"], "layer4": ["attn", "mlp"], "layer5": ["ssm", "moe"],
+    "layer6": ["ssm", "mlp"], "layer7": ["ssm", "moe"], "head": ["unembed"],
 }
 SPMV_COLS = 36417  # the registry's column count
 SPMV_WIDTH = 16  # ELL width at the registry's 65,536 rows
@@ -339,6 +381,294 @@ def check_cases(kreg, dev):
     return rows
 
 
+def ssd_float64(x, a, b, c):
+    """The SSD chunk term and end state in float64 on the host (numpy)."""
+    import numpy as np
+
+    x, a, b, c = (np.asarray(t, np.float64) for t in (x, a, b, c))
+    cum = np.cumsum(a, axis=-1)
+    l = a.shape[-1]
+    keep = np.tril(np.ones((l, l), bool))
+    seg = np.where(keep, cum[..., :, None] - cum[..., None, :], 0.0)
+    dec = np.where(keep, np.exp(seg), 0.0)
+    y = np.einsum("gcln,gcsn->gcls", c, b) * dec @ x
+    w = np.exp(cum[..., -1:] - cum)
+    s = np.einsum("gclp,gcl,gcln->gcpn", x, w, b)
+    return y, s
+
+
+def flash_float64(q, k, v):
+    """Causal attention, mask aligned top-left, in float64 on the host."""
+    import numpy as np
+
+    q, k, v = (np.asarray(t, np.float64) for t in (q, k, v))
+    s = q @ k.transpose(0, 2, 1) / np.sqrt(q.shape[-1])
+    keep = np.tril(np.ones(s.shape[-2:], bool))
+    s = np.where(keep, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return (p / p.sum(-1, keepdims=True)) @ v
+
+
+def model_case(family: str, shape, dtype, dev, exact: bool):
+    """One model-path kernel's case on inputs from a fixed numpy seed: the
+    wrapper and its arguments, the plain and library calls, the float64
+    host product (``exact``), the tolerance, and the bytes and operations
+    of the work."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash, gmm, ssd
+    from repro_torch.models.registry import _moe_ids
+
+    rng = np.random.default_rng(3)
+    dname = str(dtype).replace("torch.", "")
+    size = torch.tensor([], dtype=dtype).element_size()
+
+    def card(a):
+        return torch.from_numpy(a).to(dev, dtype)
+
+    if family == "flash":
+        bh, sq, skv, d = shape
+        q_np, k_np, v_np = (
+            rng.standard_normal((bh, s, d), dtype=np.float32) for s in (sq, skv, skv)
+        )
+        q, k, v = card(q_np), card(k_np), card(v_np)
+        return dict(
+            name="flash_attention", dtype=dname,
+            kernel=(flash.flash_attention, (q, k, v), {"causal": True, "bkv": 64}),
+            plain=lambda: flash.flash_plain(q, k, v, True),
+            # as (1, BH, S, D): SDPA's fused backends take 4-D inputs only
+            library=lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True
+            ),
+            library_label="F.scaled_dot_product_attention(is_causal=True), 4-D",
+            exact=(lambda: (flash_float64(q_np, k_np, v_np),)) if exact else None,
+            tol=lambda want: flash.tolerance(want, q),
+            bytes=size * bh * d * (2 * sq + 2 * skv),
+            ops=4 * bh * d * sq * (sq + 1) // 2,
+            source="src/repro_torch/kernels/csrc/flash.cu",
+        )
+    if family == "gmm":
+        m, k, n, e, bm = shape
+        ids_np = _moe_ids(m // bm, e)
+        x_np = rng.standard_normal((m, k), dtype=np.float32)
+        w = torch.randn((e, k, n), generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev, dtype=torch.float32).to(dtype)
+        x = card(x_np)
+        ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+        dense = w[0].reshape(k, n)
+
+        def exact_fn():
+            w64 = w.double().cpu().numpy()
+            out = np.empty((m, n))
+            for i, ex in enumerate(ids_np):
+                rows = slice(i * bm, (i + 1) * bm)
+                out[rows] = x_np[rows].astype(np.float64) @ w64[ex]
+            return (out,)
+
+        return dict(
+            name="gmm", dtype=dname,
+            kernel=(gmm.gmm, (x, w, ids), {"bm": bm}),
+            plain=lambda: gmm.gmm_plain(x, w, ids, bm),
+            library=lambda: torch.matmul(x, dense),
+            library_label="torch.matmul dense (M, K)x(K, N): same FLOPs, not the same function",
+            exact=exact_fn if exact else None,
+            tol=lambda want: gmm.tolerance(want, x),
+            bytes=size * (m * k + len(set(ids_np.tolist())) * k * n + m * n),
+            ops=2 * m * k * n,
+            source="src/repro_torch/kernels/csrc/gmm.cu",
+        )
+    bh, c, l, p_, n = shape
+    x_np, b_np, c_np = (
+        rng.standard_normal((bh, c, l, s), dtype=np.float32) for s in (p_, n, n)
+    )
+    a_np = -np.abs(rng.standard_normal((bh, c, l), dtype=np.float32)) * 0.4
+    x, a, b, cm = card(x_np), card(a_np), card(b_np), card(c_np)
+    return dict(
+        name="ssd_chunk", dtype=dname,
+        kernel=(ssd.ssd_chunk, (x, a, b, cm), {}),
+        plain=lambda: ssd.ssd_plain(x, a, b, cm),
+        library=None,
+        library_label=None,
+        exact=(lambda: ssd_float64(x_np, a_np, b_np, c_np)) if exact else None,
+        tol=lambda want: ssd.tolerance(want, x),
+        bytes=4 * bh * c * (2 * l * p_ + l + 2 * l * n + p_ * n),
+        ops=bh * c * (l * (l + 1) // 2 * 2 * (n + p_) + 2 * l * p_ * n),
+        source="src/repro_torch/kernels/csrc/ssd.cu",
+    )
+
+
+def check_model_kernels(kreg, dev):
+    """Phase 2 for the model path's kernels: {kernel name: record}, or a
+    failure message.  The top level of a record is the registry's shape in
+    float32; ``large`` and ``large_bf16`` the timing shape."""
+    import numpy as np
+    import torch
+
+    registry_shapes = {
+        "flash": kreg.FLASH_SHAPE,
+        "gmm": (*kreg.GMM_SHAPE, kreg.GMM_BM),
+        "ssd": kreg.SSD_SHAPE,
+    }
+    rows = {}
+    for family, large in MODEL_TIMING_SHAPES.items():
+        runs = [("registry", registry_shapes[family], torch.float32),
+                ("large", large, torch.float32)]
+        if family != "ssd":
+            runs.append(("large_bf16", large, torch.bfloat16))
+        for which, shape, dtype in runs:
+            case = model_case(family, shape, dtype, dev, exact=which == "registry")
+            name = case["name"]
+            fn, args, kwargs = case["kernel"]
+            want = case["plain"]()
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            plain_ms = kreg.cuda_time_ms(case["plain"], ITERS)
+            library_ms = (
+                kreg.cuda_time_ms(case["library"], ITERS) if case["library"] else None
+            )
+            bms, bby = bound_of(case["bytes"], case["ops"], case["dtype"])
+            before = fn.launches
+            got = fn(*args, **kwargs)
+            got = got if isinstance(got, tuple) else (got,)
+            torch.cuda.synchronize()
+            if fn.launches != before + 1:
+                return f"{name} {shape}: the call did not launch the kernel"
+            # each output is held per element to the kernel module's own
+            # tolerance; ``over`` is the largest |err| / tolerance (pass <= 1)
+            errs, over, tols = [], [], []
+            for g, w in zip(got, want):
+                if g.shape != w.shape or not bool(torch.isfinite(g.float()).all()):
+                    return f"{name} {shape}: output {tuple(g.shape)} is not finite of {tuple(w.shape)}"
+                diff = (g.float() - w.float()).abs()
+                tol = torch.as_tensor(case["tol"](w), device=dev)
+                errs.append(float(diff.max()))
+                over.append(float((diff / tol).max()))
+                tols.append(tol)
+            rec = dict(
+                shape=list(shape), dtype=case["dtype"], max_abs_err=max(errs),
+                max_err_over_tol=max(over),
+                ms=kreg.cuda_time_ms(lambda: fn(*args, **kwargs), ITERS),
+                plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                library_ms=library_ms, library=case["library_label"],
+            )
+            line = f"{name} {which} {shape} {case['dtype']}: max|err| {errs}, err/tol {over}"
+            if case["exact"] is not None:
+                exact = case["exact"]()
+                diffs64 = [np.abs(g.double().cpu().numpy() - e) for g, e in zip(got, exact)]
+                over64 = [
+                    float((d / tol.double().cpu().numpy()).max()) for d, tol in zip(diffs64, tols)
+                ]
+                rec["max_abs_err_vs_float64"] = max(float(d.max()) for d in diffs64)
+                line += f", vs float64 {rec['max_abs_err_vs_float64']:.3e} (err/tol {over64})"
+                if not all(o <= 1 for o in over64):
+                    return f"{name} {shape}: vs float64 err/tol {over64} > 1"
+            lib = f"{library_ms:.4f} ms ({case['library_label']})" if library_ms else "none"
+            print(
+                f"{line}, median {rec['ms']:.4f} ms over {ITERS}, plain "
+                f"{plain_ms:.4f} ms, library {lib}, bound {bms:.4f} ms ({bby}), "
+                f"{bms / rec['ms']:.1%} of bound"
+            )
+            if not all(o <= 1 for o in over):
+                return f"{name} {shape} {case['dtype']}: err/tol {over} > 1"
+            if which == "registry":
+                rows[name] = dict(source=case["source"], **rec)
+            else:
+                rows[name][which] = rec
+            del case, args, got, want, tols
+            torch.cuda.empty_cache()
+    return rows
+
+
+def drive_model_path(cli, kreg, load_iteration):
+    """Phase 3 for the model path: {kernel name: launches of the full-width
+    run}, or a failure message."""
+    from repro_torch.configs.archs import jamba_52b
+    from repro_torch.kernels import flash, gemm, gmm, ssd
+
+    counted = {"flash_attention": flash.flash_attention, "gmm": gmm.gmm,
+               "ssd_chunk": ssd.ssd_chunk, "gemm_v01": gemm.gemm_v01}
+    root = ROOT / "build" / "chip_smoke_session" / "model"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run_counted(argv, must):
+        kreg.reset_launch_counts()
+        rc, out = run_cli(cli, argv)
+        counts = {name: fn.launches for name, fn in counted.items()}
+        print(f"launches: {counts}")
+        if rc != 0:
+            return None, f"{' '.join(argv[:2])} exited {rc}"
+        missing = [name for name in must if counts[name] < 1]
+        if missing:
+            return None, f"{' '.join(argv[:2])} did not launch {missing}"
+        return counts, None
+
+    for name, must in (("transformer-tiny", ("flash_attention", "gemm_v01")),
+                       ("moe-tiny", ("flash_attention", "gmm", "gemm_v01")),
+                       ("mamba-tiny", ("ssd_chunk", "gemm_v01"))):
+        _, msg = run_counted(["model", name, "--out", str(root / name)], must)
+        if msg:
+            return msg
+
+    # the full-width run: Jamba-v0.1-52B at one hybrid period; the launches
+    # do not depend on the sampler, which keeps the host walk to one corner
+    # of each grid
+    cfg = jamba_52b()
+    overrides = [f"{key}={getattr(cfg, key)}" for key in JAMBA_FIELDS]
+    argv = ["model", "moe-tiny", "--out", str(root / "jamba"), "--sampler", "window:8:2"]
+    for item in (*overrides, "n_layers=8", "name=jamba-v0.1-52b-cut8"):
+        argv += ["-c", item]
+    launches, msg = run_counted(argv, tuple(counted))
+    if msg:
+        return msg
+    it = load_iteration(root / "jamba" / "iter0")
+    rows = {row["path"]: row["kinds"] for row in it.layers["table"]}
+    if rows != JAMBA_LAYERS:
+        return f"the full-width table has rows {rows}, not {JAMBA_LAYERS}"
+    shapes = {pk.name.split(".")[-1]: pk.run["shapes"] for pk in it.kernels if pk.run}
+    want = {
+        "attn": [[64, 64, 128]] * 3,
+        "mlp": [[128, 4096], [4096, 14336]],
+        "moe": [[128, 4096], [16, 4096, 14336], [4]],
+        "ssm": [[256, 1, 64, 64], [256, 1, 64], [256, 1, 64, 16], [256, 1, 64, 16]],
+        "unembed": [[128, 4096], [4096, 65536]],
+    }
+    if shapes != want:
+        return f"the full-width run records shapes {shapes}, not {want}"
+    for pk in it.kernels:
+        if pk.run and "shared_with" not in pk.run:
+            print(f"full width {pk.name}: {pk.run['shapes']} max|err| "
+                  f"{pk.run['max_abs_err']:.3e}, median {pk.run['ms']:.4f} ms")
+    rc, out = run_cli(cli, ["report", str(root / "jamba" / "iter0")])
+    report = (root / "jamba" / "iter0" / "report" / "report.md").read_text()
+    if rc != 0 or "## per-layer attribution — moe-tiny" not in report:
+        return f"report on the full-width run exited {rc} or lacks the per-layer section"
+
+    # the model families' rungs, and the registry's model-path families
+    for family, (a, b), must in (
+        ("model.transformer-tiny.attn", ("base", "wide-kv"), ("flash_attention",)),
+        ("model.moe-tiny.moe", ("tile32", "tile64"), ("gmm",)),
+    ):
+        sess = root / family
+        for rung in (a, b):
+            _, msg = run_counted(["profile", "-k", f"{family}:{rung}", "--out", str(sess), "-q"], must)
+            if msg:
+                return msg
+        rc, _ = run_cli(cli, ["diff", str(sess / "iter0"), str(sess / "iter1")])
+        if rc != 0:
+            return f"diff {family} exited {rc}"
+        for i, rung in enumerate((a, b)):
+            pk = load_iteration(sess / f"iter{i}").kernels[0]
+            print(f"{family}:{rung} modeled transfers {pk.transactions}, "
+                  f"measured {pk.run['ms']:.4f} ms at {pk.run['shapes'][0]}")
+    _, msg = run_counted(
+        ["profile", "-k", "flash", "-k", "gmm", "-k", "ssd", "--out", str(root / "families"), "-q"],
+        ("flash_attention", "gmm", "ssd_chunk"),
+    )
+    return msg or launches
+
+
 def run_cli(cli, argv):
     """Run one CLI command in process; returns (exit code, its stdout)."""
     buf = io.StringIO()
@@ -440,6 +770,9 @@ def main() -> int:
     msg = check_out_of_range(dev)
     if msg:
         return fail(msg)
+    model_rows = check_model_kernels(kreg, dev)
+    if isinstance(model_rows, str):
+        return fail(model_rows)
 
     # -- phase 3: the main path, profile -> diff -> report --------------------
     # family -> [(registry ref, kernel name or None, counting wrapper or None)]
@@ -510,6 +843,10 @@ def main() -> int:
     if not (err <= tol and err_exact <= tol):
         return fail(f"ops.spmv: max|err| {err}, vs float64 {err_exact} > {tol}")
 
+    model_launches = drive_model_path(cli, kreg, load_iteration)
+    if isinstance(model_launches, str):
+        return fail(model_launches)
+
     # -- phase 4: the record --------------------------------------------------
     kernels = []
     for v in gemm.KERNELS:
@@ -526,6 +863,14 @@ def main() -> int:
             dict(
                 name=name, route="cuda", replaces=REPLACES[name],
                 launches=launches[name], **row,
+            )
+        )
+    # the model path's kernels: launches of the full-width run
+    for name, row in model_rows.items():
+        kernels.append(
+            dict(
+                name=name, route="cuda", replaces=REPLACES[name],
+                launches=model_launches[name], **row,
             )
         )
     print(f"card: {smi}")

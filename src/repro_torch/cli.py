@@ -13,10 +13,15 @@ Subcommands:
   markdown digest, CSVs) for a stored iteration.
 * ``diff sess/iter0 sess/iter1`` — align two iterations and print
   per-kernel improved/regressed/fixed-pattern verdicts.
+* ``model NAME --out sess/`` — whole-model profiling: every kernel of a
+  registered model's forward (and ``--backward``) pass into one iteration
+  with per-layer attribution, each forward kind launched on the card at
+  the model's shapes.
 
 Exit codes: 0 success, 1 a gate failed (``diff --fail-on-regression``,
-or a kernel that disagrees with its plain version), 2 usage or load
-error.  There is no fallback: ``--device cuda`` without a card is exit 2.
+``model --max-transfers``, or a kernel that disagrees with its plain
+version), 2 usage or load error.  There is no fallback: ``--device cuda``
+without a card is exit 2.
 """
 
 from __future__ import annotations
@@ -69,16 +74,9 @@ def _build_parser() -> argparse.ArgumentParser:
         "--sampler",
         default=None,
         metavar="SPEC",
-        help="grid sampler: 'full', or 'window:N' (pin the leading grid "
-        "coordinate, admit N programs); default: per-kernel registry choice",
+        help=_SAMPLER_HELP + "; default: per-kernel registry choice",
     )
-    pr.add_argument(
-        "--device",
-        default="cuda",
-        choices=("cuda", "cpu"),
-        help="where each kernel runs on its seeded inputs (default: cuda; "
-        "'cpu' runs the plain version and times nothing)",
-    )
+    _add_device(pr)
     pr.add_argument("--label", default=None, help="iteration label")
     pr.add_argument("--note", default="", help="free-form iteration note")
     pr.add_argument(
@@ -123,7 +121,102 @@ def _build_parser() -> argparse.ArgumentParser:
         help="exit 1 when any kernel regressed (CI gating)",
     )
     df.set_defaults(func=_cmd_diff)
+
+    mo = sub.add_parser(
+        "model",
+        help="whole-model profiling: discover and profile every kernel "
+        "of a registered model into one per-layer-attributed iteration",
+    )
+    mo.add_argument(
+        "name",
+        nargs="?",
+        default=None,
+        metavar="NAME",
+        help="registered model (see `model --list`): transformer-tiny, "
+        "moe-tiny, mamba-tiny",
+    )
+    mo.add_argument(
+        "--list", action="store_true", help="list registered models and exit"
+    )
+    mo.add_argument(
+        "--config",
+        "-c",
+        action="append",
+        default=[],
+        metavar="KEY=VALUE",
+        help="override a model config field (repeatable), e.g. "
+        "-c n_layers=4 -c d_ff=512; unknown keys exit 2",
+    )
+    mo.add_argument(
+        "--backward",
+        action="store_true",
+        help="also profile the backward-pass kernels (store-heavy mirrors "
+        "of each forward kernel; modeled, never launched)",
+    )
+    mo.add_argument(
+        "--out",
+        "-o",
+        default="cuthermo-session",
+        metavar="DIR",
+        help="session directory (created on first use; default: "
+        "./cuthermo-session)",
+    )
+    mo.add_argument(
+        "--sampler",
+        default=None,
+        metavar="SPEC",
+        help=_SAMPLER_HELP + "; default: full",
+    )
+    mo.add_argument(
+        "--max-transfers",
+        type=int,
+        default=None,
+        metavar="N",
+        help="CI budget: exit 1 when the iteration's total modeled "
+        "transfers exceed N",
+    )
+    mo.add_argument(
+        "--no-hlo",
+        action="store_true",
+        help="skip the HLO-level sweep (the port has no sweep yet: every "
+        "run is a --no-hlo run)",
+    )
+    mo.add_argument(
+        "--report",
+        action="store_true",
+        help="write the report bundle (with the per-layer section) to "
+        "<iteration>/report afterwards",
+    )
+    mo.add_argument("--label", default=None, help="iteration label")
+    mo.add_argument("--note", default="", help="free-form iteration note")
+    mo.add_argument(
+        "--quiet", "-q", action="store_true", help="suppress the per-layer table"
+    )
+    _add_device(mo)
+    mo.set_defaults(func=_cmd_model)
     return p
+
+
+_SAMPLER_HELP = (
+    "grid sampler: 'full', or 'window:N[:D]' (pin the leading D grid "
+    "coordinates, default 1, and admit N programs along the last of them)"
+)
+
+
+def _add_device(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        choices=("cuda", "cpu"),
+        help="where each kernel runs on its seeded inputs (default: cuda; "
+        "'cpu' runs the plain version and times nothing)",
+    )
+
+
+def _no_card(args: argparse.Namespace) -> bool:
+    import torch
+
+    return args.device == "cuda" and not torch.cuda.is_available()
 
 
 def _error(msg: object) -> int:
@@ -139,14 +232,17 @@ def _parse_sampler(spec: Optional[str]):
 
     if spec == "full":
         return GridSampler(None)
-    if spec.startswith("window:"):
+    parts = spec.split(":")
+    if parts[0] == "window" and len(parts) in (2, 3):
         try:
-            window = int(spec.split(":", 1)[1])
+            window, depth = int(parts[1]), int(parts[2]) if len(parts) == 3 else 1
         except ValueError:
-            window = 0
-        if window >= 1:
-            return GridSampler((0,), window=window)
-    _error(f"bad --sampler {spec!r} (use 'full' or 'window:N' with N >= 1)")
+            window = depth = 0
+        if window >= 1 and depth >= 1:
+            return GridSampler((0,) * depth, window=window)
+    _error(
+        f"bad --sampler {spec!r} (use 'full' or 'window:N[:D]' with N, D >= 1)"
+    )
     raise SystemExit(2)
 
 
@@ -169,8 +265,6 @@ def _cmd_kernels(args: argparse.Namespace) -> int:
 
 def _cmd_profile(args: argparse.Namespace) -> int:
     """Handler for ``cuthermo profile``."""
-    import torch
-
     from repro_torch import kernels as kreg
     from repro_torch.core.advisor import format_report
     from repro_torch.core.render import run_text
@@ -186,7 +280,7 @@ def _cmd_profile(args: argparse.Namespace) -> int:
         resolved = [kreg.resolve(ref) for ref in refs]
     except KeyError as e:
         return _error(e.args[0])
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if _no_card(args):
         return _error(
             "no CUDA device: pass --device cpu to run the plain versions"
         )
@@ -267,7 +361,8 @@ def _cmd_report(args: argparse.Namespace) -> int:
     out = args.out or os.path.join(str(it.path), "report")
     title = args.title or f"cuthermo report — {it.label}"
     written = write_report_bundle(
-        entries, out, title=title, faults=list(it.faults) or None
+        entries, out, title=title, faults=list(it.faults) or None,
+        layers=it.layers,
     )
     print(f"wrote {written['index.html']}")
     print(f"wrote {written['report.md']}")
@@ -304,6 +399,87 @@ def _cmd_diff(args: argparse.Namespace) -> int:
     sd = diff_iterations(before, after, region_maps=region_maps)
     print(sd.summary())
     if args.fail_on_regression and sd.regressed:
+        return 1
+    return 0
+
+
+def _cmd_model(args: argparse.Namespace) -> int:
+    """Handler for ``cuthermo model``: 0 profiled (and under budget), 1 the
+    ``--max-transfers`` budget is blown or a kernel disagrees with its
+    plain version, 2 usage or load error (no NAME, unknown model, bad
+    ``--config`` override, no card for ``--device cuda``)."""
+    import os
+
+    from repro_torch import kernels as kreg
+    from repro_torch.core.model_profile import iteration_transactions, profile_model
+    from repro_torch.core.render import ReportEntry, run_text, write_report_bundle
+    from repro_torch.core.session import SessionError
+    from repro_torch.models.registry import MODELS
+
+    if args.list:
+        for name, entry in MODELS.items():
+            cfg = entry.config
+            print(
+                f"{name:<18} batch={entry.batch} seq={entry.seq} "
+                f"layers={cfg.n_layers} d_model={cfg.d_model}  {entry.summary}"
+            )
+        return 0
+    if not args.name:
+        return _error("model: pass a model NAME (or --list)")
+    sampler = _parse_sampler(args.sampler)
+    if _no_card(args):
+        return _error("no CUDA device: pass --device cpu to run the plain versions")
+    try:
+        it = profile_model(
+            args.name,
+            args.out,
+            overrides=args.config,
+            backward=args.backward,
+            sampler=sampler,
+            label=args.label,
+            note=args.note,
+            device=args.device,
+        )
+    except kreg.KernelMismatch as e:
+        print(f"cuthermo: {e}", file=sys.stderr)
+        return 1
+    except (KeyError, ValueError, SessionError) as e:
+        return _error(e.args[0] if e.args else e)
+    total = iteration_transactions(it)
+    layers = it.layers or {}
+    if not args.quiet:
+        print(
+            f"# model {args.name} (batch {layers.get('batch')}, seq "
+            f"{layers.get('seq')})" + (" forward+backward" if args.backward else "")
+        )
+        for row in layers.get("table", ()):
+            pats = ", ".join(f"{p}@{r}" for _k, r, p in row.get("patterns", ()))
+            print(
+                f"  {row['path']:<10} {', '.join(row['kinds']):<14} "
+                f"{row['transactions']:>8} transfers" + (f"  [{pats}]" if pats else "")
+            )
+        print(f"  {'total':<10} {'':<14} {total:>8} transfers")
+        for pk in it.kernels:
+            if pk.run and not pk.run.get("shared_with"):
+                print(f"  {pk.name}: {pk.run.get('shapes')} {run_text(pk.run)}")
+    print(
+        "hlo sweep: not ported (it compiles the model's forward, which the "
+        "port does not have yet); per-layer table only"
+    )
+    if args.report:
+        written = write_report_bundle(
+            [ReportEntry.from_profiled(pk) for pk in it.kernels],
+            os.path.join(str(it.path), "report"),
+            title=f"cuthermo model report — {it.label}",
+            layers=layers or None,
+        )
+        print(f"wrote {written['index.html']}")
+    print(f"wrote {it.path} ({len(it.kernels)} kernels, {total} transfers)")
+    if args.max_transfers is not None and total > args.max_transfers:
+        print(
+            f"cuthermo: transfer budget blown: {total} > {args.max_transfers}",
+            file=sys.stderr,
+        )
         return 1
     return 0
 

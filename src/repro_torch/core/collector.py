@@ -132,6 +132,10 @@ class KernelSpec:
     # optional dynamic access models keyed by operand or scratch name:
     # fn(program_id, **context_arrays) -> iterable of flat element indices
     dynamic: Tuple[Tuple[str, Callable[..., Iterable[int]]], ...] = ()
+    # where the spec came from: a registry ref ("name:variant") or a
+    # ("module:function", args, kwargs) builder triple (whole-model
+    # profiling stamps its kernels); provenance only, never walked
+    source: Optional[object] = None
 
 
 @dataclasses.dataclass

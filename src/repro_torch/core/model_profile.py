@@ -1,0 +1,390 @@
+"""Whole-model profiling: one iteration per model, per-layer attribution.
+
+The kernel registry profiles kernels in isolation; this module profiles a
+*model*: every kernel its forward (and, optionally, backward) pass runs,
+into ONE session iteration whose manifest carries per-layer attribution.
+
+1. **Kernel-call interception.**  ``intercept()`` monkeypatches the
+   kernels' spec builders (``flash.flash_spec``, ``gemm.gemm_v01_spec``,
+   ...) so every spec built while a ``layer_scope`` is active is recorded
+   as a :class:`KernelCall` with the layer path that built it.
+   ``discover()`` walks the model's ``layout()`` under the shim, layer by
+   layer and block kind by block kind, so the specs that get profiled are,
+   verifiably, the ones the derivation built, each attributed to its layer.
+2. **Launches.**  On the card, each forward kernel is launched at the
+   model's shapes on seeded inputs, checked against its plain version and
+   timed (``repro_torch.kernels.run_variant``), and the record goes beside
+   its heat map.  Within one model every kernel of a kind has one shape,
+   so the kernels of a kind share the first one's measurement, and their
+   records say so (``shared_with``).  ``.bwd`` kernels are spec-only: no
+   backward kernel exists for them.
+3. **One iteration.**  Every discovered kernel is profiled through
+   :func:`repro_torch.core.session.profile_kernel` and persisted with a
+   per-layer rollup table, validated on write as an exact partition, so
+   per-layer transfer totals sum to the iteration total by construction.
+
+Discovered kernels are stamped with ``model.<model>.<kind>`` family refs
+(``repro_torch.kernels.get`` delegates those to
+``repro_torch.models.registry.kernel_entry``), so ``cuthermo profile -k
+model.transformer-tiny.attn:wide-kv`` profiles one rung of a model's kind.
+
+Not ported yet: the HLO sweep of the JAX package (it compiles the model's
+forward, which the port does not have), sharded collection, the
+collection cache, and journaled resume.
+
+Backward kernels are a *model*: attention/GEMM backward passes stream the
+same operand set with the data direction flipped (activations re-read,
+gradients written where inputs were read), so ``bwd_spec`` derives the
+backward footprint by swapping load/store kinds on the forward spec.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from pathlib import Path
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+from repro_torch.core.collector import KernelSpec
+from repro_torch.core.session import (
+    Iteration,
+    ProfileSession,
+    ProfiledKernel,
+    profile_kernel,
+)
+from repro_torch.core.trace import GridSampler
+
+__all__ = [
+    "DiscoveredKernel",
+    "KernelCall",
+    "bwd_spec",
+    "discover",
+    "intercept",
+    "iteration_transactions",
+    "layer_scope",
+    "layers_table",
+    "profile_model",
+]
+
+
+# ---------------------------------------------------------------------------
+# the interception shim
+# ---------------------------------------------------------------------------
+
+#: Layer path active for spec builds on this thread ("" = no scope:
+#: builder calls are NOT recorded, so registry builds stay silent).
+_LAYER: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "cuthermo_layer", default=""
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCall:
+    """One intercepted spec-builder call, attributed to a layer."""
+
+    layer: str  # layer path active at build time ("layer0", "head", ...)
+    entry: str  # "module:function" of the kernels' entry point
+    spec: KernelSpec
+
+
+@contextlib.contextmanager
+def layer_scope(path: str):
+    """Attribute spec builds inside this block to layer ``path``."""
+    token = _LAYER.set(path)
+    try:
+        yield
+    finally:
+        _LAYER.reset(token)
+
+
+def _entry_points() -> Tuple[Tuple[object, str], ...]:
+    """The kernels' spec builders the model derivation goes through."""
+    from repro_torch.kernels import flash, gemm, gmm, ssd
+
+    return (
+        (flash, "flash_spec"),
+        (gemm, "gemm_v01_spec"),
+        (gemm, "gemm_v02_spec"),
+        (gmm, "gmm_spec"),
+        (ssd, "ssd_chunk_spec"),
+    )
+
+
+@contextlib.contextmanager
+def intercept():
+    """Record every layer-scoped spec build into the yielded list.
+
+    Monkeypatches the spec-builder entry points for the duration of the
+    block (always restored); a build with no active :func:`layer_scope`
+    passes through unrecorded.
+    """
+    calls: List[KernelCall] = []
+    patched: List[Tuple[object, str, object]] = []
+
+    def _wrap(module, fn_name, fn):
+        def shim(*args, **kwargs):
+            spec = fn(*args, **kwargs)
+            layer = _LAYER.get()
+            if layer:
+                calls.append(
+                    KernelCall(
+                        layer=layer,
+                        entry=f"{module.__name__}:{fn_name}",
+                        spec=spec,
+                    )
+                )
+            return spec
+
+        shim.__name__ = fn_name
+        shim.__wrapped__ = fn
+        return shim
+
+    try:
+        for module, fn_name in _entry_points():
+            fn = getattr(module, fn_name)
+            patched.append((module, fn_name, fn))
+            setattr(module, fn_name, _wrap(module, fn_name, fn))
+        yield calls
+    finally:
+        for module, fn_name, fn in patched:
+            setattr(module, fn_name, fn)
+
+
+# ---------------------------------------------------------------------------
+# discovery
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscoveredKernel:
+    """One kernel of a model pass, attributed and profile-ready."""
+
+    name: str  # manifest name: "layer0.attn", "head.unembed", "+ .bwd"
+    layer: str  # layer path: "layer0" ... "head"
+    kind: str  # 'attn' | 'mlp' | 'moe' | 'ssm' | 'unembed'
+    family: str  # registry ref: "model.<model>.<kind>"
+    spec: KernelSpec  # source-stamped
+    entry: str  # intercepted entry point ("module:function")
+    backward: bool = False
+
+
+def bwd_spec(cfg, kind: str, batch: int, seq: int, rung: int = 0) -> KernelSpec:
+    """Backward-pass footprint of one derived kernel (kind-swapped).
+
+    Loads become stores and vice versa; scratch accumulators are
+    direction-free and stay put.
+    """
+    from repro_torch.models.registry import kind_spec
+
+    fwd = kind_spec(cfg, kind, batch, seq, rung=rung)
+    flipped = {"load": "store", "store": "load"}
+    operands = tuple(
+        dataclasses.replace(op, kind=flipped.get(op.kind, op.kind))
+        for op in fwd.operands
+    )
+    return dataclasses.replace(fwd, name=f"{fwd.name}_bwd", operands=operands)
+
+
+def _layer_kinds(cfg) -> List[Tuple[str, str]]:
+    """(layer path, kernel kind) pairs of one forward pass, in order."""
+    from repro_torch.models.registry import _FFN_KIND, _MIXER_KIND
+
+    pairs: List[Tuple[str, str]] = []
+    for i, block in enumerate(cfg.layout()):
+        path = f"layer{i}"
+        pairs.append((path, _MIXER_KIND[block.mixer]))
+        ffn = _FFN_KIND[block.ffn]
+        if ffn is not None:
+            pairs.append((path, ffn))
+    pairs.append(("head", "unembed"))
+    return pairs
+
+
+def discover(
+    model_name: str,
+    cfg,
+    batch: int,
+    seq: int,
+    backward: bool = False,
+    *,
+    default_shapes: bool = True,
+) -> List[DiscoveredKernel]:
+    """Walk one model pass and return its kernels with layer attribution.
+
+    Runs the per-layer derivation under :func:`intercept`, so every
+    returned spec is one the shim observed being built inside its layer's
+    scope.  ``backward=True`` appends a ``.bwd`` (kind-swapped) kernel per
+    forward kernel.  Specs are source-stamped: with the registry's
+    ``model.…:<rung>`` ref when the config and shapes are the registry
+    defaults (``default_shapes``), otherwise with the builder triple.
+    """
+    from repro_torch.models.registry import _KIND_RUNGS, kind_spec
+
+    pairs = _layer_kinds(cfg)
+    with intercept() as calls:
+        for path, kind in pairs:
+            with layer_scope(path):
+                kind_spec(cfg, kind, batch, seq)
+    if len(calls) != len(pairs):  # the shim is the source of truth
+        raise RuntimeError(
+            f"kernel interception out of sync: walked {len(pairs)} "
+            f"layer kinds but recorded {len(calls)} builder calls"
+        )
+    discovered: List[DiscoveredKernel] = []
+    for (path, kind), call in zip(pairs, calls):
+        if default_shapes:
+            source: object = f"model.{model_name}.{kind}:{_KIND_RUNGS[kind][0][0]}"
+        else:
+            source = (
+                "repro_torch.models.registry:kind_spec",
+                (cfg, kind, batch, seq),
+                {"rung": 0},
+            )
+        discovered.append(
+            DiscoveredKernel(
+                name=f"{path}.{kind}",
+                layer=path,
+                kind=kind,
+                family=f"model.{model_name}.{kind}",
+                spec=dataclasses.replace(call.spec, source=source),
+                entry=call.entry,
+            )
+        )
+    if backward:
+        for d in list(discovered):
+            spec = bwd_spec(cfg, d.kind, batch, seq)
+            discovered.append(
+                dataclasses.replace(
+                    d,
+                    name=f"{d.name}.bwd",
+                    spec=dataclasses.replace(
+                        spec,
+                        source=(
+                            "repro_torch.core.model_profile:bwd_spec",
+                            (cfg, d.kind, batch, seq),
+                            {"rung": 0},
+                        ),
+                    ),
+                    backward=True,
+                )
+            )
+    return discovered
+
+
+# ---------------------------------------------------------------------------
+# rollup + the profile entry point
+# ---------------------------------------------------------------------------
+
+
+def layers_table(
+    discovered: Sequence[DiscoveredKernel],
+    profiled: Sequence[ProfiledKernel],
+) -> List[Dict]:
+    """Roll profiled kernels up into the per-layer table.
+
+    One row per layer path, in first-seen order; each row's
+    ``transactions`` is the sum over its member kernels (the partition
+    invariant ``session._validate_layers`` re-checks on write).
+    """
+    by_name = {pk.name: pk for pk in profiled}
+    rows: Dict[str, Dict] = {}
+    for d in discovered:
+        pk = by_name[d.name]
+        row = rows.setdefault(
+            d.layer,
+            {
+                "path": d.layer,
+                "kinds": [],
+                "kernels": [],
+                "transactions": 0,
+                "patterns": [],
+            },
+        )
+        if d.kind not in row["kinds"]:
+            row["kinds"].append(d.kind)
+        row["kernels"].append(d.name)
+        row["transactions"] += pk.transactions
+        for r in pk.reports:
+            rd = r.as_dict()
+            row["patterns"].append(
+                [d.name, str(rd.get("region", "")), str(rd.get("pattern", ""))]
+            )
+    return list(rows.values())
+
+
+def iteration_transactions(it: Iteration) -> int:
+    """Total modeled transfers across an iteration's kernels."""
+    return sum(pk.transactions for pk in it.kernels)
+
+
+def profile_model(
+    name: str,
+    out: Union[str, Path],
+    *,
+    overrides: Sequence[str] = (),
+    backward: bool = False,
+    sampler: Optional[GridSampler] = None,
+    label: Optional[str] = None,
+    note: str = "",
+    device: str = "cuda",
+) -> Iteration:
+    """Profile one registered model into a session iteration.
+
+    Discovers the model's kernels per layer (:func:`discover`), launches
+    each forward kind once on ``device`` (``run_variant``: on the CPU the
+    plain version runs and nothing is timed), profiles each kernel's spec
+    (full grid unless ``sampler`` says otherwise), and persists everything
+    as the next iteration of the session at ``out`` with the validated
+    per-layer table.  Returns the loaded :class:`Iteration` (its
+    ``.layers`` carries the table).
+
+    Raises ``KeyError`` for an unknown model and ``ValueError`` for a
+    malformed override (the CLI maps both to exit 2), and
+    ``repro_torch.kernels.KernelMismatch`` when a kernel disagrees with its
+    plain version.
+    """
+    from repro_torch.kernels import run_variant
+    from repro_torch.models.registry import apply_overrides, get_model, kind_variant
+
+    entry = get_model(name)
+    cfg = apply_overrides(entry.config, overrides)
+    batch, seq = entry.batch, entry.seq
+    discovered = discover(
+        name, cfg, batch, seq, backward=backward, default_shapes=not overrides
+    )
+    sess = ProfileSession(out)
+    measured: Dict[str, Tuple[str, Mapping]] = {}  # kind -> (kernel, run)
+    profiled: List[ProfiledKernel] = []
+    for d in discovered:
+        run = None
+        if not d.backward:
+            if d.kind in measured:
+                first, rec = measured[d.kind]
+                run = dict(rec, shared_with=first)
+            else:
+                run = run_variant(kind_variant(cfg, d.kind, batch, seq), device)
+                measured[d.kind] = (d.name, run)
+        profiled.append(
+            profile_kernel(
+                d.spec,
+                sampler or GridSampler(None),
+                None,
+                name=d.name,
+                variant=f"{d.family}:{'bwd' if d.backward else 'fwd'}",
+                run=run,
+            )
+        )
+    layers = {
+        "model": name,
+        "batch": batch,
+        "seq": seq,
+        "overrides": list(overrides),
+        "table": layers_table(discovered, profiled),
+    }
+    return sess.add_iteration(
+        profiled,
+        label=label or f"model-{name}",
+        note=note or f"whole-model profile of {name}",
+        layers=layers,
+    )

@@ -412,16 +412,115 @@ def run_text(run: Optional[Mapping]) -> str:
     """One-line summary of a profile's measured kernel launch ('' if none)."""
     if not run:
         return ""
+    shared = (
+        f" (shared with {run['shared_with']}: same kernel, same shapes)"
+        if run.get("shared_with") else ""
+    )
     if run.get("ms") is None:
         return (
             f"ran the plain version on {run.get('device')} "
-            "(no kernel launched, not timed)"
+            f"(no kernel launched, not timed){shared}"
         )
     return (
         f"launched {run.get('launches')}x on {run.get('device')}: "
         f"median {float(run['ms']):.3f} ms, max |err| vs plain "
-        f"{float(run.get('max_abs_err', 0.0)):.2e}"
+        f"{float(run.get('max_abs_err', 0.0)):.2e}{shared}"
     )
+
+
+def _hlo_line(hlo: Mapping) -> str:
+    """The HLO sweep summary of a JAX-package model artifact."""
+    cost = hlo.get("cost") or {}
+    heat = hlo.get("heat") or {}
+    return (
+        "HLO sweep"
+        + (" (forward+backward)" if hlo.get("backward") else " (forward)")
+        + f": {cost.get('flops', 0):.3g} flops, "
+        f"{cost.get('bytes', 0):.3g} bytes, "
+        f"{cost.get('wire_bytes', 0):.3g} wire bytes, "
+        f"{heat.get('collective_count', 0)} collectives"
+    )
+
+
+def _layers_heading(layers: Mapping) -> str:
+    return f"batch {layers.get('batch')}, seq {layers.get('seq')}" + (
+        f", overrides: {', '.join(map(str, layers.get('overrides')))}"
+        if layers.get("overrides") else ""
+    )
+
+
+def _layers_section_html(layers: Mapping) -> str:
+    """Per-layer attribution section of the HTML bundle.
+
+    ``layers`` is the iteration manifest's ``layers`` mapping written by
+    whole-model profiling: the per-layer rollup table (an exact partition
+    of the iteration's kernels, validated on write), and in the JAX
+    package's artifacts the HLO sweep summary.
+    """
+    if not layers:
+        return ""
+    parts = [
+        "<h3>per-layer attribution</h3>",
+        f"<div class='card'><p>model <b>{_html.escape(str(layers.get('model', '')))}</b> "
+        f"({_html.escape(_layers_heading(layers))})</p>",
+        "<table><tr><th>layer</th><th>kinds</th><th>kernels</th>"
+        "<th>sector transfers</th><th>patterns</th></tr>",
+    ]
+    table = layers.get("table") or ()
+    total = sum(int(row.get("transactions", 0)) for row in table)
+    for row in table:
+        pats = (
+            ", ".join(
+                f"{_html.escape(str(p))} on {_html.escape(str(r))}"
+                for _k, r, p in row.get("patterns", ())
+            )
+            or "&mdash;"
+        )
+        parts.append(
+            f"<tr><td>{_html.escape(str(row.get('path')))}</td>"
+            f"<td>{_html.escape(', '.join(row.get('kinds', ())))}</td>"
+            f"<td>{_html.escape(', '.join(row.get('kernels', ())))}</td>"
+            f"<td>{row.get('transactions')}</td><td>{pats}</td></tr>"
+        )
+    parts.append(
+        f"<tr><td><b>total</b></td><td></td><td></td>"
+        f"<td><b>{total}</b></td><td></td></tr></table>"
+    )
+    if layers.get("hlo"):
+        parts.append(f"<p class='evidence'>{_html.escape(_hlo_line(layers['hlo']))}</p>")
+    parts.append("</div>")
+    return "".join(parts)
+
+
+def _layers_section_markdown(layers: Mapping) -> List[str]:
+    """Markdown lines of the per-layer attribution section."""
+    if not layers:
+        return []
+    lines = [
+        "",
+        f"## per-layer attribution — {layers.get('model', '')}",
+        "",
+        _layers_heading(layers),
+        "",
+        "| layer | kinds | kernels | sector transfers | patterns |",
+        "|---|---|---|---:|---|",
+    ]
+    table = layers.get("table") or ()
+    total = sum(int(row.get("transactions", 0)) for row in table)
+    for row in table:
+        pats = (
+            ", ".join(f"{p} on {r}" for _k, r, p in row.get("patterns", ()))
+            or "-"
+        )
+        lines.append(
+            f"| {row.get('path')} | {', '.join(row.get('kinds', ()))} "
+            f"| {', '.join(row.get('kernels', ()))} "
+            f"| {row.get('transactions')} | {pats} |"
+        )
+    lines.append(f"| **total** | | | {total} | |")
+    if layers.get("hlo"):
+        lines += ["", _hlo_line(layers["hlo"])]
+    return lines
 
 
 def render_session_html(
@@ -429,6 +528,7 @@ def render_session_html(
     title: str = "cuthermo report",
     max_runs_per_region: int = 64,
     faults: Optional[Sequence[Mapping]] = None,
+    layers: Optional[Mapping] = None,
 ) -> str:
     """Self-contained HTML gallery for one profiled iteration.
 
@@ -437,7 +537,8 @@ def render_session_html(
     their evidence lines, the advisor's actions, the measured kernel
     launch where the profile made one, and at the top a summary table
     plus the device-memory traffic chart.  ``faults`` (an artifact-v6
-    recovered-fault block) adds the fault-recovery table.  The output
+    recovered-fault block) adds the fault-recovery table, and ``layers``
+    (a whole-model profile's per-layer attribution) the per-layer table.  The output
     embeds no external resources — one file opens anywhere.
     """
     parts: List[str] = [
@@ -472,6 +573,8 @@ def render_session_html(
             "bar sits on the achievable memory-roofline floor.</p>"
         )
         parts.append(chart)
+    if layers:
+        parts.append(_layers_section_html(layers))
     if faults:
         parts.append(_faults_section_html(faults))
     for i, e in enumerate(entries):
@@ -531,6 +634,7 @@ def render_session_markdown(
     entries: Sequence[ReportEntry],
     title: str = "cuthermo report",
     faults: Optional[Sequence[Mapping]] = None,
+    layers: Optional[Mapping] = None,
 ) -> str:
     """Markdown digest of one iteration (the commit-message artifact)."""
     lines = [f"# {title}", ""]
@@ -582,6 +686,8 @@ def render_session_markdown(
                 f"save ~{100 * a.est_transaction_saving:.0f}% — "
                 f"{a.description}"
             )
+    if layers:
+        lines += _layers_section_markdown(layers)
     if faults:
         lines += _faults_section_markdown(faults)
     lines.append("")
@@ -593,24 +699,27 @@ def write_report_bundle(
     out_dir: str,
     title: str = "cuthermo report",
     faults: Optional[Sequence[Mapping]] = None,
+    layers: Optional[Mapping] = None,
 ) -> Dict[str, str]:
     """Write a whole-iteration report bundle into ``out_dir``.
 
     Produces ``index.html`` (self-contained gallery), ``report.md``
     (markdown digest) and one ``<kernel>.csv`` per entry (the exact
     Fig. 5 CSV artifact).  ``faults`` (an artifact-v6 recovered-fault
-    block, one dict per ``FaultEvent``) adds the fault-recovery table.
+    block, one dict per ``FaultEvent``) adds the fault-recovery table, and
+    ``layers`` (a whole-model profile's per-layer attribution) the
+    per-layer table.
     Returns a name->path mapping of everything written.
     """
     os.makedirs(out_dir, exist_ok=True)
     written: Dict[str, str] = {}
     index = os.path.join(out_dir, "index.html")
     with open(index, "w") as f:
-        f.write(render_session_html(entries, title=title, faults=faults))
+        f.write(render_session_html(entries, title=title, faults=faults, layers=layers))
     written["index.html"] = index
     md = os.path.join(out_dir, "report.md")
     with open(md, "w") as f:
-        f.write(render_session_markdown(entries, title=title, faults=faults))
+        f.write(render_session_markdown(entries, title=title, faults=faults, layers=layers))
     written["report.md"] = md
     seen: Dict[str, int] = {}
     for e in entries:

@@ -385,21 +385,82 @@ def _commit_json(path: Path, obj: Mapping) -> None:
     _commit_bytes(path, json.dumps(obj, indent=2).encode("utf-8"))
 
 
+def _validate_layers(
+    layers: Mapping, kernels: Sequence[ProfiledKernel]
+) -> None:
+    """Validate per-layer attribution against the iteration's kernels.
+
+    The layer table must be an exact partition: every profiled kernel
+    appears in exactly one row, every row references only profiled
+    kernels, and each row's ``transactions`` equals the sum over its
+    members, which makes "per-layer totals sum to the iteration total" an
+    invariant of the artifact, not a property a reader must check.
+    """
+    table = layers.get("table")
+    if not isinstance(table, (list, tuple)):
+        raise SessionError("layers attribution needs a 'table' list of rows")
+    tx_by_name = {pk.name: pk.transactions for pk in kernels}
+    seen: Dict[str, str] = {}
+    for row in table:
+        try:
+            path_ = str(row["path"])
+            members = list(row["kernels"])
+            row_tx = int(row["transactions"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise SessionError(
+                f"malformed layer row ({e!r}); every row needs 'path', "
+                "'kernels' and 'transactions'"
+            ) from e
+        total = 0
+        for name in members:
+            if name not in tx_by_name:
+                raise SessionError(
+                    f"layer {path_!r} references kernel {name!r} not "
+                    "profiled in this iteration"
+                )
+            if name in seen:
+                raise SessionError(
+                    f"kernel {name!r} attributed to both layer "
+                    f"{seen[name]!r} and {path_!r}; the layer table must "
+                    "partition the iteration's kernels"
+                )
+            seen[name] = path_
+            total += tx_by_name[name]
+        if total != row_tx:
+            raise SessionError(
+                f"layer {path_!r} claims {row_tx} transactions but its "
+                f"kernels sum to {total}"
+            )
+    missing = sorted(set(tx_by_name) - set(seen))
+    if missing:
+        raise SessionError(
+            f"kernel(s) {missing} profiled but missing from the layer "
+            "table; the layer table must partition the iteration's kernels"
+        )
+
+
 def write_iteration(
     path: Union[str, Path],
     kernels: Sequence[ProfiledKernel],
     label: Optional[str] = None,
     note: str = "",
+    *,
+    layers: Optional[Mapping] = None,
 ) -> Path:
     """Persist one iteration (manifest.json + one npz per kernel).
 
     ``path`` is created (parents included); an existing manifest there is
     replaced.  Kernel names must be unique within an iteration (they are
     the alignment keys of diffs); duplicates raise :class:`SessionError`.
-    The manifest is committed last, so a reader never finds a manifest
-    whose arrays are missing.
+    ``layers`` is whole-model profiling's per-layer attribution; its table
+    is validated as an exact partition of ``kernels``
+    (:func:`_validate_layers`) and stored under the manifest's ``layers``
+    key, as the JAX package stores it.  The manifest is committed last, so
+    a reader never finds a manifest whose arrays are missing.
     """
     path = Path(path)
+    if layers is not None:
+        _validate_layers(layers, kernels)
     names_seen = [pk.name for pk in kernels]
     dupes = sorted({n for n in names_seen if names_seen.count(n) > 1})
     if dupes:
@@ -449,6 +510,8 @@ def write_iteration(
     }
     if fault_block:
         manifest["faults"] = fault_block
+    if layers is not None:
+        manifest["layers"] = dict(layers)
     _commit_json(path / "manifest.json", manifest)
     return path
 
@@ -667,12 +730,16 @@ class ProfileSession:
         kernels: Sequence[ProfiledKernel],
         label: Optional[str] = None,
         note: str = "",
+        *,
+        layers: Optional[Mapping] = None,
     ) -> Iteration:
         """Persist already-profiled kernels as the next ``iterN`` directory.
 
-        The directory is claimed with an *exclusive* mkdir, so two
-        processes profiling into the same session race to distinct
-        ``iterN`` numbers instead of overwriting each other.
+        ``layers`` is the per-layer attribution of a whole-model profile
+        (validated; see :func:`write_iteration`).  The directory is claimed
+        with an *exclusive* mkdir, so two processes profiling into the same
+        session race to distinct ``iterN`` numbers instead of overwriting
+        each other.
         """
         existing = self.iteration_names()
         nums = [int(_ITER_RE.match(n).group(1)) for n in existing
@@ -686,7 +753,8 @@ class ProfileSession:
             except FileExistsError:
                 n += 1  # another writer claimed it; take the next slot
         path = write_iteration(
-            self.root / name, kernels, label=label or name, note=note
+            self.root / name, kernels, label=label or name, note=note,
+            layers=layers,
         )
         if name not in existing:
             existing.append(name)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,10 +25,16 @@ import torch
 from repro_torch.core.collector import KernelSpec
 from repro_torch.core.trace import GridSampler
 
-from . import gemm, gramschm, histogram, ops, ref, spmv, ttm
+from . import flash, gemm, gmm, gramschm, histogram, ops, ref, spmv, ssd, ttm
 
 #: Inputs of one launch: ``(device, generator) -> positional tensors``.
 InputMaker = Callable[[torch.device, torch.Generator], Tuple[torch.Tensor, ...]]
+#: What a kernel returns: one tensor, or several (ssd's ``(y, s)``).
+Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+#: The largest |kernel - plain| accepted: a number, or the kernel module's
+#: ``tolerance(want, *inputs)``, a number or a tensor that broadcasts over
+#: ``want`` (one plain output).
+Tolerance = Union[float, Callable[..., Union[float, torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,11 +42,11 @@ class KernelVariant:
     """One profile-ready point on a kernel's optimization ladder.
 
     ``kernel`` is the wrapper that launches the variant's CUDA kernel,
-    ``plain`` its plain PyTorch version, and ``inputs`` makes seeded
-    inputs at the registry's shapes; all three are ``None`` for a
-    spec-only variant.  ``kwargs`` holds the non-tensor arguments that
-    both ``kernel`` and ``plain`` take by keyword (gramschm's column
-    ``k``), as ``(name, value)`` pairs.
+    ``plain`` its plain PyTorch version (both return one tensor or a tuple
+    of them), and ``inputs`` makes seeded inputs at the registry's shapes;
+    all three are ``None`` for a spec-only variant.  ``kwargs`` holds the
+    non-tensor arguments that both ``kernel`` and ``plain`` take by keyword
+    (gramschm's column ``k``), as ``(name, value)`` pairs.
     """
 
     name: str
@@ -48,10 +54,10 @@ class KernelVariant:
     context: Optional[Callable[[], Dict[str, np.ndarray]]] = None
     role: str = "baseline"  # 'baseline' | 'optimized'
     note: str = ""
-    kernel: Optional[Callable[..., torch.Tensor]] = None
-    plain: Optional[Callable[..., torch.Tensor]] = None
+    kernel: Optional[Callable[..., Outputs]] = None
+    plain: Optional[Callable[..., Outputs]] = None
     inputs: Optional[InputMaker] = None
-    atol: float = 0.0  # max |kernel - plain| accepted on the registry inputs
+    atol: Tolerance = 0.0  # max |kernel - plain| accepted on the registry inputs
     kwargs: Tuple[Tuple[str, object], ...] = ()
 
     def spec(self) -> KernelSpec:
@@ -225,6 +231,49 @@ def _ttm_variant(name: str, role: str, note: str) -> KernelVariant:
     )
 
 
+FLASH_SHAPE = (4, 1024, 1024, 128)  # (bh, sq, skv, d)
+FLASH_BKV = 64
+GMM_SHAPE = (1024, 512, 512, 8)  # (m, k, n, experts)
+GMM_BM = 128
+SSD_SHAPE = (4, 8, 128, 64, 64)  # (bh, chunks, l, p, n)
+
+
+def _gmm_ids() -> np.ndarray:
+    rng = np.random.default_rng(0)
+    return np.sort(rng.integers(0, 8, size=8)).astype(np.int64)
+
+
+def _flash_inputs(device: torch.device, gen: torch.Generator):
+    bh, sq, skv, d = FLASH_SHAPE
+    return tuple(
+        torch.randn((bh, s, d), generator=gen, device=device, dtype=torch.float32)
+        for s in (sq, skv, skv)
+    )
+
+
+def _gmm_inputs(device: torch.device, gen: torch.Generator):
+    m, k, n, e = GMM_SHAPE
+    x = torch.randn((m, k), generator=gen, device=device, dtype=torch.float32)
+    w = torch.randn((e, k, n), generator=gen, device=device, dtype=torch.float32)
+    ids = torch.from_numpy(_gmm_ids().astype(np.int32)).to(device)
+    return x, w, ids
+
+
+def ssd_inputs(bh: int, c: int, l: int, p: int, n: int):
+    """Seeded SSD inputs: x, B, C ~ N(0, 1) and log-decays a = -0.4 |N(0, 1)|
+    (``tests/test_kernels.py``'s), all float32."""
+
+    def make(device: torch.device, gen: torch.Generator):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+        x = randn(bh, c, l, p)
+        a = -randn(bh, c, l).abs() * 0.4
+        return x, a, randn(bh, c, l, n), randn(bh, c, l, n)
+
+    return make
+
+
 REGISTRY: Dict[str, RegistryEntry] = {
     e.name: e
     for e in (
@@ -333,6 +382,59 @@ REGISTRY: Dict[str, RegistryEntry] = {
             ),
             sampler=_full,
         ),
+        RegistryEntry(
+            name="flash",
+            summary="flash attention: K/V tiles staged in shared memory, "
+            "online softmax in registers (well-tiled reference)",
+            variants=(
+                KernelVariant(
+                    "default",
+                    lambda: flash.flash_spec(*FLASH_SHAPE, bkv=FLASH_BKV),
+                    note="64-query blocks over 64-row KV tiles, causal",
+                    kernel=flash.flash_attention,
+                    plain=flash.flash_plain,
+                    inputs=_flash_inputs,
+                    atol=flash.tolerance,
+                    kwargs=(("causal", True), ("bkv", FLASH_BKV)),
+                ),
+            ),
+            sampler=_full,
+        ),
+        RegistryEntry(
+            name="gmm",
+            summary="grouped matmul (MoE expert dispatch): expert-indexed "
+            "W fetches",
+            variants=(
+                KernelVariant(
+                    "default",
+                    lambda: gmm.gmm_spec(*GMM_SHAPE, _gmm_ids(), bm=GMM_BM),
+                    note="each block reads its tile's expert id",
+                    kernel=gmm.gmm,
+                    plain=gmm.gmm_plain,
+                    inputs=_gmm_inputs,
+                    atol=gmm.tolerance,
+                    kwargs=(("bm", GMM_BM),),
+                ),
+            ),
+            sampler=_full,
+        ),
+        RegistryEntry(
+            name="ssd",
+            summary="Mamba SSD chunk scan: per-(head,chunk) state "
+            "streaming",
+            variants=(
+                KernelVariant(
+                    "chunk",
+                    lambda: ssd.ssd_chunk_spec(*SSD_SHAPE),
+                    note="one block per (head, chunk), chunk staged in shared memory",
+                    kernel=ssd.ssd_chunk,
+                    plain=ssd.ssd_plain,
+                    inputs=ssd_inputs(*SSD_SHAPE),
+                    atol=ssd.tolerance,
+                ),
+            ),
+            sampler=_full,
+        ),
     )
 }
 
@@ -343,7 +445,16 @@ def names() -> Tuple[str, ...]:
 
 
 def get(name: str) -> RegistryEntry:
-    """Look up a registry entry; raises KeyError with the known names."""
+    """Look up a registry entry; raises KeyError with the known names.
+
+    Families named ``model.<model>.<kind>`` are derived from a model's
+    layout by ``repro_torch.models.registry.kernel_entry``; ``names()``
+    never lists them.
+    """
+    if name.startswith("model."):
+        from repro_torch.models import registry as model_registry
+
+        return model_registry.kernel_entry(name)
     try:
         return REGISTRY[name]
     except KeyError:
@@ -369,9 +480,10 @@ def build(ref: str) -> Tuple[KernelSpec, Optional[Dict[str, np.ndarray]]]:
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count of every kernel wrapper to 0: the registry's,
-    and ``spmv_ell``, which only ``ops.spmv`` reaches."""
-    for module in (gemm, spmv, histogram, gramschm, ttm):
+    """Set the launch count of every kernel wrapper to 0: the registry's
+    (the model families launch the same wrappers), and ``spmv_ell``, which
+    only ``ops.spmv`` reaches."""
+    for module in (gemm, spmv, histogram, gramschm, ttm, flash, gmm, ssd):
         for fn in module.KERNELS.values():
             fn.launches = 0
 
@@ -411,10 +523,11 @@ def run_variant(
     On a CUDA device the kernel runs once against its plain version
     (float32 products without TF32), then ``iters`` more times under CUDA
     events; the record carries the device name, the launches made, the
-    median time and the largest absolute error, and the variant's
-    non-tensor arguments under ``kwargs`` when it has any.  On the CPU the
+    median time and the largest absolute error over all outputs, and the
+    variant's non-tensor arguments under ``kwargs`` when it has any.  On the CPU the
     wrapper takes the plain version, so nothing is launched or timed.
-    Raises :class:`KernelMismatch` when the error exceeds ``variant.atol``.
+    Raises :class:`KernelMismatch` when an element's error exceeds
+    ``variant.atol`` (each output held to its own tolerance).
     """
     if variant.kernel is None:
         raise ValueError(f"variant {variant.name!r} has no kernel to run")
@@ -436,12 +549,16 @@ def run_variant(
     got = variant.kernel(*args, **kwargs)
     if on_card:
         torch.cuda.synchronize(device)
-    err = float((got.float() - want.float()).abs().max())
-    if not err <= variant.atol:
-        raise KernelMismatch(
-            f"{variant.name}: max |kernel - plain| = {err:.3e} exceeds "
-            f"{variant.atol:.1e}"
-        )
+    pairs = list(zip(*(o if isinstance(o, tuple) else (o,) for o in (got, want))))
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+    for g, w in pairs:
+        tol = variant.atol(w, *args) if callable(variant.atol) else variant.atol
+        if not bool(((g.float() - w.float()).abs() <= tol).all()):
+            raise KernelMismatch(
+                f"{variant.name}: max |kernel - plain| = {err:.3e} exceeds "
+                f"its tolerance ({float(torch.as_tensor(tol).min()):.1e} at "
+                "its smallest)"
+            )
     run: Dict[str, object] = {
         "device": torch.cuda.get_device_name(device) if on_card else "cpu",
         "shapes": [list(t.shape) for t in args],
@@ -461,7 +578,9 @@ def run_variant(
 
 
 __all__ = [
+    "FLASH_SHAPE",
     "GEMM_SHAPE",
+    "GMM_SHAPE",
     "GRAMSCHM_K",
     "GRAMSCHM_SHAPE",
     "HIST_SHAPE",
@@ -471,8 +590,10 @@ __all__ = [
     "RegistryEntry",
     "build",
     "cuda_time_ms",
+    "flash",
     "gemm",
     "get",
+    "gmm",
     "gramschm",
     "histogram",
     "names",
@@ -483,6 +604,9 @@ __all__ = [
     "run_variant",
     "SPMV_SHAPE",
     "spmv",
+    "SSD_SHAPE",
+    "ssd",
+    "ssd_inputs",
     "TTM_SHAPE",
     "ttm",
 ]

@@ -1,9 +1,10 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-first use, for ``sm_90a``, into ``build/repro_torch_kernels/`` at the
-root of the checkout (``build/`` is git-ignored).  The library's file
-name carries a hash of its source and flags, so an edited source is
+Each ``csrc/<name>.cu`` exposes a plain C interface, includes the shared
+helpers of ``csrc/common.cuh``, and is compiled on first use, for
+``sm_90a``, into ``build/repro_torch_kernels/`` at the root of the
+checkout (``build/`` is git-ignored).  The library's file name carries a
+hash of its source, the headers and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  A failed build raises: there
 is no fallback.  Nothing is built at import time.
 """
@@ -51,11 +52,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = sources()[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+    """Where the library built from ``csrc/<name>.cu`` lives; its hash
+    covers the shared headers (``csrc/*.cuh``) too."""
+    text = sources()[name].read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -19,23 +19,9 @@
 
 #include <cstddef>
 
+#include "common.cuh"
+
 namespace {
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // ---------------------------------------------------------------------------
 // v00 -- replaces repro/kernels/gemm.py:_gemm_v00_kernel (row per program).
@@ -226,10 +212,6 @@ int repro_gemm_v01(const void* a, const void* b, void* c, int m, int n, int k,
 int repro_gemm_v02(const void* a, const void* b, void* c, int m, int n, int k,
                    int dtype, void* stream) {
   return dispatch(2, a, b, c, m, n, k, dtype, stream);
-}
-
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

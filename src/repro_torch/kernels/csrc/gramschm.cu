@@ -25,6 +25,8 @@
 
 #include <cstddef>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -90,10 +92,6 @@ int repro_gramschm_k3_opt(const void* qt, const void* a, void* r, int ni,
       static_cast<const float*>(qt), static_cast<const float*>(a),
       static_cast<float*>(r), ni, nj, k);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -22,6 +22,8 @@
 
 #include <cstddef>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;  // one block per 1024 cells (the Pallas block)
@@ -142,9 +144,5 @@ int repro_hist_opt2(const void* cells, void* cell_count, int n, int n_bins,
 }
 
 int repro_hist_opt2_max_blocks() { return kOpt2MaxBlocks; }
-
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 }  // extern "C"

@@ -21,6 +21,8 @@
 
 #include <cstddef>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps, 8 rows per block
@@ -61,10 +63,6 @@ int repro_spmv_ell(const void* vals, const void* xg, void* y, int r, int k,
       static_cast<const float*>(vals), static_cast<const float*>(xg),
       static_cast<float*>(y), r, k);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

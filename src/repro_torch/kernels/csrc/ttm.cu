@@ -26,6 +26,8 @@
 
 #include <cstddef>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;
@@ -113,10 +115,6 @@ int repro_ttm_fused(const void* vals, const void* urows, void* y, int f,
       static_cast<const float*>(vals), static_cast<const float*>(urows),
       static_cast<float*>(y), f, nf, r);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

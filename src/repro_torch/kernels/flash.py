@@ -1,0 +1,209 @@
+"""Flash attention — the model path's attention kernel, hand-written for Hopper.
+
+``csrc/flash.cu`` computes ``O = softmax(Q Kᵀ / sqrt(D)) V`` for q
+(BH, Sq, D) and k, v (BH, Skv, D), with KV heads already broadcast to the
+query heads: one block of 8 warps per 64-query tile walks the KV tiles of
+``bkv`` rows (32, 64 or 128) with the online softmax, float32 sums and the
+output in q's type.  The causal mask is aligned top-left, as the Pallas
+kernel's (``repro/kernels/flash.py``): query row i sees keys j <= i.  (The
+JAX package's oracle ``flash_ref`` aligns it bottom-right, ``j <= i + Skv -
+Sq``; the two agree only when Sq = Skv.  The port's plain version follows
+the kernel.)
+
+The wrapper ``flash_attention(q, k, v, causal=True, bkv=64)`` checks its
+operands, launches on the current stream and counts its launches in
+``flash_attention.launches``.  Given CPU tensors it computes the plain
+version (``flash_plain``) instead; given CUDA tensors it launches the
+kernel or raises.
+
+``flash_spec`` describes what each warp of the CUDA kernel reads and
+writes under the H100 sector geometry.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core.collector import KernelSpec, OperandSpec
+
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: KV tile widths the kernel is built for.
+BKV_CHOICES = (32, 64, 128)
+#: Query rows per block, and warps per block (each stages 8 query rows).
+BQ = 64
+WARPS = 8
+MAX_D = 128
+#: The Pallas kernel's masked score (``-inf`` would give NaN rows).
+NEG_INF = -1e30
+_GRID_Y_MAX = 65535
+
+
+def _check_operands(q, k, v, bkv: int) -> None:
+    """Raise on anything the kernel does not take."""
+    if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
+        raise TypeError("flash operands q, k, v must be torch tensors")
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(
+            f"flash needs q (BH, Sq, D) and k, v (BH, Skv, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(
+            f"k and v must be (BH, Skv, D) for q {tuple(q.shape)}, got "
+            f"{tuple(k.shape)} and {tuple(v.shape)}"
+        )
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(
+            f"flash takes float32 or bfloat16 operands of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if not (q.device == k.device == v.device) or q.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"operands must share one cpu or cuda device, got {q.device}, "
+            f"{k.device}, {v.device}"
+        )
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash operands must be contiguous (row-major)")
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    if min(bh, sq, skv, d) < 1 or d > MAX_D or bh > _GRID_Y_MAX:
+        raise ValueError(
+            f"unsupported flash shape bh={bh} sq={sq} skv={skv} d={d} "
+            f"(d <= {MAX_D}, bh <= {_GRID_Y_MAX})"
+        )
+    if bkv not in BKV_CHOICES:
+        raise ValueError(f"bkv must be one of {BKV_CHOICES}, got {bkv}")
+
+
+def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool = True, bkv: int = 64) -> torch.Tensor:
+    """The plain PyTorch version: float32 scores and softmax, the
+    probabilities rounded to v's type before the product with V (as the
+    Pallas kernel does), the output in q's type; causal mask top-left.
+    ``bkv`` is the kernel's tile width, taken so that both share one set
+    of arguments; the whole-row softmax has no tiles."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        sq, skv = s.shape[-2:]
+        keep = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def tolerance(want: torch.Tensor, q: torch.Tensor, *_) -> torch.Tensor:
+    """The largest |kernel - plain| accepted at each element of ``want``,
+    the plain version's output for ``q``: a share of the largest |O| in the
+    element's row.  Rows of a causal output shrink as they see more keys
+    (|O| ~ sqrt(e / (i + 1)) on N(0, 1) inputs), so a bound from the whole
+    output's largest value would pass wrong late rows.  float32: the two
+    sum in other orders, which leaves a late row of a 4096-key causal
+    output ~6e-6 of its largest |O| apart; bfloat16: one rounding of the
+    output and of each probability, at most 2^-8 of the row each.
+    """
+    share = 2e-5 if q.dtype == torch.float32 else 2e-2
+    return share * want.float().abs().amax(-1, keepdim=True)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, bkv: int = 64) -> torch.Tensor:
+    """O = softmax(Q Kᵀ / sqrt(D)) V with the CUDA kernel (``csrc/flash.cu``)."""
+    _check_operands(q, k, v, bkv)
+    if q.device.type == "cpu":
+        return flash_plain(q, k, v, causal)
+    bh, sq, d = q.shape
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _build.call(
+            "flash", "repro_flash", _ARGTYPES,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            bh, sq, k.shape[1], d, bkv, int(bool(causal)), _DTYPES[q.dtype],
+            stream,
+        )
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0
+
+KERNELS = {"flash": flash_attention}
+
+
+# ---------------------------------------------------------------------------
+# profiler spec: what each warp of the CUDA kernel touches
+# ---------------------------------------------------------------------------
+
+
+def n_kv_tiles(qt: int, sq: int, skv: int, bkv: int, causal: bool) -> int:
+    """KV tiles the block of query tile ``qt`` walks (causal stops at the
+    last tile holding a key <= its last query row)."""
+    n = math.ceil(skv / bkv)
+    if causal:
+        last_q = min((qt + 1) * BQ, sq) - 1
+        n = min(n, last_q // bkv + 1)
+    return n
+
+
+def _row_elems(rows: np.ndarray, d: int) -> np.ndarray:
+    return (rows[:, None] * d + np.arange(d, dtype=np.int64)).reshape(-1)
+
+
+def flash_spec(
+    bh: int, sq: int, skv: int, d: int, bkv: int = 64, causal: bool = True,
+    dtype=np.float32,
+) -> KernelSpec:
+    """Warp footprints of ``flash_kernel`` (``csrc/flash.cu``).
+
+    Program ``(h, qt, w)`` is warp ``w`` (0..7) of the block of query tile
+    ``qt`` (64 rows) of head ``h``, over a grid ``(bh, ceil(sq/64), 8)``.
+    It stages query rows ``64qt + 8w .. +7`` (those below ``sq``), stages
+    rows ``w*bkv/8 .. (w+1)*bkv/8 - 1`` of every K and V tile its block
+    walks (below ``skv``; causal blocks stop at the diagonal), and stores
+    its 8 rows of O.  The footprints are exact index walks: a causal block
+    walks as many tiles as its diagonal allows, which no fixed block shape
+    describes.  Shared memory and registers are not modeled, as the
+    reference does not model the Pallas pipeline's VMEM buffers.
+    """
+    rows_kv = bkv // WARPS
+
+    def q_rows(pid) -> np.ndarray:
+        h, qt, w = pid
+        lo = qt * BQ + 8 * w
+        return h * sq + np.arange(lo, min(lo + 8, sq), dtype=np.int64)
+
+    def kv_rows(pid) -> np.ndarray:
+        h, qt, w = pid
+        starts = np.arange(n_kv_tiles(qt, sq, skv, bkv, causal), dtype=np.int64)
+        rows = (starts[:, None] * bkv + w * rows_kv + np.arange(rows_kv)).reshape(-1)
+        return h * skv + rows[rows < skv]
+
+    def q_walk(pid, **_):
+        return _row_elems(q_rows(pid), d)
+
+    def kv_walk(pid, **_):
+        return _row_elems(kv_rows(pid), d)
+
+    def spec_of(name, rows, kind="load"):
+        return OperandSpec(name, (bh, rows, d), dtype, (1, rows, d),
+                           lambda h, qt, w: (h, 0, 0), kind=kind)
+
+    return KernelSpec(
+        name="flash_attention",
+        grid=(bh, math.ceil(sq / BQ), WARPS),
+        operands=(
+            spec_of("Q", sq), spec_of("K", skv), spec_of("V", skv),
+            spec_of("O", sq, kind="store"),
+        ),
+        dynamic=(("Q", q_walk), ("K", kv_walk), ("V", kv_walk), ("O", q_walk)),
+    )

@@ -1,0 +1,213 @@
+"""Grouped matmul (the MoE expert FFN), hand-written for Hopper.
+
+Dropless MoE sorts tokens by expert and multiplies each contiguous group by
+its expert's weights.  As in the JAX package (``repro/kernels/gmm.py``),
+``plan_groups`` pads every group to a multiple of the m-tile ``bm`` and
+names the expert of each tile; ``csrc/gmm.cu`` then computes, for every
+``bm``-row tile ``i``, ``O[i] = X[i] · W[tile_expert_ids[i]]`` with float32
+accumulation and O in x's type.  Each block reads its own tile's id, where
+the Pallas kernel prefetches the ids as scalars for its W index map.
+
+The wrapper ``gmm(x, w, tile_expert_ids, bm=128)`` checks its operands,
+launches on the current stream and counts its launches in
+``gmm.launches``.  Given CPU tensors it computes the plain version
+(``gmm_plain``) instead; given CUDA tensors it launches the kernel or
+raises.  ``gmm_spec`` describes what each warp of the CUDA kernel touches
+under the H100 sector geometry.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.collector import KernelSpec, OperandSpec
+
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Rows of O per block (one expert's): 64 when bm allows, else 32.
+BLOCK_M = 32
+_GRID_Y_MAX = 65535
+
+
+def block_rows(bm: int) -> int:
+    """Rows of O per block of the kernel for expert tiles of ``bm`` rows:
+    64 (8 warps) when ``bm`` is a multiple of 64, else 32 (4 warps)."""
+    return 64 if bm % 64 == 0 else BLOCK_M
+
+
+def plan_groups(group_sizes: np.ndarray, bm: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Pad groups to bm multiples.
+
+    Returns (row_map, tile_expert_ids, padded_rows): ``row_map[padded_i]``
+    is the source row (or -1 for padding); ``tile_expert_ids[t]`` is the
+    expert owning m-tile t.
+    """
+    row_map = []
+    tile_ids = []
+    src = 0
+    for e, g in enumerate(group_sizes):
+        g = int(g)
+        rows = list(range(src, src + g))
+        pad = (-g) % bm
+        rows += [-1] * pad
+        row_map += rows
+        tile_ids += [e] * ((g + pad) // bm)
+        src += g
+    return np.asarray(row_map, np.int32), np.asarray(tile_ids, np.int32), len(row_map)
+
+
+def _check_operands(x, w, ids, bm: int) -> None:
+    """Raise on anything the kernel does not take."""
+    if not all(isinstance(t, torch.Tensor) for t in (x, w, ids)):
+        raise TypeError("gmm operands x, w, tile_expert_ids must be torch tensors")
+    if x.dim() != 2 or w.dim() != 3 or ids.dim() != 1:
+        raise ValueError(
+            f"gmm needs x (M, K), w (E, K, N) and tile_expert_ids (M/bm,), got "
+            f"{tuple(x.shape)}, {tuple(w.shape)}, {tuple(ids.shape)}"
+        )
+    if x.dtype != w.dtype or x.dtype not in _DTYPES:
+        raise TypeError(
+            f"gmm takes float32 or bfloat16 x and w of one dtype, got "
+            f"{x.dtype} and {w.dtype}"
+        )
+    if ids.dtype != torch.int32:
+        raise TypeError(f"tile_expert_ids must be int32, got {ids.dtype}")
+    if not (x.device == w.device == ids.device) or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"operands must share one cpu or cuda device, got {x.device}, "
+            f"{w.device}, {ids.device}"
+        )
+    if not (x.is_contiguous() and w.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("gmm operands must be contiguous (row-major)")
+    m, k = x.shape
+    e, kw, n = w.shape
+    if kw != k:
+        raise ValueError(f"inner dims differ: x is {tuple(x.shape)}, w is {tuple(w.shape)}")
+    if bm < BLOCK_M or bm % BLOCK_M:
+        raise ValueError(f"bm must be a positive multiple of {BLOCK_M}, got {bm}")
+    if m % bm:
+        raise ValueError(f"M = {m} is not a multiple of bm = {bm} (pad with plan_groups)")
+    if ids.shape[0] != m // bm:
+        raise ValueError(
+            f"tile_expert_ids has {ids.shape[0]} entries for {m // bm} tiles"
+        )
+    if min(m, k, n, e) < 1 or m // block_rows(bm) > _GRID_Y_MAX:
+        raise ValueError(f"unsupported gmm shape m={m} k={k} n={n} e={e}")
+
+
+def gmm_plain(x: torch.Tensor, w: torch.Tensor, tile_expert_ids: torch.Tensor,
+              bm: int = 128) -> torch.Tensor:
+    """The plain PyTorch version, one float32 product per run of tiles
+    with the same expert (never the gathered ``w[ids]``, which at Jamba's
+    widths would be tens of GB); O in x's type.  A tile whose id lies
+    outside [0, E) gets zeros, as in the kernel."""
+    n_exp = w.shape[0]
+    out = torch.zeros((x.shape[0], w.shape[-1]), dtype=x.dtype, device=x.device)
+    ids = tile_expert_ids.tolist()
+    i = 0
+    while i < len(ids):
+        j = i
+        while j < len(ids) and ids[j] == ids[i]:
+            j += 1
+        if 0 <= ids[i] < n_exp:
+            rows = slice(i * bm, j * bm)
+            out[rows] = torch.matmul(x[rows].float(), w[ids[i]].float()).to(x.dtype)
+        i = j
+    return out
+
+
+def tolerance(want: torch.Tensor, x: torch.Tensor, *_) -> float:
+    """The largest |kernel - plain| accepted on N(0, 1) inputs, for
+    ``want`` the plain version's output for ``x``: float32 sums of K
+    products in another order (1e-6 per term, as the GEMM's); bfloat16 one
+    rounding of the output, at most 2^-8 of max|O|.
+    """
+    if x.dtype == torch.float32:
+        return 1e-6 * x.shape[1]
+    return 1e-2 * float(want.float().abs().max())
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, tile_expert_ids: torch.Tensor,
+        bm: int = 128) -> torch.Tensor:
+    """O[tile i] = X[tile i] · W[tile_expert_ids[i]] with ``csrc/gmm.cu``."""
+    _check_operands(x, w, tile_expert_ids, bm)
+    if x.device.type == "cpu":
+        return gmm_plain(x, w, tile_expert_ids, bm)
+    m, k = x.shape
+    e, _, n = w.shape
+    o = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _build.call(
+            "gmm", "repro_gmm", _ARGTYPES,
+            x.data_ptr(), w.data_ptr(), tile_expert_ids.data_ptr(), o.data_ptr(),
+            m, k, n, e, bm, _DTYPES[x.dtype], stream,
+        )
+    gmm.launches += 1
+    return o
+
+
+gmm.launches = 0
+
+KERNELS = {"gmm": gmm}
+
+
+# ---------------------------------------------------------------------------
+# profiler spec: what each warp of the CUDA kernel touches
+# ---------------------------------------------------------------------------
+
+
+def gmm_spec(
+    m: int, k: int, n: int, e: int, tile_expert_ids: np.ndarray, bm: int = 128,
+    dtype=np.float32,
+) -> KernelSpec:
+    """Warp footprints of ``gmm_kernel`` (``csrc/gmm.cu``).
+
+    The kernel's blocks own ``BM`` rows (``block_rows(bm)``: 64 when ``bm``
+    is a multiple of 64, else 32) and 64 columns of O, with ``W = BM/8``
+    warps.  Program ``(by, bx, w)`` is warp ``w`` of the block at rows
+    ``BM*by``, columns ``64bx``, over a grid ``(m/BM, ceil(n/64), W)``.
+    Across the K loop it reads X rows ``BM*by + 8w .. +7`` in full (block
+    ``(8, k)``), columns ``64bx + (64/W)w .. +64/W-1`` of its expert's
+    weights in full (block ``(1, k, 64/W)`` at the expert of bm-tile
+    ``BM*by // bm``), and stores its 8 rows of the block's O tile (block
+    ``(8, 64)``).
+    """
+    ids = np.asarray(tile_expert_ids, dtype=np.int64)
+    if m % bm or bm % BLOCK_M or ids.shape != (m // bm,):
+        raise ValueError(
+            f"gmm_spec needs m % bm == 0, bm % {BLOCK_M} == 0 and one id per "
+            f"tile (m={m}, bm={bm}, {ids.shape[0]} ids)"
+        )
+    if ids.size and (ids.min() < 0 or ids.max() >= e):
+        raise ValueError(f"tile_expert_ids must lie in [0, {e})")
+    rows = block_rows(bm)
+    warps = rows // 8
+    wcols = 64 // warps
+    expert = ids[np.arange(m // rows) * rows // bm]
+    return KernelSpec(
+        name="gmm",
+        grid=(m // rows, math.ceil(n / 64), warps),
+        operands=(
+            OperandSpec(
+                "X", (m, k), dtype, (8, k), lambda by, bx, w: (warps * by + w, 0)
+            ),
+            OperandSpec(
+                "W", (e, k, n), dtype, (1, k, wcols),
+                lambda by, bx, w: (expert[by], 0, warps * bx + w),
+            ),
+            OperandSpec(
+                "O", (m, n), dtype, (8, 64),
+                lambda by, bx, w: (warps * by + w, bx), kind="store",
+            ),
+        ),
+    )

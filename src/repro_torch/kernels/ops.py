@@ -9,10 +9,13 @@ from __future__ import annotations
 
 import torch
 
+from . import flash as _flash
 from . import gemm as _gemm
+from . import gmm as _gmm
 from . import gramschm as _gs
 from . import histogram as _hist
 from . import spmv as _spmv
+from . import ssd as _ssd
 from . import ttm as _ttm
 
 
@@ -25,6 +28,27 @@ def matmul(a: torch.Tensor, b: torch.Tensor, variant: str = "v02") -> torch.Tens
             f"unknown gemm variant {variant!r}; have {sorted(_gemm.KERNELS)}"
         ) from None
     return kernel(a, b)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    bkv: int = 64,
+) -> torch.Tensor:
+    """Attention over (BH, S, D), KV heads broadcast to the query heads;
+    causal mask top-left, KV tiles of ``bkv`` rows."""
+    return _flash.flash_attention(q, k, v, causal=causal, bkv=bkv)
+
+
+def ssd_chunk(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor):
+    """(y_diag (BH, C, L, P), chunk_states (BH, C, P, N)) of the SSD chunks."""
+    return _ssd.ssd_chunk(x, a, bmat, cmat)
+
+
+def grouped_matmul(
+    x: torch.Tensor, w: torch.Tensor, tile_expert_ids: torch.Tensor, bm: int = 128
+) -> torch.Tensor:
+    """O[tile i] = X[tile i]·W[tile_expert_ids[i]] over bm-row tiles."""
+    return _gmm.gmm(x, w, tile_expert_ids, bm=bm)
 
 
 def spmv(vals: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:

@@ -6,17 +6,39 @@ come with their ports.  ``hist_ref`` drops ids outside ``[0, n_bins)``,
 as the Pallas histogram kernels and the port's kernels do; the JAX
 package's ``hist_ref`` (``.at[cells].add``) wraps a negative id round to
 the top bins instead.  ``spmv_csr_ref`` is the numpy CSR oracle.
+
+``flash_ref`` aligns the causal mask top-left (key j <= query i), as the
+Pallas flash kernel does; the JAX package's ``flash_ref`` aligns it
+bottom-right (j <= i + Skv - Sq), so the two agree only when Sq = Skv.
+``ssd_chunk_ref`` rounds as the Pallas SSD kernel does, which only
+matters in bfloat16.  ``gmm_ragged_ref`` is ``jax.lax.ragged_dot``: groups
+of contiguous rows, unpadded, each times its expert's weights.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .flash import flash_plain as flash_ref
 from .gemm import gemm_plain as gemm_ref
 from .gramschm import gramschm_k3_plain as gramschm_k3_ref
 from .histogram import hist_plain as hist_ref
 from .spmv import spmv_ell_plain as spmv_ref
+from .ssd import ssd_plain as ssd_chunk_ref
 from .ttm import ttm_plain as ttm_ref
+
+
+def gmm_ragged_ref(x: torch.Tensor, w: torch.Tensor, group_sizes) -> torch.Tensor:
+    """Rows of x in contiguous groups, group g times ``w[g]`` (float32
+    products, output in x's type); rows past the groups are zero."""
+    out = torch.zeros((x.shape[0], w.shape[-1]), dtype=x.dtype, device=x.device)
+    start = 0
+    for g, size in enumerate(int(s) for s in group_sizes):
+        rows = slice(start, start + size)
+        out[rows] = torch.matmul(x[rows].float(), w[g].float()).to(x.dtype)
+        start += size
+    return out
 
 
 def spmv_csr_ref(row_offsets, col_indices, values, x) -> np.ndarray:
@@ -34,5 +56,6 @@ def spmv_csr_ref(row_offsets, col_indices, values, x) -> np.ndarray:
 
 
 __all__ = [
-    "gemm_ref", "gramschm_k3_ref", "hist_ref", "spmv_csr_ref", "spmv_ref", "ttm_ref",
+    "flash_ref", "gemm_ref", "gmm_ragged_ref", "gramschm_k3_ref", "hist_ref",
+    "spmv_csr_ref", "spmv_ref", "ssd_chunk_ref", "ttm_ref",
 ]

@@ -301,7 +301,9 @@ def test_story_parity_diff(family, before, after, tx, verdict):
 
 
 def test_registry_semantics():
-    assert kreg.names() == ("gemm", "spmv", "histogram", "gramschm", "ttm", "cuszp")
+    assert kreg.names() == (
+        "gemm", "spmv", "histogram", "gramschm", "ttm", "cuszp", "flash", "gmm", "ssd",
+    )
     entry, variant = kreg.resolve("gramschm")
     assert variant.name == "naive" and variant.role == "baseline"
     assert [v.name for _, v in entry.ladder()] == ["opt"]

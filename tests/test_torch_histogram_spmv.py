@@ -493,7 +493,9 @@ def test_story_parity_diff(
 
 
 def test_registry_order_and_families():
-    assert kreg.names() == ("gemm", "spmv", "histogram", "gramschm", "ttm", "cuszp")
+    assert kreg.names() == (
+        "gemm", "spmv", "histogram", "gramschm", "ttm", "cuszp", "flash", "gmm", "ssd",
+    )
     assert [n for n in rk.names() if n in kreg.names()] == list(kreg.names())
     for name in ("spmv", "histogram"):
         got, want = kreg.get(name), rk.get(name)
