@@ -40,16 +40,31 @@ Phases:
    beside the plain version and the library yardstick
    (``F.scaled_dot_product_attention``; for gmm a dense ``torch.matmul``
    of the same FLOPs, not the same function; ssd has none).
-3. For each family (gemm, spmv, histogram, gramschm, ttm): set every
-   launch count to 0 and drive the port's main path in process, through
-   the CLI entry point: ``profile`` each rung into the family's session,
-   then ``diff`` the family's pairs of iterations and ``report`` the
-   last.  Each must exit 0, each diff must show the family's story (false
-   sharing on C, misalignment on rowOffsets_shift1, false sharing on
-   cell_count, strided on q, scratch abuse on Y_shr fixed), and every
-   kernel of the family must have been launched by that run (spmv is
-   spec-only: it has no kernel).  Then set the counts to 0 again and
-   drive ``ops.spmv``, the entry point of ``spmv_ell``, once.
+   Then the serving kernels, ragged and paged MQA decode attention, each
+   gated and dense (``dense=True``, the registry's baseline rung): at the
+   registry's shape in float32 and at Granite-20B's decode widths (64
+   sequences, 48 query heads over one KV head of 128, an 8192-token cache;
+   ragged bounds from ``ragged_context(64, 8192)``, pages of 64 in 128
+   slots over a pool of 8192) in float32 and bfloat16.  Each is held per
+   element to its module's ``tolerance()`` against the plain version and
+   against a float64 host oracle (the largest |err| / tolerance is
+   printed), and timed beside the plain version and the library yardstick
+   (``F.scaled_dot_product_attention`` on (B, 1, H, D) x (B, 1, S, D) with
+   a boolean mask; for paged, a page gather and that call: two calls).
+3. For each family (gemm, spmv, histogram, gramschm, ttm, ragged_flash,
+   paged_attn): set every launch count to 0 and drive the port's main
+   path in process, through the CLI entry point: ``profile`` each rung
+   into the family's session, then ``diff`` the family's pairs of
+   iterations and ``report`` the last.  Each must exit 0, each diff must
+   show the family's story (false sharing on C, misalignment on
+   rowOffsets_shift1, false sharing on cell_count, strided on q, scratch
+   abuse on Y_shr fixed; the serving families' dense -> gated drop in
+   transfers and their persisting classes), and every kernel of the
+   family must have been launched by that run (spmv is spec-only, and so
+   are the serving families' prefill rungs).  Then set the counts to 0
+   again and drive ``ops.spmv``, the entry point of ``spmv_ell``, once;
+   and the same for Granite-20B's decode step in bfloat16 through
+   ``ops.ragged_decode_attention`` and ``ops.paged_decode_attention``.
    Then the model path, each run with the counts set to 0 just before it
    and read just after: ``model`` on the three registry models (each
    must launch its kernels: flash and gemm_v01; flash, gmm and gemm_v01;
@@ -102,6 +117,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash.py:28",
     "gmm": "src/repro/kernels/gmm.py:49",
     "ssd_chunk": "src/repro/kernels/ssd.py:31",
+    "ragged_decode_attention": "src/repro/kernels/ragged_flash.py:42",
+    "paged_decode_attention": "src/repro/kernels/paged_attn.py:40",
 }
 SOURCE = "src/repro_torch/kernels/csrc/gemm.cu"
 
@@ -133,6 +150,13 @@ JAMBA_LAYERS = {
     "layer3": ["ssm", "moe"], "layer4": ["attn", "mlp"], "layer5": ["ssm", "moe"],
     "layer6": ["ssm", "mlp"], "layer7": ["ssm", "moe"], "head": ["unembed"],
 }
+# the serving kernels' timing shapes: Granite-20B's decode step
+# (src/repro_torch/configs/archs.py:granite_20b: 48 query heads, one KV head
+# of 128, an 8192-token context) at 64 sequences
+SERVING_TIMING_SHAPES = {
+    "ragged": (64, 48, 8192, 128),  # (b, h, s, d)
+    "paged": (64, 48, 128, 64, 8192, 128),  # (b, h, d, page, pages, slots)
+}
 SPMV_COLS = 36417  # the registry's column count
 SPMV_WIDTH = 16  # ELL width at the registry's 65,536 rows
 
@@ -149,6 +173,17 @@ STORIES = {
     },
     "gramschm": {(0, 1): ["[fixed] strided on q"]},
     "ttm": {(0, 1): ["[fixed] scratch-abuse on Y_shr"]},
+    # dense -> gated: the same classes, far fewer transfers (ROADMAP queue 3)
+    "ragged_flash": {
+        (0, 1): ["[ improved] ragged_flash: transfers 66624 -> 11936",
+                 "[persisting] hot-random on starts"],
+        (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696"],
+    },
+    "paged_attn": {
+        (0, 1): ["[ improved] paged_attn: transfers 66624 -> 21504",
+                 "[persisting] hot on block_tables"],
+        (2, 3): ["[ improved] paged_attn: transfers 360960 -> 208960"],
+    },
 }
 
 
@@ -581,6 +616,204 @@ def check_model_kernels(kreg, dev):
     return rows
 
 
+def serving_case(kind: str, shape, dtype, dev, dense: bool):
+    """One serving kernel's case on inputs from a seeded generator on the
+    card and the registry's seeded context: the wrapper and its arguments,
+    the plain and library calls, the live K and V rows of each sequence
+    (for the float64 host oracle), and the bytes and operations of the
+    work (the live rows only: the function is the same in dense mode)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attn, ragged_flash
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    size = torch.tensor([], dtype=dtype).element_size()
+
+    def randn(*shp):
+        return torch.randn(shp, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    def card(a):
+        return torch.from_numpy(a).to(dev)
+
+    if kind == "ragged":
+        b, h, s, d = shape
+        ctx = ragged_flash.ragged_context(b, s)
+        q, k, v = randn(b, h, d), randn(b, s, d), randn(b, s, d)
+        starts, ends = card(ctx["starts"]), card(ctx["ends"])
+        args = (q, k, v, starts, ends)
+        kwargs = {"bkv": ragged_flash.DEF_BKV, "dense": dense}
+        lo = np.clip(ctx["starts"], 0, s)
+        hi = np.clip(ctx["ends"], 0, s)
+        pos = torch.arange(s, device=dev)
+        mask = ((pos >= starts[:, None].long()) & (pos < ends[:, None].long()))[:, None, None, :]
+
+        def live_rows(bi):
+            return k[bi, lo[bi]:hi[bi]], v[bi, lo[bi]:hi[bi]]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q[:, None], k[:, None], v[:, None], attn_mask=mask)[:, 0]
+
+        live = hi - lo
+        return dict(
+            name="ragged_decode_attention", fn=ragged_flash.ragged_decode_attention,
+            args=args, kwargs=kwargs,
+            plain=lambda: ragged_flash.ragged_decode_plain(*args, **kwargs),
+            library=library,
+            library_label="F.scaled_dot_product_attention, (B, 1, H, D) x (B, 1, S, D), boolean mask",
+            live_rows=live_rows, tol=lambda want: ragged_flash.tolerance(want, q),
+            bytes=size * (2 * b * h * d + 2 * int(live.sum()) * d) + 4 * 2 * b,
+            ops=4 * h * d * int(live.sum()),
+            source="src/repro_torch/kernels/csrc/ragged_decode.cu",
+        )
+    b, h, d, page, pages, slots = shape
+    ctx = paged_attn.paged_context(b, pages, slots, page)
+    q = randn(b, h, d)
+    lens = card(ctx["context_lens"])
+    if dense:  # the contiguous per-row cache under the identity table
+        k_pages, tables = paged_attn.contiguous_pages(randn(b, slots * page, d), page)
+        v_pages, _ = paged_attn.contiguous_pages(randn(b, slots * page, d), page)
+    else:
+        k_pages, v_pages = randn(1, pages, page, d), randn(1, pages, page, d)
+        tables = card(ctx["block_tables"])
+    args = (q, k_pages, v_pages, tables, lens)
+    ctx_np = np.clip(ctx["context_lens"], 0, slots * page)
+    pos = torch.arange(slots * page, device=dev)
+    mask = (pos < lens[:, None].long())[:, None, None, :]
+
+    def live_rows(bi):
+        rows = tables[bi].long()
+        return (k_pages[0][rows].reshape(-1, d)[:ctx_np[bi]],
+                v_pages[0][rows].reshape(-1, d)[:ctx_np[bi]])
+
+    def library():
+        kg = k_pages[0][tables.long()].reshape(b, 1, slots * page, d)
+        vg = v_pages[0][tables.long()].reshape(b, 1, slots * page, d)
+        return F.scaled_dot_product_attention(q[:, None], kg, vg, attn_mask=mask)[:, 0]
+
+    walked = int(sum(-(-int(c) // page) for c in ctx_np))
+    return dict(
+        name="paged_decode_attention", fn=paged_attn.paged_decode_attention,
+        args=args, kwargs={"dense": dense},
+        plain=lambda: paged_attn.paged_decode_plain(*args, dense=dense),
+        library=library,
+        library_label="page gather + F.scaled_dot_product_attention (two calls)",
+        live_rows=live_rows, tol=lambda want: paged_attn.tolerance(want, q),
+        bytes=size * (2 * b * h * d + 2 * int(ctx_np.sum()) * d) + 4 * (b + walked),
+        ops=4 * h * d * int(ctx_np.sum()),
+        source="src/repro_torch/kernels/csrc/paged_decode.cu",
+    )
+
+
+def decode_float64(q, rows):
+    """MQA decode attention of q (H, D) over live rows (K, V) on the host in
+    float64; no live row gives 0."""
+    import numpy as np
+
+    k, v = (np.asarray(t.double().cpu().numpy()) for t in rows)
+    q = np.asarray(q.double().cpu().numpy())
+    if k.shape[0] == 0:
+        return np.zeros_like(q)
+    s = q @ k.T / np.sqrt(q.shape[-1])
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return (p / p.sum(-1, keepdims=True)) @ v
+
+
+def check_serving_kernels(kreg, dev):
+    """Phase 2 for the serving kernels: {kernel name: record}, or a failure
+    message.  The top level of a record is the registry's shape in float32,
+    gated; ``dense`` the same in dense mode; ``large``, ``large_dense``,
+    ``large_bf16`` and ``large_bf16_dense`` Granite-20B's decode widths."""
+    import numpy as np
+    import torch
+
+    registry_shapes = {"ragged": kreg.RAGGED_SHAPE, "paged": kreg.PAGED_SHAPE}
+    rows = {}
+    for kind, large in SERVING_TIMING_SHAPES.items():
+        for which, shape, dtype in (("registry", registry_shapes[kind], torch.float32),
+                                    ("large", large, torch.float32),
+                                    ("large_bf16", large, torch.bfloat16)):
+            for dense in (False, True):
+                case = serving_case(kind, shape, dtype, dev, dense)
+                name, fn = case["name"], case["fn"]
+                dname = str(dtype).replace("torch.", "")
+                want = case["plain"]()
+                library = case["library"]()
+                torch.cuda.synchronize()
+                tol = case["tol"](want)
+                before = fn.launches
+                got = fn(*case["args"], **case["kwargs"])
+                torch.cuda.synchronize()
+                if fn.launches != before + 1:
+                    return f"{name} {shape}: the call did not launch the kernel"
+                if got.shape != want.shape or got.dtype != dtype or not bool(torch.isfinite(got.float()).all()):
+                    return f"{name} {shape}: output {tuple(got.shape)} {got.dtype} is not finite of {tuple(want.shape)}"
+                diff = (got.float() - want.float()).abs()
+                over = float((diff / tol).max())
+                q = case["args"][0]
+                exact = np.stack([decode_float64(q[bi], case["live_rows"](bi)) for bi in range(q.shape[0])])
+                tol_np = tol.double().cpu().numpy()
+                over64 = float((np.abs(got.double().cpu().numpy() - exact) / tol_np).max())
+                lib_over = float(((library.float() - want.float()).abs() / tol).max())
+                bms, bby = bound_of(case["bytes"], case["ops"], dname)
+                rec = dict(
+                    shape=list(shape), dtype=dname, dense=dense, max_abs_err=float(diff.max()),
+                    max_err_over_tol=over, max_err_over_tol_vs_float64=over64,
+                    ms=kreg.cuda_time_ms(lambda: fn(*case["args"], **case["kwargs"]), ITERS),
+                    plain_ms=kreg.cuda_time_ms(case["plain"], ITERS), bound_ms=bms, bound_by=bby,
+                    library_ms=kreg.cuda_time_ms(case["library"], ITERS),
+                    library=case["library_label"], library_err_over_tol=lib_over,
+                )
+                mode = "dense" if dense else "gated"
+                print(
+                    f"{name} {which} {mode} {shape} {dname}: max|err| {rec['max_abs_err']:.3e}, "
+                    f"err/tol {over:.3f}, vs float64 err/tol {over64:.3f}, median "
+                    f"{rec['ms']:.4f} ms over {ITERS}, plain {rec['plain_ms']:.4f} ms, library "
+                    f"{rec['library_ms']:.4f} ms ({case['library_label']}, err/tol "
+                    f"{lib_over:.3f}), bound {bms:.4f} ms ({bby}), {bms / rec['ms']:.1%} of bound"
+                )
+                if not (over <= 1 and over64 <= 1):
+                    return f"{name} {which} {mode} {dname}: err/tol {over}, vs float64 {over64} > 1"
+                key = which + ("_dense" if dense else "")
+                if key == "registry":
+                    rows[name] = dict(source=case["source"], **rec)
+                else:
+                    rows[name]["dense" if key == "registry_dense" else key] = rec
+                del case, want, library, got, diff, tol
+                torch.cuda.empty_cache()
+    return rows
+
+
+def drive_serving_step(dev):
+    """Phase 3 for the serving kernels at full width: Granite-20B's decode
+    step in bfloat16 through the public entry points, with the counts set
+    to 0 just before.  {kernel name: launches}, or a failure message."""
+    import torch
+
+    from repro_torch import kernels as kreg
+    from repro_torch.kernels import ops
+
+    cases = [serving_case(kind, shape, torch.bfloat16, dev, dense=False)
+             for kind, shape in SERVING_TIMING_SHAPES.items()]
+    entry = {"ragged_decode_attention": ops.ragged_decode_attention,
+             "paged_decode_attention": ops.paged_decode_attention}
+    kreg.reset_launch_counts()
+    outs = [entry[c["name"]](*c["args"]) for c in cases]
+    torch.cuda.synchronize()
+    counts = {c["name"]: c["fn"].launches for c in cases}
+    print(f"main-path launches (Granite-20B decode step): {counts}")
+    for c, out in zip(cases, outs):
+        want = c["plain"]()
+        over = float(((out.float() - want.float()).abs() / c["tol"](want)).max())
+        print(f"{c['name']} through ops at {tuple(out.shape)}: finite "
+              f"{bool(torch.isfinite(out.float()).all())}, err/tol {over:.3f}")
+        if counts[c["name"]] < 1 or not bool(torch.isfinite(out.float()).all()) or over > 1:
+            return f"{c['name']}: the decode step did not launch it or is off (err/tol {over})"
+    return counts
+
+
 def drive_model_path(cli, kreg, load_iteration):
     """Phase 3 for the model path: {kernel name: launches of the full-width
     run}, or a failure message."""
@@ -690,7 +923,9 @@ def main() -> int:
     from repro_torch import cli
     from repro_torch import kernels as kreg
     from repro_torch.core.session import load_iteration
-    from repro_torch.kernels import _build, gemm, gramschm, histogram, ops, ref, spmv, ttm
+    from repro_torch.kernels import (
+        _build, gemm, gramschm, histogram, ops, paged_attn, ragged_flash, ref, spmv, ttm,
+    )
 
     # -- phase 1: the card, and the build ----------------------------------
     smi = subprocess.run(
@@ -773,6 +1008,9 @@ def main() -> int:
     model_rows = check_model_kernels(kreg, dev)
     if isinstance(model_rows, str):
         return fail(model_rows)
+    serving_rows = check_serving_kernels(kreg, dev)
+    if isinstance(serving_rows, str):
+        return fail(serving_rows)
 
     # -- phase 3: the main path, profile -> diff -> report --------------------
     # family -> [(registry ref, kernel name or None, counting wrapper or None)]
@@ -788,6 +1026,13 @@ def main() -> int:
         ],
         "ttm": [(f"ttm:{v}", f"ttm_{v}", fn) for v, fn in ttm.KERNELS.items()],
     }
+    # the serving families: the decode rungs launch, the prefill rungs are spec only
+    for family, fn in (("ragged_flash", ragged_flash.ragged_decode_attention),
+                       ("paged_attn", paged_attn.paged_decode_attention)):
+        families[family] = [
+            (f"{family}:{v}", fn.__name__, fn) if v.startswith("decode") else (f"{family}:{v}", None, None)
+            for v in kreg.get(family).variant_names()
+        ]
     launches = {}
     for family, members in families.items():
         sess = ROOT / "build" / "chip_smoke_session" / family
@@ -843,6 +1088,10 @@ def main() -> int:
     if not (err <= tol and err_exact <= tol):
         return fail(f"ops.spmv: max|err| {err}, vs float64 {err_exact} > {tol}")
 
+    step_launches = drive_serving_step(dev)
+    if isinstance(step_launches, str):
+        return fail(step_launches)
+
     model_launches = drive_model_path(cli, kreg, load_iteration)
     if isinstance(model_launches, str):
         return fail(model_launches)
@@ -871,6 +1120,15 @@ def main() -> int:
             dict(
                 name=name, route="cuda", replaces=REPLACES[name],
                 launches=model_launches[name], **row,
+            )
+        )
+    # the serving kernels: launches of their families' profile -> diff ->
+    # report run, and of the Granite-20B decode step
+    for name, row in serving_rows.items():
+        kernels.append(
+            dict(
+                name=name, route="cuda", replaces=REPLACES[name],
+                launches=launches[name], decode_step_launches=step_launches[name], **row,
             )
         )
     print(f"card: {smi}")

@@ -25,7 +25,10 @@ import torch
 from repro_torch.core.collector import KernelSpec
 from repro_torch.core.trace import GridSampler
 
-from . import flash, gemm, gmm, gramschm, histogram, ops, ref, spmv, ssd, ttm
+from . import (
+    flash, gemm, gmm, gramschm, histogram, ops, paged_attn, ragged_flash,
+    ref, spmv, ssd, ttm,
+)
 
 #: Inputs of one launch: ``(device, generator) -> positional tensors``.
 InputMaker = Callable[[torch.device, torch.Generator], Tuple[torch.Tensor, ...]]
@@ -274,6 +277,81 @@ def ssd_inputs(bh: int, c: int, l: int, p: int, n: int):
     return make
 
 
+RAGGED_SHAPE = (
+    ragged_flash.DEF_B, ragged_flash.DEF_H, ragged_flash.DEF_S, ragged_flash.DEF_D,
+)  # (b, h, s, d)
+RAGGED_BKV = ragged_flash.DEF_BKV
+PAGED_SHAPE = (
+    paged_attn.DEF_B, paged_attn.DEF_H, paged_attn.DEF_D, paged_attn.DEF_PAGE,
+    paged_attn.DEF_PAGES, paged_attn.DEF_SLOTS,
+)  # (b, h, d, page, pages, slots)
+
+
+def _ragged_inputs(device: torch.device, gen: torch.Generator):
+    # the launched bounds are the profiled bounds: the heat map walks them
+    b, h, s, d = RAGGED_SHAPE
+    ctx = ragged_flash.ragged_context(b, s)
+    q, k, v = (
+        torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        for shape in ((b, h, d), (b, s, d), (b, s, d))
+    )
+    return q, k, v, *(torch.from_numpy(ctx[n]).to(device) for n in ("starts", "ends"))
+
+
+def _paged_inputs(dense: bool) -> InputMaker:
+    """The paged rung's pool and tables from the context; the dense rung's
+    contiguous per-row cache under the identity table, with the context's
+    lengths."""
+
+    def make(device: torch.device, gen: torch.Generator):
+        b, h, d, page, pages, slots = PAGED_SHAPE
+        ctx = paged_attn.paged_context(b, pages, slots, page)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+        q = randn(b, h, d)
+        lens = torch.from_numpy(ctx["context_lens"]).to(device)
+        if dense:
+            k_pages, tables = paged_attn.contiguous_pages(randn(b, slots * page, d), page)
+            v_pages, _ = paged_attn.contiguous_pages(randn(b, slots * page, d), page)
+        else:
+            k_pages, v_pages = randn(1, pages, page, d), randn(1, pages, page, d)
+            tables = torch.from_numpy(ctx["block_tables"]).to(device)
+        return q, k_pages, v_pages, tables, lens
+
+    return make
+
+
+def _ragged_variant(name: str, role: str, note: str, build, dense=None) -> KernelVariant:
+    kernel = {}
+    if dense is not None:
+        dense_kw = (("dense", True),) if dense else ()
+        kernel = dict(
+            kernel=ragged_flash.ragged_decode_attention,
+            plain=ragged_flash.ragged_decode_plain,
+            inputs=_ragged_inputs,
+            atol=ragged_flash.tolerance,
+            kwargs=(("bkv", RAGGED_BKV), *dense_kw),
+        )
+    return KernelVariant(name, build, context=ragged_flash.ragged_context, role=role,
+                         note=note, **kernel)
+
+
+def _paged_variant(name: str, role: str, note: str, build, dense=None) -> KernelVariant:
+    kernel = {}
+    if dense is not None:
+        kernel = dict(
+            kernel=paged_attn.paged_decode_attention,
+            plain=paged_attn.paged_decode_plain,
+            inputs=_paged_inputs(dense),
+            atol=paged_attn.tolerance,
+            kwargs=(("dense", True),) if dense else (),
+        )
+    return KernelVariant(name, build, context=paged_attn.paged_context, role=role,
+                         note=note, **kernel)
+
+
 REGISTRY: Dict[str, RegistryEntry] = {
     e.name: e
     for e in (
@@ -435,6 +513,60 @@ REGISTRY: Dict[str, RegistryEntry] = {
             ),
             sampler=_full,
         ),
+        RegistryEntry(
+            name="ragged_flash",
+            summary="serving ragged flash attention: dense decode/prefill "
+            "sweeps vs the EasyDeL-style block-skip over [starts, ends)",
+            variants=(
+                _ragged_variant(
+                    "decode", "baseline",
+                    "dense decode sweep: every KV block, every row",
+                    ragged_flash.ragged_decode_spec, dense=True,
+                ),
+                _ragged_variant(
+                    "decode-ragged", "optimized",
+                    "scalar-prefetched bounds skip dead KV blocks",
+                    ragged_flash.ragged_decode_ragged_spec, dense=False,
+                ),
+                _ragged_variant(
+                    "prefill", "baseline", "dense causal prefill sweep",
+                    ragged_flash.ragged_prefill_spec,
+                ),
+                _ragged_variant(
+                    "prefill-ragged", "optimized",
+                    "causal + ragged clamp on the KV walk",
+                    ragged_flash.ragged_prefill_ragged_spec,
+                ),
+            ),
+            sampler=_full,
+        ),
+        RegistryEntry(
+            name="paged_attn",
+            summary="serving paged KV-cache attention: contiguous cache "
+            "sweep vs the vLLM-style block-table page gather",
+            variants=(
+                _paged_variant(
+                    "decode", "baseline",
+                    "contiguous per-row cache, dense slot sweep",
+                    paged_attn.paged_decode_spec, dense=True,
+                ),
+                _paged_variant(
+                    "decode-paged", "optimized",
+                    "block-table gather, clamped to context_lens",
+                    paged_attn.paged_decode_paged_spec, dense=False,
+                ),
+                _paged_variant(
+                    "prefill", "baseline",
+                    "dense causal sweep over the contiguous cache",
+                    paged_attn.paged_prefill_spec,
+                ),
+                _paged_variant(
+                    "prefill-paged", "optimized", "page gather + causal clamp",
+                    paged_attn.paged_prefill_paged_spec,
+                ),
+            ),
+            sampler=_full,
+        ),
     )
 }
 
@@ -483,7 +615,8 @@ def reset_launch_counts() -> None:
     """Set the launch count of every kernel wrapper to 0: the registry's
     (the model families launch the same wrappers), and ``spmv_ell``, which
     only ``ops.spmv`` reaches."""
-    for module in (gemm, spmv, histogram, gramschm, ttm, flash, gmm, ssd):
+    for module in (gemm, spmv, histogram, gramschm, ttm, flash, gmm, ssd,
+                   ragged_flash, paged_attn):
         for fn in module.KERNELS.values():
             fn.launches = 0
 
@@ -598,6 +731,11 @@ __all__ = [
     "histogram",
     "names",
     "ops",
+    "PAGED_SHAPE",
+    "paged_attn",
+    "RAGGED_BKV",
+    "RAGGED_SHAPE",
+    "ragged_flash",
     "ref",
     "reset_launch_counts",
     "resolve",

@@ -14,6 +14,8 @@ from . import gemm as _gemm
 from . import gmm as _gmm
 from . import gramschm as _gs
 from . import histogram as _hist
+from . import paged_attn as _paged
+from . import ragged_flash as _ragged
 from . import spmv as _spmv
 from . import ssd as _ssd
 from . import ttm as _ttm
@@ -37,6 +39,27 @@ def flash_attention(
     """Attention over (BH, S, D), KV heads broadcast to the query heads;
     causal mask top-left, KV tiles of ``bkv`` rows."""
     return _flash.flash_attention(q, k, v, causal=causal, bkv=bkv)
+
+
+def ragged_decode_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, starts: torch.Tensor,
+    ends: torch.Tensor, bkv: int = 128, dense: bool = False,
+) -> torch.Tensor:
+    """MQA decode attention of q (B, H, D) over k, v (B, S, D), sequence b
+    live on [starts[b], ends[b]); ``dense`` reads every KV tile."""
+    return _ragged.ragged_decode_attention(q, k, v, starts, ends, bkv=bkv, dense=dense)
+
+
+def paged_decode_attention(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_tables: torch.Tensor, context_lens: torch.Tensor, dense: bool = False,
+) -> torch.Tensor:
+    """MQA decode attention of q (B, H, D) over the pages (1, P, page, D)
+    that ``block_tables`` names, masked to ``context_lens``; ``dense`` reads
+    every slot."""
+    return _paged.paged_decode_attention(
+        q, k_pages, v_pages, block_tables, context_lens, dense=dense
+    )
 
 
 def ssd_chunk(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor):

@@ -1,0 +1,326 @@
+"""Ragged MQA decode attention — the serving kernel, hand-written for Hopper.
+
+A decode batch packs sequences of very different lengths: sequence ``b``
+attends only to KV positions in ``[starts[b], ends[b])``.  Q is ``(B, H,
+D)``, one query per sequence, and K, V are ``(B, S, D)``: one KV head shared
+by all H query heads (MQA).  ``csrc/ragged_decode.cu`` runs one block of 8
+warps per sequence; it stages each live K/V row in shared memory once for
+all H heads, and never reads a tile wholly outside the range (the Pallas
+kernel's ``pl.when`` gate in ``repro/kernels/ragged_flash.py``).  With
+``dense=True`` the gate is off: every tile is read and masked, which gives
+the same output and is the registry's baseline rung.
+
+The wrapper ``ragged_decode_attention(q, k, v, starts, ends, bkv=128,
+dense=False)`` checks its operands, launches on the current stream and
+counts its launches in ``ragged_decode_attention.launches``.  Given CPU
+tensors it computes the plain version (``ragged_decode_plain``) instead;
+given CUDA tensors it launches the kernel or raises.  Bounds are clamped
+to ``[0, S)``.
+
+A fact of the reference: for a sequence with ``starts[b] == ends[b]`` the
+Pallas kernel returns the mean of V over the one tile its gate still
+admits (all its scores are NEG_INF, so each weighs ``exp(0) = 1``), which
+depends on the tile width, and ``ragged_decode_reference`` the mean of V
+over all S.  The port returns 0 there, in kernel, plain version and
+oracle alike, as the Pallas paged kernel does for an empty context.
+
+The spec builders describe what each warp of the CUDA kernel reads and
+writes under the H100 sector geometry; the prefill specs have no kernel
+in either package and describe ``csrc/flash.cu``'s walk of a causal
+prefill, without and with the ragged gate.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.collector import KernelSpec, OperandSpec
+
+from . import _build
+from .flash import _row_elems, flash_spec
+
+NEG_INF = -1e30
+
+# registry default shapes (CI-sized; see ragged_context for the bounds)
+DEF_B, DEF_H, DEF_S, DEF_D, DEF_BKV = 4, 8, 512, 128, 128
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: KV tile widths the kernel is built for.
+BKV_CHOICES = (32, 64, 128)
+#: Warps per block; warp w owns query heads w, w + 8, ... (at most 8 each).
+WARPS = 8
+MAX_H = 64
+MAX_D = 128
+_INT32_MAX = 2**31 - 1
+
+
+def ragged_context(b: int = DEF_B, s: int = DEF_S) -> Dict[str, np.ndarray]:
+    """Deterministic ragged bounds: starts near 0, ends well short of S
+    (the reference's draw, array for array)."""
+    rng = np.random.default_rng(0)
+    starts = rng.integers(0, s // 8, size=b).astype(np.int32)
+    ends = (starts + rng.integers(s // 8, s // 2, size=b)).astype(np.int32)
+    return {"starts": starts, "ends": np.minimum(ends, s).astype(np.int32)}
+
+
+def _check_bounds(name: str, t, b: int, device) -> None:
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or tuple(t.shape) != (b,):
+        raise TypeError(f"{name} must be an int32 tensor of shape ({b},)")
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous and on {device}, got {t.device}")
+
+
+def _check_operands(q, k, v, starts, ends, bkv: int) -> None:
+    """Raise on anything the kernel does not take."""
+    if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
+        raise TypeError("ragged decode operands q, k, v must be torch tensors")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(
+            f"ragged decode needs q (B, H, D) and k, v (B, S, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, h, d = q.shape
+    if k.shape[0] != b or k.shape[2] != d:
+        raise ValueError(f"k and v must be (B, S, D) for q {tuple(q.shape)}, got {tuple(k.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(
+            f"ragged decode takes float32 or bfloat16 operands of one dtype, "
+            f"got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if not (q.device == k.device == v.device) or q.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"operands must share one cpu or cuda device, got {q.device}, {k.device}, {v.device}"
+        )
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("ragged decode operands must be contiguous (row-major)")
+    _check_bounds("starts", starts, b, q.device)
+    _check_bounds("ends", ends, b, q.device)
+    s = k.shape[1]
+    if min(b, h, s, d) < 1 or h > MAX_H or d > MAX_D or k.numel() > _INT32_MAX:
+        raise ValueError(
+            f"unsupported ragged decode shape b={b} h={h} s={s} d={d} "
+            f"(h <= {MAX_H}, d <= {MAX_D})"
+        )
+    if bkv not in BKV_CHOICES:
+        raise ValueError(f"bkv must be one of {BKV_CHOICES}, got {bkv}")
+
+
+def ragged_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        starts: torch.Tensor, ends: torch.Tensor,
+                        bkv: int = DEF_BKV, dense: bool = False) -> torch.Tensor:
+    """The plain PyTorch version: the kernel's online softmax over tiles of
+    ``bkv`` positions, float32 scores and sums, masked keys at probability
+    0, the probabilities rounded to v's type before the product with V (as
+    the Pallas kernel does, which ties the bfloat16 answer to the tiling),
+    the output in q's type.  ``dense`` only says which tiles the kernel
+    reads; the answer is the same."""
+    b, h, d = q.shape
+    s = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    lo = starts.long().clamp(0, s)[:, None]
+    hi = ends.long().clamp(0, s)[:, None]
+    qf = q.float()
+    m = torch.full((b, h, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, h, 1), device=q.device)
+    acc = torch.zeros((b, h, d), device=q.device)
+    for k0 in range(0, s, bkv):
+        kt, vt = k[:, k0:k0 + bkv], v[:, k0:k0 + bkv]
+        pos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
+        live = ((pos >= lo) & (pos < hi))[:, None, :]
+        sc = torch.matmul(qf, kt.float().transpose(1, 2)) * scale
+        sc = sc.masked_fill(~live, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.where(live, torch.exp(sc - m_new), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vt.float())
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def ragged_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      starts: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """Oracle: one masked softmax over all S positions, in float32 (float64
+    for float64 inputs); a sequence with no live position gets 0."""
+    work = torch.promote_types(q.dtype, torch.float32)
+    s = k.shape[1]
+    pos = torch.arange(s, device=q.device)
+    live = (pos >= starts.long()[:, None]) & (pos < ends.long()[:, None])  # (B, S)
+    sc = torch.matmul(q.to(work), k.to(work).transpose(1, 2)) / math.sqrt(q.shape[-1])
+    p = torch.softmax(sc.masked_fill(~live[:, None, :], NEG_INF), dim=-1)
+    p = p * live.any(-1)[:, None, None]
+    return torch.matmul(p, v.to(work)).to(q.dtype)
+
+
+def tolerance(want: torch.Tensor, q: torch.Tensor, *_) -> torch.Tensor:
+    """The largest |kernel - plain| accepted at each element of ``want``,
+    the plain version's output for ``q``: a share of the largest |O| in the
+    element's (sequence, head) row.  float32: the two sum the D-long dot
+    products and the probabilities in other orders, a few ulps of the row;
+    bfloat16: one rounding of the output and of each probability, at most
+    2^-8 of the row each.  An empty row is 0 in both, exactly."""
+    share = 2e-5 if q.dtype == torch.float32 else 2e-2
+    return share * want.float().abs().amax(-1, keepdim=True)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            starts: torch.Tensor, ends: torch.Tensor,
+                            bkv: int = DEF_BKV, dense: bool = False) -> torch.Tensor:
+    """O[b] = softmax(q[b] K[b]ᵀ / sqrt(D)) V[b] over [starts[b], ends[b])
+    with the CUDA kernel (``csrc/ragged_decode.cu``)."""
+    _check_operands(q, k, v, starts, ends, bkv)
+    if q.device.type == "cpu":
+        return ragged_decode_plain(q, k, v, starts, ends, bkv, dense)
+    b, h, d = q.shape
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _build.call(
+            "ragged_decode", "repro_ragged_decode", _ARGTYPES,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
+            ends.data_ptr(), o.data_ptr(), b, h, k.shape[1], d, bkv,
+            int(bool(dense)), _DTYPES[q.dtype], stream,
+        )
+    ragged_decode_attention.launches += 1
+    return o
+
+
+ragged_decode_attention.launches = 0
+
+KERNELS = {"ragged_decode": ragged_decode_attention}
+
+
+# ---------------------------------------------------------------------------
+# profiler specs: what each warp of the CUDA kernel touches
+# ---------------------------------------------------------------------------
+
+
+def warp_chunk_rows(w: int, n: int) -> np.ndarray:
+    """Rows of an ``n``-row chunk (a KV tile or page) that warp ``w`` stages:
+    ``w*ceil(n/8) .. (w+1)*ceil(n/8) - 1``, below n (``csrc/decode.cuh``)."""
+    rpw = -(-n // WARPS)
+    return np.arange(w * rpw, min((w + 1) * rpw, n), dtype=np.int64)
+
+
+def live_range(bi: int, s: int, starts, ends):
+    """Sequence ``bi``'s live positions ``[lo, hi)``, clamped to [0, s)."""
+    return max(int(starts[bi]), 0), min(int(ends[bi]), s)
+
+
+def _bounds_operands(b: int) -> tuple:
+    # every warp reads its sequence's two bounds
+    return tuple(
+        OperandSpec(name, (b,), np.int32, (1,), lambda bi, *_: (bi,))
+        for name in ("starts", "ends")
+    )
+
+
+def _head_walk(h: int, d: int):
+    """Q and O: warp w stages (and stores) the rows of its heads w, w+8, ..."""
+
+    def walk(pid, **_):
+        bi, w = pid
+        return _row_elems(bi * h + np.arange(w, h, WARPS), d)
+
+    return walk
+
+
+def _gate(walk, s: int, d: int):
+    """``walk`` (flat indices of a (B, S, D) operand) cut to the rows inside
+    sequence b's ``[starts[b], ends[b])``: the Level-2 model of the gate."""
+
+    def gated(pid, starts=None, ends=None, **_):
+        if starts is None or ends is None:
+            return np.empty(0, np.int64)
+        lo, hi = live_range(pid[0], s, starts, ends)
+        idx = walk(pid)
+        row = idx // d % s
+        return idx[(row >= lo) & (row < hi)]
+
+    return gated
+
+
+def _decode_spec(name, b, h, s, d, bkv, dtype, gated) -> KernelSpec:
+    def kv_walk(pid, **_):
+        bi, w = pid
+        tiles = np.arange(-(-s // bkv), dtype=np.int64)
+        pos = (tiles[:, None] * bkv + warp_chunk_rows(w, bkv)).reshape(-1)
+        return _row_elems(bi * s + pos[pos < s], d)
+
+    def spec_of(op, rows, kind="load"):
+        return OperandSpec(op, (b, rows, d), dtype, (1, rows, d),
+                           lambda bi, w: (bi, 0, 0), kind=kind)
+
+    heads = _head_walk(h, d)
+    kv = _gate(kv_walk, s, d) if gated else kv_walk
+    return KernelSpec(
+        name=name,
+        grid=(b, WARPS),
+        operands=(
+            spec_of("Q", h), spec_of("K", s), spec_of("V", s),
+            *_bounds_operands(b), spec_of("O", h, kind="store"),
+        ),
+        dynamic=(("Q", heads), ("K", kv), ("V", kv), ("O", heads)),
+    )
+
+
+def ragged_decode_spec(
+    b: int = DEF_B, h: int = DEF_H, s: int = DEF_S, d: int = DEF_D,
+    bkv: int = DEF_BKV, dtype=np.float32,
+) -> KernelSpec:
+    """BASELINE: the dense sweep (``dense=True``).  Program ``(b, w)`` is warp
+    ``w`` of sequence b's block: it stages its heads' rows of Q, rows
+    ``w*bkv/8 .. (w+1)*bkv/8 - 1`` of every K and V tile (below S), reads
+    ``starts[b]`` and ``ends[b]``, and stores its heads' rows of O."""
+    return _decode_spec("ragged_decode_dense", b, h, s, d, bkv, dtype, gated=False)
+
+
+def ragged_decode_ragged_spec(
+    b: int = DEF_B, h: int = DEF_H, s: int = DEF_S, d: int = DEF_D,
+    bkv: int = DEF_BKV, dtype=np.float32,
+) -> KernelSpec:
+    """OPTIMIZED: the gate — as the dense sweep, but warp w stages only its
+    rows inside ``[starts[b], ends[b])`` (Level 2, over the context)."""
+    return _decode_spec("ragged_decode", b, h, s, d, bkv, dtype, gated=True)
+
+
+def _prefill_spec(name, b, sq, s, d, bkv, dtype, gated) -> KernelSpec:
+    """``csrc/flash.cu``'s walk of a causal prefill over the (B, S, D) cache
+    (``flash_spec``: program ``(b, qt, w)`` is warp w of the block of 64-query
+    tile qt), with the bounds; with the gate, K and V only inside
+    ``[starts[b], ends[b])``."""
+    base = flash_spec(b, sq, s, d, bkv=bkv, causal=True, dtype=dtype)
+    walks = dict(base.dynamic)
+    if gated:
+        walks["K"] = walks["V"] = _gate(walks["K"], s, d)
+    q, k, v, o = base.operands
+    return KernelSpec(
+        name=name,
+        grid=base.grid,
+        operands=(q, k, v, *_bounds_operands(b), o),
+        dynamic=tuple(walks.items()),
+    )
+
+
+def ragged_prefill_spec(
+    b: int = DEF_B, sq: int = DEF_S, s: int = DEF_S, d: int = DEF_D,
+    bkv: int = DEF_BKV, dtype=np.float32,
+) -> KernelSpec:
+    """BASELINE prefill (spec only): flash.cu's causal walk, every row."""
+    return _prefill_spec("ragged_prefill_dense", b, sq, s, d, bkv, dtype, gated=False)
+
+
+def ragged_prefill_ragged_spec(
+    b: int = DEF_B, sq: int = DEF_S, s: int = DEF_S, d: int = DEF_D,
+    bkv: int = DEF_BKV, dtype=np.float32,
+) -> KernelSpec:
+    """OPTIMIZED prefill (spec only): the causal walk with the ragged gate."""
+    return _prefill_spec("ragged_prefill", b, sq, s, d, bkv, dtype, gated=True)

@@ -13,6 +13,12 @@ bottom-right (j <= i + Skv - Sq), so the two agree only when Sq = Skv.
 ``ssd_chunk_ref`` rounds as the Pallas SSD kernel does, which only
 matters in bfloat16.  ``gmm_ragged_ref`` is ``jax.lax.ragged_dot``: groups
 of contiguous rows, unpadded, each times its expert's weights.
+
+``ragged_decode_ref`` and ``paged_decode_ref`` are one masked softmax over
+the whole row (the paged one gathers its pages first), not the kernels'
+tile-by-tile walk.  They give 0 for a sequence with no live position, as
+the port's kernels do; the JAX package's ``ragged_decode_reference`` and
+``paged_decode_reference`` give the mean of V there.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from .flash import flash_plain as flash_ref
 from .gemm import gemm_plain as gemm_ref
 from .gramschm import gramschm_k3_plain as gramschm_k3_ref
 from .histogram import hist_plain as hist_ref
+from .paged_attn import paged_decode_ref
+from .ragged_flash import ragged_decode_ref
 from .spmv import spmv_ell_plain as spmv_ref
 from .ssd import ssd_plain as ssd_chunk_ref
 from .ttm import ttm_plain as ttm_ref
@@ -57,5 +65,6 @@ def spmv_csr_ref(row_offsets, col_indices, values, x) -> np.ndarray:
 
 __all__ = [
     "flash_ref", "gemm_ref", "gmm_ragged_ref", "gramschm_k3_ref", "hist_ref",
-    "spmv_csr_ref", "spmv_ref", "ssd_chunk_ref", "ttm_ref",
+    "paged_decode_ref", "ragged_decode_ref", "spmv_csr_ref", "spmv_ref",
+    "ssd_chunk_ref", "ttm_ref",
 ]

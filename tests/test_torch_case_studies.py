@@ -303,6 +303,7 @@ def test_story_parity_diff(family, before, after, tx, verdict):
 def test_registry_semantics():
     assert kreg.names() == (
         "gemm", "spmv", "histogram", "gramschm", "ttm", "cuszp", "flash", "gmm", "ssd",
+        "ragged_flash", "paged_attn",
     )
     entry, variant = kreg.resolve("gramschm")
     assert variant.name == "naive" and variant.role == "baseline"

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch import kernels as kreg
-from repro_torch.kernels import _build, flash, gemm, gmm, gramschm, histogram, ops, spmv, ssd, ttm
+from repro_torch.kernels import (
+    _build, flash, gemm, gmm, gramschm, histogram, ops, paged_attn, ragged_flash, spmv, ssd, ttm,
+)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -169,7 +171,8 @@ def test_cuda_spmv_matches_plain_version(card, r, k):
      "ttm:scratch", "ttm:fused", "histogram:naive", "histogram:partials",
      "histogram:scratch", "flash", "gmm", "ssd", "model.transformer-tiny.attn:base",
      "model.transformer-tiny.attn:wide-kv", "model.moe-tiny.moe:tile32",
-     "model.moe-tiny.moe:tile64", "model.mamba-tiny.ssm"],
+     "model.moe-tiny.moe:tile64", "model.mamba-tiny.ssm", "ragged_flash:decode",
+     "ragged_flash:decode-ragged", "paged_attn:decode", "paged_attn:decode-paged"],
 )
 def test_run_variant_launches_and_times_on_the_card(card, ref):
     variant = kreg.resolve(ref)[1]
@@ -289,3 +292,110 @@ def test_cuda_model_path_launches_every_kernel(card, tmp_path):
     assert gmm.gmm.launches > 0
     assert ssd.ssd_chunk.launches > 0
     assert gemm.gemm_v01.launches > 0
+
+
+def _ragged_case(card, b, h, s, d, bounds, dtype):
+    q, k, v = (_randn(card, i, *shape, dtype=dtype) for i, shape in enumerate(((b, h, d), (b, s, d), (b, s, d))))
+    starts, ends = (torch.tensor(x, dtype=torch.int32, device=card) for x in zip(*bounds))
+    return q, k, v, starts, ends
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bkv", ragged_flash.BKV_CHOICES)
+@pytest.mark.parametrize(
+    "b, h, s, d, bounds",
+    [(4, 8, 512, 128, None), (3, 4, 200, 32, [(0, 200), (17, 150), (40, 41)]),
+     (2, 48, 300, 128, [(5, 60), (100, 300)]), (2, 13, 77, 20, [(0, 77), (-5, 999)]),
+     (3, 64, 256, 64, [(64, 128), (0, 1), (255, 256)])],
+)
+def test_cuda_ragged_decode_matches_plain_version(card, b, h, s, d, bounds, bkv, dtype):
+    """At the registry's shape (seeded bounds), at S not a multiple of bkv,
+    with a range inside one tile, bounds past either end, and H up to 64."""
+    if bounds is None:
+        ctx = ragged_flash.ragged_context(b, s)
+        bounds = list(zip(ctx["starts"].tolist(), ctx["ends"].tolist()))
+    args = _ragged_case(card, b, h, s, d, bounds, dtype)
+    want = ragged_flash.ragged_decode_plain(*args, bkv=bkv).float()
+    for dense in (False, True):
+        before = ragged_flash.ragged_decode_attention.launches
+        got = ragged_flash.ragged_decode_attention(*args, bkv=bkv, dense=dense)
+        torch.cuda.synchronize()
+        assert ragged_flash.ragged_decode_attention.launches == before + 1
+        assert got.dtype == dtype and got.shape == args[0].shape
+        _assert_within(got, want, ragged_flash.tolerance(want, args[0]))
+
+
+@pytest.mark.gpu
+def test_cuda_ragged_decode_dense_equals_gated_and_empty_rows_are_zero(card):
+    args = _ragged_case(card, 4, 8, 256, 64, [(10, 10), (0, 0), (3, 200), (256, 300)], torch.float32)
+    gated = ragged_flash.ragged_decode_attention(*args)
+    dense = ragged_flash.ragged_decode_attention(*args, dense=True)
+    torch.cuda.synchronize()
+    assert torch.equal(gated, dense)
+    assert not gated[[0, 1, 3]].any() and gated[2].abs().max() > 0
+
+
+def _paged_case(card, b, h, d, pages, page, slots, dtype, seed=0):
+    q = _randn(card, seed, b, h, d, dtype=dtype)
+    k_pages, v_pages = (_randn(card, seed + i, 1, pages, page, d, dtype=dtype) for i in (1, 2))
+    ctx = paged_attn.paged_context(b, pages, slots, page)
+    tables, lens = (torch.from_numpy(ctx[n]).to(card) for n in ("block_tables", "context_lens"))
+    return q, k_pages, v_pages, tables, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b, h, d, pages, page, slots",
+    [(4, 8, 128, 64, 64, 8), (3, 4, 32, 16, 32, 4), (2, 48, 128, 40, 64, 16),
+     (2, 5, 20, 9, 24, 3), (3, 64, 64, 12, 128, 4)],
+)
+def test_cuda_paged_decode_matches_plain_version(card, b, h, d, pages, page, slots, dtype):
+    """At the registry's shape, at pages not a multiple of 32 and H up to 64."""
+    args = _paged_case(card, b, h, d, pages, page, slots, dtype)
+    want = paged_attn.paged_decode_plain(*args).float()
+    before = paged_attn.paged_decode_attention.launches
+    got = paged_attn.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attn.paged_decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    _assert_within(got, want, paged_attn.tolerance(want, args[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_dense_sweep_of_the_gathered_cache_equals_the_gather(card, dtype):
+    """The dense rung on the contiguous cache the table describes gives the
+    gather's answer; an empty context and a page id out of range give what
+    the plain version gives."""
+    q, k_pages, v_pages, tables, lens = _paged_case(card, 4, 8, 64, 40, 32, 6, dtype)
+    lens[1] = 0
+    gathered = [p[0][tables.long()].reshape(4, -1, 64).contiguous() for p in (k_pages, v_pages)]
+    (kc, ident), (vc, _) = (paged_attn.contiguous_pages(c, 32) for c in gathered)
+    paged = paged_attn.paged_decode_attention(q, k_pages, v_pages, tables, lens)
+    dense = paged_attn.paged_decode_attention(q, kc, vc, ident, lens, dense=True)
+    torch.cuda.synchronize()
+    _assert_within(dense, paged.float(), paged_attn.tolerance(paged, q))
+    assert not paged[1].any() and not dense[1].any()
+    tables[2, 0] = 99
+    want = paged_attn.paged_decode_plain(q, k_pages, v_pages, tables, lens).float()
+    got = paged_attn.paged_decode_attention(q, k_pages, v_pages, tables, lens)
+    torch.cuda.synchronize()
+    _assert_within(got, want, paged_attn.tolerance(want, q))
+
+
+@pytest.mark.gpu
+def test_cuda_decode_wrappers_reject_bad_inputs(card):
+    q, k, v, starts, ends = _ragged_case(card, 2, 4, 64, 32, [(0, 64), (0, 10)], torch.float32)
+    with pytest.raises(ValueError, match="device"):
+        ragged_flash.ragged_decode_attention(q, k.cpu(), v, starts, ends)
+    with pytest.raises(ValueError, match="on cuda"):
+        ragged_flash.ragged_decode_attention(q, k, v, starts.cpu(), ends)
+    with pytest.raises(TypeError, match="int32"):
+        ragged_flash.ragged_decode_attention(q, k, v, starts.long(), ends)
+    args = _paged_case(card, 4, 8, 32, 64, 64, 8, torch.float32)
+    with pytest.raises(ValueError, match="block_tables"):
+        paged_attn.paged_decode_attention(*args[:3], args[3].cpu(), args[4])
+    with pytest.raises(TypeError, match="one dtype"):
+        paged_attn.paged_decode_attention(args[0].double(), *args[1:])

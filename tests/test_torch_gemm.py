@@ -100,7 +100,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_library_name_tracks_the_source():
     assert set(_build.sources()) == {
-        "flash", "gemm", "gmm", "gramschm", "histogram", "spmv", "ssd", "ttm",
+        "flash", "gemm", "gmm", "gramschm", "histogram", "paged_decode", "ragged_decode",
+        "spmv", "ssd", "ttm",
     }
     path = _build.library_path("gemm")
     assert path.parent == _build.BUILD_DIR
@@ -117,7 +118,7 @@ def test_registry_semantics():
     assert spec.name == "gemm_v01" and ctx is None
     assert spec.grid == (1024, 32)
     with pytest.raises(KeyError, match="known: gemm"):
-        kreg.resolve("ragged_flash")
+        kreg.resolve("nosuch")
     with pytest.raises(KeyError, match="no variant"):
         kreg.resolve("gemm:v09")
 

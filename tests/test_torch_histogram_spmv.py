@@ -495,6 +495,7 @@ def test_story_parity_diff(
 def test_registry_order_and_families():
     assert kreg.names() == (
         "gemm", "spmv", "histogram", "gramschm", "ttm", "cuszp", "flash", "gmm", "ssd",
+        "ragged_flash", "paged_attn",
     )
     assert [n for n in rk.names() if n in kreg.names()] == list(kreg.names())
     for name in ("spmv", "histogram"):

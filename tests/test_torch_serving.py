@@ -1,0 +1,761 @@
+"""The port's serving families (ragged_flash, paged_attn) held against the
+JAX package: the plain versions against the Pallas kernels (interpret mode)
+and the jnp references, the seeded contexts, the empty-range answers, the
+registry, the engine on the reference's specs, the port's own H100 specs
+against an emulation of csrc/ragged_decode.cu and csrc/paged_decode.cu,
+the pattern classes, and profile -> diff -> report on the CPU.  The cases
+that need the card are in test_torch_cuda.py."""
+
+import json
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels as rk
+from repro.core import analyze as ref_analyze
+from repro.core.diff import diff as ref_diff
+from repro.core.patterns import detect_all as ref_detect_all
+from repro.core.session import profile_kernel as ref_profile_kernel
+from repro.kernels import paged_attn as ref_pa
+from repro.kernels import ragged_flash as ref_rf
+from repro_torch import cli
+from repro_torch import kernels as kreg
+from repro_torch.core.collector import analyze
+from repro_torch.core.diff import diff
+from repro_torch.core.patterns import HOT, HOT_RANDOM, detect_all
+from repro_torch.core.session import heatmaps_equal, profile_kernel
+from repro_torch.core.trace import GridSampler
+from repro_torch.kernels import flash, ops, paged_attn, ragged_flash, ref
+
+from torch_parity import assert_heatmaps_match, heat_of_warps, to_port_spec
+
+RAGGED_REFS = ("ragged_flash:decode", "ragged_flash:decode-ragged",
+               "ragged_flash:prefill", "ragged_flash:prefill-ragged")
+PAGED_REFS = ("paged_attn:decode", "paged_attn:decode-paged",
+              "paged_attn:prefill", "paged_attn:prefill-paged")
+SERVING_REFS = RAGGED_REFS + PAGED_REFS
+
+
+def _rand(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.asarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+# -- numerics: the plain versions against Pallas (interpret) and the jnp oracles --
+
+
+@pytest.mark.parametrize("bkv", [32, 64])
+def test_ragged_decode_matches_pallas_kernel_and_reference(bkv):
+    b, h, s, d = 4, 4, 128, 32
+    q, k, v = _rand(0, (b, h, d)), _rand(1, (b, s, d)), _rand(2, (b, s, d))
+    ctx = ragged_flash.ragged_context(b, s)
+    jargs = [jnp.asarray(a) for a in (q, k, v, ctx["starts"], ctx["ends"])]
+    want = np.asarray(ref_rf.ragged_decode_attention(*jargs, bkv=bkv))
+    oracle = np.asarray(ref_rf.ragged_decode_reference(*jargs))
+    args = [_t(a) for a in (q, k, v, ctx["starts"], ctx["ends"])]
+    got = ops.ragged_decode_attention(*args, bkv=bkv)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, h, d)
+    # as tests/test_serving_kernels.py
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(ref.ragged_decode_ref(*args).numpy(), oracle, atol=2e-5, rtol=2e-4)
+    dense = ragged_flash.ragged_decode_attention(*args, bkv=bkv, dense=True)
+    assert torch.equal(dense, got)
+
+
+def test_ragged_decode_block_size_invariance():
+    # the online-softmax accumulation must not depend on the KV tiling
+    b, h, s, d = 2, 4, 128, 32
+    q, k, v = (_t(_rand(i, shape)) for i, shape in enumerate(((b, h, d), (b, s, d), (b, s, d))))
+    starts = torch.tensor([0, 16], dtype=torch.int32)
+    ends = torch.tensor([100, 128], dtype=torch.int32)
+    outs = [ragged_flash.ragged_decode_attention(q, k, v, starts, ends, bkv=n)
+            for n in ragged_flash.BKV_CHOICES]
+    for other in outs[1:]:
+        np.testing.assert_allclose(other.numpy(), outs[0].numpy(), atol=2e-5, rtol=2e-4)
+
+
+def test_ragged_decode_bf16_rounds_as_the_pallas_kernel():
+    b, h, s, d = 4, 4, 128, 32
+    q, k, v = _rand(0, (b, h, d)), _rand(1, (b, s, d)), _rand(2, (b, s, d))
+    ctx = ragged_flash.ragged_context(b, s)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(ref_rf.ragged_decode_attention(
+        *jargs, jnp.asarray(ctx["starts"]), jnp.asarray(ctx["ends"]), bkv=32), np.float32)
+    got = ragged_flash.ragged_decode_attention(
+        *(_t(a, torch.bfloat16) for a in (q, k, v)), _t(ctx["starts"]), _t(ctx["ends"]), bkv=32)
+    assert got.dtype == torch.bfloat16
+    # bf16 inputs and output: as tests/test_kernels.py's flash bf16 case
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2, rtol=3e-2)
+
+
+def _paged_inputs(b, h, d, pages, slots, page):
+    q = _rand(0, (b, h, d))
+    k_pages, v_pages = _rand(1, (1, pages, page, d)), _rand(2, (1, pages, page, d))
+    ctx = paged_attn.paged_context(b, pages, slots, page)
+    return q, k_pages, v_pages, ctx["block_tables"], ctx["context_lens"]
+
+
+def test_paged_decode_matches_pallas_kernel_and_reference():
+    arrays = _paged_inputs(4, 4, 32, 16, 4, 32)
+    jargs = [jnp.asarray(a) for a in arrays]
+    want = np.asarray(ref_pa.paged_decode_attention(*jargs))
+    oracle = np.asarray(ref_pa.paged_decode_reference(*jargs))
+    args = [_t(a) for a in arrays]
+    got = ops.paged_decode_attention(*args)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (4, 4, 32)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(ref.paged_decode_ref(*args).numpy(), oracle, atol=2e-5, rtol=2e-4)
+    assert torch.equal(paged_attn.paged_decode_attention(*args, dense=True), got)
+
+
+def test_paged_decode_table_permutation_invariance():
+    # physically relocating pages (and renaming them in the table) must
+    # not change the attention output — the defining paged-cache property
+    b, h, d, pages, page = 2, 4, 32, 8, 32
+    q = _t(_rand(0, (b, h, d)))
+    k_pages, v_pages = _t(_rand(1, (1, pages, page, d))), _t(_rand(2, (1, pages, page, d)))
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    lens = torch.tensor([48, 64], dtype=torch.int32)
+    base = paged_attn.paged_decode_attention(q, k_pages, v_pages, tables, lens)
+    perm = np.asarray([5, 3, 7, 0, 2, 6, 1, 4])
+    inv = np.argsort(perm)
+    moved = paged_attn.paged_decode_attention(
+        q, k_pages[:, perm].contiguous(), v_pages[:, perm].contiguous(),
+        _t(inv[tables.numpy()].astype(np.int32)), lens,
+    )
+    np.testing.assert_allclose(base.numpy(), moved.numpy(), atol=2e-5, rtol=2e-4)
+
+
+def test_paged_dense_sweep_of_the_gathered_cache_equals_the_gather():
+    arrays = _paged_inputs(4, 4, 32, 16, 4, 32)
+    q, k_pages, v_pages, tables, lens = (_t(a) for a in arrays)
+    cache = [p[0][tables.long()].reshape(4, -1, 32) for p in (k_pages, v_pages)]
+    (kc, ident), (vc, _) = (paged_attn.contiguous_pages(c, 32) for c in cache)
+    assert kc.shape == (1, 16, 32, 32) and ident.tolist()[1] == [4, 5, 6, 7]
+    want = paged_attn.paged_decode_attention(q, k_pages, v_pages, tables, lens)
+    got = paged_attn.paged_decode_attention(q, kc, vc, ident, lens, dense=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-4)
+
+
+def test_paged_page_id_out_of_range_adds_nothing():
+    q, k_pages, v_pages, tables, lens = (_t(a) for a in _paged_inputs(2, 4, 32, 8, 4, 32))
+    tables[0] = torch.tensor([3, 99, 5, 6], dtype=torch.int32)
+    lens[:] = 64
+    got = paged_attn.paged_decode_attention(q, k_pages, v_pages, tables, lens)
+    one = paged_attn.paged_decode_attention(
+        q[:1], k_pages, v_pages, tables[:1, :1].contiguous(), torch.tensor([32], dtype=torch.int32))
+    np.testing.assert_allclose(got[:1].numpy(), one.numpy(), atol=2e-6, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b, s", [(4, 512), (4, 128), (2, 128), (64, 8192), (7, 300)])
+def test_ragged_context_equals_the_reference(b, s):
+    got, want = ragged_flash.ragged_context(b, s), ref_rf.ragged_context(b, s)
+    assert sorted(got) == sorted(want) == ["ends", "starts"]
+    for name in got:
+        assert got[name].dtype == want[name].dtype == np.int32
+        np.testing.assert_array_equal(got[name], want[name])
+
+
+@pytest.mark.parametrize(
+    "b, pages, slots, page", [(4, 64, 8, 64), (4, 16, 4, 32), (64, 8192, 128, 64), (3, 20, 5, 16)]
+)
+def test_paged_context_equals_the_reference(b, pages, slots, page):
+    got, want = paged_attn.paged_context(b, pages, slots, page), ref_pa.paged_context(b, pages, slots, page)
+    assert sorted(got) == sorted(want) == ["block_tables", "context_lens"]
+    for name in got:
+        assert got[name].dtype == want[name].dtype == np.int32
+        np.testing.assert_array_equal(got[name], want[name])
+
+
+# -- the empty-range answers (ROADMAP: facts of the reference) --------------------
+
+
+@pytest.mark.parametrize("bkv", [32, 64])
+def test_empty_ragged_range_is_zero_in_the_port_and_bkv_dependent_in_the_reference(bkv):
+    """starts == ends: the Pallas kernel's gate still admits the tile that
+    holds ``start`` (unless it is a tile boundary), every score there is
+    NEG_INF, so it returns the mean of V over that tile; the jnp reference
+    the mean over all S; the port 0 in wrapper, plain version and oracle."""
+    b, h, s, d = 3, 4, 128, 32
+    q, k, v = _rand(0, (b, h, d)), _rand(1, (b, s, d)), _rand(2, (b, s, d))
+    starts = np.asarray([40, 0, 5], np.int32)
+    ends = np.asarray([40, 0, 100], np.int32)
+    jargs = [jnp.asarray(a) for a in (q, k, v, starts, ends)]
+    pallas = np.asarray(ref_rf.ragged_decode_attention(*jargs, bkv=bkv))
+    oracle = np.asarray(ref_rf.ragged_decode_reference(*jargs))
+    tile = 40 // bkv * bkv
+    np.testing.assert_allclose(pallas[0], np.broadcast_to(v[0, tile:tile + bkv].mean(0), (h, d)), atol=1e-6)
+    np.testing.assert_array_equal(pallas[1], 0)  # start on a boundary: no tile admitted
+    np.testing.assert_allclose(oracle[0], np.broadcast_to(v[0].mean(0), (h, d)), atol=1e-6)
+    np.testing.assert_allclose(oracle[1], np.broadcast_to(v[1].mean(0), (h, d)), atol=1e-6)
+    args = [_t(a) for a in (q, k, v, starts, ends)]
+    for got in (ragged_flash.ragged_decode_attention(*args, bkv=bkv),
+                ragged_flash.ragged_decode_plain(*args, bkv=bkv, dense=True),
+                ref.ragged_decode_ref(*args)):
+        assert not got[:2].any()
+        np.testing.assert_allclose(got[2].numpy(), oracle[2], atol=2e-5, rtol=2e-4)
+
+
+def test_empty_paged_context_is_zero_in_the_port_and_the_pallas_kernel():
+    q, k_pages, v_pages, tables, lens = _paged_inputs(3, 4, 32, 16, 4, 32)
+    lens = lens.copy()
+    lens[1] = 0
+    jargs = [jnp.asarray(a) for a in (q, k_pages, v_pages, tables, lens)]
+    pallas = np.asarray(ref_pa.paged_decode_attention(*jargs))
+    oracle = np.asarray(ref_pa.paged_decode_reference(*jargs))
+    np.testing.assert_array_equal(pallas[1], 0)
+    gathered = v_pages[0][tables[1]].reshape(-1, 32)
+    np.testing.assert_allclose(oracle[1], np.broadcast_to(gathered.mean(0), (4, 32)), atol=1e-6)
+    args = [_t(a) for a in (q, k_pages, v_pages, tables, lens)]
+    for got in (paged_attn.paged_decode_attention(*args), ref.paged_decode_ref(*args)):
+        assert not got[1].any()
+        np.testing.assert_allclose(got.numpy()[[0, 2]], pallas[[0, 2]], atol=2e-5, rtol=2e-4)
+
+
+# -- wrappers ------------------------------------------------------------------
+
+
+def _ragged_args(b=2, h=4, s=64, d=32):
+    return (torch.randn(b, h, d), torch.randn(b, s, d), torch.randn(b, s, d),
+            torch.zeros(b, dtype=torch.int32), torch.full((b,), s, dtype=torch.int32))
+
+
+def _paged_args(b=2, h=4, d=32, pages=8, page=16, slots=4):
+    return (torch.randn(b, h, d), torch.randn(1, pages, page, d), torch.randn(1, pages, page, d),
+            torch.zeros(b, slots, dtype=torch.int32), torch.full((b,), 20, dtype=torch.int32))
+
+
+def _replace(args, i, value):
+    return args[:i] + (value,) + args[i + 1:]
+
+
+@pytest.mark.parametrize(
+    "fn, args, kwargs, match",
+    [
+        (ragged_flash.ragged_decode_attention, _ragged_args(), {"bkv": 48}, "bkv"),
+        (ragged_flash.ragged_decode_attention, _ragged_args(h=65), {}, "h <= 64"),
+        (ragged_flash.ragged_decode_attention, _ragged_args(d=130), {}, "d <= 128"),
+        (ragged_flash.ragged_decode_attention, _replace(_ragged_args(), 1, torch.randn(2, 60, 32)), {}, "k, v"),
+        (ragged_flash.ragged_decode_attention, _replace(_ragged_args(), 3, torch.zeros(2)), {}, "int32"),
+        (ragged_flash.ragged_decode_attention, _replace(_ragged_args(), 4, torch.zeros(3, dtype=torch.int32)), {}, "shape"),
+        (ragged_flash.ragged_decode_attention, _replace(_ragged_args(), 0, torch.randn(2, 4, 32).double()), {}, "one dtype"),
+        (ragged_flash.ragged_decode_attention, _replace(_ragged_args(), 1, torch.randn(2, 32, 64).transpose(1, 2)), {}, "contiguous"),
+        (paged_attn.paged_decode_attention, _paged_args(page=130), {}, "page <= 128"),
+        (paged_attn.paged_decode_attention, _paged_args(h=70), {}, "h <= 64"),
+        (paged_attn.paged_decode_attention, _replace(_paged_args(), 1, torch.randn(2, 8, 16, 32)), {}, "k_pages"),
+        (paged_attn.paged_decode_attention, _replace(_paged_args(), 3, torch.zeros(2, 4)), {}, "block_tables"),
+        (paged_attn.paged_decode_attention, _replace(_paged_args(), 4, torch.zeros(2)), {}, "context_lens"),
+        (paged_attn.paged_decode_attention, _replace(_paged_args(), 0, torch.randn(2, 4, 16)), {}, "k_pages"),
+    ],
+)
+def test_wrappers_reject_what_the_kernels_do_not_take(fn, args, kwargs, match):
+    with pytest.raises((ValueError, TypeError), match=match):
+        fn(*args, **kwargs)
+
+
+def test_no_cpu_call_counts_a_launch_and_reset_reaches_both():
+    ragged_flash.ragged_decode_attention.launches = 5
+    paged_attn.paged_decode_attention.launches = 7
+    kreg.reset_launch_counts()
+    ragged_flash.ragged_decode_attention(*_ragged_args())
+    paged_attn.paged_decode_attention(*_paged_args())
+    ops.ragged_decode_attention(*_ragged_args(), dense=True)
+    ops.paged_decode_attention(*_paged_args(), dense=True)
+    assert ragged_flash.ragged_decode_attention.launches == paged_attn.paged_decode_attention.launches == 0
+    assert ragged_flash.KERNELS == {"ragged_decode": ragged_flash.ragged_decode_attention}
+    assert paged_attn.KERNELS == {"paged_decode": paged_attn.paged_decode_attention}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tolerance_follows_each_row(dtype):
+    """A share of each (sequence, head) row's largest |O|: the exact answer
+    rounded to the type passes it, an output off by 2% of a small row
+    fails it, and an empty row must be exactly 0."""
+    b, h, s, d = 4, 8, 256, 64
+    args = [_t(_rand(i, shape), dtype) for i, shape in enumerate(((b, h, d), (b, s, d), (b, s, d)))]
+    args += [torch.tensor([0, 0, 10, 7], dtype=torch.int32), torch.tensor([256, 3, 200, 7], dtype=torch.int32)]
+    want = ragged_flash.ragged_decode_plain(*args).float()
+    tol = ragged_flash.tolerance(want, args[0])
+    exact = ref.ragged_decode_ref(*(a.double() if a.is_floating_point() else a for a in args)).to(dtype).float()
+    assert bool(((exact - want).abs() <= tol).all())
+    share = 2e-5 if dtype == torch.float32 else 2e-2
+    wrong = want.clone()
+    wrong[1] *= 1 + 2 * share
+    assert not bool(((wrong - want).abs() <= tol).all())
+    assert not want[3].any() and not tol[3].any()
+    assert paged_attn.tolerance is ragged_flash.tolerance
+
+
+# -- the registry ----------------------------------------------------------------
+
+
+def test_serving_families_are_registered_as_the_reference():
+    names = kreg.names()
+    assert names[-2:] == ("ragged_flash", "paged_attn")
+    for family in ("ragged_flash", "paged_attn"):
+        got, want = kreg.get(family), rk.get(family)
+        assert got.summary == want.summary
+        assert got.variant_names() == want.variant_names()
+        assert [v.role for v in got.variants] == [v.role for v in want.variants] == [
+            "baseline", "optimized", "baseline", "optimized"
+        ]
+        assert [v.note for v in got.variants] == [v.note for v in want.variants]
+        # the ladder proposes only the optimized rungs
+        assert [v.name for _pos, v in got.ladder(0)] == [v.name for _pos, v in want.ladder(0)]
+        assert all("-" in v.name for _pos, v in got.ladder(0))
+
+
+def test_decode_rungs_launch_and_prefill_rungs_are_spec_only():
+    kernels = {"ragged_flash": ragged_flash.ragged_decode_attention,
+               "paged_attn": paged_attn.paged_decode_attention}
+    for ref_name in SERVING_REFS:
+        family, _, rung = ref_name.partition(":")
+        variant = kreg.resolve(ref_name)[1]
+        if rung.startswith("prefill"):
+            assert (variant.kernel, variant.plain, variant.inputs) == (None, None, None)
+            continue
+        assert variant.kernel is kernels[family]
+        assert callable(variant.atol)
+        assert (("dense", True) in variant.kwargs) == (rung == "decode")
+
+
+@pytest.mark.parametrize("ref_name", SERVING_REFS)
+def test_serving_specs_build_and_trace_with_their_scalar_operands(ref_name):
+    spec, ctx = kreg.build(ref_name)
+    assert ctx is not None  # every serving variant carries its context
+    pk = profile_kernel(spec, None, ctx, name=ref_name)
+    assert pk.transactions > 0
+    regions = {r.region.name for r in pk.heatmap.regions}
+    scalars = {"starts", "ends"} if ref_name.startswith("ragged") else {"block_tables", "context_lens"}
+    assert scalars <= regions
+
+
+def test_decode_inputs_are_the_profiled_context():
+    for ref_name, names in (("ragged_flash:decode", ("starts", "ends")),
+                            ("ragged_flash:decode-ragged", ("starts", "ends")),
+                            ("paged_attn:decode-paged", ("block_tables", "context_lens"))):
+        variant = kreg.resolve(ref_name)[1]
+        args = variant.inputs(torch.device("cpu"), torch.Generator().manual_seed(3))
+        ctx = variant.dynamic_context()
+        for tensor, name in zip(args[-2:], names):
+            assert tensor.dtype == torch.int32
+            np.testing.assert_array_equal(tensor.numpy(), ctx[name])
+    q, kp, vp, tables, lens = kreg.resolve("paged_attn:decode")[1].inputs(
+        torch.device("cpu"), torch.Generator().manual_seed(3))
+    assert kp.shape == (1, 32, 64, 128)  # B * slots pages: the contiguous cache
+    np.testing.assert_array_equal(tables.numpy(), np.arange(32).reshape(4, 8))
+    np.testing.assert_array_equal(lens.numpy(), paged_attn.paged_context()["context_lens"])
+
+
+@pytest.mark.parametrize("ref_name", [r for r in SERVING_REFS if ":decode" in r])
+def test_run_variant_on_cpu_runs_the_plain_version(ref_name):
+    kreg.reset_launch_counts()
+    run = kreg.run_variant(kreg.resolve(ref_name)[1], device="cpu")
+    assert run["device"] == "cpu" and run["ms"] is None and run["launches"] == 0
+    assert run["max_abs_err"] == 0.0 and run["dtype"] == "float32"
+
+
+# -- engine parity: the reference's specs under TPUTile ------------------------------
+
+
+PINNED_REF = {
+    ("ragged_flash:decode", "ragged_flash:decode-ragged"): (576, 154),
+    ("ragged_flash:prefill", "ragged_flash:prefill-ragged"): (4224, 2522),
+    ("paged_attn:decode", "paged_attn:decode-paged"): (640, 288),
+    ("paged_attn:prefill", "paged_attn:prefill-paged"): (6400, 4944),
+}
+
+
+@pytest.mark.parametrize("pair", list(PINNED_REF))
+def test_engine_parity_on_reference_serving_specs(pair):
+    """The port's engine on the reference's specs (TPUTile) profiles what
+    repro profiles, array for array, and keeps its pinned transfers."""
+    got = []
+    for ref_name in pair:
+        spec, ctx = rk.build(ref_name)
+        want = ref_profile_kernel(spec, None, ctx, name=ref_name)
+        pk = profile_kernel(to_port_spec(spec), None, ctx, name=ref_name)
+        assert_heatmaps_match(pk.heatmap, want.heatmap)
+        assert pk.transactions == want.transactions
+        got.append(pk.transactions)
+    assert tuple(got) == PINNED_REF[pair]
+
+
+# -- the port's own specs under H100Sector -------------------------------------------
+
+
+PINNED_PORT = {
+    ("ragged_flash:decode", "ragged_flash:decode-ragged"): (66624, 11936),
+    ("ragged_flash:prefill", "ragged_flash:prefill-ragged"): (393728, 149696),
+    ("paged_attn:decode", "paged_attn:decode-paged"): (66624, 21504),
+    ("paged_attn:prefill", "paged_attn:prefill-paged"): (360960, 208960),
+}
+
+
+def _transactions(ref_name):
+    spec, ctx = kreg.build(ref_name)
+    return profile_kernel(spec, None, ctx, name=ref_name).transactions
+
+
+@pytest.mark.parametrize("pair", list(PINNED_PORT))
+def test_gated_rungs_are_strictly_cheaper_under_h100_sectors(pair):
+    tx = tuple(_transactions(r) for r in pair)
+    assert tx == PINNED_PORT[pair]
+    assert tx[1] < tx[0]
+
+
+def test_registry_dense_decode_reads_every_sector_of_the_cache():
+    # 4 x 512 x 128 float32 K and V are 65,536 sectors; Q and O 512 each;
+    # each of 32 warps reads one sector of starts and one of ends
+    assert PINNED_PORT[("ragged_flash:decode", "ragged_flash:decode-ragged")][0] == 65536 + 1024 + 64
+    ctx = ragged_flash.ragged_context()
+    live = int((ctx["ends"] - ctx["starts"]).sum())
+    assert PINNED_PORT[("ragged_flash:decode", "ragged_flash:decode-ragged")][1] == 2 * 16 * live + 1024 + 64
+
+
+@pytest.mark.parametrize("ref_name", ["ragged_flash:decode-ragged", "paged_attn:decode-paged",
+                                      "ragged_flash:prefill-ragged", "paged_attn:prefill-paged"])
+def test_serving_traces_are_deterministic(ref_name):
+    spec, ctx = kreg.build(ref_name)
+    a = profile_kernel(spec, None, ctx)
+    spec, ctx = kreg.build(ref_name)
+    b = profile_kernel(spec, None, ctx)
+    assert heatmaps_equal(a.heatmap, b.heatmap)
+
+
+def _add(acc, name, key, idx):
+    acc[name].setdefault(key, []).append(np.asarray(idx, np.int64))
+
+
+def _emulate_ragged(b, h, s, d, bkv, starts, ends, dense):
+    """Per-warp flat indices of every operand of ragged_decode_kernel (and
+    Decoder::chunk): one block of 256 threads per sequence."""
+    acc = {n: {} for n in ("Q", "K", "V", "starts", "ends", "O")}
+    rpw = -(-bkv // 8)
+    for bi in range(b):
+        lo, hi = max(int(starts[bi]), 0), min(int(ends[bi]), s)
+        if dense:
+            tiles = range(-(-s // bkv))
+        else:
+            tiles = range(lo // bkv, (hi - 1) // bkv + 1) if lo < hi else range(0)
+        for tid in range(256):
+            w, lane = divmod(tid, 32)
+            key = (bi, w)
+            for name in acc:
+                _add(acc, name, key, [])
+            cols = np.arange(lane, d, 32)
+            _add(acc, "starts", key, [bi])
+            _add(acc, "ends", key, [bi])
+            for i in range(8):
+                if w + 8 * i < h:
+                    _add(acc, "Q", key, (bi * h + w + 8 * i) * d + cols)
+                    _add(acc, "O", key, (bi * h + w + 8 * i) * d + cols)
+            for t in tiles:
+                k0 = t * bkv
+                l_lo, l_hi = max(lo - k0, 0), min(hi - k0, bkv)
+                s_lo, s_hi = (0, min(bkv, s - k0)) if dense else (l_lo, l_hi)
+                for r in range(max(w * rpw, s_lo), min((w + 1) * rpw, s_hi)):
+                    _add(acc, "K", key, (bi * s + k0 + r) * d + cols)
+                    _add(acc, "V", key, (bi * s + k0 + r) * d + cols)
+    return acc
+
+
+def _emulate_paged(b, h, d, pages, page, slots, tables, lens, dense):
+    """Per-warp flat indices of every operand of paged_decode_kernel."""
+    acc = {n: {} for n in ("Q", "Kcache", "Vcache", "block_tables", "context_lens", "O")}
+    rpw = -(-page // 8)
+    for bi in range(b):
+        ctx = min(max(int(lens[bi]), 0), slots * page)
+        n_walk = slots if dense else -(-ctx // page)
+        for tid in range(256):
+            w, lane = divmod(tid, 32)
+            key = (bi, w)
+            for name in acc:
+                _add(acc, name, key, [])
+            cols = np.arange(lane, d, 32)
+            _add(acc, "context_lens", key, [bi])
+            for i in range(8):
+                if w + 8 * i < h:
+                    _add(acc, "Q", key, (bi * h + w + 8 * i) * d + cols)
+                    _add(acc, "O", key, (bi * h + w + 8 * i) * d + cols)
+            for j in range(n_walk):
+                _add(acc, "block_tables", key, [bi * slots + j])
+                phys = int(tables[bi][j])
+                if not 0 <= phys < pages:
+                    continue
+                live = min(page, ctx - j * page)
+                for r in range(w * rpw, min((w + 1) * rpw, page if dense else live)):
+                    _add(acc, "Kcache", key, (phys * page + r) * d + cols)
+                    _add(acc, "Vcache", key, (phys * page + r) * d + cols)
+    return acc
+
+
+def _emulate_prefill(b, sq, s, d, kv_chunks):
+    """Per-warp flat indices of a flash.cu-shaped prefill: blocks of 256
+    threads per (64-query tile, sequence).  ``kv_chunks(bi, qt)`` lists the
+    (first flat row, n rows, staged rows) of each KV chunk the block walks;
+    warp w stages its rows ``w*ceil(n/8) ..`` of each, when staged."""
+    acc = {n: {} for n in ("Q", "K", "V", "O")}
+    for bi in range(b):
+        for qt in range(math.ceil(sq / 64)):
+            chunks = kv_chunks(bi, qt)
+            for tid in range(256):
+                w, lane = divmod(tid, 32)
+                key = (bi, qt, w)
+                for name in acc:
+                    _add(acc, name, key, [])
+                cols = np.arange(lane, d, 32)
+                for r in range(8):
+                    gq = qt * 64 + 8 * w + r
+                    if gq < sq:
+                        _add(acc, "Q", key, (bi * sq + gq) * d + cols)
+                        _add(acc, "O", key, (bi * sq + gq) * d + cols)
+                for row0, n, staged in chunks:
+                    rpw = -(-n // 8)
+                    for r in range(w * rpw, min((w + 1) * rpw, n)):
+                        if staged(r):
+                            _add(acc, "K", key, (row0 + r) * d + cols)
+                            _add(acc, "V", key, (row0 + r) * d + cols)
+    return acc
+
+
+def _assert_spec_matches(spec, ctx, acc, shapes, renames=()):
+    hm = analyze(spec, GridSampler(None), ctx)
+    names = dict(renames)
+    assert sorted(hm.region_names()) == sorted(names.get(n, n) for n in shapes)
+    for name, shape in shapes.items():
+        per_warp = {key: [np.concatenate(parts)] for key, parts in acc[name].items()}
+        tags, wt, st, warps = heat_of_warps(per_warp, shape, 4)
+        rh = hm.region(names.get(name, name))
+        np.testing.assert_array_equal(rh.tags_array, tags, err_msg=name)
+        np.testing.assert_array_equal(rh.word_temps_matrix, wt, err_msg=name)
+        np.testing.assert_array_equal(rh.sector_temps_array, st, err_msg=name)
+        assert rh.n_programs == warps, name
+
+
+RAGGED_CASES = [
+    # (b, h, s, d, bkv, starts, ends): a partial last tile, a range inside one
+    # tile, an empty range, bounds past either end, H not a multiple of 8
+    (4, 8, 512, 128, 128, None, None),
+    (3, 12, 200, 32, 64, [0, 17, 40], [200, 150, 41]),
+    (3, 5, 77, 20, 32, [3, 10, -4], [3, 11, 999]),
+    (2, 48, 300, 64, 128, [5, 100], [60, 300]),
+]
+
+
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("b, h, s, d, bkv, starts, ends", RAGGED_CASES)
+def test_ragged_decode_spec_matches_kernel_thread_mapping(b, h, s, d, bkv, starts, ends, dense):
+    if starts is None:
+        ctx = ragged_flash.ragged_context(b, s)
+    else:
+        ctx = {"starts": np.asarray(starts, np.int32), "ends": np.asarray(ends, np.int32)}
+    build = ragged_flash.ragged_decode_spec if dense else ragged_flash.ragged_decode_ragged_spec
+    acc = _emulate_ragged(b, h, s, d, bkv, ctx["starts"], ctx["ends"], dense)
+    shapes = {"Q": (b, h, d), "K": (b, s, d), "V": (b, s, d), "starts": (b,), "ends": (b,), "O": (b, h, d)}
+    _assert_spec_matches(build(b, h, s, d, bkv), ctx, acc, shapes)
+
+
+PAGED_CASES = [
+    # (b, h, d, pages, page, slots, permute): the registry's shape, a page
+    # not a multiple of 8, a permuted table with a page id out of range
+    (4, 8, 128, 64, 64, 8, False),
+    (3, 12, 32, 20, 20, 5, True),
+    (2, 5, 40, 16, 32, 4, True),
+]
+
+
+@pytest.mark.parametrize("b, h, d, pages, page, slots, permute", PAGED_CASES)
+def test_paged_decode_paged_spec_matches_kernel_thread_mapping(b, h, d, pages, page, slots, permute):
+    ctx = paged_attn.paged_context(b, pages, slots, page)
+    if permute:
+        ctx["block_tables"] = ctx["block_tables"][:, ::-1].copy()
+        ctx["block_tables"][0, 0] = pages + 3
+        ctx["context_lens"][-1] = slots * page - 1
+    acc = _emulate_paged(b, h, d, pages, page, slots, ctx["block_tables"], ctx["context_lens"], False)
+    shapes = {"Q": (b, h, d), "Kcache": (pages, page, d), "Vcache": (pages, page, d),
+              "block_tables": (b, slots), "context_lens": (b,), "O": (b, h, d)}
+    _assert_spec_matches(paged_attn.paged_decode_paged_spec(b, h, d, page, pages, slots), ctx, acc, shapes)
+
+
+@pytest.mark.parametrize("b, h, d, pages, page, slots, permute", PAGED_CASES)
+def test_paged_decode_dense_spec_matches_kernel_thread_mapping(b, h, d, pages, page, slots, permute):
+    """The dense rung runs on the contiguous cache under the identity table."""
+    ctx = paged_attn.paged_context(b, pages, slots, page)
+    ident = np.arange(b * slots).reshape(b, slots)
+    acc = _emulate_paged(b, h, d, b * slots, page, slots, ident, ctx["context_lens"], True)
+    shapes = {"Q": (b, h, d), "Kcache": (b, slots * page, d), "Vcache": (b, slots * page, d),
+              "block_tables": (b, slots), "context_lens": (b,), "O": (b, h, d)}
+    _assert_spec_matches(paged_attn.paged_decode_spec(b, h, d, page, slots), ctx, acc, shapes)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("b, sq, s, d, bkv, starts, ends",
+                         [(4, 512, 512, 128, 128, None, None), (2, 100, 130, 32, 64, [10, 0], [90, 5])])
+def test_ragged_prefill_specs_are_flash_walks(b, sq, s, d, bkv, starts, ends, gated):
+    """The spec-only prefill rungs: flash.cu's causal walk (as flash_spec),
+    and with the gate only the rows inside [starts[b], ends[b])."""
+    if starts is None:
+        ctx = ragged_flash.ragged_context(b, s)
+    else:
+        ctx = {"starts": np.asarray(starts, np.int32), "ends": np.asarray(ends, np.int32)}
+
+    def chunks(bi, qt):
+        lo, hi = (max(int(ctx["starts"][bi]), 0), min(int(ctx["ends"][bi]), s)) if gated else (0, s)
+        return [(bi * s + t * bkv, bkv, lambda r, k0=t * bkv: lo <= k0 + r < hi)
+                for t in range(flash.n_kv_tiles(qt, sq, s, bkv, True))]
+
+    acc = _emulate_prefill(b, sq, s, d, chunks)
+    acc["starts"] = {key: [np.asarray([key[0]])] for key in acc["Q"]}
+    acc["ends"] = acc["starts"]
+    build = ragged_flash.ragged_prefill_ragged_spec if gated else ragged_flash.ragged_prefill_spec
+    shapes = {"Q": (b, sq, d), "K": (b, s, d), "V": (b, s, d), "starts": (b,), "ends": (b,), "O": (b, sq, d)}
+    _assert_spec_matches(build(b, sq, s, d, bkv), ctx, acc, shapes)
+    if not gated:  # every row of flash's causal walk, as flash_spec models it
+        fl = analyze(flash.flash_spec(b, sq, s, d, bkv=bkv, causal=True), GridSampler(None))
+        hm = analyze(build(b, sq, s, d, bkv), GridSampler(None), ctx)
+        for name in "QKVO":
+            np.testing.assert_array_equal(hm.region(name).sector_temps_array,
+                                          fl.region(name).sector_temps_array)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("b, sq, d, pages, page, slots", [(4, 512, 128, 64, 64, 8), (2, 150, 32, 12, 40, 5)])
+def test_paged_prefill_specs_are_flash_walks_over_pages(b, sq, d, pages, page, slots, gated):
+    ctx = paged_attn.paged_context(b, pages, slots, page)
+    s = slots * page
+
+    def chunks(bi, qt):
+        n = min(slots, (min((qt + 1) * 64, sq) - 1) // page + 1)
+        if not gated:
+            return [(bi * s + j * page, page, lambda r: True) for j in range(n)]
+        c = min(max(int(ctx["context_lens"][bi]), 0), s)
+        return [(int(ctx["block_tables"][bi, j]) * page, page, lambda r, j=j: r < c - j * page)
+                for j in range(min(n, -(-c // page)))]
+
+    acc = _emulate_prefill(b, sq, s, d, chunks)
+    acc["Kcache"], acc["Vcache"] = acc.pop("K"), acc.pop("V")
+    acc["context_lens"] = {key: [np.asarray([key[0]])] for key in acc["Q"]}
+    if gated:
+        acc["block_tables"] = {key: [bi * slots + np.arange(len(chunks(bi, key[1])))]
+                               for key in acc["Q"] for bi in [key[0]]}
+        build = paged_attn.paged_prefill_paged_spec(b, sq, d, page, pages, slots)
+        cache = (pages, page, d)
+    else:
+        acc["block_tables"] = {key: [key[0] * slots + np.arange(slots)] for key in acc["Q"]}
+        build = paged_attn.paged_prefill_spec(b, sq, d, page, slots)
+        cache = (b, s, d)
+    shapes = {"Q": (b, sq, d), "Kcache": cache, "Vcache": cache, "block_tables": (b, slots),
+              "context_lens": (b,), "O": (b, sq, d)}
+    _assert_spec_matches(build, ctx, acc, shapes)
+
+
+# -- story parity: the H100 rungs against the reference rungs' classes ---------------
+
+
+def _classes(hm):
+    return {(r.region, r.pattern) for r in detect_all(hm)}
+
+
+def _port_heatmap(ref_name):
+    spec, ctx = kreg.build(ref_name)
+    return analyze(spec, GridSampler(None), ctx)
+
+
+def _ref_heatmap(ref_name):
+    entry = rk.get(ref_name.partition(":")[0])
+    spec, ctx = rk.build(ref_name)
+    return ref_analyze(spec, sampler=entry.sampler(), dynamic_context=ctx)
+
+
+_BOUNDS = {("starts", HOT_RANDOM), ("ends", HOT_RANDOM)}
+_LENS = {("block_tables", HOT), ("context_lens", HOT_RANDOM)}
+
+
+@pytest.mark.parametrize(
+    "ref_name, only_port, only_ref",
+    [
+        # the Pallas grid revisits Q and O at every KV step (hot); a CUDA block
+        # stages Q once and stores O once.  Every warp of every block reads its
+        # sequence's bounds: all 32 warps on the one sector that holds them.
+        # A live range clamps K and V at a row, mid-(8, 128) TPU tile
+        # (misaligned); a 128-float row is 16 whole sectors.
+        ("ragged_flash:decode", _BOUNDS, {("Q", HOT), ("O", HOT)}),
+        ("ragged_flash:decode-ragged", _BOUNDS,
+         {("Q", HOT), ("O", HOT), ("K", "misalignment"), ("V", "misalignment")}),
+        ("ragged_flash:prefill", _BOUNDS, {("Q", HOT), ("O", HOT)}),
+        ("ragged_flash:prefill-ragged", _BOUNDS,
+         {("Q", HOT), ("O", HOT), ("K", "misalignment"), ("V", "misalignment")}),
+        ("paged_attn:decode", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
+        ("paged_attn:decode-paged", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
+        ("paged_attn:prefill", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
+        ("paged_attn:prefill-paged", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
+    ],
+)
+def test_pattern_divergences_from_reference_are_the_recorded_ones(ref_name, only_port, only_ref):
+    """ROADMAP queue 3: the classes each geometry alone flags."""
+    port, want = _classes(_port_heatmap(ref_name)), _ref_classes(ref_name)
+    assert (port - want, want - port) == (only_port, only_ref)
+    assert port >= (_BOUNDS if ref_name.startswith("ragged") else _LENS)
+
+
+def _ref_classes(ref_name):
+    return {(r.region, r.pattern) for r in ref_detect_all(_ref_heatmap(ref_name))}
+
+
+@pytest.mark.parametrize("pair", list(PINNED_PORT))
+def test_story_parity_diff(pair):
+    """Dense -> gated is an improvement in both packages; the gate changes
+    no class in the port (the reference gains misalignment on the ragged
+    K and V)."""
+    d = diff(_port_heatmap(pair[0]), _port_heatmap(pair[1]))
+    want = ref_diff(_ref_heatmap(pair[0]), _ref_heatmap(pair[1]))
+    assert (d.tx_before, d.tx_after) == PINNED_PORT[pair]
+    assert d.verdict == want.verdict == "improved"
+    assert d.fixed == d.introduced == () == want.fixed
+
+
+# -- python -m repro_torch.cli on the CPU -----------------------------------------
+
+
+@pytest.mark.parametrize(
+    "family, lines",
+    [
+        ("ragged_flash", {(0, 1): ["[ improved] ragged_flash: transfers 66624 -> 11936 (5.58x)",
+                                   "[persisting] hot-random on starts"],
+                          (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696 (2.63x)"]}),
+        ("paged_attn", {(0, 1): ["[ improved] paged_attn: transfers 66624 -> 21504 (3.10x)",
+                                 "[persisting] hot on block_tables"],
+                        (2, 3): ["[ improved] paged_attn: transfers 360960 -> 208960 (1.73x)"]}),
+    ],
+)
+def test_cli_profile_then_diff_then_report(family, lines, tmp_path, capsys):
+    sess = tmp_path / "sess"
+    for variant in kreg.get(family).variant_names():
+        argv = ["profile", "-k", f"{family}:{variant}", "--device", "cpu", "-q"]
+        assert cli.main([*argv, "--out", str(sess)]) == 0
+    for (a, b), want in lines.items():
+        capsys.readouterr()
+        assert cli.main(["diff", str(sess / f"iter{a}"), str(sess / f"iter{b}")]) == 0
+        out = capsys.readouterr().out
+        for line in want:
+            assert line in out
+    for i, variant in enumerate(kreg.get(family).variant_names()):
+        (entry,) = json.loads((sess / f"iter{i}" / "manifest.json").read_text())["kernels"]
+        assert entry["name"] == family
+        if variant.startswith("decode"):
+            assert entry["run"]["device"] == "cpu" and entry["run"]["launches"] == 0
+            assert entry["run"]["max_abs_err"] == 0.0
+        else:
+            assert "run" not in entry
+    assert cli.main(["report", str(sess / "iter1")]) == 0
+    assert (sess / "iter1" / "report" / "report.md").is_file()
