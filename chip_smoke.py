@@ -9,7 +9,9 @@ Phases:
 
 1. Print the card's name and power limit, then build every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` and print the build time and the
-   compiler's register/spill report.
+   compiler's register/spill report.  Count the tensor cores' ``HMMA``
+   instructions in each kernel function of the flash and gmm libraries
+   (``cuobjdump -sass``): every bfloat16 kernel must hold some.
 2. For each GEMM kernel (v00, v01, v02) at the registry's 1024^3 shape,
    in float32 and bfloat16 on inputs from a fixed numpy seed: launch on
    the card, compare with the plain PyTorch version (float32 max abs
@@ -33,13 +35,18 @@ Phases:
    outside [0, n_bins).
    Then the model path's kernels: flash attention, the grouped matmul
    and the SSD chunk, each at the registry's shape (against the plain
-   version and a float64 host product) and at a timing shape from
-   Jamba-v0.1-52B's widths at batch 1, seq 4096 (flash (32, 4096, 4096,
-   128) causal and gmm M = 4096, K = 4096, N = 14336 over 16 experts, in
-   float32 and bfloat16; ssd (128, 16, 256, 64, 16) in float32), timed
-   beside the plain version and the library yardstick
-   (``F.scaled_dot_product_attention``; for gmm a dense ``torch.matmul``
-   of the same FLOPs, not the same function; ssd has none).
+   version and a float64 host product; flash and gmm in float32 and
+   bfloat16) and at a timing shape from Jamba-v0.1-52B's widths at batch
+   1, seq 4096 (flash (32, 4096, 4096, 128) causal and gmm M = 4096, K =
+   4096, N = 14336 over 16 experts, in float32 and bfloat16, the bfloat16
+   ones on the tensor cores; ssd (128, 16, 256, 64, 16) in float32), and
+   the SSD chunk at Mamba2-2.7b's (80, 16, 256, 64, 128) in float32 and
+   bfloat16 (against the plain version and a float64 product on the
+   card), timed beside the plain version and the library yardstick
+   (``F.scaled_dot_product_attention``; for gmm ``torch._grouped_mm`` on
+   the padded groups, held to gmm's tolerance, with a refusal printed and
+   recorded, and a dense ``torch.matmul`` of the same FLOPs beside it;
+   ssd has none).
    Then the serving kernels, ragged and paged MQA decode attention, each
    gated and dense (``dense=True``, the registry's baseline rung): at the
    registry's shape in float32 and at Granite-20B's decode widths (64
@@ -65,8 +72,12 @@ Phases:
    again and drive ``ops.spmv``, the entry point of ``spmv_ell``, once;
    and the same for Granite-20B's decode step in bfloat16 through
    ``ops.ragged_decode_attention`` and ``ops.paged_decode_attention``.
-   Then the model path, each run with the counts set to 0 just before it
-   and read just after: ``model`` on the three registry models (each
+   Then the bfloat16 step at Jamba's widths: the counts set to 0, then
+   ``ops.flash_attention`` and ``ops.grouped_matmul`` once each at the
+   timing shapes in bfloat16 (the tensor-core kernels), each held to its
+   tolerance.  Then the model path, each run with the counts set to 0
+   just before it and read just after: ``model`` on the three registry
+   models (each
    must launch its kernels: flash and gemm_v01; flash, gmm and gemm_v01;
    ssd and gemm_v01); the full-width run, ``model moe-tiny`` with
    Jamba-v0.1-52B's widths and layout at one hybrid period (8 layers: its
@@ -137,6 +148,9 @@ MODEL_TIMING_SHAPES = {
     "gmm": (4096, 4096, 14336, 16, 32),  # (m, k, n, experts, bm)
     "ssd": (128, 16, 256, 64, 16),  # (bh, chunks, l, p, n): 128 SSD heads
 }
+# Mamba2-2.7b's SSD chunk (src/repro_torch/configs/archs.py:mamba2_2_7b:
+# 80 heads of 64, state 128, chunks of 256) at batch 1, seq 4096
+MAMBA2_SSD_SHAPE = (80, 16, 256, 64, 128)
 # Jamba-v0.1-52B's fields that layout() and kind_spec read; the full-width
 # run applies them to moe-tiny at one hybrid period (8 layers)
 JAMBA_FIELDS = (
@@ -432,6 +446,23 @@ def ssd_float64(x, a, b, c):
     return y, s
 
 
+def ssd_float64_card(x, a, b, c):
+    """The SSD chunk term and end state in float64 on the card (torch), for
+    chunks too large for the host oracle: (y, s) as numpy arrays."""
+    import torch
+
+    x, a, b, c = (t.double() for t in (x, a, b, c))
+    cum = torch.cumsum(a, dim=-1)
+    l = a.shape[-1]
+    keep = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(~keep, 0.0)
+    dec = torch.exp(seg).masked_fill(~keep, 0.0)
+    y = torch.matmul(torch.matmul(c, b.transpose(-1, -2)) * dec, x)
+    w = torch.exp(cum[..., -1:] - cum)
+    s = torch.matmul((x * w[..., None]).transpose(-1, -2), b)
+    return y.cpu().numpy(), s.cpu().numpy()
+
+
 def flash_float64(q, k, v):
     """Causal attention, mask aligned top-left, in float64 on the host."""
     import numpy as np
@@ -478,7 +509,9 @@ def model_case(family: str, shape, dtype, dev, exact: bool):
                 q[None], k[None], v[None], is_causal=True
             ),
             library_label="F.scaled_dot_product_attention(is_causal=True), 4-D",
-            exact=(lambda: (flash_float64(q_np, k_np, v_np),)) if exact else None,
+            # the oracle sees the values the kernel sees (bf16-rounded in bf16)
+            exact=(lambda: (flash_float64(*(t.float().cpu().numpy() for t in (q, k, v))),))
+            if exact else None,
             tol=lambda want: flash.tolerance(want, q),
             bytes=size * bh * d * (2 * sq + 2 * skv),
             ops=4 * bh * d * sq * (sq + 1) // 2,
@@ -493,21 +526,29 @@ def model_case(family: str, shape, dtype, dev, exact: bool):
         x = card(x_np)
         ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
         dense = w[0].reshape(k, n)
+        # torch._grouped_mm takes the groups as cumulative end rows: the
+        # padded groups of plan_groups, each expert's tiles consecutive
+        assert bool(np.all(np.diff(ids_np) >= 0))
+        offs = torch.from_numpy(
+            (np.cumsum(np.bincount(ids_np, minlength=e)) * bm).astype(np.int32)
+        ).to(dev)
 
         def exact_fn():
             w64 = w.double().cpu().numpy()
+            x64 = x.double().cpu().numpy()
             out = np.empty((m, n))
             for i, ex in enumerate(ids_np):
                 rows = slice(i * bm, (i + 1) * bm)
-                out[rows] = x_np[rows].astype(np.float64) @ w64[ex]
+                out[rows] = x64[rows] @ w64[ex]
             return (out,)
 
         return dict(
             name="gmm", dtype=dname,
             kernel=(gmm.gmm, (x, w, ids), {"bm": bm}),
             plain=lambda: gmm.gmm_plain(x, w, ids, bm),
-            library=lambda: torch.matmul(x, dense),
-            library_label="torch.matmul dense (M, K)x(K, N): same FLOPs, not the same function",
+            library=lambda: torch._grouped_mm(x, w, offs=offs),
+            library_label="torch._grouped_mm(x, w, offs) on the padded groups",
+            dense=lambda: torch.matmul(x, dense),
             exact=exact_fn if exact else None,
             tol=lambda want: gmm.tolerance(want, x),
             bytes=size * (m * k + len(set(ids_np.tolist())) * k * n + m * n),
@@ -520,15 +561,21 @@ def model_case(family: str, shape, dtype, dev, exact: bool):
     )
     a_np = -np.abs(rng.standard_normal((bh, c, l), dtype=np.float32)) * 0.4
     x, a, b, cm = card(x_np), card(a_np), card(b_np), card(c_np)
+    # the host oracle for the registry's chunks, float64 on the card for
+    # larger ones (Mamba2-2.7b's y alone is 168 MB in float64)
+    oracle = (
+        (lambda: ssd_float64(*(t.float().cpu().numpy() for t in (x, a, b, cm))))
+        if bh * c * l * l * n <= 2**26 else (lambda: ssd_float64_card(x, a, b, cm))
+    )
     return dict(
         name="ssd_chunk", dtype=dname,
         kernel=(ssd.ssd_chunk, (x, a, b, cm), {}),
         plain=lambda: ssd.ssd_plain(x, a, b, cm),
         library=None,
         library_label=None,
-        exact=(lambda: ssd_float64(x_np, a_np, b_np, c_np)) if exact else None,
+        exact=oracle if exact else None,
         tol=lambda want: ssd.tolerance(want, x),
-        bytes=4 * bh * c * (2 * l * p_ + l + 2 * l * n + p_ * n),
+        bytes=bh * c * (size * (l * p_ + l + 2 * l * n) + 4 * (l * p_ + p_ * n)),
         ops=bh * c * (l * (l + 1) // 2 * 2 * (n + p_) + 2 * l * p_ * n),
         source="src/repro_torch/kernels/csrc/ssd.cu",
     )
@@ -537,7 +584,8 @@ def model_case(family: str, shape, dtype, dev, exact: bool):
 def check_model_kernels(kreg, dev):
     """Phase 2 for the model path's kernels: {kernel name: record}, or a
     failure message.  The top level of a record is the registry's shape in
-    float32; ``large`` and ``large_bf16`` the timing shape."""
+    float32; ``registry_bf16``, ``large``, ``large_bf16``, ``mamba2`` and
+    ``mamba2_bf16`` the other runs."""
     import numpy as np
     import torch
 
@@ -548,21 +596,22 @@ def check_model_kernels(kreg, dev):
     }
     rows = {}
     for family, large in MODEL_TIMING_SHAPES.items():
-        runs = [("registry", registry_shapes[family], torch.float32),
-                ("large", large, torch.float32)]
-        if family != "ssd":
-            runs.append(("large_bf16", large, torch.bfloat16))
-        for which, shape, dtype in runs:
-            case = model_case(family, shape, dtype, dev, exact=which == "registry")
+        runs = [("registry", registry_shapes[family], torch.float32, True),
+                ("large", large, torch.float32, False)]
+        if family == "ssd":
+            runs += [("mamba2", MAMBA2_SSD_SHAPE, torch.float32, True),
+                     ("mamba2_bf16", MAMBA2_SSD_SHAPE, torch.bfloat16, True)]
+        else:
+            runs += [("registry_bf16", registry_shapes[family], torch.bfloat16, True),
+                     ("large_bf16", large, torch.bfloat16, False)]
+        for which, shape, dtype, exact in runs:
+            case = model_case(family, shape, dtype, dev, exact=exact)
             name = case["name"]
             fn, args, kwargs = case["kernel"]
             want = case["plain"]()
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
             plain_ms = kreg.cuda_time_ms(case["plain"], ITERS)
-            library_ms = (
-                kreg.cuda_time_ms(case["library"], ITERS) if case["library"] else None
-            )
             bms, bby = bound_of(case["bytes"], case["ops"], case["dtype"])
             before = fn.launches
             got = fn(*args, **kwargs)
@@ -581,25 +630,51 @@ def check_model_kernels(kreg, dev):
                 errs.append(float(diff.max()))
                 over.append(float((diff / tol).max()))
                 tols.append(tol)
+            # the library yardstick: timed, and held to the same tolerance
+            # (recorded, not required); an op that refuses a type or shape
+            # is a yardstick missing, not a failure of the port
+            library_ms = lib_over = refusal = None
+            if case["library"]:
+                try:
+                    lib_out = case["library"]()
+                    torch.cuda.synchronize()
+                except (RuntimeError, NotImplementedError, ValueError, TypeError) as exc:
+                    refusal = f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+                    print(f"{name} {which} {shape} {case['dtype']}: {case['library_label']} "
+                          f"refused: {refusal}")
+                else:
+                    lib_over = float(((lib_out.float() - want[0].float()).abs() / tols[0]).max())
+                    library_ms = kreg.cuda_time_ms(case["library"], ITERS)
+                    del lib_out
             rec = dict(
                 shape=list(shape), dtype=case["dtype"], max_abs_err=max(errs),
                 max_err_over_tol=max(over),
                 ms=kreg.cuda_time_ms(lambda: fn(*args, **kwargs), ITERS),
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                 library_ms=library_ms, library=case["library_label"],
+                library_err_over_tol=lib_over, library_refused=refusal,
             )
+            if "dense" in case:
+                rec["dense_matmul_ms"] = kreg.cuda_time_ms(case["dense"], ITERS)
             line = f"{name} {which} {shape} {case['dtype']}: max|err| {errs}, err/tol {over}"
             if case["exact"] is not None:
-                exact = case["exact"]()
-                diffs64 = [np.abs(g.double().cpu().numpy() - e) for g, e in zip(got, exact)]
+                exact_out = case["exact"]()
+                diffs64 = [np.abs(g.double().cpu().numpy() - e) for g, e in zip(got, exact_out)]
                 over64 = [
                     float((d / tol.double().cpu().numpy()).max()) for d, tol in zip(diffs64, tols)
                 ]
                 rec["max_abs_err_vs_float64"] = max(float(d.max()) for d in diffs64)
+                rec["max_err_over_tol_vs_float64"] = max(over64)
                 line += f", vs float64 {rec['max_abs_err_vs_float64']:.3e} (err/tol {over64})"
+                del exact_out, diffs64
                 if not all(o <= 1 for o in over64):
-                    return f"{name} {shape}: vs float64 err/tol {over64} > 1"
-            lib = f"{library_ms:.4f} ms ({case['library_label']})" if library_ms else "none"
+                    return f"{name} {shape} {case['dtype']}: vs float64 err/tol {over64} > 1"
+            if library_ms is not None:
+                lib = f"{library_ms:.4f} ms ({case['library_label']}, err/tol {lib_over:.3f})"
+            else:
+                lib = f"none (refused: {refusal})" if refusal else "none"
+            if "dense_matmul_ms" in rec:
+                lib += f", dense torch.matmul of the same FLOPs {rec['dense_matmul_ms']:.4f} ms"
             print(
                 f"{line}, median {rec['ms']:.4f} ms over {ITERS}, plain "
                 f"{plain_ms:.4f} ms, library {lib}, bound {bms:.4f} ms ({bby}), "
@@ -614,6 +689,51 @@ def check_model_kernels(kreg, dev):
             del case, args, got, want, tols
             torch.cuda.empty_cache()
     return rows
+
+
+def check_tensor_cores(_build):
+    """Phase 1: the ``HMMA`` count of each kernel function of the flash
+    and gmm libraries, {library: {function: count}}, or a failure message
+    if a bfloat16 kernel (``*_tc_kernel``) holds none."""
+    counts = {}
+    for name, tc in (("flash", "flash_tc_kernel"), ("gmm", "gmm_tc_kernel")):
+        per_fn = _build.sass_counts(name, "HMMA")
+        tc_fns = {fn: c for fn, c in per_fn.items() if tc in fn}
+        print(f"{name}: HMMA per kernel function (cuobjdump -sass): "
+              + ", ".join(f"{fn.split('_cu_')[-1][:64]}: {c}" for fn, c in per_fn.items()))
+        if not tc_fns or min(tc_fns.values()) < 1:
+            return f"{name}: a bfloat16 kernel holds no HMMA instruction ({per_fn})"
+        counts[name] = per_fn
+    return counts
+
+
+def drive_tensor_core_step(dev):
+    """Phase 3 for the bfloat16 routes: attention and the expert FFN at
+    Jamba-v0.1-52B's widths in bfloat16 through ``ops``, with the counts
+    set to 0 just before.  {kernel name: launches}, or a failure message."""
+    import torch
+
+    from repro_torch import kernels as kreg
+    from repro_torch.kernels import ops
+
+    entry = {"flash": ops.flash_attention, "gmm": ops.grouped_matmul}
+    cases = [model_case(family, MODEL_TIMING_SHAPES[family], torch.bfloat16, dev, exact=False)
+             for family in entry]
+    kreg.reset_launch_counts()
+    outs = [entry[family](*c["kernel"][1], **c["kernel"][2]) for family, c in zip(entry, cases)]
+    torch.cuda.synchronize()
+    counts = {c["name"]: c["kernel"][0].launches for c in cases}
+    print(f"main-path launches (Jamba-v0.1-52B bfloat16 step): {counts}")
+    for c, out in zip(cases, outs):
+        want = c["plain"]()
+        over = float(((out.float() - want.float()).abs() / c["tol"](want)).max())
+        print(f"{c['name']} through ops at {tuple(out.shape)} bfloat16: finite "
+              f"{bool(torch.isfinite(out.float()).all())}, err/tol {over:.3f}")
+        if counts[c["name"]] < 1 or not bool(torch.isfinite(out.float()).all()) or over > 1:
+            return f"{c['name']}: the bfloat16 step did not launch it or is off (err/tol {over})"
+    del cases, outs
+    torch.cuda.empty_cache()
+    return counts
 
 
 def serving_case(kind: str, shape, dtype, dev, dense: bool):
@@ -943,6 +1063,9 @@ def main() -> int:
         for line in Path(f"{path}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    hmma = check_tensor_cores(_build)
+    if isinstance(hmma, str):
+        return fail(hmma)
 
     # -- phase 2: each kernel against its plain version ----------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1092,6 +1215,10 @@ def main() -> int:
     if isinstance(step_launches, str):
         return fail(step_launches)
 
+    tc_launches = drive_tensor_core_step(dev)
+    if isinstance(tc_launches, str):
+        return fail(tc_launches)
+
     model_launches = drive_model_path(cli, kreg, load_iteration)
     if isinstance(model_launches, str):
         return fail(model_launches)
@@ -1114,12 +1241,18 @@ def main() -> int:
                 launches=launches[name], **row,
             )
         )
-    # the model path's kernels: launches of the full-width run
+    # the model path's kernels: launches of the full-width run (float32),
+    # and of the bfloat16 step on the tensor cores (flash, gmm)
+    lib_of = {"flash_attention": "flash", "gmm": "gmm"}
     for name, row in model_rows.items():
+        extra = {}
+        if name in lib_of:
+            extra = dict(bf16_step_launches=tc_launches[name],
+                         hmma_per_function=hmma[lib_of[name]])
         kernels.append(
             dict(
                 name=name, route="cuda", replaces=REPLACES[name],
-                launches=model_launches[name], **row,
+                launches=model_launches[name], **extra, **row,
             )
         )
     # the serving kernels: launches of their families' profile -> diff ->

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -109,6 +110,29 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _LOADED[name] = lib
         return lib
+
+
+def sass_counts(name: str, opcode: str = "HMMA") -> Dict[str, int]:
+    """Instructions ``opcode`` in each kernel function of the library
+    built from ``csrc/<name>.cu`` (mangled name -> count), read from
+    ``cuobjdump -sass``; builds the library if needed.  ``HMMA`` is the
+    tensor cores' matrix multiply-add."""
+    path = build([name])[name]
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).with_name("cuobjdump"))
+    out = subprocess.run(
+        [tool, "-sass", str(path)], capture_output=True, text=True, check=True
+    ).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    pattern = re.compile(rf"\b{re.escape(opcode)}\b")
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            fn = line[len("Function : "):]
+            counts[fn] = 0
+        elif fn is not None and pattern.search(line):
+            counts[fn] += 1
+    return counts
 
 
 def call(name: str, symbol: str, argtypes: Sequence, *args) -> None:

@@ -7,38 +7,69 @@
 //     O[i*bm : (i+1)*bm] = X[i*bm : (i+1)*bm] . W[tile_expert_ids[i]]
 // with float32 or bfloat16 inputs, float32 accumulation and O in the input
 // type.  M is a multiple of bm, and bm of 32 (the wrapper checks both).  An
-// id outside [0, E) reads no weights: its rows of O are zero.  The kernel
-// launches on the caller's stream, allocates nothing and does not
-// synchronise; the entry point returns cudaGetLastError() right after its
-// launch.
-//
-// Design.  The Pallas kernel prefetches the ids as scalars so that the W
-// BlockSpec's index map can pick the expert of each tile.  Here each block
-// reads its own id: a block owns a BM x 64 tile of O, with BM = 64 rows (8
-// warps) when bm is a multiple of 64 and BM = 32 (4 warps) otherwise, so
-// its rows lie in one bm-row tile and belong to one expert.  It walks K in
-// steps of 16, staging the (BM, 16) tile of X and the (16, 64) tile of
-// W[e] in shared memory, and every thread updates a 4 x 4 micro-tile of O
-// held in registers.  A 64-row block reads W[e] once for 64 rows, so wider
-// expert tiles halve the weight traffic, as they do on the TPU.  Who reads
-// what: warp w stages rows 8w .. 8w+7 of every X tile and columns
-// 64/W*w .. 64/W*(w+1) - 1 (W warps) of every W tile, and stores rows
-// 8w .. 8w+7 of the O tile (kernels/gmm.py:gmm_spec).
+// id outside [0, E) reads no weights: its rows of O are zero.  The kernels
+// launch on the caller's stream, allocate nothing and do not synchronise;
+// the entry point returns cudaGetLastError() right after its launch.  Each
+// type has a kernel of its own.
 //
 // Bound on an H100 SXM at M = 4096, K = 4096, N = 14336 over 16 experts:
 // 2 M K N = 481 GFLOP take 7.2 ms at the CUDA cores' float32 rate (67
 // TFLOP/s) and 0.49 ms at the tensor cores' bf16 rate (989 TFLOP/s), while
-// the experts' weights alone are 3.76 GB in float32 (1.12 ms at 3.35 TB/s):
-// the float32 arithmetic bounds it.  This first kernel runs both types on
-// the CUDA cores; each staged element of W is reused by the block's 32 or
-// 64 rows and each of X by its 64 columns.  wgmma and TMA are later work.
+// the experts' weights alone are 3.76 GB in float32 (1.12 ms at 3.35 TB/s)
+// and 1.88 GB in bf16 (0.56 ms): float32 is bound by its arithmetic, bf16 by
+// reading W.
+//
+// float32: gmm_kernel, on the CUDA cores (TF32 would keep too few digits for
+// the float32 tolerance).  The Pallas kernel prefetches the ids as scalars
+// so that the W BlockSpec's index map can pick the expert of each tile.
+// Here each block reads its own id: a block owns a BM x 64 tile of O, with
+// BM = 64 rows (8 warps) when bm is a multiple of 64 and BM = 32 (4 warps)
+// otherwise, so its rows lie in one bm-row tile and belong to one expert.
+// It walks K in steps of 16, staging the (BM, 16) tile of X and the (16, 64)
+// tile of W[e] in shared memory, and every thread updates a 4 x 4
+// micro-tile of O held in registers.  A 64-row block reads W[e] once for 64
+// rows, so wider expert tiles halve the weight traffic, as they do on the
+// TPU.  Who reads what: warp w stages rows 8w .. 8w+7 of every X tile and
+// columns 64/W*w .. 64/W*(w+1) - 1 (W warps) of every W tile, and stores
+// rows 8w .. 8w+7 of the O tile (kernels/gmm.py:gmm_spec).
+//
+// bfloat16: gmm_tc_kernel, on the tensor cores (mma.sync m16n8k16, float32
+// accumulators; helpers in mma.cuh).  First gmm_plan_kernel cuts every run
+// of consecutive bm-row tiles with one id into chunks of up to 128 rows
+// from the run's first row (plan_groups makes each expert's tiles one
+// run), so that no chunk mixes experts.  Then a block of 128 threads (4
+// warps) owns a chunk and 128 columns of O; warp w a 64 x 64 sub-tile
+// (rows 64 (w / 2), columns 64 (w % 2)) of 4 x 8 m16n8 accumulators.  K is
+// walked in steps of 64 through a three-stage cp.async ring of (128, 64) X
+// tiles and (64, 128) W tiles (96 KB: two blocks an SM), swizzled for
+// ldmatrix (mma.cuh:swz); W is (K, N) row-major, so its B fragments come
+// by the transposed ldmatrix.  A tile wholly inside X or W is copied by
+// stage_tile_full, without per-chunk index arithmetic.  The m-tiles of a
+// warp past the chunk's last row neither load nor multiply (a warp whose
+// four m-tiles are all in the chunk takes a path without branches).  A
+// chunk whose id is out of [0, E) writes zeros.  Raster: the blocks of a
+// group of 8 consecutive chunks sweep the 128-column slices, the group's
+// chunks of one slice next to each other, so the chunks of one expert read
+// the same W tiles at about the same time and all but the first find them
+// in L2, while the group's rows of X stay in L2 across the slices.  O goes
+// out as bf16 through shared memory with 16-byte stores.  Who reads what
+// (thread t copies 16-byte chunks t, t + 128, ... of each staged tile; warp
+// w stores rows 32w .. 32w+31 of the chunk): kernels/gmm.py:gmm_spec with
+// dtype bfloat16 describes exactly this.  Rows
+// that are not 16-byte aligned (K or N not a multiple of 8) are staged and
+// stored with 2-byte accesses by the same threads; edges in M, K and N are
+// zero-filled.  What is left to the card's peak: wgmma, TMA and a
+// persistent, warp-specialised schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -137,17 +168,293 @@ int dispatch(const void* x, const void* w, const void* ids, void* o, int m,
   return launch<T, 32>(x, w, ids, o, m, k, n, e, bm, s);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: the products on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcBM = 128;       // rows of O a block
+constexpr int kTcBN = 128;       // columns of O a block
+constexpr int kTcBK = 64;        // depth of a staged step
+constexpr int kTcStages = 3;     // the cp.async ring
+constexpr int kTcThreads = 128;  // 4 warps, each 64 x 64 of O
+constexpr int kCX = kTcBK / 8;   // 16-byte chunks of an X tile row
+constexpr int kCW = kTcBN / 8;   // ... of a W tile row
+constexpr size_t kTcSmem = sizeof(bf16) * kTcStages * (kTcBM * kTcBK + kTcBK * kTcBN);
+static_assert(kTcSmem >= sizeof(bf16) * kTcBM * kTcBN, "the O tile reuses the ring");
+
+constexpr int kPlanThreads = 1024;
+constexpr int kGroup = 8;  // chunks a raster group (their X rows: 8 x 1 MB at K 4096)
+
+// inclusive scan of v over the block's kPlanThreads threads with op;
+// tmp holds 32 ints of shared memory
+template <typename Op>
+__device__ int block_scan(int v, Op op, int* tmp) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const int u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v = op(v, u);
+  }
+  if (lane == 31) tmp[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int t = tmp[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const int u = __shfl_up_sync(0xffffffffu, t, off);
+      if (lane >= off) t = op(t, u);
+    }
+    tmp[lane] = t;
+  }
+  __syncthreads();
+  if (warp > 0) v = op(v, tmp[warp - 1]);
+  __syncthreads();  // tmp is free again
+  return v;
+}
+
+// The chunks of the product: every run of consecutive bm-row tiles with
+// one id is cut into pieces of up to kTcBM rows from its first row, and
+// chunk c is (first row, id) at plan[1 + 2c], plan[2 + 2c], in row order;
+// plan[0] is their count.  One block of kPlanThreads threads, tile i of each
+// segment of kPlanThreads tiles to thread i % kPlanThreads: a max-scan finds
+// the first tile of i's run, a sum-scan places the chunks that start in i.
+__global__ void __launch_bounds__(kPlanThreads)
+gmm_plan_kernel(const int* __restrict__ ids, int n_tiles, int bm, int* __restrict__ plan) {
+  __shared__ int tmp[32];
+  __shared__ int carry[2];
+  int carry_start = 0;  // the first tile of the run the last segment ended in
+  int carry_count = 0;  // chunks placed so far
+  const auto max_op = [](int a, int b) { return a > b ? a : b; };
+  const auto sum_op = [](int a, int b) { return a + b; };
+  for (int base = 0; base < n_tiles; base += kPlanThreads) {
+    const int i = base + threadIdx.x;
+    const bool in = i < n_tiles;
+    const int ex = in ? ids[i] : 0;
+    const bool first = in && (i == 0 || ids[i - 1] != ex);
+    const int run_start = block_scan(first ? i : carry_start, max_op, tmp);
+    const int run_row = run_start * bm;
+    // chunk starts run_row + kTcBM j inside this tile's rows [i bm, (i+1) bm)
+    const int j0 = (i * bm - run_row + kTcBM - 1) / kTcBM;
+    const int j1 = ((i + 1) * bm - run_row + kTcBM - 1) / kTcBM;
+    const int cnt = in ? j1 - j0 : 0;
+    const int incl = block_scan(cnt, sum_op, tmp);
+    int pos = carry_count + incl - cnt;
+    for (int j = j0; j < j0 + cnt; ++j, ++pos) {
+      plan[1 + 2 * pos] = run_row + kTcBM * j;
+      plan[2 + 2 * pos] = ex;
+    }
+    if (threadIdx.x == kPlanThreads - 1) {
+      carry[0] = run_start;
+      carry[1] = carry_count + incl;
+    }
+    __syncthreads();
+    carry_start = carry[0];
+    carry_count = carry[1];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) plan[0] = carry_count;
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+gmm_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+              const int* __restrict__ ids, const int* __restrict__ plan,
+              bf16* __restrict__ o, int m, int k, int n, int e, int bm, int slots,
+              int vec_x, int vec_w, int vec_o) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* xs = reinterpret_cast<bf16*>(tc_smem);  // [stages][BM][BK]
+  bf16* ws = xs + kTcStages * kTcBM * kTcBK;    // [stages][BK][BN]
+
+  // raster: the blocks of a group of kGroup consecutive chunks sweep the
+  // column slices, the group's chunks of one slice next to each other: the
+  // chunks of one expert read each W tile at about the same time, and the
+  // group's rows of X stay in L2 while the slices pass
+  const int col_blocks = (n + kTcBN - 1) / kTcBN;
+  const int in_group = blockIdx.x % (kGroup * col_blocks);
+  const int slot = blockIdx.x / (kGroup * col_blocks) * kGroup + in_group % kGroup;
+  const int col0 = in_group / kGroup * kTcBN;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wr = 64 * (warp / 2);  // this warp's rows and columns in the tile
+  const int wc = 64 * (warp % 2);
+  const int nk = (k + kTcBK - 1) / kTcBK;
+  const bool w_inside = vec_w && col0 + kTcBN <= n;
+  const int count = plan[0];
+
+  for (int chunk = slot; chunk < count; chunk += slots) {
+    const int row0 = plan[1 + 2 * chunk];
+    const int ex = plan[2 + 2 * chunk];
+    // the chunk's rows: up to kTcBM, while the run of its id lasts
+    int row_end = min(row0 + kTcBM, m);
+    for (int t = row0 / bm + 1; t * bm < row_end; ++t) {
+      if (ids[t] != ex) row_end = t * bm;
+    }
+    const int rows = row_end - row0;
+    const bf16* xb = x + (size_t)row0 * k;
+    const bool x_inside = vec_x && rows == kTcBM;  // else rows past the chunk are zero
+
+    float acc[4][8][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+      }
+    }
+
+    if (ex >= 0 && ex < e) {  // else no weights: the rows are zero
+      bool mine[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mine[i] = wr + 16 * i < rows;
+      const bool all_rows = mine[0] && mine[1] && mine[2] && mine[3];
+      const bf16* wb = w + (size_t)ex * k * n + col0;
+      auto stage = [&](int ring_slot, int kt) {
+        const int k0 = kt * kTcBK;
+        bf16* xt = xs + ring_slot * kTcBM * kTcBK;
+        bf16* wt = ws + ring_slot * kTcBK * kTcBN;
+        if (x_inside && k0 + kTcBK <= k) {
+          stage_tile_full<kCX, kTcBM, kTcThreads>(xt, xb + k0, k, tid);
+        } else {
+          stage_tile<kCX>(xt, xb + k0, kTcBM, k, rows, k - k0, vec_x != 0, tid, kTcThreads);
+        }
+        if (w_inside && k0 + kTcBK <= k) {
+          stage_tile_full<kCW, kTcBK, kTcThreads>(wt, wb + (size_t)k0 * n, n, tid);
+        } else {
+          stage_tile<kCW>(wt, wb + (size_t)k0 * n, kTcBK, n, k - k0, n - col0, vec_w != 0, tid,
+                          kTcThreads);
+        }
+      };
+#pragma unroll
+      for (int st = 0; st < kTcStages - 1; ++st) {
+        if (st < nk) stage(st, st);
+        cp_async_commit();
+      }
+      for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<kTcStages - 2>();  // step kt has landed
+        __syncthreads();                 // ... for every thread; step kt - 1 is done
+        if (kt + kTcStages - 1 < nk) stage((kt + kTcStages - 1) % kTcStages, kt + kTcStages - 1);
+        cp_async_commit();
+        const int ring_slot = kt % kTcStages;
+        const uint32_t xbase = smem_u32(xs + ring_slot * kTcBM * kTcBK);
+        const uint32_t wbase = smem_u32(ws + ring_slot * kTcBK * kTcBN);
+        // all four m-tiles of the warp in the chunk: a loop without
+        // branches; else only the chunk's m-tiles load A and multiply
+        auto products = [&](auto tag) {
+          constexpr bool kAll = decltype(tag)::value;
+#pragma unroll
+          for (int ks = 0; ks < kTcBK / 16; ++ks) {
+            uint32_t af[4][4];
+            uint32_t bfr[8][2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (!kAll && !mine[i]) continue;
+              const int r = wr + 16 * i + lane % 16;
+              ldmatrix_x4(af[i], xbase + swz_offset<kCX>(r, ks * 16 + (lane / 16) * 8));
+            }
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              uint32_t b[4];
+              const int kr = ks * 16 + ((lane / 8) & 1) * 8 + lane % 8;
+              ldmatrix_x4_trans(b, wbase + swz_offset<kCW>(kr, wc + jj * 16 + (lane / 16) * 8));
+              bfr[2 * jj][0] = b[0];
+              bfr[2 * jj][1] = b[1];
+              bfr[2 * jj + 1][0] = b[2];
+              bfr[2 * jj + 1][1] = b[3];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (!kAll && !mine[i]) continue;
+#pragma unroll
+              for (int j = 0; j < 8; ++j) mma_bf16_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+            }
+          }
+        };
+        if (all_rows) {
+          products(std::true_type{});
+        } else {
+          products(std::false_type{});
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // the ring is free for O
+    }
+
+    // O as bf16 into shared memory (the ring), then warp w stores rows
+    // 32w .. 32w+31 of the chunk with 16-byte stores
+    unsigned char* ob = tc_smem;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = wr + 16 * i + lane / 4;
+        const int col = wc + 8 * j + 2 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(ob + swz_offset<kCW>(r, col)) =
+            pack_bf16(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<uint32_t*>(ob + swz_offset<kCW>(r + 8, col)) =
+            pack_bf16(acc[i][j][2], acc[i][j][3]);
+      }
+    }
+    __syncthreads();
+    for (int i = lane; i < 32 * kCW; i += 32) {
+      const int r = 32 * warp + i / kCW;
+      const int c = i % kCW;
+      const int gc = col0 + 8 * c;
+      if (r >= rows || gc >= n) continue;
+      const unsigned char* src = ob + (r * kCW + swz<kCW>(r, c)) * 16;
+      bf16* dst = o + (size_t)(row0 + r) * n + gc;
+      if (vec_o) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        const bf16* vals = reinterpret_cast<const bf16*>(src);
+        for (int c2 = 0; c2 < 8 && gc + c2 < n; ++c2) dst[c2] = vals[c2];
+      }
+    }
+    __syncthreads();  // O is out of the ring before the next chunk fills it
+  }
+}
+
+int launch_tc(const void* x, const void* w, const void* ids, void* plan, void* o,
+              int m, int k, int n, int e, int bm, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kTcSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = m / bm;
+  gmm_plan_kernel<<<1, kPlanThreads, 0, stream>>>(static_cast<const int*>(ids), n_tiles, bm,
+                                                  static_cast<int*>(plan));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a block slot for every chunk when the ids come from plan_groups (one
+  // run an expert, one more of ids out of range), in whole raster groups;
+  // more chunks loop
+  int slots = (m + kTcBM - 1) / kTcBM + min(n_tiles, e + 1);
+  slots = (slots + kGroup - 1) / kGroup * kGroup;
+  const int col_blocks = (n + kTcBN - 1) / kTcBN;
+  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  gmm_tc_kernel<<<slots * col_blocks, kTcThreads, kTcSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const int*>(ids), static_cast<const int*>(plan), static_cast<bf16*>(o),
+      m, k, n, e, bm, slots, k % 8 == 0 && al(x), n % 8 == 0 && al(w), n % 8 == 0 && al(o));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16; ids
-// are int32 on the device, one per bm-row tile.
+// are int32 on the device, one per bm-row tile.  plan is int32 scratch on
+// the device for the bfloat16 route, 1 + 2 (ceil(m / 128) + m / bm) ints
+// (kernels/gmm.py:plan_ints), and unused in float32.
 extern "C" {
 
-int repro_gmm(const void* x, const void* w, const void* ids, void* o, int m,
-              int k, int n, int e, int bm, int dtype, void* stream) {
+int repro_gmm(const void* x, const void* w, const void* ids, void* plan, void* o,
+              int m, int k, int n, int e, int bm, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(x, w, ids, o, m, k, n, e, bm, s);
-  return dispatch<__nv_bfloat16>(x, w, ids, o, m, k, n, e, bm, s);
+  return launch_tc(x, w, ids, plan, o, m, k, n, e, bm, s);
 }
 
 }  // extern "C"

@@ -15,15 +15,19 @@
 // after its launch.
 //
 // Design.  One block of 256 threads (8 warps) per (chunk, bh).  The block
-// stages x, B and C of its chunk in shared memory (element e of each by
+// stages x and B of its chunk in shared memory (element e of each by
 // thread e mod 256), and warp 0 takes the cumulative sum of a (each lane a
 // run of ceil(L/32) steps, then a shuffle scan of the runs) and the
 // end-state decays exp(cum[L-1] - cum[t]).  For y, warp w takes the row
-// groups g = w, w + 8, ... of 4 rows: for each 32-column tile of j up to
-// the group's last row, its lanes form the masked 4 x 32 score tile
-// (lane = 8 * row + j mod 8) in a warp-private slice of shared memory, then
-// accumulate it times x into the 4 x P rows, held in registers (lane: row
-// lane / 8, columns lane % 8 + 8q).  Tiles above the diagonal are skipped.
+// groups g = w, w + 8, ... of 4 rows.  C is read by that warp alone, so it
+// is not staged for the whole chunk: when the warp starts a group, its
+// lanes bring the group's 4 rows of C (element e of the 4 x N by lane
+// e mod 32) into a slice of shared memory of the warp's own.  Then, for
+// each 32-column tile of j up to the group's last row, its lanes form the
+// masked 4 x 32 score tile (lane = 8 * row + j mod 8) in another
+// warp-private slice, and accumulate it times x into the 4 x P rows, held
+// in registers (lane: row lane / 8, columns lane % 8 + 8q).  Tiles above
+// the diagonal are skipped.
 // For s, thread e of the block sums element e (mod 256) of the P x N state
 // over the L steps.  kernels/ssd.py:ssd_chunk_spec describes these loads
 // and stores warp by warp.
@@ -37,10 +41,11 @@
 // (about one per multiply-add) are what this first kernel spends its time
 // on.
 //
-// Shared memory: L P + 2 L (N + 1) + 2 L + 8 * 4 * 33 floats, 107 KB for
-// Jamba's chunk: above the 48 KB a block gets by default, so the launch opts
-// in with cudaFuncSetAttribute first.  The wrapper refuses shapes above the
-// 227 KB a block can have (Mamba2-2.7b's N = 128 needs 337 KB).
+// Shared memory: L P + L (N + 1) + 2 L + 8 * 4 * 33 + 8 * 4 * (N + 1)
+// floats (kernels/ssd.py:smem_bytes), 91 KB for Jamba's chunk and 215 KB
+// for Mamba2-2.7b's (L 256, P 64, N 128): above the 48 KB a block gets by
+// default, so the launch opts in with cudaFuncSetAttribute first.  The
+// wrapper refuses shapes above the 227 KB a block can have.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,10 +72,10 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ a,
   const int ldn = n + 1;  // padded: 8 rows of B at one column hit 8 banks
   float* xs = smem;                 // [l][p]
   float* bs = xs + l * p;           // [l][ldn]
-  float* cs = bs + l * ldn;         // [l][ldn]
-  float* cum = cs + l * ldn;        // [l]
+  float* cum = bs + l * ldn;        // [l]
   float* wdec = cum + l;            // [l]: exp(cum[l-1] - cum[t])
   float* sw = wdec + l;             // [kWarps][kRows][kTJ + 1]
+  float* cw = sw + kWarps * kRows * (kTJ + 1);  // [kWarps][kRows][ldn]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -84,10 +89,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ a,
 
   for (int e = tid; e < l * p; e += kThreads) xs[e] = to_float(xg[e]);
   for (int e = tid; e < l * n; e += kThreads) {
-    const int row = e / n;
-    const int col = e % n;
-    bs[row * ldn + col] = to_float(bg[e]);
-    cs[row * ldn + col] = to_float(cg[e]);
+    bs[(e / n) * ldn + e % n] = to_float(bg[e]);
   }
   if (warp == 0) {
     const T* ag = a + cell * l;
@@ -114,12 +116,18 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ a,
 
   // y: warp w takes the row groups g = w, w + 8, ...
   float* tile = sw + warp * kRows * (kTJ + 1);
+  float* crow = cw + warp * kRows * ldn;  // the group's rows of C
   const int ii = lane / 8;
   const int jl = lane % 8;
   const int ncol = (p + 7) / 8;
   for (int g = warp; g * kRows < l; g += kWarps) {
     const int i = g * kRows + ii;
     const int ilast = min(g * kRows + kRows, l) - 1;
+    __syncwarp();  // the previous group's reads of crow are done
+    for (int e = lane; e < (ilast + 1 - g * kRows) * n; e += 32) {
+      crow[(e / n) * ldn + e % n] = to_float(cg[(size_t)g * kRows * n + e]);
+    }
+    __syncwarp();
     float acc[kMaxCols];
 #pragma unroll
     for (int q = 0; q < kMaxCols; ++q) acc[q] = 0.f;
@@ -130,7 +138,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ a,
         float sc = 0.f;
         if (i < l && j <= i) {  // mask before the exponential
           float dot = 0.f;
-          for (int c = 0; c < n; ++c) dot += cs[i * ldn + c] * bs[j * ldn + c];
+          for (int c = 0; c < n; ++c) dot += crow[ii * ldn + c] * bs[j * ldn + c];
           sc = round_to<T>(dot * expf(cum[i] - cum[j]));
         }
         tile[ii * (kTJ + 1) + jl + 8 * q] = sc;
@@ -173,8 +181,9 @@ template <typename T>
 int launch(const void* x, const void* a, const void* b, const void* c,
            void* y, void* s, int bh, int chunks, int l, int p, int n,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)l * p + 2 * (size_t)l * (n + 1) +
-                                       2 * (size_t)l + kWarps * kRows * (kTJ + 1));
+  const size_t smem = sizeof(float) * ((size_t)l * p + (size_t)l * (n + 1) + 2 * (size_t)l +
+                                       kWarps * kRows * (kTJ + 1) +
+                                       (size_t)kWarps * kRows * (n + 1));
   cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -2,10 +2,13 @@
 
 ``csrc/flash.cu`` computes ``O = softmax(Q Kᵀ / sqrt(D)) V`` for q
 (BH, Sq, D) and k, v (BH, Skv, D), with KV heads already broadcast to the
-query heads: one block of 8 warps per 64-query tile walks the KV tiles of
-``bkv`` rows (32, 64 or 128) with the online softmax, float32 sums and the
-output in q's type.  The causal mask is aligned top-left, as the Pallas
-kernel's (``repro/kernels/flash.py``): query row i sees keys j <= i.  (The
+query heads: one block per 64-query tile walks the KV tiles of ``bkv``
+rows (32, 64 or 128) with the online softmax, float32 sums and the output
+in q's type.  float32 runs on the CUDA cores (8 warps a block); bfloat16
+on the tensor cores (4 warps a block, ``mma.sync`` with K and V staged as
+bf16 in a two-stage ``cp.async`` ring).  The causal mask is aligned
+top-left, as the Pallas kernel's (``repro/kernels/flash.py``): query row
+i sees keys j <= i.  (The
 JAX package's oracle ``flash_ref`` aligns it bottom-right, ``j <= i + Skv -
 Sq``; the two agree only when Sq = Skv.  The port's plain version follows
 the kernel.)
@@ -16,8 +19,8 @@ operands, launches on the current stream and counts its launches in
 version (``flash_plain``) instead; given CUDA tensors it launches the
 kernel or raises.
 
-``flash_spec`` describes what each warp of the CUDA kernel reads and
-writes under the H100 sector geometry.
+``flash_spec`` describes what each warp of the CUDA kernel of the given
+dtype reads and writes under the H100 sector geometry.
 """
 
 from __future__ import annotations
@@ -35,9 +38,11 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: KV tile widths the kernel is built for.
 BKV_CHOICES = (32, 64, 128)
-#: Query rows per block, and warps per block (each stages 8 query rows).
+#: Query rows per block, and warps per block of the float32 kernel (each
+#: stages 8 query rows) and of the bfloat16 one (each owns 16 query rows).
 BQ = 64
 WARPS = 8
+TC_WARPS = 4
 MAX_D = 128
 #: The Pallas kernel's masked score (``-inf`` would give NaN rows).
 NEG_INF = -1e30
@@ -159,11 +164,62 @@ def _row_elems(rows: np.ndarray, d: int) -> np.ndarray:
     return (rows[:, None] * d + np.arange(d, dtype=np.int64)).reshape(-1)
 
 
+def is_bf16(dtype) -> bool:
+    """Whether ``dtype`` (a torch or numpy dtype, a numpy extension type,
+    or a name) is bfloat16: the type whose kernels run on the tensor cores."""
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.bfloat16
+    name = getattr(dtype, "__name__", None) or str(dtype)
+    return name.replace("torch.", "") == "bfloat16"
+
+
+#: The dtype a bfloat16 spec gives its operands: the engine reads only the
+#: itemsize, and numpy has no bfloat16.
+BF16_STORAGE = np.dtype(np.uint16)
+
+
+def padded_d(d: int) -> int:
+    """Columns the bfloat16 kernel stages a row of Q, K and V with: the
+    least of 16, 32, 64 and 128 that holds ``d`` (the rest zero-filled)."""
+    return next(p for p in (16, 32, 64, 128) if d <= p)
+
+
+def staged_chunks(w: int, rows: int, chunks: int, threads: int = 32 * TC_WARPS):
+    """(row, chunk) of each 16-byte chunk that warp ``w`` copies of a
+    ``rows`` x ``chunks`` tile, when thread t of the block copies chunks
+    t, t + threads, ... (chunk i is row i // chunks, chunk i % chunks)."""
+    starts = np.arange(32 * w, rows * chunks, threads, dtype=np.int64)
+    i = (starts[:, None] + np.arange(32, dtype=np.int64)).reshape(-1)
+    i = i[i < rows * chunks]
+    return i // chunks, i % chunks
+
+
+def chunk_elems(rows: np.ndarray, chunks: np.ndarray, row_len: int, cols: int) -> np.ndarray:
+    """Flat indices, in a row-major array of ``row_len`` columns, of the
+    elements below column ``cols`` of 8-element chunk ``chunks[i]`` of row
+    ``rows[i]``."""
+    c = chunks[:, None] * 8 + np.arange(8, dtype=np.int64)
+    return (rows[:, None] * row_len + c)[c < cols]
+
+
 def flash_spec(
     bh: int, sq: int, skv: int, d: int, bkv: int = 64, causal: bool = True,
     dtype=np.float32,
 ) -> KernelSpec:
-    """Warp footprints of ``flash_kernel`` (``csrc/flash.cu``).
+    """Warp footprints of the kernel ``csrc/flash.cu`` launches for
+    ``dtype``: ``flash_tc_kernel`` for bfloat16 (``_tc_spec``), else
+    ``flash_kernel`` (``cuda_core_spec``)."""
+    if is_bf16(dtype):
+        return _tc_spec(bh, sq, skv, d, bkv, causal)
+    return cuda_core_spec(bh, sq, skv, d, bkv, causal, dtype)
+
+
+def cuda_core_spec(
+    bh: int, sq: int, skv: int, d: int, bkv: int = 64, causal: bool = True,
+    dtype=np.float32,
+) -> KernelSpec:
+    """Warp footprints of ``flash_kernel`` (``csrc/flash.cu``), the float32
+    route on the CUDA cores.
 
     Program ``(h, qt, w)`` is warp ``w`` (0..7) of the block of query tile
     ``qt`` (64 rows) of head ``h``, over a grid ``(bh, ceil(sq/64), 8)``.
@@ -206,4 +262,54 @@ def flash_spec(
             spec_of("O", sq, kind="store"),
         ),
         dynamic=(("Q", q_walk), ("K", kv_walk), ("V", kv_walk), ("O", q_walk)),
+    )
+
+
+def _tc_spec(bh: int, sq: int, skv: int, d: int, bkv: int, causal: bool) -> KernelSpec:
+    """Warp footprints of ``flash_tc_kernel`` (``csrc/flash.cu``), the
+    bfloat16 route on the tensor cores.
+
+    Program ``(h, qt, w)`` is warp ``w`` (0..3) of the block of query tile
+    ``qt`` (64 rows) of head ``h``, over a grid ``(bh, ceil(sq/64), 4)``.
+    Rows are staged in 16-byte chunks of 8 elements, ``padded_d(d) / 8`` a
+    row, and thread t of the block's 128 copies chunks t, t + 128, ... of
+    each staged tile (``staged_chunks``): of the Q tile, and of every K and
+    V tile its block walks (``n_kv_tiles``), the elements below ``sq`` or
+    ``skv`` and column ``d``.  Warp w stores rows ``16w .. 16w+15`` of the
+    O tile.  Exact index walks; shared memory is not modeled.
+    """
+    chunks = padded_d(d) // 8
+
+    def q_walk(pid, **_):
+        h, qt, w = pid
+        r, c = staged_chunks(w, BQ, chunks)
+        live = qt * BQ + r < sq
+        return chunk_elems(h * sq + qt * BQ + r[live], c[live], d, d)
+
+    def kv_walk(pid, **_):
+        h, qt, w = pid
+        r, c = staged_chunks(w, bkv, chunks)
+        parts = [np.empty(0, np.int64)]
+        for t in range(n_kv_tiles(qt, sq, skv, bkv, causal)):
+            live = t * bkv + r < skv
+            parts.append(chunk_elems(h * skv + t * bkv + r[live], c[live], d, d))
+        return np.concatenate(parts)
+
+    def o_walk(pid, **_):
+        h, qt, w = pid
+        lo = qt * BQ + 16 * w
+        return _row_elems(h * sq + np.arange(lo, min(lo + 16, sq), dtype=np.int64), d)
+
+    def spec_of(name, rows, kind="load"):
+        return OperandSpec(name, (bh, rows, d), BF16_STORAGE,
+                           (1, rows, d), lambda h, qt, w: (h, 0, 0), kind=kind)
+
+    return KernelSpec(
+        name="flash_attention",
+        grid=(bh, math.ceil(sq / BQ), TC_WARPS),
+        operands=(
+            spec_of("Q", sq), spec_of("K", skv), spec_of("V", skv),
+            spec_of("O", sq, kind="store"),
+        ),
+        dynamic=(("Q", q_walk), ("K", kv_walk), ("V", kv_walk), ("O", o_walk)),
     )

@@ -5,15 +5,20 @@ its expert's weights.  As in the JAX package (``repro/kernels/gmm.py``),
 ``plan_groups`` pads every group to a multiple of the m-tile ``bm`` and
 names the expert of each tile; ``csrc/gmm.cu`` then computes, for every
 ``bm``-row tile ``i``, ``O[i] = X[i] · W[tile_expert_ids[i]]`` with float32
-accumulation and O in x's type.  Each block reads its own tile's id, where
+accumulation and O in x's type.  Each block reads its tiles' ids, where
 the Pallas kernel prefetches the ids as scalars for its W index map.
+float32 runs on the CUDA cores (one expert tile a block); bfloat16 on the
+tensor cores: a first kernel cuts each run of tiles with one expert into
+chunks of up to 128 rows (``expert_chunks``), then 128-column blocks of 4
+warps take one chunk each, ``mma.sync`` fed by a three-stage ``cp.async``
+ring.
 
 The wrapper ``gmm(x, w, tile_expert_ids, bm=128)`` checks its operands,
 launches on the current stream and counts its launches in
 ``gmm.launches``.  Given CPU tensors it computes the plain version
 (``gmm_plain``) instead; given CUDA tensors it launches the kernel or
-raises.  ``gmm_spec`` describes what each warp of the CUDA kernel touches
-under the H100 sector geometry.
+raises.  ``gmm_spec`` describes what each warp of the CUDA kernel of the
+given dtype touches under the H100 sector geometry.
 """
 
 from __future__ import annotations
@@ -28,10 +33,17 @@ import torch
 from repro_torch.core.collector import KernelSpec, OperandSpec
 
 from . import _build
+from .flash import BF16_STORAGE, chunk_elems, is_bf16, staged_chunks
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Rows of O per block (one expert's): 64 when bm allows, else 32.
 BLOCK_M = 32
+#: The bfloat16 kernel's block: rows and columns of O, depth of a staged
+#: step, and warps.
+TC_BM = 128
+TC_BN = 128
+TC_BK = 64
+TC_WARPS = 4
 _GRID_Y_MAX = 65535
 
 
@@ -133,7 +145,13 @@ def tolerance(want: torch.Tensor, x: torch.Tensor, *_) -> float:
     return 1e-2 * float(want.float().abs().max())
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def plan_ints(m: int, bm: int) -> int:
+    """int32 scratch of the bfloat16 route's chunk plan: a count and
+    (first row, id) per chunk, at most ceil(m / 128) + m / bm chunks."""
+    return 1 + 2 * (math.ceil(m / TC_BM) + m // bm)
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, tile_expert_ids: torch.Tensor,
@@ -145,11 +163,15 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_expert_ids: torch.Tensor,
     m, k = x.shape
     e, _, n = w.shape
     o = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    plan = None
+    if x.dtype == torch.bfloat16:
+        plan = torch.empty(plan_ints(m, bm), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _build.call(
             "gmm", "repro_gmm", _ARGTYPES,
-            x.data_ptr(), w.data_ptr(), tile_expert_ids.data_ptr(), o.data_ptr(),
+            x.data_ptr(), w.data_ptr(), tile_expert_ids.data_ptr(),
+            None if plan is None else plan.data_ptr(), o.data_ptr(),
             m, k, n, e, bm, _DTYPES[x.dtype], stream,
         )
     gmm.launches += 1
@@ -166,11 +188,35 @@ KERNELS = {"gmm": gmm}
 # ---------------------------------------------------------------------------
 
 
+def _tile_ids(m: int, bm: int, tile_expert_ids) -> np.ndarray:
+    """The ids as int64, after the checks both specs need."""
+    ids = np.asarray(tile_expert_ids, dtype=np.int64)
+    if m % bm or bm % BLOCK_M or ids.shape != (m // bm,):
+        raise ValueError(
+            f"gmm_spec needs m % bm == 0, bm % {BLOCK_M} == 0 and one id per "
+            f"tile (m={m}, bm={bm}, {ids.shape[0]} ids)"
+        )
+    return ids
+
+
 def gmm_spec(
     m: int, k: int, n: int, e: int, tile_expert_ids: np.ndarray, bm: int = 128,
     dtype=np.float32,
 ) -> KernelSpec:
-    """Warp footprints of ``gmm_kernel`` (``csrc/gmm.cu``).
+    """Warp footprints of the kernel ``csrc/gmm.cu`` launches for
+    ``dtype``: ``gmm_tc_kernel`` for bfloat16 (``_tc_spec``), else
+    ``gmm_kernel`` (``cuda_core_spec``)."""
+    if is_bf16(dtype):
+        return _tc_spec(m, k, n, e, tile_expert_ids, bm)
+    return cuda_core_spec(m, k, n, e, tile_expert_ids, bm, dtype)
+
+
+def cuda_core_spec(
+    m: int, k: int, n: int, e: int, tile_expert_ids: np.ndarray, bm: int = 128,
+    dtype=np.float32,
+) -> KernelSpec:
+    """Warp footprints of ``gmm_kernel`` (``csrc/gmm.cu``), the float32
+    route on the CUDA cores.
 
     The kernel's blocks own ``BM`` rows (``block_rows(bm)``: 64 when ``bm``
     is a multiple of 64, else 32) and 64 columns of O, with ``W = BM/8``
@@ -182,12 +228,7 @@ def gmm_spec(
     ``BM*by // bm``), and stores its 8 rows of the block's O tile (block
     ``(8, 64)``).
     """
-    ids = np.asarray(tile_expert_ids, dtype=np.int64)
-    if m % bm or bm % BLOCK_M or ids.shape != (m // bm,):
-        raise ValueError(
-            f"gmm_spec needs m % bm == 0, bm % {BLOCK_M} == 0 and one id per "
-            f"tile (m={m}, bm={bm}, {ids.shape[0]} ids)"
-        )
+    ids = _tile_ids(m, bm, tile_expert_ids)
     if ids.size and (ids.min() < 0 or ids.max() >= e):
         raise ValueError(f"tile_expert_ids must lie in [0, {e})")
     rows = block_rows(bm)
@@ -210,4 +251,82 @@ def gmm_spec(
                 lambda by, bx, w: (warps * by + w, bx), kind="store",
             ),
         ),
+    )
+
+
+def expert_chunks(ids: np.ndarray, bm: int, m: int):
+    """The chunks the bfloat16 kernel's plan cuts (``gmm_plan_kernel``):
+    every run of consecutive bm-row tiles with one id, in 128-row pieces
+    from its first row, as ``(first row, rows, id)`` in row order."""
+    chunks = []
+    t, n_tiles = 0, m // bm
+    while t < n_tiles:
+        u = t + 1
+        while u < n_tiles and ids[u] == ids[t]:
+            u += 1
+        for row in range(t * bm, u * bm, TC_BM):
+            chunks.append((row, min(TC_BM, u * bm - row), int(ids[t])))
+        t = u
+    return chunks
+
+
+def _tc_spec(m: int, k: int, n: int, e: int, tile_expert_ids, bm: int) -> KernelSpec:
+    """Warp footprints of ``gmm_tc_kernel`` (``csrc/gmm.cu``), the bfloat16
+    route on the tensor cores.
+
+    Program ``(c, bx, w)`` is warp ``w`` (0..3) of the block of chunk ``c``
+    (``expert_chunks``) and O columns ``128bx ..``, over a grid
+    ``(chunks, ceil(n/128), 4)``; a block that the launch gives more than
+    one chunk walks them one after the other, a program each.  Thread t of
+    the block's 128 copies 16-byte chunks t, t + 128, ...
+    (``staged_chunks``) of every staged (128, 64) X tile and (64, 128) W
+    tile, the elements inside the chunk's rows, K and N; a chunk whose id
+    is out of [0, E) stages nothing.  Warp w stores rows ``32w .. 32w+31``
+    of the chunk.  Exact index walks; an id out of range is allowed (its
+    rows are zero), and shared memory is not modeled.
+    """
+    ids = _tile_ids(m, bm, tile_expert_ids)
+    chunks = expert_chunks(ids, bm, m)
+    nk = math.ceil(k / TC_BK)
+    cx, cw = TC_BK // 8, TC_BN // 8
+
+    def x_walk(pid, **_):
+        c, bx, w = pid
+        row0, rows, ex = chunks[c]
+        if not 0 <= ex < e:
+            return np.empty(0, np.int64)
+        r, ch = staged_chunks(w, TC_BM, cx)
+        live = r < rows
+        rr, cc = row0 + r[live], ch[live]
+        return np.concatenate([chunk_elems(rr, kt * cx + cc, k, k) for kt in range(nk)])
+
+    def w_walk(pid, **_):
+        c, bx, w = pid
+        ex = chunks[c][2]
+        if not 0 <= ex < e:
+            return np.empty(0, np.int64)
+        r, ch = staged_chunks(w, TC_BK, cw)
+        parts = [np.empty(0, np.int64)]
+        for kt in range(nk):
+            live = kt * TC_BK + r < k
+            parts.append(chunk_elems(ex * k + kt * TC_BK + r[live], bx * cw + ch[live], n, n))
+        return np.concatenate(parts)
+
+    def o_walk(pid, **_):
+        c, bx, w = pid
+        row0, rows, _ = chunks[c]
+        r = np.arange(32 * w, min(32 * w + 32, rows), dtype=np.int64)
+        cols = np.arange(bx * TC_BN, min(bx * TC_BN + TC_BN, n), dtype=np.int64)
+        return ((row0 + r)[:, None] * n + cols).reshape(-1)
+
+    dt = BF16_STORAGE
+    return KernelSpec(
+        name="gmm",
+        grid=(len(chunks), math.ceil(n / TC_BN), TC_WARPS),
+        operands=(
+            OperandSpec("X", (m, k), dt, (m, k), lambda c, bx, w: (0, 0)),
+            OperandSpec("W", (e, k, n), dt, (e, k, n), lambda c, bx, w: (0, 0, 0)),
+            OperandSpec("O", (m, n), dt, (m, n), lambda c, bx, w: (0, 0), kind="store"),
+        ),
+        dynamic=(("X", x_walk), ("W", w_walk), ("O", o_walk)),
     )

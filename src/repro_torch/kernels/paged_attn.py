@@ -44,7 +44,7 @@ import torch
 from repro_torch.core.collector import KernelSpec, OperandSpec
 
 from . import _build
-from .flash import BQ, _row_elems, flash_spec
+from .flash import BQ, _row_elems, cuda_core_spec
 from .ragged_flash import (
     _DTYPES,
     _INT32_MAX,
@@ -348,7 +348,7 @@ def paged_prefill_spec(
     the block of 64-query tile qt: its 8 query rows, rows ``w*ceil(page/8)
     ..`` of every page up to the diagonal, every table entry, its 8 rows of O."""
     s = slots * page
-    base = flash_spec(b, sq, s, d, bkv=page, causal=True, dtype=dtype)
+    base = cuda_core_spec(b, sq, s, d, bkv=page, causal=True, dtype=dtype)
     q, _, _, o = base.operands
     walks = dict(base.dynamic)
 
@@ -376,7 +376,7 @@ def paged_prefill_paged_spec(
     table, stopping at ``context_lens[b]``: slot j is walked when it lies
     below both the diagonal and the live prefix, and only its live rows
     are staged."""
-    base = flash_spec(b, sq, slots * page, d, bkv=page, causal=True, dtype=dtype)
+    base = cuda_core_spec(b, sq, slots * page, d, bkv=page, causal=True, dtype=dtype)
     q, _, _, o = base.operands
     walks = dict(base.dynamic)
 

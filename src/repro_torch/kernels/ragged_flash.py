@@ -42,7 +42,7 @@ import torch
 from repro_torch.core.collector import KernelSpec, OperandSpec
 
 from . import _build
-from .flash import _row_elems, flash_spec
+from .flash import _row_elems, cuda_core_spec
 
 NEG_INF = -1e30
 
@@ -293,11 +293,12 @@ def ragged_decode_ragged_spec(
 
 
 def _prefill_spec(name, b, sq, s, d, bkv, dtype, gated) -> KernelSpec:
-    """``csrc/flash.cu``'s walk of a causal prefill over the (B, S, D) cache
-    (``flash_spec``: program ``(b, qt, w)`` is warp w of the block of 64-query
+    """``csrc/flash.cu``'s walk of a causal prefill over the (B, S, D) cache,
+    as its 8-warp kernel walks it (``cuda_core_spec``, whatever ``dtype``:
+    program ``(b, qt, w)`` is warp w of the block of 64-query
     tile qt), with the bounds; with the gate, K and V only inside
     ``[starts[b], ends[b])``."""
-    base = flash_spec(b, sq, s, d, bkv=bkv, causal=True, dtype=dtype)
+    base = cuda_core_spec(b, sq, s, d, bkv=bkv, causal=True, dtype=dtype)
     walks = dict(base.dynamic)
     if gated:
         walks["K"] = walks["V"] = _gate(walks["K"], s, d)

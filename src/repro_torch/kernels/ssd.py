@@ -8,8 +8,10 @@ chunk's end state of the SSD dual form (``repro/kernels/ssd.py``)::
     s = xᵀ (decay ∘ B)        decay[t] = exp(cum[L-1] - cum[t])
 
 with ``cum = cumsum(a)``, float32 sums and both outputs float32.  One block
-of 8 warps per cell stages the chunk in shared memory; the decay is masked
-before the exponential, so a long chunk cannot overflow into NaN.  ``a``
+of 8 warps per cell stages the chunk's x and B in shared memory, and each
+warp brings the 4 rows of C of its current row group into a slice of its
+own; the decay is masked before the exponential, so a long chunk cannot
+overflow into NaN.  ``a``
 must hold log-decays (<= 0): a positive ``a`` makes the end-state decay
 grow without bound.
 
@@ -47,10 +49,10 @@ _GRID_Y_MAX = 65535
 
 
 def smem_bytes(l: int, p: int, n: int) -> int:
-    """Shared memory of one block: x, B and C of the chunk (B, C rows
-    padded to N + 1), cum and the end-state decays, and the warps' score
-    tiles."""
-    return 4 * (l * p + 2 * l * (n + 1) + 2 * l + WARPS * ROWS * 33)
+    """Shared memory of one block (``csrc/ssd.cu``): x and B of the chunk
+    (B's rows padded to N + 1), cum and the end-state decays, the warps'
+    4 x 33 score tiles, and each warp's 4 rows of C (padded to N + 1)."""
+    return 4 * (l * p + l * (n + 1) + 2 * l + WARPS * ROWS * 33 + WARPS * ROWS * (n + 1))
 
 
 def _check_operands(x, a, bmat, cmat) -> None:
@@ -90,7 +92,7 @@ def _check_operands(x, a, bmat, cmat) -> None:
     if need > MAX_SMEM:
         raise ValueError(
             f"an ssd chunk of L={l}, P={p}, N={n} needs {need} bytes of shared "
-            f"memory, above the {MAX_SMEM} a block can have"
+            f"memory (smem_bytes), above the limit of {MAX_SMEM} a block can have"
         )
 
 
@@ -186,11 +188,12 @@ def ssd_chunk_spec(
 
     Program ``(h, ch, w)`` is warp ``w`` (0..7) of the block of cell
     ``(h, ch)``, over a grid ``(bh, c, 8)``.  It stages elements ``e`` of
-    the cell's x, B and C with ``e mod 256`` in ``[32w, 32w + 32)``; warp 0
-    reads the cell's ``a``; it stores the rows of y of its row groups
-    (``warp_rows``) and the elements of the (P, N) state ``s`` with
-    ``e mod 256`` in ``[32w, 32w + 32)``.  Index walks, as the row groups
-    interleave.  Shared memory is not modeled.
+    the cell's x and B with ``e mod 256`` in ``[32w, 32w + 32)``; it reads
+    the rows of C of its row groups (``warp_rows``) in full; warp 0 reads
+    the cell's ``a``; it stores the rows of y of its row groups and the
+    elements of the (P, N) state ``s`` with ``e mod 256`` in ``[32w, 32w +
+    32)``.  Index walks, as the row groups interleave.  Shared memory is
+    not modeled.
     """
 
     def cell(pid) -> int:
@@ -199,8 +202,12 @@ def ssd_chunk_spec(
     def x_walk(pid, **_):
         return cell(pid) * l * p + warp_elems(l * p, pid[2])
 
-    def bc_walk(pid, **_):
+    def b_walk(pid, **_):
         return cell(pid) * l * n + warp_elems(l * n, pid[2])
+
+    def c_walk(pid, **_):
+        rows = warp_rows(l, pid[2])
+        return cell(pid) * l * n + (rows[:, None] * n + np.arange(n)).reshape(-1)
 
     def a_walk(pid, **_):
         if pid[2] != 0:
@@ -229,6 +236,6 @@ def ssd_chunk_spec(
             spec_of("Y", (bh, c, l, p), np.float32, kind="store"),
             spec_of("S", (bh, c, p, n), np.float32, kind="store"),
         ),
-        dynamic=(("X", x_walk), ("A", a_walk), ("B", bc_walk), ("C", bc_walk),
+        dynamic=(("X", x_walk), ("A", a_walk), ("B", b_walk), ("C", c_walk),
                  ("Y", y_walk), ("S", s_walk)),
     )

@@ -240,6 +240,93 @@ def test_cuda_gmm_matches_plain_version(card, groups, k, n, bm, dtype):
 
 
 @pytest.mark.gpu
+def test_cuda_flash_bf16_walks_many_ring_stages_and_a_ragged_last_tile(card):
+    """1000 keys in tiles of 128: eight tiles through the two-stage ring,
+    the last one 104 rows long."""
+    q, k, v = (_randn(card, i, 2, 1000, 128, dtype=torch.bfloat16) for i in range(3))
+    want = flash.flash_plain(q, k, v, True).float()
+    got = flash.flash_attention(q, k, v, causal=True, bkv=128)
+    torch.cuda.synchronize()
+    _assert_within(got, want, flash.tolerance(want, q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_and_gmm_take_operands_off_16_byte_alignment(card, dtype):
+    """Views that start 2 elements into their storage: the bf16 kernels
+    stage and store them with narrow loads instead of 16-byte copies."""
+
+    def shifted(seed, *shape):
+        flat = _randn(card, seed, int(np.prod(shape)) + 2, dtype=dtype)
+        return flat[2:].view(*shape)
+
+    q, k, v = (shifted(i, 2, 100, 64) for i in range(3))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    want = flash.flash_plain(q, k, v, True).float()
+    _assert_within(flash.flash_attention(q, k, v, causal=True), want, flash.tolerance(want, q))
+    _, ids, m = gmm.plan_groups(np.asarray([100, 28, 0, 130]), 32)
+    x, w = shifted(3, m, 64), shifted(4, 4, 64, 48)
+    tile_ids = torch.from_numpy(ids).to(card)
+    want = gmm.gmm_plain(x, w, tile_ids, 32).float()
+    _assert_within(gmm.gmm(x, w, tile_ids, bm=32), want, gmm.tolerance(want, x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_gmm_bf16_expert_boundaries_inside_128_row_lines(card):
+    """Groups [257, 0, 31, 600] at bm 32: experts change inside 128-row
+    lines, so the plan cuts chunks shorter than 128 rows; K = 4096 and
+    N = 1000 (a ragged last column block)."""
+    _, ids, m = gmm.plan_groups(np.asarray([257, 0, 31, 600]), 32)
+    x, w = _randn(card, 0, m, 4096, dtype=torch.bfloat16), _randn(card, 1, 4, 4096, 1000, dtype=torch.bfloat16)
+    tile_ids = torch.from_numpy(ids).to(card)
+    assert any(len({*ids[i:i + 4].tolist()}) > 1 for i in range(0, len(ids), 4))
+    want = gmm.gmm_plain(x, w, tile_ids, 32).float()
+    got = gmm.gmm(x, w, tile_ids, bm=32)
+    torch.cuda.synchronize()
+    _assert_within(got, want, gmm.tolerance(want, x))
+
+
+@pytest.mark.gpu
+def test_cuda_gmm_bf16_ids_out_of_range_between_runs(card):
+    """Tiles with ids 2, 9, 2, -1, ...: one expert in two runs, and two
+    tiles out of range, whose rows come out zero."""
+    ids = np.asarray([2, 9, 2, -1, 0, 0, 1, 1], np.int32)
+    x, w = _randn(card, 0, 256, 40, dtype=torch.bfloat16), _randn(card, 1, 3, 40, 70, dtype=torch.bfloat16)
+    tile_ids = torch.from_numpy(ids).to(card)
+    want = gmm.gmm_plain(x, w, tile_ids, 32).float()
+    got = gmm.gmm(x, w, tile_ids, bm=32)
+    torch.cuda.synchronize()
+    _assert_within(got, want, gmm.tolerance(want, x))
+    assert not got[32:64].any() and not got[96:128].any()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_and_gmm_bf16_kernels_run_on_the_tensor_cores(card):
+    """Every bf16 kernel function of the two libraries holds HMMA
+    instructions (cuobjdump -sass); the float32 ones hold none."""
+    for name, tc in (("flash", "flash_tc_kernel"), ("gmm", "gmm_tc_kernel")):
+        counts = _build.sass_counts(name)
+        tc_counts = {fn: c for fn, c in counts.items() if tc in fn}
+        assert tc_counts and all(c > 0 for c in tc_counts.values()), counts
+        assert all(c == 0 for fn, c in counts.items() if tc not in fn), counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_takes_the_mamba2_chunk(card, dtype):
+    """L 256, P 64, N 128 (Mamba2-2.7b): 220,416 B of shared memory."""
+    x, b, cm = (_randn(card, i, 2, 2, 256, s, dtype=dtype) for i, s in enumerate((64, 128, 128)))
+    a = (-_randn(card, 3, 2, 2, 256).abs() * 0.4).to(dtype)
+    want = ssd.ssd_plain(x, a, b, cm)
+    got = ssd.ssd_chunk(x, a, b, cm)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _assert_within(g, w_, ssd.tolerance(w_, x))
+
+
+@pytest.mark.gpu
 def test_cuda_gmm_writes_zeros_for_an_id_out_of_range(card):
     x, w = _randn(card, 0, 64, 8), _randn(card, 1, 2, 8, 4)
     got = gmm.gmm(x, w, torch.tensor([1, 5], dtype=torch.int32, device=card), bm=32)
