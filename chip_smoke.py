@@ -10,8 +10,9 @@ Phases:
 1. Print the card's name and power limit, then build every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` and print the build time and the
    compiler's register/spill report.  Count the tensor cores' ``HMMA``
-   instructions in each kernel function of the flash and gmm libraries
-   (``cuobjdump -sass``): every bfloat16 kernel must hold some.
+   instructions in each kernel function of the flash, gmm and ragged
+   decode libraries (``cuobjdump -sass``): every bfloat16 kernel must
+   hold some.
 2. For each GEMM kernel (v00, v01, v02) at the registry's 1024^3 shape,
    in float32 and bfloat16 on inputs from a fixed numpy seed: launch on
    the card, compare with the plain PyTorch version (float32 max abs
@@ -25,7 +26,9 @@ Phases:
    the plain version (GRAMSCHM max abs error <= 1e-3, TTM <= 1e-5 of
    max|Y|) and, at the registry's shape, with the float64 product on the
    host (the same tolerances); time the kernel, the plain version and
-   the library yardstick (``torch.mv``, ``torch.bmm``).
+   the library yardstick (``torch.mv``, ``torch.bmm``).  GRAMSCHM opt,
+   which splits the i loop over the card, is called a second time on the
+   same inputs and must give the same bits.
    Then the same for the three histogram kernels (naive, opt, opt2; bit
    for bit against the plain version and ``np.bincount``, yardstick
    ``torch.bincount``) and ``spmv_ell`` through ``ops.spmv`` (within
@@ -58,6 +61,10 @@ Phases:
    printed), and timed beside the plain version and the library yardstick
    (``F.scaled_dot_product_attention`` on (B, 1, H, D) x (B, 1, S, D) with
    a boolean mask; for paged, a page gather and that call: two calls).
+   The ragged kernel, split over the KV axis, records its split length,
+   splits and live splits under ``config`` (computed from the shapes, not
+   measured), and a second call on the same inputs must give the same
+   bits.
 3. For each family (gemm, spmv, histogram, gramschm, ttm, ragged_flash,
    paged_attn): set every launch count to 0 and drive the port's main
    path in process, through the CLI entry point: ``profile`` each rung
@@ -86,7 +93,14 @@ Phases:
    tolerances), and ``report`` on it; ``profile`` of the attn and moe
    rungs of the model families, each pair diffed; and ``profile -k flash
    -k gmm -k ssd``.
-4. Print one JSON line describing every kernel, then the result line.
+4. Print one JSON line describing every kernel, each with the card's name
+   and power limit under ``config``, then the result line.
+
+The two kernels that split their work over the card (GRAMSCHM opt and the
+ragged decode) also record, at their timing shape, the device time of each
+of their two device kernels (``torch.profiler``) and the host's time to
+issue one call of the kernel and of its library yardstick: the timer
+counts both the host's dispatch and the card's time of a call.
 
 There is no fallback: without a CUDA device, or outside a checkout of
 the repository, the script fails and prints no result.
@@ -171,6 +185,9 @@ SERVING_TIMING_SHAPES = {
     "ragged": (64, 48, 8192, 128),  # (b, h, s, d)
     "paged": (64, 48, 128, 64, 8192, 128),  # (b, h, d, page, pages, slots)
 }
+# the kernels redesigned for the card as a whole: a second call on the same
+# inputs must give the same bits
+REPEAT_CHECKED = ("gramschm_k3_opt", "ragged_decode_attention")
 SPMV_COLS = 36417  # the registry's column count
 SPMV_WIDTH = 16  # ELL width at the registry's 65,536 rows
 
@@ -185,11 +202,12 @@ STORIES = {
                  "[INTRODUCED] false-sharing on partials"],
         (0, 2): ["[fixed] false-sharing on cell_count"],
     },
-    "gramschm": {(0, 1): ["[fixed] strided on q"]},
+    "gramschm": {(0, 1): ["[ improved] gramschm: transfers 41024 -> 34112",
+                          "[fixed] strided on q"]},
     "ttm": {(0, 1): ["[fixed] scratch-abuse on Y_shr"]},
     # dense -> gated: the same classes, far fewer transfers (ROADMAP queue 3)
     "ragged_flash": {
-        (0, 1): ["[ improved] ragged_flash: transfers 66624 -> 11936",
+        (0, 1): ["[ improved] ragged_flash: transfers 68824 -> 13104",
                  "[persisting] hot-random on starts"],
         (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696"],
     },
@@ -359,6 +377,50 @@ def check_out_of_range(dev):
     return None
 
 
+def host_ms(fn, iters: int = 20):
+    """Median host time in ms to issue one ``fn()`` (checks, allocations and
+    launches) with an empty queue; the card's time is not in it."""
+    import statistics
+    import time
+
+    import torch
+
+    out = []
+    for _ in range(iters + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out[2:])
+
+
+def device_kernels_ms(fn, iters: int = 10):
+    """{device kernel: ms a call} of ``fn()`` from ``torch.profiler`` (CUPTI)
+    over ``iters`` calls: which of a wrapper's kernels takes the time."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total", None)
+        if total is None:
+            total = getattr(evt, "cuda_time_total", 0)
+        if total > 0:
+            key = evt.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = re.split(r"[<(]", key)[0]
+            out[name] = out.get(name, 0.0) + total / 1e3 / iters
+    return out
+
+
 def check_cases(kreg, dev):
     """Phase 2 for the case-study kernels: {kernel name: record}, or a
     failure message."""
@@ -398,6 +460,12 @@ def check_cases(kreg, dev):
                 if not bool(torch.isfinite(got).all()):
                     return f"{name} {shape}: non-finite output"
                 err = float((got - want).abs().max())
+                if name in REPEAT_CHECKED:
+                    again = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        return f"{name} {shape}: a second call gave other bits"
+                    print(f"{name} {which} {shape}: a second call gives the same bits")
                 rec = dict(
                     shape=list(shape), max_abs_err=err,
                     ms=kreg.cuda_time_ms(lambda: fn(*args, **kwargs), ITERS),
@@ -421,6 +489,13 @@ def check_cases(kreg, dev):
                     return f"{name} {shape}: max|err| {err} > {tol}"
                 if exact is not None and not rec["max_abs_err_vs_float64"] <= tol:
                     return f"{name} {shape}: vs float64 {rec['max_abs_err_vs_float64']} > {tol}"
+                if name in REPEAT_CHECKED and which == "large":
+                    rec["device_kernels_ms"] = device_kernels_ms(lambda: fn(*args, **kwargs))
+                    rec["host_ms"] = host_ms(lambda: fn(*args, **kwargs))
+                    rec["library_host_ms"] = host_ms(case["library"])
+                    print(f"{name} {which} {shape}: device time by kernel (torch.profiler) "
+                          f"{rec['device_kernels_ms']}; host time to issue a call "
+                          f"{rec['host_ms']:.4f} ms, the library's {rec['library_host_ms']:.4f} ms")
                 if which == "registry":
                     rows[name] = dict(source=case["source"], **rec)
                 else:
@@ -692,11 +767,12 @@ def check_model_kernels(kreg, dev):
 
 
 def check_tensor_cores(_build):
-    """Phase 1: the ``HMMA`` count of each kernel function of the flash
-    and gmm libraries, {library: {function: count}}, or a failure message
-    if a bfloat16 kernel (``*_tc_kernel``) holds none."""
+    """Phase 1: the ``HMMA`` count of each kernel function of the flash,
+    gmm and ragged decode libraries, {library: {function: count}}, or a
+    failure message if a bfloat16 kernel (``*_tc_kernel``) holds none."""
     counts = {}
-    for name, tc in (("flash", "flash_tc_kernel"), ("gmm", "gmm_tc_kernel")):
+    for name, tc in (("flash", "flash_tc_kernel"), ("gmm", "gmm_tc_kernel"),
+                     ("ragged_decode", "ragged_split_tc_kernel")):
         per_fn = _build.sass_counts(name, "HMMA")
         tc_fns = {fn: c for fn, c in per_fn.items() if tc in fn}
         print(f"{name}: HMMA per kernel function (cuobjdump -sass): "
@@ -777,8 +853,12 @@ def serving_case(kind: str, shape, dtype, dev, dense: bool):
                 q[:, None], k[:, None], v[:, None], attn_mask=mask)[:, 0]
 
         live = hi - lo
+        length = ragged_flash.split_len(s, kwargs["bkv"])
+        live_splits = int(sum((z - 1) // length - a // length + 1 for a, z in zip(lo, hi) if a < z))
         return dict(
             name="ragged_decode_attention", fn=ragged_flash.ragged_decode_attention,
+            config=dict(split_len=length, splits=ragged_flash.n_splits(s, kwargs["bkv"]),
+                        live_splits=live_splits),
             args=args, kwargs=kwargs,
             plain=lambda: ragged_flash.ragged_decode_plain(*args, **kwargs),
             library=library,
@@ -870,6 +950,11 @@ def check_serving_kernels(kreg, dev):
                     return f"{name} {shape}: the call did not launch the kernel"
                 if got.shape != want.shape or got.dtype != dtype or not bool(torch.isfinite(got.float()).all()):
                     return f"{name} {shape}: output {tuple(got.shape)} {got.dtype} is not finite of {tuple(want.shape)}"
+                if name in REPEAT_CHECKED:
+                    again = fn(*case["args"], **case["kwargs"])
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        return f"{name} {which} {shape} {dname}: a second call gave other bits"
                 diff = (got.float() - want.float()).abs()
                 over = float((diff / tol).max())
                 q = case["args"][0]
@@ -886,9 +971,12 @@ def check_serving_kernels(kreg, dev):
                     library_ms=kreg.cuda_time_ms(case["library"], ITERS),
                     library=case["library_label"], library_err_over_tol=lib_over,
                 )
+                if "config" in case:
+                    rec["config"] = case["config"]
                 mode = "dense" if dense else "gated"
+                split = "".join(f", {key} {val}" for key, val in case.get("config", {}).items())
                 print(
-                    f"{name} {which} {mode} {shape} {dname}: max|err| {rec['max_abs_err']:.3e}, "
+                    f"{name} {which} {mode} {shape} {dname}{split}: max|err| {rec['max_abs_err']:.3e}, "
                     f"err/tol {over:.3f}, vs float64 err/tol {over64:.3f}, median "
                     f"{rec['ms']:.4f} ms over {ITERS}, plain {rec['plain_ms']:.4f} ms, library "
                     f"{rec['library_ms']:.4f} ms ({case['library_label']}, err/tol "
@@ -897,6 +985,15 @@ def check_serving_kernels(kreg, dev):
                 if not (over <= 1 and over64 <= 1):
                     return f"{name} {which} {mode} {dname}: err/tol {over}, vs float64 {over64} > 1"
                 key = which + ("_dense" if dense else "")
+                if name in REPEAT_CHECKED and which != "registry":
+                    rec["device_kernels_ms"] = device_kernels_ms(
+                        lambda: fn(*case["args"], **case["kwargs"]))
+                    rec["host_ms"] = host_ms(lambda: fn(*case["args"], **case["kwargs"]))
+                    rec["library_host_ms"] = host_ms(case["library"])
+                    print(f"{name} {which} {mode} {dname}: device time by kernel "
+                          f"(torch.profiler) {rec['device_kernels_ms']}; host time to issue "
+                          f"a call {rec['host_ms']:.4f} ms, the library's "
+                          f"{rec['library_host_ms']:.4f} ms")
                 if key == "registry":
                     rows[name] = dict(source=case["source"], **rec)
                 else:
@@ -1264,6 +1361,9 @@ def main() -> int:
                 launches=launches[name], decode_step_launches=step_launches[name], **row,
             )
         )
+    # what the records were measured on, kept apart from the measurements
+    for row in kernels:
+        row["config"] = dict(row.get("config", {}), card=smi)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(

@@ -96,22 +96,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Stage a tile of `rows` x C chunks (row-major, `ld` elements a row in
 // global memory) into a swizzled shared tile: thread t of `threads` copies
 // chunks t, t + threads, ... (chunk i is row i / C, chunk i % C).  Row r is
-// read when r < valid_rows, and its elements col < valid_cols; everything
-// else is zero.  With `vec` (ld a multiple of 8 and a 16-byte-aligned base)
+// read when first_row <= r < valid_rows, and its elements col < valid_cols;
+// everything else is zero.  With `vec` (ld a multiple of 8 and a 16-byte-aligned base)
 // each chunk is one 16-byte cp.async, else eight 2-byte loads stored at
 // once: a row that is not 16-byte aligned cannot go through cp.async.
 template <int C>
 __device__ __forceinline__ void stage_tile(__nv_bfloat16* tile, const __nv_bfloat16* src,
                                            int rows, long long ld, int valid_rows,
                                            int valid_cols, bool vec, int tid,
-                                           int threads) {
+                                           int threads, int first_row = 0) {
   const uint32_t base = smem_u32(tile);
   for (int i = tid; i < rows * C; i += threads) {
     const int r = i / C;
     const int c = i % C;
     const int col = c * 8;
     const uint32_t dst = base + (r * C + swz<C>(r, c)) * 16;
-    const bool live = r < valid_rows && col < valid_cols;
+    const bool live = r >= first_row && r < valid_rows && col < valid_cols;
     if (vec) {
       const __nv_bfloat16* p = live ? src + r * ld + col : src;
       cp_async16(dst, p, live ? 16 : 0);

@@ -1,4 +1,5 @@
-// Ragged MQA decode attention for Hopper (sm_90a).
+// Ragged MQA decode attention for Hopper (sm_90a), split over the KV axis
+// (flash-decoding).
 //
 // Replaces repro/kernels/ragged_flash.py:_ragged_decode_kernel
 // (ragged_decode_attention).  For q (B, H, D), one query per sequence, and
@@ -8,114 +9,192 @@
 // scale = 1/sqrt(D), float32 scores and sums, and O in the input type
 // (float32 or bfloat16).  A sequence with no live position gets O = 0 (the
 // Pallas kernel's answer there depends on its tile width; see
-// kernels/ragged_flash.py).  The kernel launches on the caller's stream,
-// allocates nothing and does not synchronise; the entry point returns
-// cudaGetLastError() right after its launch.
+// kernels/ragged_flash.py).  The kernels launch on the caller's stream,
+// allocate nothing and do not synchronise; the entry point returns
+// cudaGetLastError() right after its launches.
 //
-// Design: one block of 8 warps per sequence (the block step is Decoder, in
-// decode.cuh).  The block walks the tiles of BKV rows (32, 64 or 128, a
-// template parameter) that overlap [start, end), which is the Pallas
-// kernel's pl.when gate, and stages only the live rows of each: a tile
-// wholly outside the range is never read.  Each staged K and V row is read
-// from device memory once and used by all H heads.  With dense = 1 the gate
-// is off: the block walks every tile and stages every row below S, masked
-// as before, which gives the same output; it is the registry's baseline
-// rung, the dense sweep.
+// Design (the block step and the combine are in split_decode.cuh, which
+// says who reads what): each sequence's positions are cut into splits of L
+// positions (L a multiple of the tile width BKV that depends only on S and
+// BKV, at most 32 splits a sequence: kernels/ragged_flash.py:split_len), and
+// (splits, B) blocks, on a 1-D grid with the splits fastest (grid x takes
+// 2^31 - 1 blocks, so any B fits), each walk one split with all H heads, so
+// each staged K and V row is read from device memory once for all heads
+// (the point of MQA).  Gated (the Pallas kernel's pl.when gate): a split
+// with no position in [start, end) exits, and a block stages only the live
+// rows.  With dense = 1 every block reads every row of its split, which
+// gives the same bits; it is the registry's baseline rung.  Each block
+// stores its softmax state to a record of the caller's float32 workspace
+// (B, splits, H (D + 2)); then split_combine_kernel, (ceil(H D / 4T), B)
+// blocks of the route's T threads (1-D as well), merges the live records of each
+// sequence in split order and writes O.  Two device kernels a call.
+// float32 runs on the CUDA cores (SplitF32<ceil(H/8)>: 8 warps, chunks of 32 rows),
+// bfloat16 on the tensor cores (SplitTc: 4 warps, the heads as the M of
+// mma.sync m16n8k16, chunks of 64 rows); both stage K and V in their own
+// type with 16-byte cp.async through a two-stage ring.
 //
 // Bound on an H100 SXM at Granite-20B's decode widths (B, H, D) = (64, 48,
-// 128) with ~2,560 live positions a sequence: bfloat16 moves ~84 MB of live
-// K and V (25 us at 3.35 TB/s) for 4.0 GFLOP; float32 moves twice the bytes
-// and its 4.0 GFLOP on the CUDA cores (67 TFLOP/s) take 60 us, so the
-// arithmetic bounds it.  One block per sequence puts 64 blocks on 132 SMs
-// and each block loads its tiles synchronously, so this first kernel sits
-// far from both; splitting the KV walk over blocks (flash-decoding) and
-// asynchronous tile loads are later work.
+// 128) with ~2,600 live positions a sequence: bfloat16 moves ~85 MB of live
+// K and V (25 us at 3.35 TB/s) for 4.3 GFLOP, so the bytes bound it;
+// float32 moves twice the bytes and its 4.3 GFLOP on the CUDA cores (67
+// TFLOP/s) take 61 us, so the arithmetic bounds it.  At S = 8192 and BKV =
+// 128, L = 256: the longest walk is 4 chunks of 64 (or 8 of 32), not 32
+// tiles, and 707 live blocks share the 132 SMs.
 //
-// Shared memory: (H D + 2 BKV (D|1) + 8 ceil(H/8) BKV) floats, 180 KB at
-// H = 48, D = 128, BKV = 128: above the 48 KB a block gets by default, so
-// the launch opts in with cudaFuncSetAttribute first.
+// Shared memory: float32 (8 ceil(H/8) ld + 128 ld + 2048) floats with ld =
+// 4 (ceil(D/4) | 1), 109 KB at H = 64, D = 128; bfloat16 (16 ceil(H/16) + 256)
+// DP bf16, 76 KB at H = 48, D = 128.  Above the 48 KB a block gets by
+// default, so the launch opts in with cudaFuncSetAttribute first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "common.cuh"
-#include "decode.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
-template <typename T, int BKV>
-__global__ void __launch_bounds__(kDecThreads)
-ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ starts,
-                     const int* __restrict__ ends, T* __restrict__ o, int h,
-                     int s, int d, int dense, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int lo = max(starts[b], 0);
-  const int hi = min(ends[b], s);
-  Decoder<T, BKV> dec(smem, q + (size_t)b * h * d, h, d, scale);
-  const T* kb = k + (size_t)b * s * d;
-  const T* vb = v + (size_t)b * s * d;
-  int t0 = 0;
-  int t1 = 0;
-  if (dense) {
-    t1 = (s + BKV - 1) / BKV;
-  } else if (lo < hi) {
-    t0 = lo / BKV;
-    t1 = (hi - 1) / BKV + 1;
-  }
-  for (int t = t0; t < t1; ++t) {
-    const int k0 = t * BKV;
-    const int l_lo = max(lo - k0, 0);
-    const int l_hi = min(hi - k0, BKV);
-    const int s_hi = dense ? min(BKV, s - k0) : l_hi;
-    dec.chunk(kb + (size_t)k0 * d, vb + (size_t)k0 * d, BKV, dense ? 0 : l_lo,
-              s_hi, l_lo, l_hi);
-  }
-  dec.finish(o + (size_t)b * h * d);
+template <int NHW>
+__global__ void __launch_bounds__(kSplitF32Threads)
+ragged_split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ starts,
+                        const int* __restrict__ ends, float* __restrict__ ws, int h, int s,
+                        int d, int len, int dense, float scale_log2, int vec) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  // a 1-D grid, splits fastest: block (g, b) is g + n_splits b
+  const int n_splits = (s + len - 1) / len;
+  const int g = blockIdx.x % n_splits;
+  const int b = blockIdx.x / n_splits;
+  const SplitWalk walk(starts[b], ends[b], s, g, len, SplitF32<NHW>::kChunk, dense != 0);
+  if (!dense && !walk.live) return;
+  SplitF32<NHW> step(f32_smem, h, d, scale_log2);
+  const int rec_len = h * (d + 2);
+  run_split(step, walk, q + (size_t)b * h * d, k + (size_t)b * s * d, v + (size_t)b * s * d,
+            d, dense != 0, vec != 0, ws + (size_t)blockIdx.x * rec_len, rec_len);
 }
 
-template <typename T, int BKV>
-int launch(const void* q, const void* k, const void* v, const int* starts,
-           const int* ends, void* o, int b, int h, int s, int d, int dense,
-           cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes<BKV>(h, d);
-  cudaError_t err = cudaFuncSetAttribute(
-      ragged_decode_kernel<T, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ragged_decode_kernel<T, BKV><<<b, kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), starts, ends, static_cast<T*>(o), h, s, d,
-      dense, 1.0f / sqrtf(static_cast<float>(d)));
+template <int DP>
+__global__ void __launch_bounds__(kSplitTcThreads)
+ragged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const int* __restrict__ starts,
+                       const int* __restrict__ ends, float* __restrict__ ws, int h, int s,
+                       int d, int len, int dense, float scale_log2, int vec) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  // a 1-D grid, splits fastest: block (g, b) is g + n_splits b
+  const int n_splits = (s + len - 1) / len;
+  const int g = blockIdx.x % n_splits;
+  const int b = blockIdx.x / n_splits;
+  const SplitWalk walk(starts[b], ends[b], s, g, len, SplitTc<DP>::kChunk, dense != 0);
+  if (!dense && !walk.live) return;
+  SplitTc<DP> step(tc_smem, h, d, scale_log2);
+  const int rec_len = h * (d + 2);
+  run_split(step, walk, q + (size_t)b * h * d, k + (size_t)b * s * d, v + (size_t)b * s * d,
+            d, dense != 0, vec != 0, ws + (size_t)blockIdx.x * rec_len, rec_len);
+}
+
+template <typename K>
+int opt_in(K kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+template <typename T, int THREADS>
+int combine(const void* ws, const int* starts, const int* ends, void* o, int b, int h, int s,
+            int d, int len, int n_splits, cudaStream_t st) {
+  const long long blocks = (long long)((h * d + 4 * THREADS - 1) / (4 * THREADS)) * b;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  split_combine_kernel<T, THREADS><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+      static_cast<const float*>(ws), starts, ends, static_cast<T*>(o), h, s, d, len, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const int* starts,
-             const int* ends, void* o, int b, int h, int s, int d, int bkv,
-             int dense, cudaStream_t st) {
-  if (bkv == 32) return launch<T, 32>(q, k, v, starts, ends, o, b, h, s, d, dense, st);
-  if (bkv == 64) return launch<T, 64>(q, k, v, starts, ends, o, b, h, s, d, dense, st);
-  if (bkv == 128) return launch<T, 128>(q, k, v, starts, ends, o, b, h, s, d, dense, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+template <int NHW>
+int launch_f32(const void* q, const void* k, const void* v, const int* starts, const int* ends,
+               void* ws, int h, int s, int d, int len, int dense, float scale_log2, int vec,
+               const dim3& grid, cudaStream_t st) {
+  const size_t smem = split_f32_smem_bytes(h, d);
+  const int err = opt_in(ragged_split_f32_kernel<NHW>, smem);
+  if (err != 0) return err;
+  ragged_split_f32_kernel<NHW><<<grid, kSplitF32Threads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      starts, ends, static_cast<float*>(ws), h, s, d, len, dense, scale_log2, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_f32(const void* q, const void* k, const void* v, const int* starts,
+                 const int* ends, void* ws, int h, int s, int d, int len, int dense,
+                 float scale_log2, int vec, const dim3& grid, cudaStream_t st) {
+  switch ((h + kSplitF32Warps - 1) / kSplitF32Warps) {
+    case 1: return launch_f32<1>(q, k, v, starts, ends, ws, h, s, d, len, dense, scale_log2, vec, grid, st);
+    case 2: return launch_f32<2>(q, k, v, starts, ends, ws, h, s, d, len, dense, scale_log2, vec, grid, st);
+    case 3: return launch_f32<3>(q, k, v, starts, ends, ws, h, s, d, len, dense, scale_log2, vec, grid, st);
+    case 4: return launch_f32<4>(q, k, v, starts, ends, ws, h, s, d, len, dense, scale_log2, vec, grid, st);
+    case 5: return launch_f32<5>(q, k, v, starts, ends, ws, h, s, d, len, dense, scale_log2, vec, grid, st);
+    case 6: return launch_f32<6>(q, k, v, starts, ends, ws, h, s, d, len, dense, scale_log2, vec, grid, st);
+    case 7: return launch_f32<7>(q, k, v, starts, ends, ws, h, s, d, len, dense, scale_log2, vec, grid, st);
+    case 8: return launch_f32<8>(q, k, v, starts, ends, ws, h, s, d, len, dense, scale_log2, vec, grid, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int DP>
+int launch_tc(const void* q, const void* k, const void* v, const int* starts, const int* ends,
+              void* ws, int b, int h, int s, int d, int len, int dense, float scale_log2,
+              int vec, const dim3& grid, cudaStream_t st) {
+  const size_t smem = split_tc_smem_bytes(h, DP);
+  const int err = opt_in(ragged_split_tc_kernel<DP>, smem);
+  if (err != 0) return err;
+  ragged_split_tc_kernel<DP><<<grid, kSplitTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), starts, ends, static_cast<float*>(ws), h, s, d,
+      len, dense, scale_log2, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16; bkv is
-// 32, 64 or 128, h at most 64 and d at most 128 (the wrapper checks all).
+// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16; ws is
+// (B, ceil(S / len), H (D + 2)) float32 from the caller, with at most 32
+// splits a sequence; h at most 64 and d at most 128 (the wrapper checks all).
 extern "C" {
 
-int repro_ragged_decode(const void* q, const void* k, const void* v,
-                        const void* starts, const void* ends, void* o, int b,
-                        int h, int s, int d, int bkv, int dense, int dtype,
-                        void* stream) {
+int repro_ragged_decode(const void* q, const void* k, const void* v, const void* starts,
+                        const void* ends, void* ws, void* o, int b, int h, int s, int d,
+                        int len, int dense, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sp = static_cast<const int*>(starts);
   const int* ep = static_cast<const int*>(ends);
-  if (dtype == 0) return dispatch<float>(q, k, v, sp, ep, o, b, h, s, d, bkv, dense, st);
-  return dispatch<__nv_bfloat16>(q, k, v, sp, ep, o, b, h, s, d, bkv, dense, st);
+  const int n_splits = (s + len - 1) / len;
+  if (n_splits > kSplitMaxSplits || h > kSplitMaxHeads || d > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (long long)n_splits * b;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const float scale_log2 = kSplitLog2e / sqrtf(static_cast<float>(d));
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  int err = 0;
+  if (dtype == 0) {
+    const int vec = d % 4 == 0 && bits % 16 == 0;
+    err = dispatch_f32(q, k, v, sp, ep, ws, h, s, d, len, dense, scale_log2, vec, grid, st);
+    if (err != 0) return err;
+    return combine<float, kSplitF32Threads>(ws, sp, ep, o, b, h, s, d, len, n_splits, st);
+  }
+  const int vec = d % 8 == 0 && bits % 16 == 0;
+  if (d <= 16) {
+    err = launch_tc<16>(q, k, v, sp, ep, ws, b, h, s, d, len, dense, scale_log2, vec, grid, st);
+  } else if (d <= 32) {
+    err = launch_tc<32>(q, k, v, sp, ep, ws, b, h, s, d, len, dense, scale_log2, vec, grid, st);
+  } else if (d <= 64) {
+    err = launch_tc<64>(q, k, v, sp, ep, ws, b, h, s, d, len, dense, scale_log2, vec, grid, st);
+  } else {
+    err = launch_tc<128>(q, k, v, sp, ep, ws, b, h, s, d, len, dense, scale_log2, vec, grid, st);
+  }
+  if (err != 0) return err;
+  return combine<__nv_bfloat16, kSplitTcThreads>(ws, sp, ep, o, b, h, s, d, len, n_splits, st);
 }
 
 }  // extern "C"

@@ -3,12 +3,16 @@
 A decode batch packs sequences of very different lengths: sequence ``b``
 attends only to KV positions in ``[starts[b], ends[b])``.  Q is ``(B, H,
 D)``, one query per sequence, and K, V are ``(B, S, D)``: one KV head shared
-by all H query heads (MQA).  ``csrc/ragged_decode.cu`` runs one block of 8
-warps per sequence; it stages each live K/V row in shared memory once for
-all H heads, and never reads a tile wholly outside the range (the Pallas
-kernel's ``pl.when`` gate in ``repro/kernels/ragged_flash.py``).  With
-``dense=True`` the gate is off: every tile is read and masked, which gives
-the same output and is the registry's baseline rung.
+by all H query heads (MQA).  ``csrc/ragged_decode.cu`` splits each
+sequence's KV axis into splits of :func:`split_len` positions at absolute
+places (flash-decoding): one block per (split, sequence) holds all H
+heads, stages each live K/V row in shared memory once for all of them and
+stores its softmax state to a float32 workspace; a combine kernel merges
+the live splits of each sequence in split order.  A split wholly outside
+the range is never read (the Pallas kernel's ``pl.when`` gate in
+``repro/kernels/ragged_flash.py``).  With ``dense=True`` the gate is off:
+every row is read and masked, which gives the same bits and is the
+registry's baseline rung.
 
 The wrapper ``ragged_decode_attention(q, k, v, starts, ends, bkv=128,
 dense=False)`` checks its operands, launches on the current stream and
@@ -42,7 +46,7 @@ import torch
 from repro_torch.core.collector import KernelSpec, OperandSpec
 
 from . import _build
-from .flash import _row_elems, cuda_core_spec
+from .flash import BF16_STORAGE, _row_elems, cuda_core_spec, is_bf16, padded_d
 
 NEG_INF = -1e30
 
@@ -52,11 +56,30 @@ DEF_B, DEF_H, DEF_S, DEF_D, DEF_BKV = 4, 8, 512, 128, 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: KV tile widths the kernel is built for.
 BKV_CHOICES = (32, 64, 128)
-#: Warps per block; warp w owns query heads w, w + 8, ... (at most 8 each).
+#: Warps per block of the paged kernel's block step (``csrc/decode.cuh``):
+#: warp w owns query heads w, w + 8, ... (at most 8 each).
 WARPS = 8
 MAX_H = 64
 MAX_D = 128
 _INT32_MAX = 2**31 - 1
+#: Splits a sequence at most (``csrc/split_decode.cuh``).
+MAX_SPLITS = 32
+#: The split kernels' threads and chunk rows: float32 on the CUDA cores,
+#: bfloat16 on the tensor cores; the combine kernel runs the same threads.
+SPLIT_THREADS = {"float32": 256, "bfloat16": 128}
+SPLIT_CHUNK = {"float32": 32, "bfloat16": 64}
+
+
+def split_len(s: int, bkv: int = DEF_BKV) -> int:
+    """Positions a split covers: a multiple of ``bkv``, at least two tiles,
+    and long enough that a sequence has at most 32 splits.  A function of
+    (S, bkv) alone."""
+    tiles = -(-s // bkv)
+    return bkv * max(2, -(-tiles // MAX_SPLITS))
+
+
+def n_splits(s: int, bkv: int = DEF_BKV) -> int:
+    return -(-s // split_len(s, bkv))
 
 
 def ragged_context(b: int = DEF_B, s: int = DEF_S) -> Dict[str, np.ndarray]:
@@ -168,25 +191,29 @@ def tolerance(want: torch.Tensor, q: torch.Tensor, *_) -> torch.Tensor:
     return share * want.float().abs().amax(-1, keepdim=True)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             starts: torch.Tensor, ends: torch.Tensor,
                             bkv: int = DEF_BKV, dense: bool = False) -> torch.Tensor:
     """O[b] = softmax(q[b] K[b]ᵀ / sqrt(D)) V[b] over [starts[b], ends[b])
-    with the CUDA kernel (``csrc/ragged_decode.cu``)."""
+    with the CUDA kernels (``csrc/ragged_decode.cu``): the split kernel and
+    the combine, one launch on the count."""
     _check_operands(q, k, v, starts, ends, bkv)
     if q.device.type == "cpu":
         return ragged_decode_plain(q, k, v, starts, ends, bkv, dense)
     b, h, d = q.shape
+    s = k.shape[1]
+    length = split_len(s, bkv)
     o = torch.empty_like(q)
+    ws = torch.empty((b, n_splits(s, bkv), h * (d + 2)), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _build.call(
             "ragged_decode", "repro_ragged_decode", _ARGTYPES,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
-            ends.data_ptr(), o.data_ptr(), b, h, k.shape[1], d, bkv,
+            ends.data_ptr(), ws.data_ptr(), o.data_ptr(), b, h, s, d, length,
             int(bool(dense)), _DTYPES[q.dtype], stream,
         )
     ragged_decode_attention.launches += 1
@@ -248,27 +275,129 @@ def _gate(walk, s: int, d: int):
     return gated
 
 
+def _staged(rows: np.ndarray, w: int, threads: int, elems: int, d: int,
+            n_rows: int, first: int) -> np.ndarray:
+    """Flat indices that warp ``w`` of ``threads`` reads when a block stages
+    rows ``rows`` (indices into an ``n_rows``-row tile whose row 0 is row
+    ``first`` of a row-major array of ``d`` columns): thread t copies
+    16-byte chunks t, t + threads, ... of the tile, chunk i being row
+    i // C, columns elems * (i % C) .. below d, C chunks a row (C =
+    ceil(d / elems), or the bfloat16 route's DP / 8)."""
+    per_row = padded_d(d) // 8 if elems == 8 else -(-d // elems)
+    chunk = np.arange(n_rows * per_row, dtype=np.int64)
+    mine = (chunk % threads) // 32 == w
+    r, c = chunk[mine] // per_row, chunk[mine] % per_row
+    keep = np.isin(r, rows)
+    r, c = r[keep], c[keep]
+    col = c[:, None] * elems + np.arange(elems, dtype=np.int64)
+    flat = (first + r[:, None]) * d + col
+    return flat[col < d]
+
+
 def _decode_spec(name, b, h, s, d, bkv, dtype, gated) -> KernelSpec:
-    def kv_walk(pid, **_):
-        bi, w = pid
-        tiles = np.arange(-(-s // bkv), dtype=np.int64)
-        pos = (tiles[:, None] * bkv + warp_chunk_rows(w, bkv)).reshape(-1)
-        return _row_elems(bi * s + pos[pos < s], d)
+    """The split kernel and the combine of ``csrc/ragged_decode.cu`` as one
+    grid ``(B, G + Y, W)``: program ``(b, j, w)`` is warp w of split j's
+    block for j < G, else of combine block j - G (G splits, Y = ceil(H D /
+    4T) combine blocks, W = T / 32)."""
+    route = "bfloat16" if is_bf16(dtype) else "float32"
+    if route == "bfloat16":
+        dtype = BF16_STORAGE
+    elif isinstance(dtype, torch.dtype):
+        dtype = np.float32
+    threads, chunk = SPLIT_THREADS[route], SPLIT_CHUNK[route]
+    elems = 16 // np.dtype(dtype).itemsize
+    n_warps = threads // 32
+    length = split_len(s, bkv)
+    g_n = n_splits(s, bkv)
+    hd, rec = h * d, h * (d + 2)
+    y_n = -(-hd // (4 * threads))
+    empty = np.empty(0, np.int64)
+
+    def split_of(pid, starts, ends):
+        """(lo, hi, g0, g1) of program pid's split, or None for a
+        combine warp or a gated split with no live key."""
+        bi, j, _ = pid
+        if j >= g_n:
+            return None
+        lo, hi = live_range(bi, s, starts, ends)
+        g0, g1 = j * length, min((j + 1) * length, s)
+        live = max(lo, g0) < min(hi, g1)
+        if gated and not live:
+            return None
+        return lo, hi, g0, g1
+
+    def q_walk(pid, starts=None, ends=None, **_):
+        if split_of(pid, starts, ends) is None:
+            return empty
+        rows = np.arange(h, dtype=np.int64)
+        mp = -(-h // 16) * 16 if route == "bfloat16" else h
+        return _staged(rows, pid[2], threads, elems, d, mp, pid[0] * h)
+
+    def kv_walk(pid, starts=None, ends=None, **_):
+        sp = split_of(pid, starts, ends)
+        if sp is None:
+            return empty
+        lo, hi, g0, g1 = sp
+        parts = []
+        for c0 in range(g0, g1, chunk):
+            n = min(chunk, g1 - c0)
+            if gated:
+                rows = np.arange(max(lo - c0, 0), min(hi - c0, n), dtype=np.int64)
+            else:
+                rows = np.arange(n, dtype=np.int64)
+            if rows.size:
+                parts.append(_staged(rows, pid[2], threads, elems, d, chunk, pid[0] * s + c0))
+        return np.concatenate(parts) if parts else empty
+
+    def lanes(w, n):
+        """Elements t, t + threads, ... below n of warp w's threads."""
+        e = (np.arange(0, n, threads, dtype=np.int64)[:, None]
+             + 32 * w + np.arange(32, dtype=np.int64)).reshape(-1)
+        return e[e < n]
+
+    def out_elems(y, w):
+        e = ((4 * y + np.arange(4, dtype=np.int64))[:, None] * threads
+             + 32 * w + np.arange(32, dtype=np.int64)).reshape(-1)
+        return e[e < hd]
+
+    def ws_walk(pid, starts=None, ends=None, **_):
+        bi, j, w = pid
+        if j < g_n:
+            if split_of(pid, starts, ends) is None:
+                return empty
+            return (bi * g_n + j) * rec + lanes(w, rec)
+        lo, hi = live_range(bi, s, starts, ends)
+        if lo >= hi:
+            return empty
+        first = lo // length
+        nlive = (hi - 1) // length - first + 1
+        f = lanes(w, nlive * 2 * h)
+        ml = (bi * g_n + first + f // (2 * h)) * rec + hd + f % (2 * h)
+        e = out_elems(j - g_n, w)
+        acc = ((bi * g_n + first + np.arange(nlive, dtype=np.int64))[:, None] * rec
+               + e).reshape(-1)
+        return np.concatenate([ml, acc])
+
+    def o_walk(pid, **_):
+        bi, j, w = pid
+        return bi * hd + out_elems(j - g_n, w) if j >= g_n else empty
 
     def spec_of(op, rows, kind="load"):
         return OperandSpec(op, (b, rows, d), dtype, (1, rows, d),
-                           lambda bi, w: (bi, 0, 0), kind=kind)
+                           lambda bi, *_: (bi, 0, 0), kind=kind)
 
-    heads = _head_walk(h, d)
-    kv = _gate(kv_walk, s, d) if gated else kv_walk
     return KernelSpec(
         name=name,
-        grid=(b, WARPS),
+        grid=(b, g_n + y_n, n_warps),
         operands=(
             spec_of("Q", h), spec_of("K", s), spec_of("V", s),
-            *_bounds_operands(b), spec_of("O", h, kind="store"),
+            *_bounds_operands(b),
+            OperandSpec("ws", (b, g_n, rec), np.float32, (1, g_n, rec),
+                        lambda bi, *_: (bi, 0, 0), kind="store"),
+            spec_of("O", h, kind="store"),
         ),
-        dynamic=(("Q", heads), ("K", kv), ("V", kv), ("O", heads)),
+        dynamic=(("Q", q_walk), ("K", kv_walk), ("V", kv_walk), ("ws", ws_walk),
+                 ("O", o_walk)),
     )
 
 
@@ -276,10 +405,13 @@ def ragged_decode_spec(
     b: int = DEF_B, h: int = DEF_H, s: int = DEF_S, d: int = DEF_D,
     bkv: int = DEF_BKV, dtype=np.float32,
 ) -> KernelSpec:
-    """BASELINE: the dense sweep (``dense=True``).  Program ``(b, w)`` is warp
-    ``w`` of sequence b's block: it stages its heads' rows of Q, rows
-    ``w*bkv/8 .. (w+1)*bkv/8 - 1`` of every K and V tile (below S), reads
-    ``starts[b]`` and ``ends[b]``, and stores its heads' rows of O."""
+    """BASELINE: the dense sweep (``dense=True``).  Split warp ``(b, g, w)``
+    stages its 16-byte chunks of sequence b's Q rows and of every row of
+    split g's chunks, reads ``starts[b]`` and ``ends[b]``, and stores its
+    floats of the split's workspace record; combine warp ``(b, G + y, w)``
+    reads the bounds, its floats of the live splits' m and l, its elements
+    of their accumulators, and stores those elements of O.  ``dtype``
+    bfloat16 describes the tensor-core route (4 warps, chunks of 64)."""
     return _decode_spec("ragged_decode_dense", b, h, s, d, bkv, dtype, gated=False)
 
 
@@ -287,8 +419,9 @@ def ragged_decode_ragged_spec(
     b: int = DEF_B, h: int = DEF_H, s: int = DEF_S, d: int = DEF_D,
     bkv: int = DEF_BKV, dtype=np.float32,
 ) -> KernelSpec:
-    """OPTIMIZED: the gate — as the dense sweep, but warp w stages only its
-    rows inside ``[starts[b], ends[b])`` (Level 2, over the context)."""
+    """OPTIMIZED: the gate -- as the dense sweep, but a split with no live
+    key touches nothing past the bounds, and the others stage only their
+    live rows (Level 2, over the context)."""
     return _decode_spec("ragged_decode", b, h, s, d, bkv, dtype, gated=True)
 
 

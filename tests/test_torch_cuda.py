@@ -90,6 +90,31 @@ def test_cuda_gramschm_matches_plain_version(card, ni, nj, nk, k):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
+    "ni, nj, nk",
+    [(4096, 4096, 4096), (300, 77, 5), (1, 1, 4), (2000, 4098, 3), (65535 * 256 + 1, 4, 1)],
+)
+def test_cuda_gramschm_opt_split_is_right_and_repeatable(card, ni, nj, nk):
+    """The split-i route at the timing shape, at NJ % 4 != 0 with NI not a
+    multiple of a slice, at one element, and with more than 65535 slices
+    (NI past 65535 x 256: the grid is 1-D): within the float32 tolerance of
+    the plain version, and a second call gives the same bits."""
+    k = nk - 1
+    q = _randn(card, 0, ni, nk)
+    a = _randn(card, 1, ni, nj)
+    qt = q.t().contiguous()
+    want = gramschm.gramschm_k3_plain(q, a, k)
+    before = gramschm.gramschm_k3_opt.launches
+    got = gramschm.gramschm_k3_opt(qt, a, k)
+    again = gramschm.gramschm_k3_opt(qt, a, k)
+    torch.cuda.synchronize()
+    assert gramschm.gramschm_k3_opt.launches == before + 2
+    assert got.shape == (nj,) and torch.equal(got, again)
+    # float32 sums of ni products in another order
+    torch.testing.assert_close(got, want, atol=2e-5 * ni, rtol=2e-5 * ni)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
     "f, nf, r", [(16, 8, 32), (512, 8, 32), (32, 4, 64), (13, 3, 70), (9, 1, 1)]
 )
 def test_cuda_ttm_matches_plain_version(card, f, nf, r):
@@ -394,11 +419,12 @@ def _ragged_case(card, b, h, s, d, bounds, dtype):
     "b, h, s, d, bounds",
     [(4, 8, 512, 128, None), (3, 4, 200, 32, [(0, 200), (17, 150), (40, 41)]),
      (2, 48, 300, 128, [(5, 60), (100, 300)]), (2, 13, 77, 20, [(0, 77), (-5, 999)]),
-     (3, 64, 256, 64, [(64, 128), (0, 1), (255, 256)])],
+     (3, 64, 256, 64, [(64, 128), (0, 1), (255, 256)]), (65543, 2, 64, 16, None)],
 )
 def test_cuda_ragged_decode_matches_plain_version(card, b, h, s, d, bounds, bkv, dtype):
     """At the registry's shape (seeded bounds), at S not a multiple of bkv,
-    with a range inside one tile, bounds past either end, and H up to 64."""
+    with a range inside one tile, bounds past either end, H up to 64, and
+    B past grid y's 65535 (the split and combine grids are 1-D)."""
     if bounds is None:
         ctx = ragged_flash.ragged_context(b, s)
         bounds = list(zip(ctx["starts"].tolist(), ctx["ends"].tolist()))
@@ -421,6 +447,36 @@ def test_cuda_ragged_decode_dense_equals_gated_and_empty_rows_are_zero(card):
     torch.cuda.synchronize()
     assert torch.equal(gated, dense)
     assert not gated[[0, 1, 3]].any() and gated[2].abs().max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ragged_decode_split_walk_at_granite_widths(card, dtype):
+    """Granite-20B's decode widths (H 48, D 128, S 8192): one sequence live
+    over all of S (all 32 splits live), two empty rows, bounds past both
+    ends and a range inside one split.  Within tolerance() of the plain
+    version, dense equal to gated, empty rows 0, repeated calls the same bits."""
+    bounds = [(0, 8192), (100, 100), (-50, 9000), (4000, 4100), (8192, 8192), (513, 7000)]
+    args = _ragged_case(card, len(bounds), 48, 8192, 128, bounds, dtype)
+    want = ragged_flash.ragged_decode_plain(*args).float()
+    tol = ragged_flash.tolerance(want, args[0])
+    gated = ragged_flash.ragged_decode_attention(*args)
+    again = ragged_flash.ragged_decode_attention(*args)
+    dense = ragged_flash.ragged_decode_attention(*args, dense=True)
+    torch.cuda.synchronize()
+    assert torch.equal(gated, again) and torch.equal(gated, dense)
+    assert not gated[[1, 4]].any() and bool(torch.isfinite(gated.float()).all())
+    _assert_within(gated, want, tol)
+
+
+@pytest.mark.gpu
+def test_cuda_ragged_decode_bf16_split_kernels_run_on_the_tensor_cores(card):
+    """Every bf16 split kernel function of the ragged library holds HMMA
+    instructions; the float32 one and the combines hold none."""
+    counts = _build.sass_counts("ragged_decode")
+    tc_counts = {fn: c for fn, c in counts.items() if "ragged_split_tc_kernel" in fn}
+    assert len(tc_counts) == 4 and all(c > 0 for c in tc_counts.values()), counts
+    assert all(c == 0 for fn, c in counts.items() if fn not in tc_counts), counts
 
 
 def _paged_case(card, b, h, d, pages, page, slots, dtype, seed=0):

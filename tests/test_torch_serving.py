@@ -103,6 +103,85 @@ def _paged_inputs(b, h, d, pages, slots, page):
     return q, k_pages, v_pages, ctx["block_tables"], ctx["context_lens"]
 
 
+def _split_schedule(q, k, v, starts, ends, bkv, dense, route):
+    """The split kernels' arithmetic in torch (csrc/split_decode.cuh): per
+    split of ``split_len`` positions, an online softmax in log2 units over
+    chunks of the route's rows (a chunk with no live key skipped; rows not
+    staged zero, so the dense walk multiplies real V rows by p = 0 where
+    the gated one multiplies zeros), p rounded to V's type before P V for
+    bfloat16; then the combine over the live splits in split order."""
+    b, h, d = q.shape
+    s = k.shape[1]
+    ch = ragged_flash.SPLIT_CHUNK[route]
+    length = ragged_flash.split_len(s, bkv)
+    scale = math.log2(math.e) / math.sqrt(d)
+    out = torch.zeros((b, h, d), dtype=q.dtype)
+    for bi in range(b):
+        lo, hi = max(int(starts[bi]), 0), min(int(ends[bi]), s)
+        recs = []
+        for g0 in range(0, s, length):
+            g1 = min(g0 + length, s)
+            if max(lo, g0) >= min(hi, g1):
+                continue  # the combine reads live splits only
+            m = torch.full((h, 1), ragged_flash.NEG_INF)
+            l = torch.zeros((h, 1))
+            acc = torch.zeros((h, d))
+            for c0 in range(g0, g1, ch):
+                n = min(ch, g1 - c0)
+                pos = torch.arange(c0, c0 + n)
+                live = (pos >= lo) & (pos < hi)
+                if not live.any():
+                    continue
+                vt = v[bi, c0:c0 + n].float()
+                if not dense:
+                    vt = torch.where(live[:, None], vt, torch.zeros(()))
+                sc = (q[bi].float() @ k[bi, c0:c0 + n].float().T) * scale
+                sc = torch.where(live, sc, torch.full((), ragged_flash.NEG_INF))
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                p = torch.where(live, torch.exp2(sc - m_new), torch.zeros(()))
+                corr = torch.exp2(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p.to(v.dtype).float() @ vt
+                m = m_new
+            recs.append((m, l, acc))
+        if not recs:
+            continue
+        mx = torch.stack([r[0] for r in recs]).amax(0)
+        wts = [torch.exp2(r[0] - mx) for r in recs]
+        den = sum(w * r[1] for w, r in zip(wts, recs)).clamp_min(1e-30)
+        out[bi] = (sum(w * r[2] for w, r in zip(wts, recs)) / den).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bkv", [32, 64])
+def test_split_schedule_matches_plain_version_and_pallas_kernel(bkv, dtype):
+    """The split schedule within tolerance() of the plain version and of the
+    Pallas kernel (interpret mode), dense and gated bit-equal, an empty row
+    exactly 0: ranges over many splits, inside one, empty, past both ends."""
+    b, h, s, d = 5, 4, 640, 32
+    q, k, v = _rand(0, (b, h, d)), _rand(1, (b, s, d)), _rand(2, (b, s, d))
+    starts = np.asarray([3, 250, 77, -9, 0], np.int32)
+    ends = np.asarray([630, 260, 77, 9999, 640], np.int32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    pallas = np.asarray(ref_rf.ragged_decode_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(starts), jnp.asarray(ends),
+        bkv=bkv), np.float32)
+    args = [_t(a, dtype) for a in (q, k, v)] + [_t(starts), _t(ends)]
+    route = "float32" if dtype == torch.float32 else "bfloat16"
+    gated = _split_schedule(*args, bkv, False, route)
+    dense = _split_schedule(*args, bkv, True, route)
+    assert gated.dtype == dtype and torch.equal(gated, dense)
+    assert not gated[2].any()
+    want = ragged_flash.ragged_decode_plain(*args, bkv=bkv).float()
+    tol = ragged_flash.tolerance(want, args[0])
+    assert bool(((gated.float() - want).abs() <= tol).all())
+    # the Pallas kernel's empty-range answer is its tile's mean of V (see
+    # test_empty_ragged_range_is_zero_in_the_port_and_bkv_dependent_in_the_reference)
+    rows = [0, 1, 3, 4]
+    assert bool(((gated.float()[rows] - torch.from_numpy(pallas[rows])).abs() <= tol[rows]).all())
+
+
 def test_paged_decode_matches_pallas_kernel_and_reference():
     arrays = _paged_inputs(4, 4, 32, 16, 4, 32)
     jargs = [jnp.asarray(a) for a in arrays]
@@ -394,7 +473,7 @@ def test_engine_parity_on_reference_serving_specs(pair):
 
 
 PINNED_PORT = {
-    ("ragged_flash:decode", "ragged_flash:decode-ragged"): (66624, 11936),
+    ("ragged_flash:decode", "ragged_flash:decode-ragged"): (68824, 13104),
     ("ragged_flash:prefill", "ragged_flash:prefill-ragged"): (393728, 149696),
     ("paged_attn:decode", "paged_attn:decode-paged"): (66624, 21504),
     ("paged_attn:prefill", "paged_attn:prefill-paged"): (360960, 208960),
@@ -414,12 +493,21 @@ def test_gated_rungs_are_strictly_cheaper_under_h100_sectors(pair):
 
 
 def test_registry_dense_decode_reads_every_sector_of_the_cache():
-    # 4 x 512 x 128 float32 K and V are 65,536 sectors; Q and O 512 each;
-    # each of 32 warps reads one sector of starts and one of ends
-    assert PINNED_PORT[("ragged_flash:decode", "ragged_flash:decode-ragged")][0] == 65536 + 1024 + 64
+    # 4 x 512 x 128 float32 K and V are 65,536 sectors; a sequence's 128 of Q
+    # are staged by every walked split and O's 512 stored once; a split's workspace record,
+    # 8 x 130 floats, is 130 sectors, stored by every walked split and read by
+    # the combine for every live one; each of the 4 x (2 + 1) x 8 warps reads
+    # one sector of starts and one of ends
+    b, h, s, d, bkv = 4, 8, 512, 128, 128
+    length = ragged_flash.split_len(s, bkv)
+    assert (length, ragged_flash.n_splits(s, bkv)) == (256, 2)
     ctx = ragged_flash.ragged_context()
+    live_splits = int(((ctx["ends"] - 1) // length - ctx["starts"] // length + 1).sum())
     live = int((ctx["ends"] - ctx["starts"]).sum())
-    assert PINNED_PORT[("ragged_flash:decode", "ragged_flash:decode-ragged")][1] == 2 * 16 * live + 1024 + 64
+    bounds = 2 * b * (2 + 1) * 8
+    dense, gated = PINNED_PORT[("ragged_flash:decode", "ragged_flash:decode-ragged")]
+    assert dense == 65536 + 128 * b * 2 + 512 + 130 * (b * 2 + live_splits) + bounds
+    assert gated == 2 * 16 * live + 128 * live_splits + 512 + 130 * 2 * live_splits + bounds
 
 
 @pytest.mark.parametrize("ref_name", ["ragged_flash:decode-ragged", "paged_attn:decode-paged",
@@ -436,36 +524,70 @@ def _add(acc, name, key, idx):
     acc[name].setdefault(key, []).append(np.asarray(idx, np.int64))
 
 
-def _emulate_ragged(b, h, s, d, bkv, starts, ends, dense):
-    """Per-warp flat indices of every operand of ragged_decode_kernel (and
-    Decoder::chunk): one block of 256 threads per sequence."""
-    acc = {n: {} for n in ("Q", "K", "V", "starts", "ends", "O")}
-    rpw = -(-bkv // 8)
+def _emulate_ragged(b, h, s, d, bkv, starts, ends, dense, route="float32"):
+    """Per-warp flat indices of every operand of csrc/ragged_decode.cu,
+    thread by thread: the split kernel's (splits, B) blocks (SplitWalk,
+    run_split and the route's stage_f32 / stage_bf16 in split_decode.cuh),
+    then split_combine_kernel's (Y, B) blocks of the same threads.  Warp
+    (b, j, w) is warp w of split j's block, or of combine block j - G."""
+    threads = ragged_flash.SPLIT_THREADS[route]
+    ch = ragged_flash.SPLIT_CHUNK[route]
+    elems, per_row = (8, flash.padded_d(d) // 8) if route == "bfloat16" else (4, -(-d // 4))
+    length = ragged_flash.split_len(s, bkv)
+    g_n = -(-s // length)
+    hd, rec = h * d, h * (d + 2)
+    y_n = -(-hd // (4 * threads))
+    acc = {n: {} for n in ("Q", "K", "V", "starts", "ends", "ws", "O")}
+
+    def stage(key, name, first_row, tile_rows, r_lo, r_hi, t):
+        for i in range(t, tile_rows * per_row, threads):
+            r, col = i // per_row, (i % per_row) * elems
+            if r_lo <= r < r_hi and col < d:
+                _add(acc, name, key, (first_row + r) * d + np.arange(col, min(col + elems, d)))
+
     for bi in range(b):
         lo, hi = max(int(starts[bi]), 0), min(int(ends[bi]), s)
-        if dense:
-            tiles = range(-(-s // bkv))
-        else:
-            tiles = range(lo // bkv, (hi - 1) // bkv + 1) if lo < hi else range(0)
-        for tid in range(256):
-            w, lane = divmod(tid, 32)
-            key = (bi, w)
-            for name in acc:
-                _add(acc, name, key, [])
-            cols = np.arange(lane, d, 32)
-            _add(acc, "starts", key, [bi])
-            _add(acc, "ends", key, [bi])
-            for i in range(8):
-                if w + 8 * i < h:
-                    _add(acc, "Q", key, (bi * h + w + 8 * i) * d + cols)
-                    _add(acc, "O", key, (bi * h + w + 8 * i) * d + cols)
-            for t in tiles:
-                k0 = t * bkv
-                l_lo, l_hi = max(lo - k0, 0), min(hi - k0, bkv)
-                s_lo, s_hi = (0, min(bkv, s - k0)) if dense else (l_lo, l_hi)
-                for r in range(max(w * rpw, s_lo), min((w + 1) * rpw, s_hi)):
-                    _add(acc, "K", key, (bi * s + k0 + r) * d + cols)
-                    _add(acc, "V", key, (bi * s + k0 + r) * d + cols)
+        for g in range(g_n):
+            g0, g1 = g * length, min((g + 1) * length, s)
+            live = max(lo, g0) < min(hi, g1)
+            if dense:
+                chunks = range(-(-(g1 - g0) // ch))
+            elif live:
+                chunks = range((max(lo, g0) - g0) // ch, (min(hi, g1) - 1 - g0) // ch + 1)
+            for t in range(threads):
+                key = (bi, g, t // 32)
+                for name in acc:
+                    _add(acc, name, key, [])
+                _add(acc, "starts", key, [bi])
+                _add(acc, "ends", key, [bi])
+                if not (dense or live):
+                    continue  # returns after reading the bounds
+                mp = -(-h // 16) * 16 if route == "bfloat16" else h
+                stage(key, "Q", bi * h, mp, 0, h, t)
+                for j in chunks:
+                    c0 = g0 + j * ch
+                    n = min(ch, g1 - c0)
+                    r_lo, r_hi = (0, n) if dense else (max(lo - c0, 0), min(hi - c0, n))
+                    for name in ("K", "V"):
+                        stage(key, name, bi * s + c0, ch, r_lo, r_hi, t)
+                _add(acc, "ws", key, (bi * g_n + g) * rec + np.arange(t, rec, threads))
+        first = lo // length if lo < hi else 0
+        nlive = (hi - 1) // length - first + 1 if lo < hi else 0
+        recs = (bi * g_n + first + np.arange(nlive)) * rec
+        for y in range(y_n):
+            for t in range(threads):
+                key = (bi, g_n + y, t // 32)
+                for name in acc:
+                    _add(acc, name, key, [])
+                _add(acc, "starts", key, [bi])
+                _add(acc, "ends", key, [bi])
+                f = np.arange(t, nlive * 2 * h, threads)
+                _add(acc, "ws", key, recs[f // (2 * h)] + hd + f % (2 * h))
+                for u in range(4):
+                    e = (4 * y + u) * threads + t
+                    if e < hd:
+                        _add(acc, "ws", key, recs + e)
+                        _add(acc, "O", key, [bi * hd + e])
     return acc
 
 
@@ -528,13 +650,13 @@ def _emulate_prefill(b, sq, s, d, kv_chunks):
     return acc
 
 
-def _assert_spec_matches(spec, ctx, acc, shapes, renames=()):
+def _assert_spec_matches(spec, ctx, acc, shapes, renames=(), itemsizes=None):
     hm = analyze(spec, GridSampler(None), ctx)
     names = dict(renames)
     assert sorted(hm.region_names()) == sorted(names.get(n, n) for n in shapes)
     for name, shape in shapes.items():
         per_warp = {key: [np.concatenate(parts)] for key, parts in acc[name].items()}
-        tags, wt, st, warps = heat_of_warps(per_warp, shape, 4)
+        tags, wt, st, warps = heat_of_warps(per_warp, shape, (itemsizes or {}).get(name, 4))
         rh = hm.region(names.get(name, name))
         np.testing.assert_array_equal(rh.tags_array, tags, err_msg=name)
         np.testing.assert_array_equal(rh.word_temps_matrix, wt, err_msg=name)
@@ -544,25 +666,48 @@ def _assert_spec_matches(spec, ctx, acc, shapes, renames=()):
 
 RAGGED_CASES = [
     # (b, h, s, d, bkv, starts, ends): a partial last tile, a range inside one
-    # tile, an empty range, bounds past either end, H not a multiple of 8
+    # tile, an empty range, bounds past either end, H not a multiple of 8; a
+    # live range over many splits with S not a multiple of the split (64)
     (4, 8, 512, 128, 128, None, None),
     (3, 12, 200, 32, 64, [0, 17, 40], [200, 150, 41]),
     (3, 5, 77, 20, 32, [3, 10, -4], [3, 11, 999]),
     (2, 48, 300, 64, 128, [5, 100], [60, 300]),
+    (2, 8, 1000, 32, 32, [10, 0], [900, 1000]),
+    (3, 20, 700, 40, 64, [130, 0, 600], [610, 0, 2000]),
 ]
 
 
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dense", [True, False])
 @pytest.mark.parametrize("b, h, s, d, bkv, starts, ends", RAGGED_CASES)
-def test_ragged_decode_spec_matches_kernel_thread_mapping(b, h, s, d, bkv, starts, ends, dense):
+def test_ragged_decode_spec_matches_kernel_thread_mapping(b, h, s, d, bkv, starts, ends, dense, route):
     if starts is None:
         ctx = ragged_flash.ragged_context(b, s)
     else:
         ctx = {"starts": np.asarray(starts, np.int32), "ends": np.asarray(ends, np.int32)}
     build = ragged_flash.ragged_decode_spec if dense else ragged_flash.ragged_decode_ragged_spec
-    acc = _emulate_ragged(b, h, s, d, bkv, ctx["starts"], ctx["ends"], dense)
-    shapes = {"Q": (b, h, d), "K": (b, s, d), "V": (b, s, d), "starts": (b,), "ends": (b,), "O": (b, h, d)}
-    _assert_spec_matches(build(b, h, s, d, bkv), ctx, acc, shapes)
+    acc = _emulate_ragged(b, h, s, d, bkv, ctx["starts"], ctx["ends"], dense, route)
+    itemsize = 4 if route == "float32" else 2
+    length = ragged_flash.split_len(s, bkv)
+    shapes = {"Q": (b, h, d), "K": (b, s, d), "V": (b, s, d), "starts": (b,), "ends": (b,),
+              "O": (b, h, d), "ws": (b, -(-s // length), h * (d + 2))}
+    spec = build(b, h, s, d, bkv, dtype=getattr(torch, route))
+    _assert_spec_matches(spec, ctx, acc, shapes,
+                         itemsizes={n: itemsize for n in ("Q", "K", "V", "O")})
+
+
+def test_split_len_depends_on_s_and_bkv_alone():
+    """At least two tiles a split, at most 32 splits a sequence."""
+    assert ragged_flash.split_len(8192, 128) == 256 and ragged_flash.n_splits(8192, 128) == 32
+    assert ragged_flash.split_len(16384, 128) == 512 and ragged_flash.n_splits(16384, 128) == 32
+    assert ragged_flash.split_len(512, 128) == 256 and ragged_flash.n_splits(512, 128) == 2
+    assert ragged_flash.split_len(1000, 32) == 64 and ragged_flash.n_splits(1000, 32) == 16
+    assert ragged_flash.split_len(77, 32) == 64 and ragged_flash.n_splits(77, 32) == 2
+    for s in (1, 31, 4095, 8193, 100000):
+        for bkv in ragged_flash.BKV_CHOICES:
+            length = ragged_flash.split_len(s, bkv)
+            assert length % bkv == 0 and length >= 2 * bkv
+            assert ragged_flash.n_splits(s, bkv) <= ragged_flash.MAX_SPLITS
 
 
 PAGED_CASES = [
@@ -730,7 +875,7 @@ def test_story_parity_diff(pair):
 @pytest.mark.parametrize(
     "family, lines",
     [
-        ("ragged_flash", {(0, 1): ["[ improved] ragged_flash: transfers 66624 -> 11936 (5.58x)",
+        ("ragged_flash", {(0, 1): ["[ improved] ragged_flash: transfers 68824 -> 13104 (5.25x)",
                                    "[persisting] hot-random on starts"],
                           (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696 (2.63x)"]}),
         ("paged_attn", {(0, 1): ["[ improved] paged_attn: transfers 66624 -> 21504 (3.10x)",
