@@ -10,16 +10,25 @@ Phases:
 1. Print the card's name and power limit, then build every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` and print the build time and the
    compiler's register/spill report.  Count the tensor cores' ``HMMA``
-   instructions in each kernel function of the flash, gmm and ragged
-   decode libraries (``cuobjdump -sass``): every bfloat16 kernel must
-   hold some.
+   instructions in each kernel function of the flash, gmm, gemm and the
+   ragged and paged decode libraries (``cuobjdump -sass``): every
+   bfloat16 kernel must hold some, and gemm's naive rungs (v00, v01) none.
 2. For each GEMM kernel (v00, v01, v02) at the registry's 1024^3 shape,
    in float32 and bfloat16 on inputs from a fixed numpy seed: launch on
    the card, compare with the plain PyTorch version (float32 max abs
    error <= 1e-3; bfloat16 within 1e-2 of max|C|) and with the float64
    product on the host (within 1e-2 of max|C|), and time the kernel,
    the plain version and ``torch.matmul`` (the library yardstick, which
-   the port never calls) as medians of CUDA-event-timed runs.
+   the port never calls) as medians of CUDA-event-timed runs.  v02
+   (bfloat16 on the tensor cores) is also run at its timing shape,
+   Jamba-v0.1-52B's MLP up-projection (M 4096, K 4096, N 14336), in
+   float32 and bfloat16: against the plain version (float32 within 1e-6
+   K, the model path's bound; bfloat16 within 1e-2 of max|C|) and the
+   float64 product on the card (1e-2 of max|C|), timed beside the plain
+   version and ``torch.matmul``; and called twice at both shapes, which
+   must give the same bits.  At both shapes bfloat16 v02 also runs on
+   the tile height its rule did not pick (64 or 128 rows), which must give
+   the same bits, and that time is recorded beside the rule's.
    Then the same for the GRAMSCHM kernels (naive, opt) and the TTM
    kernels (scratch, fused), each at the registry's shape and at a
    timing shape whose operands exceed the card's 50 MB L2: compare with
@@ -61,7 +70,7 @@ Phases:
    printed), and timed beside the plain version and the library yardstick
    (``F.scaled_dot_product_attention`` on (B, 1, H, D) x (B, 1, S, D) with
    a boolean mask; for paged, a page gather and that call: two calls).
-   The ragged kernel, split over the KV axis, records its split length,
+   Both kernels, split over the KV axis, record their split length,
    splits and live splits under ``config`` (computed from the shapes, not
    measured), and a second call on the same inputs must give the same
    bits.
@@ -73,7 +82,7 @@ Phases:
    show the family's story (false sharing on C, misalignment on
    rowOffsets_shift1, false sharing on cell_count, strided on q, scratch
    abuse on Y_shr fixed; the serving families' dense -> gated drop in
-   transfers and their persisting classes), and every kernel of the
+   transfers and the classes it keeps or moves), and every kernel of the
    family must have been launched by that run (spmv is spec-only, and so
    are the serving families' prefill rungs).  Then set the counts to 0
    again and drive ``ops.spmv``, the entry point of ``spmv_ell``, once;
@@ -96,11 +105,12 @@ Phases:
 4. Print one JSON line describing every kernel, each with the card's name
    and power limit under ``config``, then the result line.
 
-The two kernels that split their work over the card (GRAMSCHM opt and the
-ragged decode) also record, at their timing shape, the device time of each
-of their two device kernels (``torch.profiler``) and the host's time to
-issue one call of the kernel and of its library yardstick: the timer
-counts both the host's dispatch and the card's time of a call.
+The kernels redesigned for the card as a whole (GRAMSCHM opt, the ragged
+and paged decode, gemm v02) also record, at their timing shapes (gemm v02
+at 1024^3 too), the device time of each of their device kernels
+(``torch.profiler``) and the host's time to issue one call of the kernel
+and of its library yardstick: the timer counts both the host's dispatch
+and the card's time of a call.
 
 There is no fallback: without a CUDA device, or outside a checkout of
 the repository, the script fails and prints no result.
@@ -120,6 +130,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 SHAPE = (1024, 1024, 1024)  # (m, n, k): the registry's gemm shape
+# gemm v02's timing shape: Jamba-v0.1-52B's MLP up-projection at batch 1,
+# seq 4096 (src/repro_torch/configs/archs.py:jamba_52b: d_model 4096, d_ff
+# 14336), where the card's time is far above the host's dispatch
+GEMM_TIMING_SHAPE = (4096, 14336, 4096)  # (m, n, k)
 ITERS = 30  # CUDA-event-timed runs per median
 
 # Published peaks of an H100 SXM at its 700 W limit (NVIDIA data sheet,
@@ -187,7 +201,8 @@ SERVING_TIMING_SHAPES = {
 }
 # the kernels redesigned for the card as a whole: a second call on the same
 # inputs must give the same bits
-REPEAT_CHECKED = ("gramschm_k3_opt", "ragged_decode_attention")
+REPEAT_CHECKED = ("gramschm_k3_opt", "ragged_decode_attention", "paged_decode_attention",
+                  "gemm_v02")
 SPMV_COLS = 36417  # the registry's column count
 SPMV_WIDTH = 16  # ELL width at the registry's 65,536 rows
 
@@ -211,9 +226,12 @@ STORIES = {
                  "[persisting] hot-random on starts"],
         (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696"],
     },
+    # the paged split blocks: the dense sweep reads Q from every split and each
+    # split's own table words; the gated one shares the live slots' words
     "paged_attn": {
-        (0, 1): ["[ improved] paged_attn: transfers 66624 -> 21504",
-                 "[persisting] hot on block_tables"],
+        (0, 1): ["[ improved] paged_attn: transfers 71244 -> 23464",
+                 "[fixed] hot on Q", "[fixed] false-sharing on block_tables",
+                 "[INTRODUCED] hot on block_tables"],
         (2, 3): ["[ improved] paged_attn: transfers 360960 -> 208960"],
     },
 }
@@ -768,19 +786,126 @@ def check_model_kernels(kreg, dev):
 
 def check_tensor_cores(_build):
     """Phase 1: the ``HMMA`` count of each kernel function of the flash,
-    gmm and ragged decode libraries, {library: {function: count}}, or a
-    failure message if a bfloat16 kernel (``*_tc_kernel``) holds none."""
+    gmm, gemm and the two decode libraries, {library: {function: count}},
+    or a failure message if a bfloat16 kernel (``*_tc_kernel``) holds none,
+    or if gemm's naive rungs (v00, v01) hold any."""
     counts = {}
     for name, tc in (("flash", "flash_tc_kernel"), ("gmm", "gmm_tc_kernel"),
-                     ("ragged_decode", "ragged_split_tc_kernel")):
+                     ("gemm", "gemm_v02_tc_kernel"),
+                     ("ragged_decode", "ragged_split_tc_kernel"),
+                     ("paged_decode", "paged_split_tc_kernel")):
         per_fn = _build.sass_counts(name, "HMMA")
         tc_fns = {fn: c for fn, c in per_fn.items() if tc in fn}
         print(f"{name}: HMMA per kernel function (cuobjdump -sass): "
               + ", ".join(f"{fn.split('_cu_')[-1][:64]}: {c}" for fn, c in per_fn.items()))
         if not tc_fns or min(tc_fns.values()) < 1:
             return f"{name}: a bfloat16 kernel holds no HMMA instruction ({per_fn})"
+        naive = {fn: c for fn, c in per_fn.items() if "gemm_v00" in fn or "gemm_v01" in fn}
+        if any(naive.values()):
+            return f"gemm: a naive rung holds HMMA instructions ({naive})"
         counts[name] = per_fn
     return counts
+
+
+def other_tile(kreg, a, b, got):
+    """bfloat16 gemm v02 on the tile height its rule did not pick (the
+    kernel takes 64 or 128 rows; kernels/gemm.py:block_rows picks one from
+    the grid size): {block_rows, ms, device_ms}, timed as the wrapper is,
+    or a failure message if its bits differ from ``got`` (each element sums
+    its K products in the same order on either height); None in float32,
+    which has one height.  Not counted as a launch: it only keeps the
+    rule's choice measured."""
+    import torch
+
+    from repro_torch.kernels import gemm
+
+    if a.dtype != torch.bfloat16:
+        return None
+    bm = 192 - gemm.block_rows(a.shape[0], b.shape[1], a.dtype)
+
+    def call():
+        return gemm._launch("repro_gemm_v02", a, b, bm)
+
+    out = call()
+    torch.cuda.synchronize()
+    if not torch.equal(out, got):
+        return f"gemm_v02 {tuple(a.shape)} on {bm}-row tiles: other bits than the rule's tiles"
+    return dict(block_rows=bm, ms=kreg.cuda_time_ms(call, ITERS),
+                device_ms=sum(device_kernels_ms(call).values()))
+
+
+def check_gemm_large(kreg, dev):
+    """Phase 2 for gemm v02 at its timing shape (``GEMM_TIMING_SHAPE``), in
+    float32 and bfloat16 on inputs from a seeded generator on the card:
+    {dtype name: record}, or a failure message.  Held against the plain
+    version (float32: 1e-6 K, the model path's bound for sums of K N(0, 1)
+    products in another order, which is 1e-3 at the registry's K = 1024;
+    bfloat16: 1e-2 of max|C|) and against the float64 product on the card
+    (1e-2 of max|C|); timed beside the plain version and ``torch.matmul``;
+    the device time by kernel and the host's time to issue one call."""
+    import torch
+
+    from repro_torch.kernels import gemm
+
+    m, n, k = GEMM_TIMING_SHAPE
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        gen = torch.Generator(device=dev).manual_seed(3)
+        a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+        want = gemm.gemm_plain(a, b)
+        exact = a.double() @ b.double()
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        tol = 1e-6 * k if dtype == torch.float32 else 1e-2 * scale
+        tol_exact = 1e-2 * scale
+        before = gemm.gemm_v02.launches
+        got = gemm.gemm_v02(a, b)
+        again = gemm.gemm_v02(a, b)
+        torch.cuda.synchronize()
+        if gemm.gemm_v02.launches != before + 2:
+            return f"gemm_v02 {dname} {m}x{n}x{k}: the call did not launch the kernel"
+        if tuple(got.shape) != (m, n) or got.dtype != dtype or not bool(torch.isfinite(got).all()):
+            return f"gemm_v02 {dname} {m}x{n}x{k}: output {tuple(got.shape)} {got.dtype} not finite"
+        if not torch.equal(got, again):
+            return f"gemm_v02 {dname} {m}x{n}x{k}: a second call gave other bits"
+        err = float((got.float() - want.float()).abs().max())
+        err_exact = float((got.double() - exact).abs().max())
+        lib_err = float((torch.matmul(a, b).float() - want.float()).abs().max())
+        del exact
+        bms, bby = bound(m, n, k, dname, a.element_size())
+        rec = dict(
+            shape=[m, n, k], max_abs_err=err, max_abs_err_vs_float64=err_exact,
+            library_err=lib_err,
+            ms=kreg.cuda_time_ms(lambda: gemm.gemm_v02(a, b), ITERS),
+            plain_ms=kreg.cuda_time_ms(lambda: gemm.gemm_plain(a, b), ITERS),
+            bound_ms=bms, bound_by=bby,
+            library_ms=kreg.cuda_time_ms(lambda: torch.matmul(a, b), ITERS),
+            block_rows=gemm.block_rows(m, n, dtype),
+            device_kernels_ms=device_kernels_ms(lambda: gemm.gemm_v02(a, b)),
+            host_ms=host_ms(lambda: gemm.gemm_v02(a, b)),
+            library_host_ms=host_ms(lambda: torch.matmul(a, b)),
+            other_tile=other_tile(kreg, a, b, got),
+        )
+        if isinstance(rec["other_tile"], str):
+            return rec["other_tile"]
+        print(
+            f"gemm_v02 {dname} {m}x{n}x{k} (tiles of {rec['block_rows']} x 128): max|err| "
+            f"{err:.3e} (tol {tol:.3e}), vs float64 {err_exact:.3e} (tol {tol_exact:.3e}), "
+            f"torch.matmul vs plain {lib_err:.3e}, a second call gives the same bits, median "
+            f"{rec['ms']:.4f} ms over {ITERS}, plain {rec['plain_ms']:.4f} ms, torch.matmul "
+            f"{rec['library_ms']:.4f} ms, bound {bms:.4f} ms ({bby}), {bms / rec['ms']:.1%} of "
+            f"bound; device time by kernel (torch.profiler) {rec['device_kernels_ms']}; host "
+            f"time to issue a call {rec['host_ms']:.4f} ms, torch.matmul's "
+            f"{rec['library_host_ms']:.4f} ms; the other tile height: {rec['other_tile']}"
+        )
+        if not (err <= tol and err_exact <= tol_exact):
+            return f"gemm_v02 {dname} {m}x{n}x{k}: max|err| {err} (tol {tol}), vs float64 {err_exact}"
+        out[dname] = rec
+        del a, b, want, got, again
+        torch.cuda.empty_cache()
+    return out
 
 
 def drive_tensor_core_step(dev):
@@ -894,8 +1019,12 @@ def serving_case(kind: str, shape, dtype, dev, dense: bool):
         return F.scaled_dot_product_attention(q[:, None], kg, vg, attn_mask=mask)[:, 0]
 
     walked = int(sum(-(-int(c) // page) for c in ctx_np))
+    length = ragged_flash.split_len(slots * page, page)
+    live_splits = int(sum(-(-int(c) // length) for c in ctx_np))
     return dict(
         name="paged_decode_attention", fn=paged_attn.paged_decode_attention,
+        config=dict(split_len=length, splits=ragged_flash.n_splits(slots * page, page),
+                    live_splits=live_splits),
         args=args, kwargs={"dense": dense},
         plain=lambda: paged_attn.paged_decode_plain(*args, dense=dense),
         library=library,
@@ -1206,6 +1335,23 @@ def main() -> int:
                 bound_by=bby, library_ms=library_ms,
                 max_abs_err_vs_float64=err_exact,
             )
+            if f"gemm_{v}" in REPEAT_CHECKED:
+                if not torch.equal(fn(a, b), got):
+                    return fail(f"gemm_{v} {dname}: a second call gave other bits")
+                rec = rows[(v, dname)]
+                rec["block_rows"] = gemm.block_rows(m, n, dtype)
+                rec["device_kernels_ms"] = device_kernels_ms(lambda: fn(a, b))
+                rec["host_ms"] = host_ms(lambda: fn(a, b))
+                rec["library_host_ms"] = host_ms(lambda: torch.matmul(a, b))
+                rec["other_tile"] = other_tile(kreg, a, b, got)
+                if isinstance(rec["other_tile"], str):
+                    return fail(rec["other_tile"])
+                print(f"gemm_{v} {dname} {m}x{n}x{k} (tiles of {rec['block_rows']} x 128): a "
+                      f"second call gives the same bits; device time by kernel "
+                      f"(torch.profiler) {rec['device_kernels_ms']}; host time to issue a "
+                      f"call {rec['host_ms']:.4f} ms, torch.matmul's "
+                      f"{rec['library_host_ms']:.4f} ms; the other tile height: "
+                      f"{rec['other_tile']}")
             print(
                 f"gemm_{v} {dname} {m}x{n}x{k}: max|err| {err:.3e} "
                 f"(tol {tol:.3e}), vs float64 {err_exact:.3e} (tol "
@@ -1218,6 +1364,12 @@ def main() -> int:
                 return fail(f"gemm_{v} {dname}: max|err| {err} > {tol}")
             if not err_exact <= tol_exact:
                 return fail(f"gemm_{v} {dname}: vs float64 {err_exact} > {tol_exact}")
+
+    gemm_large = check_gemm_large(kreg, dev)
+    if isinstance(gemm_large, str):
+        return fail(gemm_large)
+    for dname, rec in gemm_large.items():
+        rows[("v02", dname)]["large"] = rec
 
     cases = check_cases(kreg, dev)
     if isinstance(cases, str):

@@ -371,7 +371,8 @@ REGISTRY: Dict[str, RegistryEntry] = {
                 ),
                 _gemm_variant(
                     "v02", "optimized",
-                    "64x64x16 shared-memory tiles + 4x4 register micro-tiles",
+                    "BM x 128 block tiles (BM 64 or 128): bf16 on the tensor "
+                    "cores, f32 with 8x8 register micro-tiles",
                 ),
             ),
             sampler=_full,

@@ -1,4 +1,5 @@
-// Paged-KV MQA decode attention for Hopper (sm_90a).
+// Paged-KV MQA decode attention for Hopper (sm_90a), split over the KV axis
+// (flash-decoding).
 //
 // Replaces repro/kernels/paged_attn.py:_paged_decode_kernel
 // (paged_decode_attention).  The KV cache is a pool of pages, k_pages and
@@ -7,105 +8,222 @@
 // and its first context_lens[b] positions (clamped to [0, slots * page])
 // are live.  For q (B, H, D) it computes
 //   O[b, h] = softmax(scale * q[b, h] . K[b, p]) . V[b, p], p < context_lens[b]
-// with scale = 1/sqrt(D), float32 scores and sums, and O in the input type
-// (float32 or bfloat16).  A sequence with no live position gets O = 0, as
-// the Pallas kernel gives; a slot whose page id lies outside [0, P) adds
-// nothing.  The kernel launches on the caller's stream, allocates nothing
-// and does not synchronise; the entry point returns cudaGetLastError()
-// right after its launch.
+// with scale = 1/sqrt(D), float32 scores and sums, the probabilities
+// rounded to the input type before P V, and O in the input type (float32 or
+// bfloat16).  A sequence with no live position gets O = 0, as the Pallas
+// kernel gives; a slot whose page id lies outside [0, P) adds nothing.  The
+// kernels launch on the caller's stream, allocate nothing and do not
+// synchronise; the entry point returns cudaGetLastError() right after its
+// launches.
 //
-// Design: one block of 8 warps per sequence (the block step is Decoder, in
-// decode.cuh).  For each slot j < ceil(ctx / page) the block reads
-// block_tables[b, j] and stages the live rows of that physical page of K
-// and V in shared memory, which all H heads then use; positions at or past
-// context_lens[b] are masked.  With dense = 1 it walks every slot and
-// stages every row of each page, still masked: the registry's baseline
-// rung, run on a contiguous per-row cache viewed as pages under the
-// identity table b * slots + j.
+// Design: the split step of split_decode.cuh, as ragged_decode.cu uses it,
+// with the rows read through the block table (PagedRows).  Sequence b's
+// logical positions [0, slots * page) are cut into splits of L positions at
+// absolute places, L a multiple of the page with at most 32 splits a
+// sequence (kernels/ragged_flash.py:split_len(slots * page, page)), and
+// (splits, B) blocks on a 1-D grid, splits fastest, each walk one split with
+// all H heads, so each staged K and V row is read once for all heads (the
+// point of MQA).  A block walks its split in chunks of CH rows (32 in
+// float32, 64 in bfloat16) at absolute places, whatever the page: a chunk
+// may span pages, or lie inside one, and each row finds its page in the
+// table (pages of 1 to 128 rows all work).  A row whose page id is outside
+// [0, P) is not staged and its key is masked (p = 0), so it adds nothing;
+// a split whose rows are all in such pages stores m = -1e30, l = 0, acc = 0
+// and weighs nothing in the combine.  Gated (the Pallas kernel's
+// pl.when(j * page < ctx)): a split with no position below
+// context_lens[b] exits after reading the length, and a block stages only
+// the live rows.  With dense = 1 every block stages every row of its split,
+// which gives the same bits; it is the registry's baseline rung, run on a
+// contiguous per-row cache viewed as pages under the identity table b *
+// slots + j.  Each block stores its softmax state to a record of the
+// caller's float32 workspace (B, splits, H (D + 2)); then
+// split_combine_kernel (a null `starts`: the live range is [0, ctx)) merges
+// the live records of each sequence in split order and writes O.  Two
+// device kernels a call.  float32 runs on the CUDA cores (SplitF32), bfloat16
+// on the tensor cores (SplitTc: the heads as the M of mma.sync m16n8k16);
+// both stage K and V with 16-byte cp.async through a two-stage ring.
 //
 // Bound on an H100 SXM at Granite-20B's decode widths (B, H, D) = (64, 48,
-// 128), page 64: the live K and V rows in bfloat16 set it (bytes over
-// 3.35 TB/s); float32's operations on the CUDA cores come close.  One
-// block per sequence and synchronous page loads keep this first kernel far
-// from it; see ragged_decode.cu.
+// 128), pages of 64 in 128 slots, 124,638 live positions: bfloat16 moves
+// 64 MB of live K and V (19.5 us at 3.35 TB/s) for 3.1 GFLOP, so the bytes
+// bound it; float32 moves twice the bytes, and its 3.1 GFLOP on the CUDA
+// cores (67 TFLOP/s) take 46 us, so the arithmetic bounds it.  L = 256
+// there: 32 splits a sequence, 4 chunks of 64 (or 8 of 32) a split.
 //
-// Shared memory: (H D + 2 CH (D|1) + 8 ceil(H/8) CH) floats, with CH the
-// page rounded up to 32, 64 or 128: 115 KB at H = 48, D = 128, page 64, so
-// the launch opts in with cudaFuncSetAttribute first.
+// Shared memory: as ragged_decode.cu, (8 ceil(H/8) ld + 128 ld + 2048)
+// floats with ld = 4 (ceil(D/4) | 1) in float32, (16 ceil(H/16) + 256) DP
+// bf16 in bfloat16; above the 48 KB a block gets by default, so the launch
+// opts in with cudaFuncSetAttribute first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "common.cuh"
-#include "decode.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
-template <typename T, int CH>
-__global__ void __launch_bounds__(kDecThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ tables,
-                    const int* __restrict__ lens, T* __restrict__ o, int h,
-                    int d, int n_pages, int page, int slots, int dense,
-                    float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int ctx = min(max(lens[b], 0), slots * page);
-  Decoder<T, CH> dec(smem, q + (size_t)b * h * d, h, d, scale);
-  const int n_walk = dense ? slots : (ctx + page - 1) / page;
-  for (int j = 0; j < n_walk; ++j) {
-    const int phys = tables[(size_t)b * slots + j];
-    if (phys < 0 || phys >= n_pages) continue;  // uniform across the block
-    const size_t base = (size_t)phys * page * d;
-    const int live = min(page, ctx - j * page);
-    dec.chunk(kp + base, vp + base, page, 0, dense ? page : live, 0, live);
-  }
-  dec.finish(o + (size_t)b * h * d);
+template <int NHW>
+__global__ void __launch_bounds__(kSplitF32Threads)
+paged_split_f32_kernel(const float* __restrict__ q, const float* __restrict__ kp,
+                       const float* __restrict__ vp, const int* __restrict__ tables,
+                       const int* __restrict__ lens, float* __restrict__ ws, int h, int d,
+                       int n_pages, int page, int slots, int len, int dense, float scale_log2,
+                       int vec) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  // a 1-D grid, splits fastest: block (g, b) is g + n_splits b
+  const int s = slots * page;
+  const int n_splits = (s + len - 1) / len;
+  const int g = blockIdx.x % n_splits;
+  const int b = blockIdx.x / n_splits;
+  const SplitWalk walk(0, lens[b], s, g, len, SplitF32<NHW>::kChunk, dense != 0);
+  if (!dense && !walk.live) return;
+  SplitF32<NHW> step(f32_smem, h, d, scale_log2);
+  const PagedRows<float> rows{kp, vp, tables + (size_t)b * slots, d, page, n_pages};
+  const int rec_len = h * (d + 2);
+  run_split(step, walk, q + (size_t)b * h * d, rows, dense != 0, vec != 0,
+            ws + (size_t)blockIdx.x * rec_len, rec_len);
 }
 
-template <typename T, int CH>
-int launch(const void* q, const void* kp, const void* vp, const int* tables,
-           const int* lens, void* o, int b, int h, int d, int n_pages,
-           int page, int slots, int dense, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes<CH>(h, d);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  paged_decode_kernel<T, CH><<<b, kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, lens, static_cast<T*>(o), h, d,
-      n_pages, page, slots, dense, 1.0f / sqrtf(static_cast<float>(d)));
+template <int DP>
+__global__ void __launch_bounds__(kSplitTcThreads)
+paged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+                      const __nv_bfloat16* __restrict__ vp, const int* __restrict__ tables,
+                      const int* __restrict__ lens, float* __restrict__ ws, int h, int d,
+                      int n_pages, int page, int slots, int len, int dense, float scale_log2,
+                      int vec) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  // a 1-D grid, splits fastest: block (g, b) is g + n_splits b
+  const int s = slots * page;
+  const int n_splits = (s + len - 1) / len;
+  const int g = blockIdx.x % n_splits;
+  const int b = blockIdx.x / n_splits;
+  const SplitWalk walk(0, lens[b], s, g, len, SplitTc<DP>::kChunk, dense != 0);
+  if (!dense && !walk.live) return;
+  SplitTc<DP> step(tc_smem, h, d, scale_log2);
+  const PagedRows<__nv_bfloat16> rows{kp, vp, tables + (size_t)b * slots, d, page, n_pages};
+  const int rec_len = h * (d + 2);
+  run_split(step, walk, q + (size_t)b * h * d, rows, dense != 0, vec != 0,
+            ws + (size_t)blockIdx.x * rec_len, rec_len);
+}
+
+template <typename K>
+int opt_in(K kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+// the arguments both split kernels take after q, k, v
+struct Args {
+  const int* tables;
+  const int* lens;
+  float* ws;
+  int h, d, n_pages, page, slots, len, dense;
+  float scale_log2;
+  int vec;
+};
+
+template <int NHW>
+int launch_f32(const void* q, const void* k, const void* v, const Args& a, unsigned blocks,
+               cudaStream_t st) {
+  const size_t smem = split_f32_smem_bytes(a.h, a.d);
+  const int err = opt_in(paged_split_f32_kernel<NHW>, smem);
+  if (err != 0) return err;
+  paged_split_f32_kernel<NHW><<<blocks, kSplitF32Threads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      a.tables, a.lens, a.ws, a.h, a.d, a.n_pages, a.page, a.slots, a.len, a.dense,
+      a.scale_log2, a.vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* kp, const void* vp, const int* tables,
-             const int* lens, void* o, int b, int h, int d, int n_pages,
-             int page, int slots, int dense, cudaStream_t st) {
-  if (page <= 32) return launch<T, 32>(q, kp, vp, tables, lens, o, b, h, d, n_pages, page, slots, dense, st);
-  if (page <= 64) return launch<T, 64>(q, kp, vp, tables, lens, o, b, h, d, n_pages, page, slots, dense, st);
-  if (page <= 128) return launch<T, 128>(q, kp, vp, tables, lens, o, b, h, d, n_pages, page, slots, dense, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_f32(const void* q, const void* k, const void* v, const Args& a, unsigned blocks,
+                 cudaStream_t st) {
+  switch ((a.h + kSplitF32Warps - 1) / kSplitF32Warps) {
+    case 1: return launch_f32<1>(q, k, v, a, blocks, st);
+    case 2: return launch_f32<2>(q, k, v, a, blocks, st);
+    case 3: return launch_f32<3>(q, k, v, a, blocks, st);
+    case 4: return launch_f32<4>(q, k, v, a, blocks, st);
+    case 5: return launch_f32<5>(q, k, v, a, blocks, st);
+    case 6: return launch_f32<6>(q, k, v, a, blocks, st);
+    case 7: return launch_f32<7>(q, k, v, a, blocks, st);
+    case 8: return launch_f32<8>(q, k, v, a, blocks, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int DP>
+int launch_tc(const void* q, const void* k, const void* v, const Args& a, unsigned blocks,
+              cudaStream_t st) {
+  const size_t smem = split_tc_smem_bytes(a.h, DP);
+  const int err = opt_in(paged_split_tc_kernel<DP>, smem);
+  if (err != 0) return err;
+  paged_split_tc_kernel<DP><<<blocks, kSplitTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), a.tables, a.lens, a.ws, a.h, a.d, a.n_pages, a.page,
+      a.slots, a.len, a.dense, a.scale_log2, a.vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int THREADS>
+int combine(const float* ws, const int* lens, void* o, int b, int h, int s, int d, int len,
+            int n_splits, cudaStream_t st) {
+  const long long blocks = (long long)((h * d + 4 * THREADS - 1) / (4 * THREADS)) * b;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  split_combine_kernel<T, THREADS><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+      ws, nullptr, lens, static_cast<T*>(o), h, s, d, len, n_splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16; page
-// at most 128, h at most 64 and d at most 128 (the wrapper checks all).
+// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16; ws is
+// (B, ceil(slots * page / len), H (D + 2)) float32 from the caller, with at
+// most 32 splits a sequence; page at most 128, h at most 64 and d at most
+// 128 (the wrapper checks all).
 extern "C" {
 
 int repro_paged_decode(const void* q, const void* k_pages, const void* v_pages,
-                       const void* block_tables, const void* context_lens,
-                       void* o, int b, int h, int d, int n_pages, int page,
-                       int slots, int dense, int dtype, void* stream) {
+                       const void* block_tables, const void* context_lens, void* ws, void* o,
+                       int b, int h, int d, int n_pages, int page, int slots, int len,
+                       int dense, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* tb = static_cast<const int*>(block_tables);
-  const int* cl = static_cast<const int*>(context_lens);
-  if (dtype == 0) {
-    return dispatch<float>(q, k_pages, v_pages, tb, cl, o, b, h, d, n_pages, page, slots, dense, st);
+  const long long s = (long long)slots * page;
+  if (s > 0x7fffffffLL || len < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_splits = static_cast<int>((s + len - 1) / len);
+  if (n_splits > kSplitMaxSplits || h > kSplitMaxHeads || d > 128 || page > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch<__nv_bfloat16>(q, k_pages, v_pages, tb, cl, o, b, h, d, n_pages, page, slots, dense, st);
+  const long long blocks = (long long)n_splits * b;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pages) |
+                         reinterpret_cast<uintptr_t>(v_pages);
+  Args a{static_cast<const int*>(block_tables), static_cast<const int*>(context_lens),
+         static_cast<float*>(ws), h, d, n_pages, page, slots, len, dense,
+         kSplitLog2e / sqrtf(static_cast<float>(d)), 0};
+  const unsigned grid = static_cast<unsigned>(blocks);
+  int err = 0;
+  if (dtype == 0) {
+    a.vec = d % 4 == 0 && bits % 16 == 0;
+    err = dispatch_f32(q, k_pages, v_pages, a, grid, st);
+    if (err != 0) return err;
+    return combine<float, kSplitF32Threads>(a.ws, a.lens, o, b, h, static_cast<int>(s), d, len,
+                                            n_splits, st);
+  }
+  a.vec = d % 8 == 0 && bits % 16 == 0;
+  if (d <= 16) {
+    err = launch_tc<16>(q, k_pages, v_pages, a, grid, st);
+  } else if (d <= 32) {
+    err = launch_tc<32>(q, k_pages, v_pages, a, grid, st);
+  } else if (d <= 64) {
+    err = launch_tc<64>(q, k_pages, v_pages, a, grid, st);
+  } else {
+    err = launch_tc<128>(q, k_pages, v_pages, a, grid, st);
+  }
+  if (err != 0) return err;
+  return combine<__nv_bfloat16, kSplitTcThreads>(a.ws, a.lens, o, b, h, static_cast<int>(s), d,
+                                                 len, n_splits, st);
 }
 
 }  // extern "C"

@@ -71,8 +71,9 @@ ragged_split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   if (!dense && !walk.live) return;
   SplitF32<NHW> step(f32_smem, h, d, scale_log2);
   const int rec_len = h * (d + 2);
-  run_split(step, walk, q + (size_t)b * h * d, k + (size_t)b * s * d, v + (size_t)b * s * d,
-            d, dense != 0, vec != 0, ws + (size_t)blockIdx.x * rec_len, rec_len);
+  const ContiguousRows<float> rows{k + (size_t)b * s * d, v + (size_t)b * s * d, d};
+  run_split(step, walk, q + (size_t)b * h * d, rows, dense != 0, vec != 0,
+            ws + (size_t)blockIdx.x * rec_len, rec_len);
 }
 
 template <int DP>
@@ -90,8 +91,9 @@ ragged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   if (!dense && !walk.live) return;
   SplitTc<DP> step(tc_smem, h, d, scale_log2);
   const int rec_len = h * (d + 2);
-  run_split(step, walk, q + (size_t)b * h * d, k + (size_t)b * s * d, v + (size_t)b * s * d,
-            d, dense != 0, vec != 0, ws + (size_t)blockIdx.x * rec_len, rec_len);
+  const ContiguousRows<__nv_bfloat16> rows{k + (size_t)b * s * d, v + (size_t)b * s * d, d};
+  run_split(step, walk, q + (size_t)b * h * d, rows, dense != 0, vec != 0,
+            ws + (size_t)blockIdx.x * rec_len, rec_len);
 }
 
 template <typename K>

@@ -1,6 +1,7 @@
 // Split-KV MQA decode (flash-decoding): the block step and the combine
-// that a decode kernel over chunks of a KV cache builds on.  One query per
-// sequence, H query heads (H <= 64) over one KV head of D <= 128.
+// that the two decode kernels build on, ragged_decode.cu over a contiguous
+// cache and paged_decode.cu over a paged one.  One query per sequence, H
+// query heads (H <= 64) over one KV head of D <= 128.
 //
 // A sequence's KV positions are cut into splits of `len` positions at
 // absolute places: split g covers [g len, (g+1) len) below S.  One block
@@ -22,6 +23,13 @@
 // A masked key scores -1e30 and gets p = 0.  So a live split sees the same
 // chunks with the same live keys in both modes, and the combine reads the
 // same records: dense and gated give the same bits.
+//
+// Rows.  A row source (ContiguousRows, PagedRows, below run_split) says
+// where each of a chunk's rows lives and which rows are there: a paged row
+// whose page id lies outside the pool is not staged (zero) and its key is
+// masked like a dead one, so it adds nothing, in both modes.  A split whose
+// rows are all missing stores m = -1e30, l = 0, acc = 0, and the combine
+// gives it weight 0 beside a split with a live key (O = 0 if none has one).
 //
 // Staging.  A chunk's K and V rows go to a two-stage ring in shared memory
 // with 16-byte cp.async copies (zero-filled where not staged), so the next
@@ -152,6 +160,43 @@ __device__ __forceinline__ void stage_f32(float* tile, const float* __restrict__
   }
 }
 
+// rows [r_lo, r_hi) of a `rows`-row chunk of K and V whose row r lives at
+// element rs.row(first + r) of the pools (-1: not there) into tiles of
+// stride ld; every other row and column zero.  The same threads and copies
+// as stage_f32, K and V of a row from one lookup.
+template <class Rows>
+__device__ __forceinline__ void stage_f32_rows(float* kt, float* vt, const Rows& rs, int first,
+                                               int rows, int d, int ld, int r_lo, int r_hi,
+                                               bool vec) {
+  const int c_row = split_f32_chunks(d);
+  const uint32_t kb = smem_u32(kt);
+  const uint32_t vb = smem_u32(vt);
+  for (int i = threadIdx.x; i < rows * c_row; i += blockDim.x) {
+    const int r = i / c_row;
+    const int col = (i % c_row) * 4;
+    const long long off = r >= r_lo && r < r_hi ? rs.row(first + r) : -1;
+    const bool live = off >= 0;
+    if (vec) {
+      cp_async16(kb + (r * ld + col) * 4, live ? rs.k + off + col : rs.k, live ? 16 : 0);
+      cp_async16(vb + (r * ld + col) * 4, live ? rs.v + off + col : rs.v, live ? 16 : 0);
+    } else {
+      float4 x, y;
+      const float* kp = rs.k + (live ? off : 0);
+      const float* vp = rs.v + (live ? off : 0);
+      x.x = live && col < d ? kp[col] : 0.f;
+      x.y = live && col + 1 < d ? kp[col + 1] : 0.f;
+      x.z = live && col + 2 < d ? kp[col + 2] : 0.f;
+      x.w = live && col + 3 < d ? kp[col + 3] : 0.f;
+      y.x = live && col < d ? vp[col] : 0.f;
+      y.y = live && col + 1 < d ? vp[col + 1] : 0.f;
+      y.z = live && col + 2 < d ? vp[col + 2] : 0.f;
+      y.w = live && col + 3 < d ? vp[col + 3] : 0.f;
+      *reinterpret_cast<float4*>(kt + r * ld + col) = x;
+      *reinterpret_cast<float4*>(vt + r * ld + col) = y;
+    }
+  }
+}
+
 // NHW heads a warp (H <= 8 NHW): warp w owns heads w, w + 8, ..., and
 // computes all NHW of them, a head past H on Q's zero rows, so that no
 // branch splits the products and the compiler can interleave the heads'
@@ -200,10 +245,18 @@ struct SplitF32 {
     stage_f32(vs + st * kChunk * ld, vc, kChunk, d, ld, r_lo, r_hi, vec);
   }
 
+  template <class Rows>
+  __device__ void stage_rows(int st, const Rows& rs, int first, int r_lo, int r_hi, bool vec) {
+    stage_f32_rows(ks + st * kChunk * ld, vs + st * kChunk * ld, rs, first, kChunk, d, ld, r_lo,
+                   r_hi, vec);
+  }
+
   __device__ void load_q() {}
 
-  // keys [l_lo, l_hi) of the chunk in stage st are live (at least one)
-  __device__ void compute(int st, int l_lo, int l_hi) {
+  // keys [l_lo, l_hi) of the chunk in stage st are live (at least one);
+  // with kMasked, a key whose bit in `present` is clear is masked as well
+  template <bool kMasked>
+  __device__ void compute(int st, int l_lo, int l_hi, uint64_t present) {
     const float* kt = ks + st * kChunk * ld;
     const float* vt = vs + st * kChunk * ld;
     const int c_row = split_f32_chunks(d);
@@ -225,7 +278,8 @@ struct SplitF32 {
         sc[i] = fmaf(qv.w, kv.w, sc[i]);
       }
     }
-    const bool key_live = lane >= l_lo && lane < l_hi;
+    const bool key_live =
+        lane >= l_lo && lane < l_hi && (!kMasked || ((present >> lane) & 1));
     float mx[NHW];
 #pragma unroll
     for (int i = 0; i < NHW; ++i) {
@@ -371,6 +425,45 @@ struct SplitTc {
                   kSplitTcThreads, r_lo);
   }
 
+  // the chunk's rows [r_lo, r_hi) through rs.row (-1: not there, zero):
+  // thread t copies 16-byte chunks t, t + 128, ... of the K and the V tile,
+  // as stage_tile does, K and V of a row from one lookup
+  template <class Rows>
+  __device__ void stage_rows(int st, const Rows& rs, int first, int r_lo, int r_hi, bool vec) {
+    T* kt = ks + st * kChunk * DP;
+    T* vt = vs + st * kChunk * DP;
+    const uint32_t kb = smem_u32(kt);
+    const uint32_t vb = smem_u32(vt);
+    static_assert(kChunk * C % kSplitTcThreads == 0, "whole passes of the threads");
+#pragma unroll
+    for (int pass = 0; pass < kChunk * C / kSplitTcThreads; ++pass) {
+      const int i = threadIdx.x + pass * kSplitTcThreads;
+      const int r = i / C;
+      const int c = i % C;
+      const int col = c * 8;
+      const uint32_t dst = (r * C + swz<C>(r, c)) * 16;
+      const long long off = r >= r_lo && r < r_hi ? rs.row(first + r) : -1;
+      const bool live = off >= 0 && col < d;
+      if (vec) {
+        cp_async16(kb + dst, live ? rs.k + off + col : rs.k, live ? 16 : 0);
+        cp_async16(vb + dst, live ? rs.v + off + col : rs.v, live ? 16 : 0);
+      } else {
+        __align__(16) T x[8];
+        __align__(16) T y[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const bool in = live && col + e < d;
+          x[e] = in ? rs.k[off + col + e] : __float2bfloat16(0.f);
+          y[e] = in ? rs.v[off + col + e] : __float2bfloat16(0.f);
+        }
+        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(kt) + dst) =
+            *reinterpret_cast<const uint4*>(x);
+        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(vt) + dst) =
+            *reinterpret_cast<const uint4*>(y);
+      }
+    }
+  }
+
   // the A fragments of the warp's 16 heads, once Q is in shared memory
   __device__ void load_q() {
     if (!active) return;
@@ -381,7 +474,8 @@ struct SplitTc {
     }
   }
 
-  __device__ void compute(int st, int l_lo, int l_hi) {
+  template <bool kMasked>
+  __device__ void compute(int st, int l_lo, int l_hi, uint64_t present) {
     if (!active) return;
     const uint32_t kbase = smem_u32(ks + st * kChunk * DP);
     const uint32_t vbase = smem_u32(vs + st * kChunk * DP);
@@ -409,7 +503,7 @@ struct SplitTc {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = 8 * j + 2 * (lane % 4) + e;
-        const bool live = key >= l_lo && key < l_hi;
+        const bool live = key >= l_lo && key < l_hi && (!kMasked || ((present >> key) & 1));
         s[j][e] = live ? s[j][e] * scale : kSplitNegInf;
         s[j][2 + e] = live ? s[j][2 + e] * scale : kSplitNegInf;
         mx_a = fmaxf(mx_a, s[j][e]);
@@ -495,18 +589,82 @@ struct SplitTc {
 };
 
 // ---------------------------------------------------------------------------
-// one split: stage Q, walk the chunks through the two-stage ring, store the
-// record.  kc0/vc0 point at the sequence's K and V rows (row p at + p d).
+// Where a split's K and V rows come from.  A row source stages the rows
+// [r_lo, r_hi) of the chunk at absolute position `first` into stage st of
+// the step's ring, and says which rows of the chunk are there (`present`:
+// bit r of the chunk; the keys whose bit is clear are masked).
+//
+// ContiguousRows: the ragged cache, position p of the sequence at k + p d;
+// every row is there, so its keys take no mask (kMasked false: the step
+// compiles as if there were none).
 // ---------------------------------------------------------------------------
-template <class Step>
+template <typename T>
+struct ContiguousRows {
+  static constexpr bool kMasked = false;
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+  int d;
+
+  template <class Step>
+  __device__ void stage(Step& step, int st, int first, int r_lo, int r_hi, bool vec) const {
+    step.stage(st, k + (size_t)first * d, v + (size_t)first * d, r_lo, r_hi, vec);
+  }
+  template <int CH>
+  __device__ uint64_t present(int, int, int) const {
+    return ~0ull;
+  }
+};
+
+// PagedRows: the paged cache.  Position p of the sequence lives in slot
+// p / page of its table, at row p % page of that physical page of the pools
+// k and v (P, page, D); a page id outside [0, P) holds no row.  A chunk may
+// span pages (any page from 1 to 128 rows): each row finds its own page.
+// Staging threads read the table entry of each row they stage; for the
+// mask, lane l of every warp reads the entries of the chunk's rows l (and
+// l + 32) that lie in [l_lo, l_hi) and the warp ballots them.
+template <typename T>
+struct PagedRows {
+  static constexpr bool kMasked = true;
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+  const int* __restrict__ table;  // this sequence's slots
+  int d, page, n_pages;
+
+  // element offset of position p's row in the pools, or -1
+  __device__ __forceinline__ long long row(int p) const {
+    const int slot = p / page;
+    const int phys = table[slot];
+    if (phys < 0 || phys >= n_pages) return -1;
+    return ((long long)phys * page + (p - slot * page)) * d;
+  }
+  template <class Step>
+  __device__ void stage(Step& step, int st, int first, int r_lo, int r_hi, bool vec) const {
+    step.stage_rows(st, *this, first, r_lo, r_hi, vec);
+  }
+  template <int CH>
+  __device__ uint64_t present(int first, int l_lo, int l_hi) const {
+    const int lane = threadIdx.x % 32;
+    uint64_t bits = 0;
+#pragma unroll
+    for (int half = 0; half < CH / 32; ++half) {
+      const int r = 32 * half + lane;
+      const bool there = r >= l_lo && r < l_hi && row(first + r) >= 0;
+      bits |= (uint64_t)__ballot_sync(0xffffffffu, there) << (32 * half);
+    }
+    return bits;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// one split: stage Q, walk the chunks through the two-stage ring, store the
+// record.  `rows` says where each chunk's K and V rows are.
+// ---------------------------------------------------------------------------
+template <class Step, class Rows>
 __device__ void run_split(Step& step, const SplitWalk& walk,
-                          const typename Step::T* __restrict__ q,
-                          const typename Step::T* __restrict__ kc0,
-                          const typename Step::T* __restrict__ vc0, int d, bool dense,
+                          const typename Step::T* __restrict__ q, const Rows& rows, bool dense,
                           bool vec, float* __restrict__ ws_rec, int rec_len) {
   auto stage = [&](int st, int j) {
-    const size_t row = walk.first(j);
-    step.stage(st, kc0 + row * d, vc0 + row * d, dense ? 0 : walk.live_lo(j),
+    rows.stage(step, st, walk.first(j), dense ? 0 : walk.live_lo(j),
                dense ? walk.rows(j) : walk.live_hi(j), vec);
   };
   step.stage_q(q, vec);
@@ -518,8 +676,11 @@ __device__ void run_split(Step& step, const SplitWalk& walk,
     cp_async_wait<1>();  // all but the newest group: chunk j (and Q) are here
     __syncthreads();
     if (j == walk.j0) step.load_q();
-    if (walk.live_lo(j) < walk.live_hi(j)) {
-      step.compute((j - walk.j0) & 1, walk.live_lo(j), walk.live_hi(j));
+    const int lo = walk.live_lo(j);
+    const int hi = walk.live_hi(j);
+    if (lo < hi) {
+      const uint64_t there = rows.template present<Step::kChunk>(walk.first(j), lo, hi);
+      step.template compute<Rows::kMasked>((j - walk.j0) & 1, lo, hi, there);
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
@@ -534,7 +695,9 @@ __device__ void run_split(Step& step, const SplitWalk& walk,
 // ---------------------------------------------------------------------------
 // the combine: block (y, b) of THREADS threads, y + Y b on a 1-D grid with
 // Y = ceil(H D / 4 THREADS), writes elements (4 y + u) THREADS + t (u < 4)
-// of sequence b's (H, D) output
+// of sequence b's (H, D) output.  Sequence b's live positions are
+// [starts[b], ends[b]) clamped to [0, S); a null `starts` means 0 (the
+// paged kernel's prefix [0, context_lens[b]))
 // ---------------------------------------------------------------------------
 template <typename T, int THREADS>
 __global__ void __launch_bounds__(THREADS)
@@ -548,7 +711,7 @@ split_combine_kernel(const float* __restrict__ ws, const int* __restrict__ start
   const int ys = (hd + 4 * THREADS - 1) / (4 * THREADS);
   const int y = blockIdx.x % ys;
   const int b = blockIdx.x / ys;
-  const int lo = max(starts[b], 0);
+  const int lo = starts ? max(starts[b], 0) : 0;
   const int hi = min(ends[b], s);
   const int first = lo < hi ? lo / len : 0;
   const int nlive = lo < hi ? (hi - 1) / len - first + 1 : 0;

@@ -160,6 +160,13 @@ def n_kv_tiles(qt: int, sq: int, skv: int, bkv: int, causal: bool) -> int:
     return n
 
 
+def kv_tile_rows(w: int, bkv: int) -> np.ndarray:
+    """Rows of a ``bkv``-row K or V tile that warp ``w`` of ``flash_kernel``
+    (the float32 route) stages: ``w*bkv/8 .. (w+1)*bkv/8 - 1``."""
+    rows_kv = bkv // WARPS
+    return np.arange(w * rows_kv, (w + 1) * rows_kv, dtype=np.int64)
+
+
 def _row_elems(rows: np.ndarray, d: int) -> np.ndarray:
     return (rows[:, None] * d + np.arange(d, dtype=np.int64)).reshape(-1)
 
@@ -231,7 +238,6 @@ def cuda_core_spec(
     describes.  Shared memory and registers are not modeled, as the
     reference does not model the Pallas pipeline's VMEM buffers.
     """
-    rows_kv = bkv // WARPS
 
     def q_rows(pid) -> np.ndarray:
         h, qt, w = pid
@@ -241,7 +247,7 @@ def cuda_core_spec(
     def kv_rows(pid) -> np.ndarray:
         h, qt, w = pid
         starts = np.arange(n_kv_tiles(qt, sq, skv, bkv, causal), dtype=np.int64)
-        rows = (starts[:, None] * bkv + w * rows_kv + np.arange(rows_kv)).reshape(-1)
+        rows = (starts[:, None] * bkv + kv_tile_rows(w, bkv)).reshape(-1)
         return h * skv + rows[rows < skv]
 
     def q_walk(pid, **_):

@@ -5,28 +5,35 @@ batch: ``k_pages``/``v_pages`` of shape ``(1, P, page, D)`` (one KV head
 shared by all H query heads), a per-sequence ``block_tables`` ``(B,
 slots)`` mapping logical slots to physical pages, and ``context_lens``
 ``(B,)`` bounding each sequence's live prefix (vLLM's layout, as in
-``repro/kernels/paged_attn.py``).  ``csrc/paged_decode.cu`` runs one block
-of 8 warps per sequence: for each slot below the live prefix it reads the
-table, stages that physical page's live rows of K and V in shared memory
-once for all H heads, and masks positions at or past ``context_lens[b]``.
-With ``dense=True`` it walks every slot and stages every row, still
-masked: the registry's baseline rung, run on a contiguous per-row cache
-viewed as pages under the identity table ``b * slots + j``
-(:func:`contiguous_pages`).
+``repro/kernels/paged_attn.py``, whose ``_paged_decode_kernel`` this
+replaces).  ``csrc/paged_decode.cu`` splits each sequence's logical
+positions into splits of ``split_len(slots * page, page)`` positions
+(whole pages, at most 32 splits; flash-decoding): one block per (split,
+sequence) holds all H heads, stages each live K/V row once for all of
+them, finding each row's page in the table, and stores its softmax state
+to a float32 workspace; a combine kernel merges the live splits in split
+order.  A split past ``context_lens[b]`` is never read (the Pallas
+kernel's gate); a row whose page id lies outside ``[0, P)`` is not read
+and adds nothing.  bfloat16 runs on the tensor cores, float32 on the CUDA
+cores.  Bound on an H100 at Granite-20B's decode step: the live K and V
+bytes in bfloat16, the operations in float32.  With ``dense=True`` every
+row of every split is read, which gives the same bits: the registry's
+baseline rung, run on a contiguous per-row cache viewed as pages under
+the identity table ``b * slots + j`` (:func:`contiguous_pages`).
 
 The wrapper ``paged_decode_attention(q, k_pages, v_pages, block_tables,
 context_lens, dense=False)`` checks its operands, launches on the current
-stream and counts its launches in ``paged_decode_attention.launches``.
-Given CPU tensors it computes the plain version (``paged_decode_plain``);
-given CUDA tensors it launches the kernel or raises.  Context lengths are
-clamped to ``[0, slots * page]``; a slot whose page id lies outside
-``[0, P)`` adds nothing, in kernel and plain version alike.
+stream and counts its launches in ``paged_decode_attention.launches`` (the
+split kernel and the combine: one launch on the count).  Given CPU
+tensors it computes the plain version (``paged_decode_plain``); given CUDA
+tensors it launches the kernels or raises.  Context lengths are clamped
+to ``[0, slots * page]``.
 
 A fact of the reference: for ``context_lens[b] == 0`` its Pallas kernel
 returns 0 and ``paged_decode_reference`` the mean of the gathered pages.
 The port returns 0 in kernel, plain version and oracle.
 
-The spec builders describe what each warp of the CUDA kernel reads and
+The spec builders describe what each warp of the CUDA kernels reads and
 writes under the H100 sector geometry; the prefill specs have no kernel
 in either package and describe ``csrc/flash.cu``'s causal walk over the
 pages, without and with the table gather and the context clamp.
@@ -44,18 +51,19 @@ import torch
 from repro_torch.core.collector import KernelSpec, OperandSpec
 
 from . import _build
-from .flash import BQ, _row_elems, cuda_core_spec
+from .flash import BQ, _row_elems, cuda_core_spec, kv_tile_rows
 from .ragged_flash import (
     _DTYPES,
     _INT32_MAX,
     MAX_D,
     MAX_H,
     NEG_INF,
-    WARPS,
     _check_bounds,
-    _head_walk,
+    n_splits,
+    split_len,
+    split_route,
+    split_spec,
     tolerance,  # the decode tolerance, one for both kernels
-    warp_chunk_rows,
 )
 
 # registry default shapes (CI-sized): 4 sequences of up to 8 pages x 64
@@ -191,27 +199,31 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tens
     return torch.matmul(p, v).to(q.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                            block_tables: torch.Tensor, context_lens: torch.Tensor,
                            dense: bool = False) -> torch.Tensor:
     """O[b] = softmax(q[b] Kᵀ / sqrt(D)) V over sequence b's pages, masked to
-    ``context_lens[b]``, with the CUDA kernel (``csrc/paged_decode.cu``)."""
+    ``context_lens[b]``, with the CUDA kernels (``csrc/paged_decode.cu``):
+    the split kernel and the combine, one launch on the count."""
     _check_operands(q, k_pages, v_pages, block_tables, context_lens)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, block_tables, context_lens, dense)
     b, h, d = q.shape
     n_pages, page = k_pages.shape[1:3]
+    slots = block_tables.shape[1]
+    s = slots * page
     o = torch.empty_like(q)
+    ws = torch.empty((b, n_splits(s, page), h * (d + 2)), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _build.call(
             "paged_decode", "repro_paged_decode", _ARGTYPES,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), context_lens.data_ptr(), o.data_ptr(),
-            b, h, d, n_pages, page, block_tables.shape[1], int(bool(dense)),
+            block_tables.data_ptr(), context_lens.data_ptr(), ws.data_ptr(), o.data_ptr(),
+            b, h, d, n_pages, page, slots, split_len(s, page), int(bool(dense)),
             _DTYPES[q.dtype], stream,
         )
     paged_decode_attention.launches += 1
@@ -224,7 +236,7 @@ KERNELS = {"paged_decode": paged_decode_attention}
 
 
 # ---------------------------------------------------------------------------
-# profiler specs: what each warp of the CUDA kernel touches
+# profiler specs: what each warp of the CUDA kernels touches
 # ---------------------------------------------------------------------------
 
 
@@ -242,16 +254,18 @@ def _ctx(bi: int, context_lens, slots: int, page: int) -> int:
 
 
 def _contiguous_walk(bi: int, w: int, n: int, page: int, s: int, d: int) -> np.ndarray:
-    """Warp w's rows of the first n pages of sequence bi's contiguous cache."""
-    pos = (np.arange(n, dtype=np.int64)[:, None] * page + warp_chunk_rows(w, page)).reshape(-1)
+    """Warp w's rows of the first n pages of sequence bi's contiguous cache,
+    pages as flash.cu's KV tiles (``flash.kv_tile_rows``)."""
+    pos = (np.arange(n, dtype=np.int64)[:, None] * page + kv_tile_rows(w, page)).reshape(-1)
     return _row_elems(bi * s + pos, d)
 
 
 def _page_walk(bi: int, w: int, n: int, ctx: int, block_tables, page: int,
                pages: int, d: int) -> np.ndarray:
     """Warp w's live rows of the physical pages of sequence bi's first n
-    slots (a page id outside [0, pages) is skipped, as the kernel does)."""
-    rows = warp_chunk_rows(w, page)
+    slots, pages as flash.cu's KV tiles (a page id outside [0, pages) is
+    skipped)."""
+    rows = kv_tile_rows(w, page)
     parts = [np.empty(0, np.int64)]
     for j in range(n):
         phys = int(block_tables[bi, j])
@@ -260,76 +274,78 @@ def _page_walk(bi: int, w: int, n: int, ctx: int, block_tables, page: int,
     return np.concatenate(parts)
 
 
+def _decode_spec(name, b, h, d, page, pages, slots, dtype, paged) -> KernelSpec:
+    """The split kernel and the combine of ``csrc/paged_decode.cu``
+    (``ragged_flash.split_spec``: splits of ``split_len(slots * page,
+    page)`` positions, live range ``[0, ctx)``).  A warp that stages a row
+    reads the table entry of the row's slot, and the row's 16-byte chunks
+    when the page id lies in ``[0, pages)``; every warp of a block reads
+    the entries of the live rows of each chunk it computes (the presence
+    mask), and every warp reads ``context_lens[b]``.  ``paged``: the pool
+    ``(pages, page, D)`` through the context's table, gated; else the
+    dense sweep of a contiguous ``(B, slots * page, D)`` cache under the
+    identity table."""
+    s = slots * page
+    storage = split_route(dtype)[1]
+
+    def live(bi, ctx):
+        lens, tables = ctx.get("context_lens"), ctx.get("block_tables")
+        if lens is None or (paged and tables is None):
+            return None
+        return 0, _ctx(bi, lens, slots, page)
+
+    def rows(bi, c0, r, c, elems, lo, hi, ctx):
+        pos = c0 + r
+        slot = pos // page
+        if paged:
+            phys = np.asarray(ctx["block_tables"])[bi, slot].astype(np.int64)
+            there = (phys >= 0) & (phys < pages)
+            flat_row = phys * page + pos % page
+        else:  # the identity table over the contiguous cache
+            there = np.ones(pos.shape, bool)
+            flat_row = bi * s + pos
+        col = c[there][:, None] * elems + np.arange(elems, dtype=np.int64)
+        kv = (flat_row[there][:, None] * d + col)[col < d]
+        checked = (c0 + np.arange(lo, hi, dtype=np.int64)) // page
+        table = bi * slots + np.concatenate([slot, checked])
+        return {"Kcache": kv, "Vcache": kv, "block_tables": table}
+
+    cache = (pages, page, d) if paged else (b, s, d)
+    return split_spec(
+        name, b, h, s, d, split_len(s, page), dtype, paged, live, rows,
+        (
+            OperandSpec("Q", (b, h, d), storage, (1, h, d), lambda bi, *_: (bi, 0, 0)),
+            OperandSpec("Kcache", cache, storage, cache, lambda bi, *_: (0, 0, 0)),
+            OperandSpec("Vcache", cache, storage, cache, lambda bi, *_: (0, 0, 0)),
+            OperandSpec("block_tables", (b, slots), np.int32, (1, slots),
+                        lambda bi, *_: (bi, 0)),
+        ),
+        # every warp reads its sequence's context length
+        (OperandSpec("context_lens", (b,), np.int32, (1,), lambda bi, *_: (bi,)),),
+    )
+
+
 def paged_decode_spec(
     b: int = DEF_B, h: int = DEF_H, d: int = DEF_D, page: int = DEF_PAGE,
     slots: int = DEF_SLOTS, dtype=np.float32,
 ) -> KernelSpec:
-    """BASELINE: the dense slot sweep (``dense=True``) over a contiguous
-    per-row cache ``(B, slots * page, D)`` under the identity table.
-    Program ``(b, w)`` is warp w of sequence b's block: it stages its heads'
-    rows of Q, reads every ``block_tables[b, j]`` and ``context_lens[b]``,
-    stages rows ``w*ceil(page/8) ..`` of every page, and stores its heads'
-    rows of O."""
-    s = slots * page
-
-    def kv_walk(pid, **_):
-        bi, w = pid
-        return _contiguous_walk(bi, w, slots, page, s, d)
-
-    def spec_of(op, rows, kind="load"):
-        return OperandSpec(op, (b, rows, d), dtype, (1, rows, d),
-                           lambda bi, w: (bi, 0, 0), kind=kind)
-
-    heads = _head_walk(h, d)
-    return KernelSpec(
-        name="paged_decode_dense",
-        grid=(b, WARPS),
-        operands=(
-            spec_of("Q", h), spec_of("Kcache", s), spec_of("Vcache", s),
-            *_ctx_operands(b, slots), spec_of("O", h, kind="store"),
-        ),
-        dynamic=(("Q", heads), ("Kcache", kv_walk), ("Vcache", kv_walk), ("O", heads)),
-    )
+    """BASELINE: the dense sweep (``dense=True``) over a contiguous per-row
+    cache ``(B, slots * page, D)`` under the identity table: every split
+    block stages every row of every chunk of its split (``_decode_spec``).
+    ``dtype`` bfloat16 describes the tensor-core route (4 warps, chunks of
+    64 rows), else the float32 one (8 warps, chunks of 32)."""
+    return _decode_spec("paged_decode_dense", b, h, d, page, b * slots, slots, dtype,
+                        paged=False)
 
 
 def paged_decode_paged_spec(
     b: int = DEF_B, h: int = DEF_H, d: int = DEF_D, page: int = DEF_PAGE,
     pages: int = DEF_PAGES, slots: int = DEF_SLOTS, dtype=np.float32,
 ) -> KernelSpec:
-    """OPTIMIZED: the paged gather.  Warp w of sequence b's block reads
-    ``block_tables[b, j]`` for each slot j below ``ceil(ctx / page)`` and
-    stages its rows of that physical page below the live prefix (Level 2,
-    over the context)."""
-
-    def kv_walk(pid, block_tables=None, context_lens=None, **_):
-        bi, w = pid
-        if block_tables is None or context_lens is None:
-            return np.empty(0, np.int64)
-        ctx = _ctx(bi, context_lens, slots, page)
-        return _page_walk(bi, w, -(-ctx // page), ctx, block_tables, page, pages, d)
-
-    def table_walk(pid, block_tables=None, context_lens=None, **_):
-        bi, _w = pid
-        if block_tables is None or context_lens is None:
-            return np.empty(0, np.int64)
-        return bi * slots + np.arange(-(-_ctx(bi, context_lens, slots, page) // page))
-
-    heads = _head_walk(h, d)
-    return KernelSpec(
-        name="paged_decode",
-        grid=(b, WARPS),
-        operands=(
-            OperandSpec("Q", (b, h, d), dtype, (1, h, d), lambda bi, w: (bi, 0, 0)),
-            OperandSpec("Kcache", (pages, page, d), dtype, (1, page, d), lambda bi, w: (0, 0, 0)),
-            OperandSpec("Vcache", (pages, page, d), dtype, (1, page, d), lambda bi, w: (0, 0, 0)),
-            *_ctx_operands(b, slots),
-            OperandSpec("O", (b, h, d), dtype, (1, h, d), lambda bi, w: (bi, 0, 0), kind="store"),
-        ),
-        dynamic=(
-            ("Q", heads), ("Kcache", kv_walk), ("Vcache", kv_walk),
-            ("block_tables", table_walk), ("O", heads),
-        ),
-    )
+    """OPTIMIZED: the paged gather, gated: a split with no position below
+    ``ctx`` reads only the length, the others stage only their live rows,
+    each through the table (Level 2, over the context)."""
+    return _decode_spec("paged_decode", b, h, d, page, pages, slots, dtype, paged=True)
 
 
 def _causal_slots(qt: int, sq: int, page: int, slots: int) -> int:

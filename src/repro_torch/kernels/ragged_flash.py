@@ -46,7 +46,7 @@ import torch
 from repro_torch.core.collector import KernelSpec, OperandSpec
 
 from . import _build
-from .flash import BF16_STORAGE, _row_elems, cuda_core_spec, is_bf16, padded_d
+from .flash import BF16_STORAGE, cuda_core_spec, is_bf16, padded_d, staged_chunks
 
 NEG_INF = -1e30
 
@@ -56,13 +56,11 @@ DEF_B, DEF_H, DEF_S, DEF_D, DEF_BKV = 4, 8, 512, 128, 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: KV tile widths the kernel is built for.
 BKV_CHOICES = (32, 64, 128)
-#: Warps per block of the paged kernel's block step (``csrc/decode.cuh``):
-#: warp w owns query heads w, w + 8, ... (at most 8 each).
-WARPS = 8
 MAX_H = 64
 MAX_D = 128
 _INT32_MAX = 2**31 - 1
-#: Splits a sequence at most (``csrc/split_decode.cuh``).
+#: Splits a sequence at most (``csrc/split_decode.cuh``, the ragged and the
+#: paged kernel alike).
 MAX_SPLITS = 32
 #: The split kernels' threads and chunk rows: float32 on the CUDA cores,
 #: bfloat16 on the tensor cores; the combine kernel runs the same threads.
@@ -73,7 +71,8 @@ SPLIT_CHUNK = {"float32": 32, "bfloat16": 64}
 def split_len(s: int, bkv: int = DEF_BKV) -> int:
     """Positions a split covers: a multiple of ``bkv``, at least two tiles,
     and long enough that a sequence has at most 32 splits.  A function of
-    (S, bkv) alone."""
+    (S, bkv) alone.  The paged kernel takes ``split_len(slots * page,
+    page)``: splits of whole pages."""
     tiles = -(-s // bkv)
     return bkv * max(2, -(-tiles // MAX_SPLITS))
 
@@ -230,13 +229,6 @@ KERNELS = {"ragged_decode": ragged_decode_attention}
 # ---------------------------------------------------------------------------
 
 
-def warp_chunk_rows(w: int, n: int) -> np.ndarray:
-    """Rows of an ``n``-row chunk (a KV tile or page) that warp ``w`` stages:
-    ``w*ceil(n/8) .. (w+1)*ceil(n/8) - 1``, below n (``csrc/decode.cuh``)."""
-    rpw = -(-n // WARPS)
-    return np.arange(w * rpw, min((w + 1) * rpw, n), dtype=np.int64)
-
-
 def live_range(bi: int, s: int, starts, ends):
     """Sequence ``bi``'s live positions ``[lo, hi)``, clamped to [0, s)."""
     return max(int(starts[bi]), 0), min(int(ends[bi]), s)
@@ -248,16 +240,6 @@ def _bounds_operands(b: int) -> tuple:
         OperandSpec(name, (b,), np.int32, (1,), lambda bi, *_: (bi,))
         for name in ("starts", "ends")
     )
-
-
-def _head_walk(h: int, d: int):
-    """Q and O: warp w stages (and stores) the rows of its heads w, w+8, ..."""
-
-    def walk(pid, **_):
-        bi, w = pid
-        return _row_elems(bi * h + np.arange(w, h, WARPS), d)
-
-    return walk
 
 
 def _gate(walk, s: int, d: int):
@@ -275,79 +257,62 @@ def _gate(walk, s: int, d: int):
     return gated
 
 
-def _staged(rows: np.ndarray, w: int, threads: int, elems: int, d: int,
-            n_rows: int, first: int) -> np.ndarray:
-    """Flat indices that warp ``w`` of ``threads`` reads when a block stages
-    rows ``rows`` (indices into an ``n_rows``-row tile whose row 0 is row
-    ``first`` of a row-major array of ``d`` columns): thread t copies
-    16-byte chunks t, t + threads, ... of the tile, chunk i being row
-    i // C, columns elems * (i % C) .. below d, C chunks a row (C =
-    ceil(d / elems), or the bfloat16 route's DP / 8)."""
-    per_row = padded_d(d) // 8 if elems == 8 else -(-d // elems)
-    chunk = np.arange(n_rows * per_row, dtype=np.int64)
-    mine = (chunk % threads) // 32 == w
-    r, c = chunk[mine] // per_row, chunk[mine] % per_row
-    keep = np.isin(r, rows)
-    r, c = r[keep], c[keep]
-    col = c[:, None] * elems + np.arange(elems, dtype=np.int64)
-    flat = (first + r[:, None]) * d + col
-    return flat[col < d]
+def split_route(dtype):
+    """(route, storage dtype) of a split-decode spec: ``bfloat16`` names the
+    tensor-core kernels (2-byte storage), anything else the float32 ones."""
+    if is_bf16(dtype):
+        return "bfloat16", BF16_STORAGE
+    return "float32", (np.float32 if isinstance(dtype, torch.dtype) else dtype)
 
 
-def _decode_spec(name, b, h, s, d, bkv, dtype, gated) -> KernelSpec:
-    """The split kernel and the combine of ``csrc/ragged_decode.cu`` as one
+def split_chunks(lo: int, hi: int, g0: int, g1: int, ch: int, gated: bool):
+    """The chunks a block walks over split ``[g0, g1)`` for live positions
+    ``[lo, hi)`` (``split_decode.cuh:SplitWalk``): ``(c0, n, (r_lo, r_hi),
+    (l_lo, l_hi))``, the chunk at position c0 with n rows, the rows it
+    stages and the rows that are live.  Gated: the chunks that hold a live
+    row, their live rows staged; dense: every chunk, every row staged."""
+    out = []
+    for c0 in range(g0, g1, ch):
+        n = min(ch, g1 - c0)
+        live = (max(lo - c0, 0), min(hi - c0, n))
+        if gated and live[0] >= live[1]:
+            continue
+        out.append((c0, n, live if gated else (0, n), live))
+    return out
+
+
+def split_spec(name: str, b: int, h: int, s: int, d: int, length: int, dtype, gated: bool,
+               live, rows, walked: tuple, scalars: tuple) -> KernelSpec:
+    """The split kernel and the combine of ``csrc/split_decode.cuh`` as one
     grid ``(B, G + Y, W)``: program ``(b, j, w)`` is warp w of split j's
-    block for j < G, else of combine block j - G (G splits, Y = ceil(H D /
-    4T) combine blocks, W = T / 32)."""
-    route = "bfloat16" if is_bf16(dtype) else "float32"
-    if route == "bfloat16":
-        dtype = BF16_STORAGE
-    elif isinstance(dtype, torch.dtype):
-        dtype = np.float32
+    block for j < G, else of combine block j - G (G = ceil(S / length)
+    splits, Y = ceil(H D / 4T) combine blocks, W = T / 32 for the route's
+    T threads).  Split warp ``(b, j, w)`` reads the scalars, stages its
+    16-byte chunks of sequence b's Q rows and of the staged rows of each
+    chunk of split j it walks (``split_chunks``; thread t copies chunks t,
+    t + T, ... of each tile), and stores its floats t, t + T, ... of the
+    split's workspace record; a gated split with no live key reads only
+    the scalars.  Combine warp ``(b, G + y, w)`` reads the scalars, its
+    floats of the live splits' m and l and its elements of their
+    accumulators, and stores those elements of O.
+
+    ``live(b, ctx)`` is sequence b's live range ``[lo, hi)`` clamped to
+    [0, S), or None without the context.  ``rows(b, c0, r, c, elems, lo,
+    hi, ctx)`` gives a warp's reads when it stages the items ``(r, c)`` of
+    the chunk at position c0 (row r is position c0 + r, item c its
+    columns ``elems c ..``), and ``(lo, hi)`` the chunk's live rows that
+    every warp checks for its presence mask: ``{operand: flat indices}``.
+    ``walked`` are the operands read by those index walks (Q, the cache,
+    a table)."""
+    route, storage = split_route(dtype)
     threads, chunk = SPLIT_THREADS[route], SPLIT_CHUNK[route]
-    elems = 16 // np.dtype(dtype).itemsize
-    n_warps = threads // 32
-    length = split_len(s, bkv)
-    g_n = n_splits(s, bkv)
+    elems = 16 // np.dtype(storage).itemsize
+    per_row = padded_d(d) // 8 if route == "bfloat16" else -(-d // 4)
+    mp = -(-h // 16) * 16 if route == "bfloat16" else h
+    g_n = -(-s // length)
     hd, rec = h * d, h * (d + 2)
     y_n = -(-hd // (4 * threads))
     empty = np.empty(0, np.int64)
-
-    def split_of(pid, starts, ends):
-        """(lo, hi, g0, g1) of program pid's split, or None for a
-        combine warp or a gated split with no live key."""
-        bi, j, _ = pid
-        if j >= g_n:
-            return None
-        lo, hi = live_range(bi, s, starts, ends)
-        g0, g1 = j * length, min((j + 1) * length, s)
-        live = max(lo, g0) < min(hi, g1)
-        if gated and not live:
-            return None
-        return lo, hi, g0, g1
-
-    def q_walk(pid, starts=None, ends=None, **_):
-        if split_of(pid, starts, ends) is None:
-            return empty
-        rows = np.arange(h, dtype=np.int64)
-        mp = -(-h // 16) * 16 if route == "bfloat16" else h
-        return _staged(rows, pid[2], threads, elems, d, mp, pid[0] * h)
-
-    def kv_walk(pid, starts=None, ends=None, **_):
-        sp = split_of(pid, starts, ends)
-        if sp is None:
-            return empty
-        lo, hi, g0, g1 = sp
-        parts = []
-        for c0 in range(g0, g1, chunk):
-            n = min(chunk, g1 - c0)
-            if gated:
-                rows = np.arange(max(lo - c0, 0), min(hi - c0, n), dtype=np.int64)
-            else:
-                rows = np.arange(n, dtype=np.int64)
-            if rows.size:
-                parts.append(_staged(rows, pid[2], threads, elems, d, chunk, pid[0] * s + c0))
-        return np.concatenate(parts) if parts else empty
 
     def lanes(w, n):
         """Elements t, t + threads, ... below n of warp w's threads."""
@@ -360,44 +325,84 @@ def _decode_spec(name, b, h, s, d, bkv, dtype, gated) -> KernelSpec:
              + 32 * w + np.arange(32, dtype=np.int64)).reshape(-1)
         return e[e < hd]
 
-    def ws_walk(pid, starts=None, ends=None, **_):
+    def program(pid, ctx):
+        """{operand: flat indices} of program pid."""
         bi, j, w = pid
+        rng = live(bi, ctx)
+        if rng is None:
+            return {}
+        lo, hi = rng
+        out = {}
+
+        def add(reads):
+            for op, idx in reads.items():
+                out.setdefault(op, []).append(idx)
+
         if j < g_n:
-            if split_of(pid, starts, ends) is None:
-                return empty
-            return (bi * g_n + j) * rec + lanes(w, rec)
-        lo, hi = live_range(bi, s, starts, ends)
-        if lo >= hi:
-            return empty
-        first = lo // length
-        nlive = (hi - 1) // length - first + 1
-        f = lanes(w, nlive * 2 * h)
-        ml = (bi * g_n + first + f // (2 * h)) * rec + hd + f % (2 * h)
+            g0, g1 = j * length, min((j + 1) * length, s)
+            if gated and max(lo, g0) >= min(hi, g1):
+                return out  # returns after reading the scalars
+            r, c = staged_chunks(w, mp, per_row, threads)
+            r, c = r[r < h], c[r < h]
+            col = c[:, None] * elems + np.arange(elems, dtype=np.int64)
+            add({"Q": ((bi * h + r[:, None]) * d + col)[col < d]})
+            for c0, n, (r_lo, r_hi), (l_lo, l_hi) in split_chunks(lo, hi, g0, g1, chunk, gated):
+                r, c = staged_chunks(w, chunk, per_row, threads)
+                keep = (r >= r_lo) & (r < r_hi)
+                add(rows(bi, c0, r[keep], c[keep], elems, l_lo, l_hi, ctx))
+            add({"ws": (bi * g_n + j) * rec + lanes(w, rec)})
+            return out
         e = out_elems(j - g_n, w)
-        acc = ((bi * g_n + first + np.arange(nlive, dtype=np.int64))[:, None] * rec
-               + e).reshape(-1)
-        return np.concatenate([ml, acc])
+        add({"O": bi * hd + e})  # an empty row stores its zeros too
+        if lo < hi:
+            first = lo // length
+            nlive = (hi - 1) // length - first + 1
+            f = lanes(w, nlive * 2 * h)
+            recs = (bi * g_n + first + np.arange(nlive, dtype=np.int64)) * rec
+            add({"ws": np.concatenate([recs[f // (2 * h)] + hd + f % (2 * h),
+                                       (recs[:, None] + e).reshape(-1)])})
+        return out
 
-    def o_walk(pid, **_):
-        bi, j, w = pid
-        return bi * hd + out_elems(j - g_n, w) if j >= g_n else empty
+    def walk_of(op):
+        def walk(pid, **ctx):
+            parts = program(pid, ctx).get(op)
+            return np.concatenate(parts) if parts else empty
 
-    def spec_of(op, rows, kind="load"):
-        return OperandSpec(op, (b, rows, d), dtype, (1, rows, d),
-                           lambda bi, *_: (bi, 0, 0), kind=kind)
+        return walk
 
-    return KernelSpec(
-        name=name,
-        grid=(b, g_n + y_n, n_warps),
-        operands=(
-            spec_of("Q", h), spec_of("K", s), spec_of("V", s),
-            *_bounds_operands(b),
-            OperandSpec("ws", (b, g_n, rec), np.float32, (1, g_n, rec),
-                        lambda bi, *_: (bi, 0, 0), kind="store"),
-            spec_of("O", h, kind="store"),
-        ),
-        dynamic=(("Q", q_walk), ("K", kv_walk), ("V", kv_walk), ("ws", ws_walk),
-                 ("O", o_walk)),
+    ops = (*walked, *scalars,
+           OperandSpec("ws", (b, g_n, rec), np.float32, (1, g_n, rec),
+                       lambda bi, *_: (bi, 0, 0), kind="store"),
+           OperandSpec("O", (b, h, d), storage, (1, h, d), lambda bi, *_: (bi, 0, 0),
+                       kind="store"))
+    dynamic = tuple((op, walk_of(op)) for op in (*(o.name for o in walked), "ws", "O"))
+    return KernelSpec(name=name, grid=(b, g_n + y_n, threads // 32), operands=ops,
+                      dynamic=dynamic)
+
+
+def _decode_spec(name, b, h, s, d, bkv, dtype, gated) -> KernelSpec:
+    """The split kernel and the combine of ``csrc/ragged_decode.cu``
+    (``split_spec`` over the contiguous cache: row p of sequence b at
+    flat row b S + p)."""
+    storage = split_route(dtype)[1]
+
+    def live(bi, ctx):
+        if ctx.get("starts") is None or ctx.get("ends") is None:
+            return None
+        return live_range(bi, s, ctx["starts"], ctx["ends"])
+
+    def rows(bi, c0, r, c, elems, _lo, _hi, _ctx):
+        col = c[:, None] * elems + np.arange(elems, dtype=np.int64)
+        flat = ((bi * s + c0 + r)[:, None] * d + col)[col < d]
+        return {"K": flat, "V": flat}
+
+    def spec_of(op, n_rows):
+        return OperandSpec(op, (b, n_rows, d), storage, (1, n_rows, d),
+                           lambda bi, *_: (bi, 0, 0))
+
+    return split_spec(
+        name, b, h, s, d, split_len(s, bkv), dtype, gated, live, rows,
+        (spec_of("Q", h), spec_of("K", s), spec_of("V", s)), _bounds_operands(b),
     )
 
 

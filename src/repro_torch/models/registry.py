@@ -335,12 +335,12 @@ _KIND_RUNGS = {
     "attn": (("base", "32-row KV tiles"),
              ("wide-kv", "64-row KV tiles: half the K/V tile loads per block")),
     "mlp": (("v01", "lanes on columns, B re-read per warp"),
-            ("v02", "64x64x16 shared-memory tiles")),
+            ("v02", "BM x 128 block tiles, 8x8 register micro-tiles")),
     "moe": (("tile32", "32-row expert tiles"),
             ("tile64", "64-row tiles: fewer tiles per expert")),
     "ssm": (("chunk", "one block per (head, chunk)"),),
     "unembed": (("v01", "lanes on columns, B re-read per warp"),
-                ("v02", "64x64x16 shared-memory tiles")),
+                ("v02", "BM x 128 block tiles, 8x8 register micro-tiles")),
 }
 
 

@@ -542,3 +542,225 @@ def test_cuda_decode_wrappers_reject_bad_inputs(card):
         paged_attn.paged_decode_attention(*args[:3], args[3].cpu(), args[4])
     with pytest.raises(TypeError, match="one dtype"):
         paged_attn.paged_decode_attention(args[0].double(), *args[1:])
+
+
+# -- gemm v02 rebuilt for Hopper: bf16 on the tensor cores, f32 8 x 8 tiles -------
+
+
+def _gemm_tol(want, dtype, k):
+    """float32: sums of k products in another order (1e-6 per product, the
+    model path's bound); bfloat16: one rounding of C, 1e-2 of max|C|."""
+    if dtype == torch.float32:
+        return 1e-6 * k
+    return 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "mnk",
+    [(1, 1, 1), (127, 129, 33), (1000, 1000, 1000), (64, 70, 37), (65, 128, 100),
+     (300, 257, 129), (1600, 1700, 70), (2048, 2048, 64)],
+)
+def test_cuda_gemm_v02_matches_plain_version_and_float64(card, dtype, mnk):
+    """Both routes at one element, ragged edges in M, N and K, K or N not a
+    multiple of 8 (rows off 16 bytes: narrow loads), and on bf16's 128-row
+    tiles (the 128 x 128 grid fills the card: 1600 x 1700 and 2048^2),
+    against the plain version and the float64 product; a second call, and
+    in bf16 the other tile height, give the same bits."""
+    m, n, k = mnk
+    a, b = _randn(card, 0, m, k, dtype=dtype), _randn(card, 1, k, n, dtype=dtype)
+    want = gemm.gemm_plain(a, b).float()
+    exact = a.double() @ b.double()
+    before = gemm.gemm_v02.launches
+    got = gemm.gemm_v02(a, b)
+    torch.cuda.synchronize()
+    assert gemm.gemm_v02.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n) and bool(torch.isfinite(got).all())
+    tol = _gemm_tol(want, dtype, k)
+    _assert_within(got, want, tol)
+    _assert_within(got.double(), exact, tol)
+    assert torch.equal(gemm.gemm_v02(a, b), got)  # a second call: the same bits
+    if dtype == torch.bfloat16:  # the other tile height: the same sums in the same order
+        other = 192 - gemm.block_rows(m, n, dtype)
+        assert torch.equal(gemm._launch("repro_gemm_v02", a, b, other), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gemm_v02_takes_operands_off_16_byte_alignment(card, dtype):
+    """A, B and C views that start one element into their storage: both
+    routes load and store them element by element."""
+
+    def shifted(seed, *shape):
+        flat = _randn(card, seed, int(np.prod(shape)) + 1, dtype=dtype)
+        return flat[1:].view(*shape)
+
+    a, b = shifted(0, 200, 136), shifted(1, 136, 264)
+    assert a.data_ptr() % 16 and a.is_contiguous()
+    want = gemm.gemm_plain(a, b).float()
+    got = gemm.gemm_v02(a, b)
+    torch.cuda.synchronize()
+    _assert_within(got, want, _gemm_tol(want, dtype, 136))
+
+
+@pytest.mark.gpu
+def test_cuda_gemm_v02_edge_tiles_add_nothing_stale(card):
+    """A NaN-filled output and a second, larger product run first: the
+    ragged edge tile of the next call (M, N, K all one past a tile) must
+    hold only its own sums."""
+    big = gemm.gemm_v02(_randn(card, 2, 512, 512, dtype=torch.bfloat16),
+                        _randn(card, 3, 512, 512, dtype=torch.bfloat16))
+    del big
+    a, b = _randn(card, 4, 129, 65, dtype=torch.bfloat16), _randn(card, 5, 65, 129, dtype=torch.bfloat16)
+    want = gemm.gemm_plain(a, b).float()
+    got = gemm.gemm_v02(a, b)
+    torch.cuda.synchronize()
+    _assert_within(got, want, _gemm_tol(want, torch.bfloat16, 65))
+    assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.gpu
+def test_cuda_gemm_v02_bf16_runs_on_the_tensor_cores(card):
+    """Every bf16 function of gemm v02 holds HMMA instructions; v00, v01 and
+    the float32 v02 hold none."""
+    counts = _build.sass_counts("gemm")
+    tc = {fn: c for fn, c in counts.items() if "gemm_v02_tc_kernel" in fn}
+    assert len(tc) == 2 and all(c > 0 for c in tc.values()), counts
+    assert all(c == 0 for fn, c in counts.items() if fn not in tc), counts
+
+
+# -- paged decode on the split step ------------------------------------------------
+
+
+def _paged_oracle(q, k_pages, v_pages, tables, lens):
+    """float64 on the host: each sequence's positions below its clamped
+    length whose page id lies in [0, P), one softmax; none gives 0."""
+    n_pages, page, d = k_pages.shape[1:]
+    slots = tables.shape[1]
+    out = torch.zeros(q.shape, dtype=torch.float64)
+    qd, kd, vd = (t.double().cpu() for t in (q, k_pages[0], v_pages[0]))
+    for bi in range(q.shape[0]):
+        ctx = min(max(int(lens[bi]), 0), slots * page)
+        rows = [(int(tables[bi, p // page]), p % page) for p in range(ctx)]
+        rows = [(ph, r) for ph, r in rows if 0 <= ph < n_pages]
+        if not rows:
+            continue
+        kk = torch.stack([kd[ph, r] for ph, r in rows])
+        vv = torch.stack([vd[ph, r] for ph, r in rows])
+        p = torch.softmax(qd[bi] @ kk.T / np.sqrt(d), dim=-1)
+        out[bi] = p @ vv
+    return out
+
+
+def _paged_table_case(card, b, h, d, page, slots, dtype, holes=()):
+    """A pool of 2 * b * slots pages, each sequence's slots on distinct
+    seeded pages, seeded lengths in [1, slots * page]; ``holes`` are (b, j)
+    slots set to page ids outside the pool."""
+    rng = np.random.default_rng(page)
+    pages = 2 * b * slots
+    tables = rng.permutation(pages)[: b * slots].reshape(b, slots).astype(np.int32)
+    for bi, j in holes:
+        tables[bi, j] = pages + 5 if j % 2 else -3
+    lens = rng.integers(1, slots * page + 1, size=b).astype(np.int32)
+    q = _randn(card, 0, b, h, d, dtype=dtype)
+    kp, vp = (_randn(card, i, 1, pages, page, d, dtype=dtype) for i in (1, 2))
+    return q, kp, vp, torch.from_numpy(tables).to(card), torch.from_numpy(lens).to(card)
+
+
+def _check_paged(args, dtype):
+    want = paged_attn.paged_decode_plain(*args).float()
+    tol = paged_attn.tolerance(want, args[0])
+    before = paged_attn.paged_decode_attention.launches
+    gated = paged_attn.paged_decode_attention(*args)
+    again = paged_attn.paged_decode_attention(*args)
+    dense = paged_attn.paged_decode_attention(*args, dense=True)
+    torch.cuda.synchronize()
+    assert paged_attn.paged_decode_attention.launches == before + 3
+    assert gated.dtype == dtype and gated.shape == args[0].shape
+    assert torch.equal(gated, again) and torch.equal(gated, dense)
+    _assert_within(gated, want, tol)
+    _assert_within(gated.double().cpu(), _paged_oracle(*args), tol.double().cpu())
+    return gated
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [1, 16, 48, 64, 100, 128])
+def test_cuda_paged_decode_split_walk_at_every_page_size(card, page, dtype):
+    """Pages of 1 to 128 rows (smaller than a chunk, a chunk crossing pages,
+    one or two chunks a page): within tolerance() of the plain version and
+    of a float64 oracle, dense equal to gated and a second call equal to
+    the first, bit for bit."""
+    slots = max(2, 512 // page)
+    _check_paged(_paged_table_case(card, 3, 12, 64, page, slots, dtype), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_out_of_range_pages_and_empty_contexts(card, dtype):
+    """Page ids out of the pool (-3 and P + 5) add nothing, also when every
+    page of a live split is out (sequence 0's first two splits: slots 0-3
+    of pages of 16, splits of 32 positions); an empty context and a
+    negative one give 0."""
+    holes = [(0, 0), (0, 1), (0, 2), (0, 3), (1, 5), (2, 0)]
+    q, kp, vp, tables, lens = _paged_table_case(card, 5, 8, 128, 16, 16, dtype, holes)
+    assert ragged_flash.split_len(16 * 16, 16) == 32
+    lens[0] = 16 * 16
+    lens[3] = 0
+    lens[4] = -7
+    out = _check_paged((q, kp, vp, tables, lens), dtype)
+    assert not out[[3, 4]].any() and out[0].abs().max() > 0
+    tables[0, 4:] = -1  # now no page of sequence 0 is in the pool: its row is 0
+    out = _check_paged((q, kp, vp, tables, lens), dtype)
+    assert not out[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_at_granite_widths(card, dtype):
+    """Granite-20B's step: 64 sequences, 48 heads of 128, pages of 64 in 128
+    slots over 8192 pages (the registry's seeded tables): split_len 256, 32
+    splits; dense equals gated, repeated calls the same bits."""
+    ctx = paged_attn.paged_context(64, 8192, 128, 64)
+    q = _randn(card, 0, 64, 48, 128, dtype=dtype)
+    kp, vp = (_randn(card, i, 1, 8192, 64, 128, dtype=dtype) for i in (1, 2))
+    tables, lens = (torch.from_numpy(ctx[n]).to(card) for n in ("block_tables", "context_lens"))
+    assert ragged_flash.split_len(128 * 64, 64) == 256
+    args = (q, kp, vp, tables, lens)
+    want = paged_attn.paged_decode_plain(*args).float()
+    gated = paged_attn.paged_decode_attention(*args)
+    again = paged_attn.paged_decode_attention(*args)
+    dense = paged_attn.paged_decode_attention(*args, dense=True)
+    torch.cuda.synchronize()
+    assert torch.equal(gated, again) and torch.equal(gated, dense)
+    _assert_within(gated, want, paged_attn.tolerance(want, q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [32, 64, 128])
+def test_cuda_ragged_from_zero_equals_paged_under_the_identity_table(card, page, dtype):
+    """The two kernels share split_decode.cuh: the ragged kernel over
+    [0, ctx) with tiles of `page` and the paged kernel over the same cache
+    viewed as pages under the identity table walk the same splits and
+    chunks, so they give the same bits."""
+    b, h, s, d = 4, 16, 1024, 64
+    q, k, v = (_randn(card, i, *shape, dtype=dtype) for i, shape in enumerate(((b, h, d), (b, s, d), (b, s, d))))
+    ends = torch.tensor([1024, 1, 300, 777], dtype=torch.int32, device=card)
+    starts = torch.zeros_like(ends)
+    ragged = ragged_flash.ragged_decode_attention(q, k, v, starts, ends, bkv=page)
+    (kp, ident), (vp, _) = (paged_attn.contiguous_pages(c, page) for c in (k, v))
+    paged = paged_attn.paged_decode_attention(q, kp, vp, ident, ends)
+    torch.cuda.synchronize()
+    assert torch.equal(ragged, paged)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_decode_bf16_split_kernels_run_on_the_tensor_cores(card):
+    """Every bf16 split kernel function of the paged library holds HMMA
+    instructions; the float32 ones and the combines hold none."""
+    counts = _build.sass_counts("paged_decode")
+    tc = {fn: c for fn, c in counts.items() if "paged_split_tc_kernel" in fn}
+    assert len(tc) == 4 and all(c > 0 for c in tc.values()), counts
+    assert all(c == 0 for fn, c in counts.items() if fn not in tc), counts

@@ -7,6 +7,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import repro.kernels as rk
 from repro.core import analyze as ref_analyze
@@ -176,7 +177,9 @@ def test_h100_pattern_classes_per_rung(h100_ladder):
         ("C", FALSE_SHARING), ("B", FALSE_SHARING), ("A", HOT)
     }
     assert _classes(h100_ladder["v01"]) == {("A", HOT), ("B", HOT)}
-    assert _classes(h100_ladder["v02"]) == {("A", HOT), ("B", HOT)}
+    # v02's 64 x 128 tiles: at 256^3 each A sector is read by the 2 warps of
+    # its column tiles (under hot's 4), each B sector by the 4 of its row tiles
+    assert _classes(h100_ladder["v02"]) == {("B", HOT)}
 
 
 def test_api_report_names_cuda_knobs():
@@ -224,37 +227,97 @@ def _emulate_naive(threads, m, n, k):
     return acc
 
 
-def _emulate_v02(m, n, k):
-    """Per-warp flat indices of A, B, C for gemm_v02_kernel (64x64x16)."""
+def _tc_block_rows(m, n):
+    """The bfloat16 route's tile rule: 128-row tiles when the 128 x 128 grid
+    has a block for each of the 132 SMs, else 64."""
+    return 128 if -(-m // 128) * -(-n // 128) >= 132 else 64
+
+
+def _add(acc, name, key, idx):
+    acc[name].setdefault(key, []).append(np.asarray(idx, np.int64))
+
+
+def _emulate_v02_f32(m, n, k):
+    """Per-warp flat indices of A, B, C for gemm_v02_kernel (float32), thread
+    by thread: 64 x 128 tiles, 128 threads a block; thread t loads the
+    float4 at row t / 2, columns 4 (t % 2) of each (64, 8) A tile and
+    float4 items t, t + 128 (row i / 32, columns 4 (i % 32)) of each
+    (8, 128) B tile, every element past M, N or K left out; thread
+    (t / 16, t % 16) stores rows 8 (t / 16) .. +7 at columns 4 (t % 16) ..
+    +3 and 64 + that."""
+    bm, threads = 64, 128
     acc = {"A": {}, "B": {}, "C": {}}
-    for by in range((m + 63) // 64):
-        for bx in range((n + 63) // 64):
-            row0, col0 = by * 64, bx * 64
-            for tid in range(256):
-                warp, lane = tid // 32, tid % 32
-                key = (bx, by, warp)
-                # every warp runs each access site, its lanes predicated on
-                # the bounds: a warp wholly off the edge touches nothing
-                for per_warp in acc.values():
-                    per_warp.setdefault(key, [np.empty(0, np.int64)])
-                for k0 in range(0, k, 16):
-                    for s in range(4):
-                        r, cc = 8 * warp + 2 * s + lane // 16, lane % 16
-                        if row0 + r < m and k0 + cc < k:
-                            acc["A"].setdefault(key, []).append(
-                                np.array([(row0 + r) * k + k0 + cc]))
-                        r, cc = 4 * s + lane // 8, 8 * warp + lane % 8
-                        if k0 + r < k and col0 + cc < n:
-                            acc["B"].setdefault(key, []).append(
-                                np.array([(k0 + r) * n + col0 + cc]))
-                tr = 32 * (warp // 4) + 4 * (lane // 4)
-                tc = 16 * (warp % 4) + 4 * (lane % 4)
-                for i in range(4):
-                    for j in range(4):
-                        if row0 + tr + i < m and col0 + tc + j < n:
-                            acc["C"].setdefault(key, []).append(
-                                np.array([(row0 + tr + i) * n + col0 + tc + j]))
+    for rt in range(-(-m // bm)):
+        for ct in range(-(-n // 128)):
+            row0, col0 = rt * bm, ct * 128
+            for tid in range(threads):
+                key = (rt, ct, tid // 32)
+                for name in acc:
+                    _add(acc, name, key, [])
+                a_r, a_k = tid // 2, (tid % 2) * 4
+                for k0 in range(0, k, 8):
+                    gr, gk = row0 + a_r, k0 + a_k
+                    if gr < m:
+                        _add(acc, "A", key, gr * k + np.arange(gk, min(gk + 4, k)))
+                    for s in range(8 * 128 // 4 // threads):
+                        i = tid + threads * s
+                        gkr, gc = k0 + i // 32, col0 + (i % 32) * 4
+                        if gkr < k:
+                            _add(acc, "B", key, gkr * n + np.arange(gc, min(gc + 4, n)))
+                tx, ty = tid % 16, tid // 16
+                for i in range(8):
+                    gr = row0 + 8 * ty + i
+                    if gr >= m:
+                        continue
+                    for half in range(2):
+                        gc = col0 + 64 * half + 4 * tx
+                        _add(acc, "C", key, gr * n + np.arange(gc, min(gc + 4, n)))
     return acc
+
+
+def _emulate_v02_tc(m, n, k):
+    """Per-warp flat indices of A, B, C for gemm_v02_tc_kernel<BM>
+    (bfloat16), thread by thread: 128 threads a block; thread t copies
+    16-byte chunks t, t + 128, ... (8 elements each) of every (BM, 64) A
+    tile and (64, 128) B tile, the elements inside M, K and N; lane l of
+    warp w stores chunks l, l + 32, ... of rows (BM/4) w .. of the C tile."""
+    bm = _tc_block_rows(m, n)
+    acc = {"A": {}, "B": {}, "C": {}}
+    for rt in range(-(-m // bm)):
+        for ct in range(-(-n // 128)):
+            row0, col0 = rt * bm, ct * 128
+            for tid in range(128):
+                w, lane = divmod(tid, 32)
+                key = (rt, ct, w)
+                for name in acc:
+                    _add(acc, name, key, [])
+                for k0 in range(0, k, 64):
+                    for i in range(tid, bm * 8, 128):
+                        r, col = i // 8, k0 + (i % 8) * 8
+                        if row0 + r < m:
+                            _add(acc, "A", key, (row0 + r) * k + np.arange(col, min(col + 8, k)))
+                    for i in range(tid, 64 * 16, 128):
+                        r, col = k0 + i // 16, col0 + (i % 16) * 8
+                        if r < k:
+                            _add(acc, "B", key, r * n + np.arange(col, min(col + 8, n)))
+                per = bm // 4
+                for i in range(lane, per * 16, 32):
+                    r, gc = row0 + per * w + i // 16, col0 + 8 * (i % 16)
+                    if r < m and gc < n:
+                        _add(acc, "C", key, r * n + np.arange(gc, min(gc + 8, n)))
+    return acc
+
+
+def _assert_gemm_spec_matches(spec, acc, m, n, k, itemsize):
+    hm = analyze(spec, GridSampler(None))
+    shapes = {"A": (m, k), "B": (k, n), "C": (m, n)}
+    for name in ("A", "B", "C"):
+        tags, wt, st, warps = heat_of_warps(acc[name], shapes[name], itemsize)
+        rh = hm.region(name)
+        np.testing.assert_array_equal(rh.tags_array, tags, err_msg=name)
+        np.testing.assert_array_equal(rh.word_temps_matrix, wt, err_msg=name)
+        np.testing.assert_array_equal(rh.sector_temps_array, st, err_msg=name)
+        assert rh.n_programs == warps, name
 
 
 @pytest.mark.parametrize("mnk", [(64, 128, 32), (40, 72, 24)])
@@ -265,17 +328,37 @@ def test_spec_matches_kernel_thread_mapping(variant, dtype, mnk):
     itemsize = 4 if dtype is np.float32 else 2
     spec_dtype = np.float32 if itemsize == 4 else np.float16  # same width
     if variant == "v02":
-        acc = _emulate_v02(m, n, k)
+        # the route's own kernel: bfloat16 names the tensor-core one
+        acc = (_emulate_v02_f32 if itemsize == 4 else _emulate_v02_tc)(m, n, k)
+        spec_dtype = dtype
     else:
         threads = (_threads_v00 if variant == "v00" else _threads_v01)(m, n, k)
         acc = _emulate_naive(threads, m, n, k)
     spec = getattr(gemm, f"gemm_{variant}_spec")(m, n, k, dtype=spec_dtype)
-    hm = analyze(spec, GridSampler(None))
-    shapes = {"A": (m, k), "B": (k, n), "C": (m, n)}
-    for name in ("A", "B", "C"):
-        tags, wt, st, warps = heat_of_warps(acc[name], shapes[name], itemsize)
-        rh = hm.region(name)
-        np.testing.assert_array_equal(rh.tags_array, tags, err_msg=name)
-        np.testing.assert_array_equal(rh.word_temps_matrix, wt, err_msg=name)
-        np.testing.assert_array_equal(rh.sector_temps_array, st, err_msg=name)
-        assert rh.n_programs == warps, name
+    _assert_gemm_spec_matches(spec, acc, m, n, k, itemsize)
+
+
+@pytest.mark.parametrize(
+    "mnk",
+    [
+        (1, 1, 1),  # one element
+        (37, 130, 13),  # K and N not multiples of 4: scalar loads; two column tiles
+        (130, 260, 70),  # a ragged last row, column and K step
+        (1537, 1409, 5),  # bf16: 13 x 12 tiles of 128 rows (the grid fills the card), ragged
+    ],
+)
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
+def test_v02_spec_matches_each_route_at_ragged_edges(route, mnk):
+    """gemm_v02_spec for each dtype's route, held against the thread-by-thread
+    emulation of that route's kernel, at one element, at ragged edges in
+    M, N and K, and on both of the bf16 route's tile heights (64 rows, and
+    128 once the grid of 128 x 128 tiles has a block for each of the 132
+    SMs; the f32 route has 64 only)."""
+    m, n, k = mnk
+    assert gemm.block_rows(m, n, torch.bfloat16) == _tc_block_rows(m, n) == (128 if m > 1500 else 64)
+    assert gemm.block_rows(m, n, torch.float32) == 64
+    if route == "float32":
+        acc, itemsize = _emulate_v02_f32(m, n, k), 4
+    else:
+        acc, itemsize = _emulate_v02_tc(m, n, k), 2
+    _assert_gemm_spec_matches(gemm.gemm_v02_spec(m, n, k, dtype=route), acc, m, n, k, itemsize)

@@ -25,7 +25,7 @@ from repro_torch import cli
 from repro_torch import kernels as kreg
 from repro_torch.core.collector import analyze
 from repro_torch.core.diff import diff
-from repro_torch.core.patterns import HOT, HOT_RANDOM, detect_all
+from repro_torch.core.patterns import FALSE_SHARING, HOT, HOT_RANDOM, detect_all
 from repro_torch.core.session import heatmaps_equal, profile_kernel
 from repro_torch.core.trace import GridSampler
 from repro_torch.kernels import flash, ops, paged_attn, ragged_flash, ref
@@ -475,7 +475,7 @@ def test_engine_parity_on_reference_serving_specs(pair):
 PINNED_PORT = {
     ("ragged_flash:decode", "ragged_flash:decode-ragged"): (68824, 13104),
     ("ragged_flash:prefill", "ragged_flash:prefill-ragged"): (393728, 149696),
-    ("paged_attn:decode", "paged_attn:decode-paged"): (66624, 21504),
+    ("paged_attn:decode", "paged_attn:decode-paged"): (71244, 23464),
     ("paged_attn:prefill", "paged_attn:prefill-paged"): (360960, 208960),
 }
 
@@ -591,33 +591,90 @@ def _emulate_ragged(b, h, s, d, bkv, starts, ends, dense, route="float32"):
     return acc
 
 
-def _emulate_paged(b, h, d, pages, page, slots, tables, lens, dense):
-    """Per-warp flat indices of every operand of paged_decode_kernel."""
-    acc = {n: {} for n in ("Q", "Kcache", "Vcache", "block_tables", "context_lens", "O")}
-    rpw = -(-page // 8)
+def _emulate_paged(b, h, d, pages, page, slots, tables, lens, dense, route="float32"):
+    """Per-warp flat indices of every operand of csrc/paged_decode.cu, thread
+    by thread: the split kernel's (splits, B) blocks over the logical
+    positions [0, slots * page) (SplitWalk over [0, ctx), run_split with
+    PagedRows in split_decode.cuh: a thread reads the table entry of each
+    row it stages, and the row's chunks when its page id lies in [0,
+    pages); lane l of every warp reads the entries of the live rows l and
+    l + 32 of each chunk it computes, for the presence mask), then
+    split_combine_kernel's (Y, B) blocks with a null starts.  Warp (b, j, w)
+    is warp w of split j's block, or of combine block j - G."""
+    threads = ragged_flash.SPLIT_THREADS[route]
+    ch = ragged_flash.SPLIT_CHUNK[route]
+    elems, per_row = (8, flash.padded_d(d) // 8) if route == "bfloat16" else (4, -(-d // 4))
+    s = slots * page
+    length = ragged_flash.split_len(s, page)
+    g_n = -(-s // length)
+    hd, rec = h * d, h * (d + 2)
+    y_n = -(-hd // (4 * threads))
+    names = ("Q", "Kcache", "Vcache", "block_tables", "context_lens", "ws", "O")
+    acc = {n: {} for n in names}
+
+    def row(bi, p):
+        """PagedRows::row: the slot of position p, and its pool row or -1."""
+        slot = p // page
+        phys = int(tables[bi][slot])
+        return slot, phys * page + p - slot * page if 0 <= phys < pages else -1
+
     for bi in range(b):
-        ctx = min(max(int(lens[bi]), 0), slots * page)
-        n_walk = slots if dense else -(-ctx // page)
-        for tid in range(256):
-            w, lane = divmod(tid, 32)
-            key = (bi, w)
-            for name in acc:
-                _add(acc, name, key, [])
-            cols = np.arange(lane, d, 32)
-            _add(acc, "context_lens", key, [bi])
-            for i in range(8):
-                if w + 8 * i < h:
-                    _add(acc, "Q", key, (bi * h + w + 8 * i) * d + cols)
-                    _add(acc, "O", key, (bi * h + w + 8 * i) * d + cols)
-            for j in range(n_walk):
-                _add(acc, "block_tables", key, [bi * slots + j])
-                phys = int(tables[bi][j])
-                if not 0 <= phys < pages:
-                    continue
-                live = min(page, ctx - j * page)
-                for r in range(w * rpw, min((w + 1) * rpw, page if dense else live)):
-                    _add(acc, "Kcache", key, (phys * page + r) * d + cols)
-                    _add(acc, "Vcache", key, (phys * page + r) * d + cols)
+        lo, hi = 0, min(int(lens[bi]), s)
+        for g in range(g_n):
+            g0, g1 = g * length, min((g + 1) * length, s)
+            a, z = max(lo, g0), min(hi, g1)
+            live = a < z
+            if dense:
+                chunks = range(-(-(g1 - g0) // ch))
+            else:
+                chunks = range((a - g0) // ch, (z - 1 - g0) // ch + 1) if live else range(0)
+            for t in range(threads):
+                key = (bi, g, t // 32)
+                for name in names:
+                    _add(acc, name, key, [])
+                _add(acc, "context_lens", key, [bi])
+                if not (dense or live):
+                    continue  # returns after reading the length
+                for i in range(t, h * per_row, threads):
+                    col = (i % per_row) * elems
+                    if col < d:
+                        _add(acc, "Q", key, (bi * h + i // per_row) * d + np.arange(col, min(col + elems, d)))
+                for j in chunks:
+                    c0 = g0 + j * ch
+                    n = min(ch, g1 - c0)
+                    l_lo, l_hi = max(lo - c0, 0), min(hi - c0, n)
+                    r_lo, r_hi = (0, n) if dense else (l_lo, l_hi)
+                    for i in range(t, ch * per_row, threads):
+                        r, col = i // per_row, (i % per_row) * elems
+                        if not r_lo <= r < r_hi:
+                            continue
+                        slot, off = row(bi, c0 + r)
+                        _add(acc, "block_tables", key, [bi * slots + slot])
+                        if off >= 0 and col < d:
+                            for name in ("Kcache", "Vcache"):
+                                _add(acc, name, key, off * d + np.arange(col, min(col + elems, d)))
+                    if l_lo < l_hi:  # computed: the presence mask
+                        for half in range(ch // 32):
+                            r = 32 * half + t % 32
+                            if l_lo <= r < l_hi:
+                                _add(acc, "block_tables", key, [bi * slots + row(bi, c0 + r)[0]])
+                _add(acc, "ws", key, (bi * g_n + g) * rec + np.arange(t, rec, threads))
+        first = lo // length if lo < hi else 0
+        nlive = (hi - 1) // length - first + 1 if lo < hi else 0
+        recs = (bi * g_n + first + np.arange(nlive)) * rec
+        for y in range(y_n):
+            for t in range(threads):
+                key = (bi, g_n + y, t // 32)
+                for name in names:
+                    _add(acc, name, key, [])
+                _add(acc, "context_lens", key, [bi])
+                f = np.arange(t, nlive * 2 * h, threads)
+                _add(acc, "ws", key, recs[f // (2 * h)] + hd + f % (2 * h))
+                for u in range(4):
+                    e = (4 * y + u) * threads + t
+                    if e < hd:
+                        _add(acc, "ws", key, recs + e)
+                        _add(acc, "O", key, [bi * hd + e])
     return acc
 
 
@@ -711,36 +768,65 @@ def test_split_len_depends_on_s_and_bkv_alone():
 
 
 PAGED_CASES = [
-    # (b, h, d, pages, page, slots, permute): the registry's shape, a page
-    # not a multiple of 8, a permuted table with a page id out of range
-    (4, 8, 128, 64, 64, 8, False),
-    (3, 12, 32, 20, 20, 5, True),
-    (2, 5, 40, 16, 32, 4, True),
+    # (b, h, d, pages, page, slots, permute, holes): the registry's shape; a
+    # page not a multiple of 8; a permuted table with a page id out of range;
+    # pages of 16 (smaller than a chunk), 48 (a chunk crosses pages) and 128
+    # (two bf16 chunks); slots [holes) of sequence 0 out of range, so that a
+    # live split holds no page of the pool
+    (4, 8, 128, 64, 64, 8, False, None),
+    (3, 12, 32, 20, 20, 5, True, None),
+    (2, 5, 40, 16, 32, 4, True, None),
+    (3, 12, 32, 30, 16, 9, True, (0, 2)),
+    (2, 6, 40, 12, 48, 5, True, (1, 3)),
+    (2, 20, 64, 6, 128, 3, True, None),
 ]
 
 
-@pytest.mark.parametrize("b, h, d, pages, page, slots, permute", PAGED_CASES)
-def test_paged_decode_paged_spec_matches_kernel_thread_mapping(b, h, d, pages, page, slots, permute):
+def _paged_ctx(b, pages, slots, page, permute, holes):
     ctx = paged_attn.paged_context(b, pages, slots, page)
     if permute:
         ctx["block_tables"] = ctx["block_tables"][:, ::-1].copy()
         ctx["block_tables"][0, 0] = pages + 3
         ctx["context_lens"][-1] = slots * page - 1
-    acc = _emulate_paged(b, h, d, pages, page, slots, ctx["block_tables"], ctx["context_lens"], False)
+    if holes is not None:
+        ctx["block_tables"][0, holes[0]:holes[1]] = -1
+        ctx["context_lens"][0] = slots * page
+    return ctx
+
+
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b, h, d, pages, page, slots, permute, holes", PAGED_CASES)
+def test_paged_decode_paged_spec_matches_kernel_thread_mapping(b, h, d, pages, page, slots, permute,
+                                                               holes, route):
+    ctx = _paged_ctx(b, pages, slots, page, permute, holes)
+    acc = _emulate_paged(b, h, d, pages, page, slots, ctx["block_tables"], ctx["context_lens"],
+                         False, route)
+    length = ragged_flash.split_len(slots * page, page)
     shapes = {"Q": (b, h, d), "Kcache": (pages, page, d), "Vcache": (pages, page, d),
-              "block_tables": (b, slots), "context_lens": (b,), "O": (b, h, d)}
-    _assert_spec_matches(paged_attn.paged_decode_paged_spec(b, h, d, page, pages, slots), ctx, acc, shapes)
+              "block_tables": (b, slots), "context_lens": (b,), "O": (b, h, d),
+              "ws": (b, -(-slots * page // length), h * (d + 2))}
+    itemsize = 4 if route == "float32" else 2
+    spec = paged_attn.paged_decode_paged_spec(b, h, d, page, pages, slots, dtype=getattr(torch, route))
+    _assert_spec_matches(spec, ctx, acc, shapes,
+                         itemsizes={n: itemsize for n in ("Q", "Kcache", "Vcache", "O")})
 
 
-@pytest.mark.parametrize("b, h, d, pages, page, slots, permute", PAGED_CASES)
-def test_paged_decode_dense_spec_matches_kernel_thread_mapping(b, h, d, pages, page, slots, permute):
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b, h, d, pages, page, slots, permute, holes", PAGED_CASES)
+def test_paged_decode_dense_spec_matches_kernel_thread_mapping(b, h, d, pages, page, slots, permute,
+                                                               holes, route):
     """The dense rung runs on the contiguous cache under the identity table."""
-    ctx = paged_attn.paged_context(b, pages, slots, page)
+    ctx = _paged_ctx(b, pages, slots, page, permute, holes)
     ident = np.arange(b * slots).reshape(b, slots)
-    acc = _emulate_paged(b, h, d, b * slots, page, slots, ident, ctx["context_lens"], True)
+    acc = _emulate_paged(b, h, d, b * slots, page, slots, ident, ctx["context_lens"], True, route)
+    length = ragged_flash.split_len(slots * page, page)
     shapes = {"Q": (b, h, d), "Kcache": (b, slots * page, d), "Vcache": (b, slots * page, d),
-              "block_tables": (b, slots), "context_lens": (b,), "O": (b, h, d)}
-    _assert_spec_matches(paged_attn.paged_decode_spec(b, h, d, page, slots), ctx, acc, shapes)
+              "block_tables": (b, slots), "context_lens": (b,), "O": (b, h, d),
+              "ws": (b, -(-slots * page // length), h * (d + 2))}
+    itemsize = 4 if route == "float32" else 2
+    spec = paged_attn.paged_decode_spec(b, h, d, page, slots, dtype=getattr(torch, route))
+    _assert_spec_matches(spec, ctx, acc, shapes,
+                         itemsizes={n: itemsize for n in ("Q", "Kcache", "Vcache", "O")})
 
 
 @pytest.mark.parametrize("gated", [False, True])
@@ -840,7 +926,14 @@ _LENS = {("block_tables", HOT), ("context_lens", HOT_RANDOM)}
         ("ragged_flash:prefill", _BOUNDS, {("Q", HOT), ("O", HOT)}),
         ("ragged_flash:prefill-ragged", _BOUNDS,
          {("Q", HOT), ("O", HOT), ("K", "misalignment"), ("V", "misalignment")}),
-        ("paged_attn:decode", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
+        # The paged split blocks (split_decode.cuh) read the table entry of
+        # each row they stage: in the dense sweep every split's warps read
+        # only their own slots' words of the sequence's one table sector
+        # (false sharing), and Q is staged by all 4 splits (hot, as the
+        # reference's); the gated rung's live splits read Q at most twice and
+        # share the live slots' words (hot).
+        ("paged_attn:decode", {("block_tables", FALSE_SHARING), ("context_lens", HOT_RANDOM)},
+         {("O", HOT), ("block_tables", HOT)}),
         ("paged_attn:decode-paged", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
         ("paged_attn:prefill", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
         ("paged_attn:prefill-paged", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
@@ -850,23 +943,36 @@ def test_pattern_divergences_from_reference_are_the_recorded_ones(ref_name, only
     """ROADMAP queue 3: the classes each geometry alone flags."""
     port, want = _classes(_port_heatmap(ref_name)), _ref_classes(ref_name)
     assert (port - want, want - port) == (only_port, only_ref)
-    assert port >= (_BOUNDS if ref_name.startswith("ragged") else _LENS)
+    if ref_name == "paged_attn:decode":
+        assert port >= {("block_tables", FALSE_SHARING), ("context_lens", HOT_RANDOM)}
+    else:
+        assert port >= (_BOUNDS if ref_name.startswith("ragged") else _LENS)
 
 
 def _ref_classes(ref_name):
     return {(r.region, r.pattern) for r in ref_detect_all(_ref_heatmap(ref_name))}
 
 
+# the classes the port's gate fixes and introduces, where it moves any
+PORT_STORY = {
+    ("paged_attn:decode", "paged_attn:decode-paged"): (
+        (("Q", HOT), ("block_tables", FALSE_SHARING)), (("block_tables", HOT),)),
+}
+
+
 @pytest.mark.parametrize("pair", list(PINNED_PORT))
 def test_story_parity_diff(pair):
     """Dense -> gated is an improvement in both packages; the gate changes
-    no class in the port (the reference gains misalignment on the ragged
-    K and V)."""
+    no class in the port but on the paged decode pair, whose dense split
+    blocks read Q 4 times and each split's own table words, and whose live
+    splits share the live slots' words (the reference gains misalignment on
+    the ragged K and V, and moves no class on the paged pair)."""
     d = diff(_port_heatmap(pair[0]), _port_heatmap(pair[1]))
     want = ref_diff(_ref_heatmap(pair[0]), _ref_heatmap(pair[1]))
     assert (d.tx_before, d.tx_after) == PINNED_PORT[pair]
     assert d.verdict == want.verdict == "improved"
-    assert d.fixed == d.introduced == () == want.fixed
+    assert (d.fixed, d.introduced) == PORT_STORY.get(pair, ((), ()))
+    assert want.fixed == ()
 
 
 # -- python -m repro_torch.cli on the CPU -----------------------------------------
@@ -878,8 +984,8 @@ def test_story_parity_diff(pair):
         ("ragged_flash", {(0, 1): ["[ improved] ragged_flash: transfers 68824 -> 13104 (5.25x)",
                                    "[persisting] hot-random on starts"],
                           (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696 (2.63x)"]}),
-        ("paged_attn", {(0, 1): ["[ improved] paged_attn: transfers 66624 -> 21504 (3.10x)",
-                                 "[persisting] hot on block_tables"],
+        ("paged_attn", {(0, 1): ["[ improved] paged_attn: transfers 71244 -> 23464 (3.04x)",
+                                 "[INTRODUCED] hot on block_tables"],
                         (2, 3): ["[ improved] paged_attn: transfers 360960 -> 208960 (1.73x)"]}),
     ],
 )
