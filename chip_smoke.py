@@ -10,9 +10,10 @@ Phases:
 1. Print the card's name and power limit, then build every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` and print the build time and the
    compiler's register/spill report.  Count the tensor cores' ``HMMA``
-   instructions in each kernel function of the flash, gmm, gemm and the
-   ragged and paged decode libraries (``cuobjdump -sass``): every
-   bfloat16 kernel must hold some, and gemm's naive rungs (v00, v01) none.
+   instructions in each kernel function of the flash, gmm, gemm, the
+   ragged and paged decode and the ssd libraries (``cuobjdump -sass``):
+   every bfloat16 kernel must hold some, and gemm's naive rungs (v00,
+   v01) and the float32 ssd kernel none.
 2. For each GEMM kernel (v00, v01, v02) at the registry's 1024^3 shape,
    in float32 and bfloat16 on inputs from a fixed numpy seed: launch on
    the card, compare with the plain PyTorch version (float32 max abs
@@ -43,18 +44,21 @@ Phases:
    ``torch.bincount``) and ``spmv_ell`` through ``ops.spmv`` (within
    1e-5 of max|y| of the plain version and of the float64 CSR product,
    yardstick ``torch.linalg.vecdot``), at the registry's size and at a
-   timing size larger than L2; and every histogram kernel must drop ids
-   outside [0, n_bins).
+   timing size larger than L2 (the histograms against ``np.bincount`` at
+   both sizes); and every histogram kernel must drop ids outside [0,
+   n_bins).  opt2, called twice, must give the same bits.
    Then the model path's kernels: flash attention, the grouped matmul
    and the SSD chunk, each at the registry's shape (against the plain
    version and a float64 host product; flash and gmm in float32 and
    bfloat16) and at a timing shape from Jamba-v0.1-52B's widths at batch
    1, seq 4096 (flash (32, 4096, 4096, 128) causal and gmm M = 4096, K =
    4096, N = 14336 over 16 experts, in float32 and bfloat16, the bfloat16
-   ones on the tensor cores; ssd (128, 16, 256, 64, 16) in float32), and
-   the SSD chunk at Mamba2-2.7b's (80, 16, 256, 64, 128) in float32 and
-   bfloat16 (against the plain version and a float64 product on the
-   card), timed beside the plain version and the library yardstick
+   ones on the tensor cores; ssd (128, 16, 256, 64, 16) in float32 and
+   bfloat16), the SSD chunk at Mamba2-2.7b's (80, 16, 256, 64, 128) in
+   float32 and bfloat16 and at the full-width model run's (256, 1, 64,
+   64, 16) in float32 (every SSD run against the plain version and a
+   float64 product, and called twice, which must give the same bits),
+   timed beside the plain version and the library yardstick
    (``F.scaled_dot_product_attention``; for gmm ``torch._grouped_mm`` on
    the padded groups, held to gmm's tolerance, with a refusal printed and
    recorded, and a dense ``torch.matmul`` of the same FLOPs beside it;
@@ -89,9 +93,9 @@ Phases:
    and the same for Granite-20B's decode step in bfloat16 through
    ``ops.ragged_decode_attention`` and ``ops.paged_decode_attention``.
    Then the bfloat16 step at Jamba's widths: the counts set to 0, then
-   ``ops.flash_attention`` and ``ops.grouped_matmul`` once each at the
-   timing shapes in bfloat16 (the tensor-core kernels), each held to its
-   tolerance.  Then the model path, each run with the counts set to 0
+   ``ops.flash_attention``, ``ops.grouped_matmul`` and ``ops.ssd_chunk``
+   once each at the timing shapes in bfloat16 (the tensor-core kernels),
+   each held to its tolerance.  Then the model path, each run with the counts set to 0
    just before it and read just after: ``model`` on the three registry
    models (each
    must launch its kernels: flash and gemm_v01; flash, gmm and gemm_v01;
@@ -106,11 +110,13 @@ Phases:
    and power limit under ``config``, then the result line.
 
 The kernels redesigned for the card as a whole (GRAMSCHM opt, the ragged
-and paged decode, gemm v02) also record, at their timing shapes (gemm v02
-at 1024^3 too), the device time of each of their device kernels
-(``torch.profiler``) and the host's time to issue one call of the kernel
-and of its library yardstick: the timer counts both the host's dispatch
-and the card's time of a call.
+and paged decode, gemm v02, the SSD chunk, histogram opt2) also record, at
+their timing shapes (gemm v02 at 1024^3 too, the SSD chunk at all five of
+its shapes), the device time of each of their device kernels
+(``torch.profiler``; for opt2 the memset of its ``torch.zeros`` output
+too) and the host's time to issue one call of the kernel and (where there
+is one) of its library yardstick: the timer counts both the host's
+dispatch and the card's time of a call.
 
 There is no fallback: without a CUDA device, or outside a checkout of
 the repository, the script fails and prints no result.
@@ -200,9 +206,13 @@ SERVING_TIMING_SHAPES = {
     "paged": (64, 48, 128, 64, 8192, 128),  # (b, h, d, page, pages, slots)
 }
 # the kernels redesigned for the card as a whole: a second call on the same
-# inputs must give the same bits
+# inputs must give the same bits, and their timing shapes record the device
+# time of each device kernel and the host's time to issue one call
 REPEAT_CHECKED = ("gramschm_k3_opt", "ragged_decode_attention", "paged_decode_attention",
-                  "gemm_v02")
+                  "gemm_v02", "ssd_chunk", "hist_opt2")
+# the model path's SSD chunk in the full-width Jamba-v0.1-52B run (batch 2,
+# seq 64: 256 heads x batch, one chunk of 64)
+MODEL_PATH_SSD_SHAPE = (256, 1, 64, 64, 16)
 SPMV_COLS = 36417  # the registry's column count
 SPMV_WIDTH = 16  # ELL width at the registry's 65,536 rows
 
@@ -396,47 +406,19 @@ def check_out_of_range(dev):
 
 
 def host_ms(fn, iters: int = 20):
-    """Median host time in ms to issue one ``fn()`` (checks, allocations and
-    launches) with an empty queue; the card's time is not in it."""
-    import statistics
-    import time
+    """Median host time in ms to issue one ``fn()`` with an empty queue
+    (``kernels/rule2_times.py:host_ms``); the card's time is not in it."""
+    from repro_torch.kernels import rule2_times
 
-    import torch
-
-    out = []
-    for _ in range(iters + 2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        out.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    return statistics.median(out[2:])
+    return rule2_times.host_ms(fn, iters)
 
 
 def device_kernels_ms(fn, iters: int = 10):
-    """{device kernel: ms a call} of ``fn()`` from ``torch.profiler`` (CUPTI)
-    over ``iters`` calls: which of a wrapper's kernels takes the time."""
-    import re
+    """{device kernel: ms a call} of ``fn()`` from ``torch.profiler``
+    (``kernels/rule2_times.py:device_kernels_ms``)."""
+    from repro_torch.kernels import rule2_times
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        total = getattr(evt, "device_time_total", None)
-        if total is None:
-            total = getattr(evt, "cuda_time_total", 0)
-        if total > 0:
-            key = evt.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-            name = re.split(r"[<(]", key)[0]
-            out[name] = out.get(name, 0.0) + total / 1e3 / iters
-    return out
+    return rule2_times.device_kernels_ms(fn, iters)
 
 
 def check_cases(kreg, dev):
@@ -460,7 +442,8 @@ def check_cases(kreg, dev):
             torch.cuda.synchronize()
             scale = float(want.abs().max())
             tol = case["tol"](scale)
-            exact = case["exact"]() if which == "registry" else None
+            # the histogram's exact counts at both sizes (np.bincount is cheap)
+            exact = case["exact"]() if which == "registry" or family == "histogram" else None
             err_lib = float((library.float() - want).abs().max())
             if not err_lib <= tol:
                 return f"{family} {shape}: library call off by {err_lib} > {tol}"
@@ -690,10 +673,12 @@ def check_model_kernels(kreg, dev):
     rows = {}
     for family, large in MODEL_TIMING_SHAPES.items():
         runs = [("registry", registry_shapes[family], torch.float32, True),
-                ("large", large, torch.float32, False)]
+                ("large", large, torch.float32, family == "ssd")]
         if family == "ssd":
-            runs += [("mamba2", MAMBA2_SSD_SHAPE, torch.float32, True),
-                     ("mamba2_bf16", MAMBA2_SSD_SHAPE, torch.bfloat16, True)]
+            runs += [("large_bf16", large, torch.bfloat16, True),
+                     ("mamba2", MAMBA2_SSD_SHAPE, torch.float32, True),
+                     ("mamba2_bf16", MAMBA2_SSD_SHAPE, torch.bfloat16, True),
+                     ("model_path", MODEL_PATH_SSD_SHAPE, torch.float32, True)]
         else:
             runs += [("registry_bf16", registry_shapes[family], torch.bfloat16, True),
                      ("large_bf16", large, torch.bfloat16, False)]
@@ -750,6 +735,18 @@ def check_model_kernels(kreg, dev):
             if "dense" in case:
                 rec["dense_matmul_ms"] = kreg.cuda_time_ms(case["dense"], ITERS)
             line = f"{name} {which} {shape} {case['dtype']}: max|err| {errs}, err/tol {over}"
+            if name in REPEAT_CHECKED:
+                again = fn(*args, **kwargs)
+                again = again if isinstance(again, tuple) else (again,)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, a_) for g, a_ in zip(got, again)):
+                    return f"{name} {shape} {case['dtype']}: a second call gave other bits"
+                del again
+                rec["device_kernels_ms"] = device_kernels_ms(lambda: fn(*args, **kwargs))
+                rec["host_ms"] = host_ms(lambda: fn(*args, **kwargs))
+                line += (f", a second call gives the same bits; device time by kernel "
+                         f"(torch.profiler) {rec['device_kernels_ms']}; host time to issue "
+                         f"a call {rec['host_ms']:.4f} ms")
             if case["exact"] is not None:
                 exact_out = case["exact"]()
                 diffs64 = [np.abs(g.double().cpu().numpy() - e) for g, e in zip(got, exact_out)]
@@ -786,14 +783,16 @@ def check_model_kernels(kreg, dev):
 
 def check_tensor_cores(_build):
     """Phase 1: the ``HMMA`` count of each kernel function of the flash,
-    gmm, gemm and the two decode libraries, {library: {function: count}},
-    or a failure message if a bfloat16 kernel (``*_tc_kernel``) holds none,
-    or if gemm's naive rungs (v00, v01) hold any."""
+    gmm, gemm, the two decode and the ssd libraries, {library: {function:
+    count}}, or a failure message if a bfloat16 kernel (``*_tc_kernel``)
+    holds none, or if gemm's naive rungs (v00, v01) or the float32 ssd
+    kernel (``ssd_chunk_kernel``) hold any."""
     counts = {}
     for name, tc in (("flash", "flash_tc_kernel"), ("gmm", "gmm_tc_kernel"),
                      ("gemm", "gemm_v02_tc_kernel"),
                      ("ragged_decode", "ragged_split_tc_kernel"),
-                     ("paged_decode", "paged_split_tc_kernel")):
+                     ("paged_decode", "paged_split_tc_kernel"),
+                     ("ssd", "ssd_tc_kernel")):
         per_fn = _build.sass_counts(name, "HMMA")
         tc_fns = {fn: c for fn, c in per_fn.items() if tc in fn}
         print(f"{name}: HMMA per kernel function (cuobjdump -sass): "
@@ -803,6 +802,9 @@ def check_tensor_cores(_build):
         naive = {fn: c for fn, c in per_fn.items() if "gemm_v00" in fn or "gemm_v01" in fn}
         if any(naive.values()):
             return f"gemm: a naive rung holds HMMA instructions ({naive})"
+        f32 = {fn: c for fn, c in per_fn.items() if "ssd_chunk_kernel" in fn}
+        if name == "ssd" and (not f32 or any(f32.values())):
+            return f"ssd: the float32 kernel functions are missing or hold HMMA ({f32})"
         counts[name] = per_fn
     return counts
 
@@ -909,15 +911,16 @@ def check_gemm_large(kreg, dev):
 
 
 def drive_tensor_core_step(dev):
-    """Phase 3 for the bfloat16 routes: attention and the expert FFN at
-    Jamba-v0.1-52B's widths in bfloat16 through ``ops``, with the counts
-    set to 0 just before.  {kernel name: launches}, or a failure message."""
+    """Phase 3 for the bfloat16 routes: attention, the expert FFN and the
+    SSD chunk at Jamba-v0.1-52B's widths in bfloat16 through ``ops``, with
+    the counts set to 0 just before.  {kernel name: launches}, or a failure
+    message."""
     import torch
 
     from repro_torch import kernels as kreg
     from repro_torch.kernels import ops
 
-    entry = {"flash": ops.flash_attention, "gmm": ops.grouped_matmul}
+    entry = {"flash": ops.flash_attention, "gmm": ops.grouped_matmul, "ssd": ops.ssd_chunk}
     cases = [model_case(family, MODEL_TIMING_SHAPES[family], torch.bfloat16, dev, exact=False)
              for family in entry]
     kreg.reset_launch_counts()
@@ -926,11 +929,15 @@ def drive_tensor_core_step(dev):
     counts = {c["name"]: c["kernel"][0].launches for c in cases}
     print(f"main-path launches (Jamba-v0.1-52B bfloat16 step): {counts}")
     for c, out in zip(cases, outs):
-        want = c["plain"]()
-        over = float(((out.float() - want.float()).abs() / c["tol"](want)).max())
-        print(f"{c['name']} through ops at {tuple(out.shape)} bfloat16: finite "
-              f"{bool(torch.isfinite(out.float()).all())}, err/tol {over:.3f}")
-        if counts[c["name"]] < 1 or not bool(torch.isfinite(out.float()).all()) or over > 1:
+        wants = c["plain"]()
+        outs_ = out if isinstance(out, tuple) else (out,)
+        wants = wants if isinstance(wants, tuple) else (wants,)
+        over = max(float(((o.float() - w.float()).abs() / c["tol"](w)).max())
+                   for o, w in zip(outs_, wants))
+        finite = all(bool(torch.isfinite(o.float()).all()) for o in outs_)
+        print(f"{c['name']} through ops at {[tuple(o.shape) for o in outs_]} bfloat16: finite "
+              f"{finite}, err/tol {over:.3f}")
+        if counts[c["name"]] < 1 or not finite or over > 1:
             return f"{c['name']}: the bfloat16 step did not launch it or is off (err/tol {over})"
     del cases, outs
     torch.cuda.empty_cache()
@@ -1491,8 +1498,8 @@ def main() -> int:
             )
         )
     # the model path's kernels: launches of the full-width run (float32),
-    # and of the bfloat16 step on the tensor cores (flash, gmm)
-    lib_of = {"flash_attention": "flash", "gmm": "gmm"}
+    # and of the bfloat16 step on the tensor cores (flash, gmm, ssd)
+    lib_of = {"flash_attention": "flash", "gmm": "gmm", "ssd_chunk": "ssd"}
     for name, row in model_rows.items():
         extra = {}
         if name in lib_of:

@@ -9,8 +9,9 @@ float32 histogram of ``n_bins`` bins, one thread per cell in blocks of
           histogram: all warps scatter into the same bins.
   opt     each block adds into its own row of ``partials`` (n_blocks,
           n_bins); the wrapper sums the rows afterwards.
-  opt2    each block counts into a privatized histogram in shared memory,
-          striding over the cells, and flushes it once per block.
+  opt2    each block counts into a privatized histogram of unsigned
+          counters in shared memory, reading the cells as int4 and striding
+          over them by the grid, and flushes it once per block.
 
 Ids outside ``[0, n_bins)`` are dropped, as the Pallas kernels drop them.
 (``repro.kernels.ref.hist_ref`` wraps a negative id round to the top
@@ -43,9 +44,13 @@ _WARP = 32
 #: Threads (and cells) per block, the Pallas kernels' ``block``.
 BLOCK = 1024
 _WARPS = BLOCK // _WARP
-#: ``hist_opt2``'s grid is at most this many blocks (2 x 132 SMs), as in
-#: ``csrc/histogram.cu``; the blocks stride over the cells.
+#: ``hist_opt2``'s grid is at most this many blocks (2 x 132 SMs, the
+#: most threads an SM holds), as in ``csrc/histogram.cu``; the blocks
+#: stride over the cells.
 OPT2_MAX_BLOCKS = 264
+#: Ids an opt2 thread counts at least (one int4): below the cap the grid is
+#: ``ceil(n / (1024 * OPT2_MIN_IDS))`` blocks.
+OPT2_MIN_IDS = 4
 #: ``hist_opt2``'s shared histogram of n_bins floats stays within the
 #: 48 KB a block gets without opting in.
 MAX_OPT2_BINS = 48 * 1024 // 4
@@ -216,14 +221,32 @@ def hist_opt_spec(n: int, n_bins: int) -> KernelSpec:
     )
 
 
+def opt2_blocks(n: int, max_blocks: int = OPT2_MAX_BLOCKS) -> int:
+    """Blocks of ``hist_opt2_kernel``'s grid for ``n`` cells."""
+    return min(math.ceil(n / (BLOCK * OPT2_MIN_IDS)), max_blocks)
+
+
+def opt2_cells(g: int, n: int, threads: int) -> np.ndarray:
+    """Cells that thread ``g`` of a grid of ``threads`` threads counts, for
+    16-byte-aligned cells: int4s ``g, g + threads, ...`` of the ``n // 4``
+    whole ones, and, for ``g < n % 4``, the tail cell ``4 (n // 4) + g``."""
+    v = np.arange(g, n // 4, threads, dtype=np.int64)
+    idx = (4 * v[:, None] + np.arange(4, dtype=np.int64)).reshape(-1)
+    if g < n % 4:
+        idx = np.append(idx, 4 * (n // 4) + g)
+    return idx
+
+
 def hist_opt2_spec(n: int, n_bins: int, max_blocks: int = OPT2_MAX_BLOCKS) -> KernelSpec:
     """Warp footprints of ``hist_opt2_kernel``.
 
-    The grid is ``min(ceil(n/1024), max_blocks)`` blocks of 32 warps;
-    program ``p`` is warp ``p % 32`` of block ``p // 32``.  Thread ``t``
-    of block ``b`` reads ``cells[b*1024 + t + j*G*1024]`` for every ``j``
-    that stays below ``n`` (``G`` the grid), so a warp reads one 32-cell
-    run per stride.  ``acc`` is the block's shared histogram, modeled as
+    The grid is ``opt2_blocks(n, max_blocks)`` blocks of 32 warps; program
+    ``p`` is warp ``p % 32`` of block ``p // 32``.  Thread ``t`` of block
+    ``b`` is thread ``g = 1024 b + t`` of the grid and reads the cells of
+    ``opt2_cells(g, n, 1024 * blocks)``, so a warp reads one 512-byte run
+    of int4s per stride of the grid (the cells are taken 16-byte aligned;
+    an unaligned slice moves up to three cells from the vector body to
+    threads 0 .. 2).  ``acc`` is the block's shared histogram, modeled as
     one (G, n_bins) buffer whose row ``b`` only block ``b``'s warps touch:
     each warp zeroes and flushes its contiguous chunk of bins and scatters
     its cells' ids.  The region's space is named ``"vmem_scratch"`` (the
@@ -231,14 +254,15 @@ def hist_opt2_spec(n: int, n_bins: int, max_blocks: int = OPT2_MAX_BLOCKS) -> Ke
     shared memory.  The flush stores that chunk of ``cell_count`` once per
     block.
     """
-    blocks = min(math.ceil(n / BLOCK), max_blocks)
+    blocks = opt2_blocks(n, max_blocks)
     chunk = _WARP * math.ceil(n_bins / BLOCK)  # bins zeroed and flushed per warp
 
     def cell_index(p: int) -> np.ndarray:
         b, w = divmod(p, _WARPS)
-        starts = np.arange(b * BLOCK + _WARP * w, n, blocks * BLOCK, dtype=np.int64)
-        idx = (starts[:, None] + np.arange(_WARP, dtype=np.int64)).reshape(-1)
-        return idx[idx < n]
+        g0 = b * BLOCK + _WARP * w
+        return np.concatenate(
+            [opt2_cells(g, n, blocks * BLOCK) for g in range(g0, g0 + _WARP)]
+        )
 
     def cells_walk(pid, **_):
         return cell_index(pid[0])
@@ -261,6 +285,6 @@ def hist_opt2_spec(n: int, n_bins: int, max_blocks: int = OPT2_MAX_BLOCKS) -> Ke
                 lambda p: (p % _WARPS,), kind="store",
             ),
         ),
-        scratch=(ScratchSpec("acc", (blocks, n_bins), np.float32, kind="accum"),),
+        scratch=(ScratchSpec("acc", (blocks, n_bins), np.uint32, kind="accum"),),
         dynamic=(("cells", cells_walk), ("acc", acc_walk)),
     )

@@ -166,6 +166,26 @@ def test_cuda_histogram_drops_out_of_range_ids(card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 4097, 65537, 300 * 4096 + 7])
+def test_cuda_hist_opt2_takes_any_slice(card, n, offset):
+    """hist_opt2 reads its ids as int4 from the first 16-byte boundary: an
+    unaligned slice (offset 1-3 ids), n not a multiple of 4 and ids outside
+    [0, n_bins) are all bit-equal to the plain version and to np.bincount."""
+    rng = np.random.default_rng(n + offset)
+    ids = rng.integers(-2, 70, size=n + offset).astype(np.int32)
+    cells = torch.from_numpy(ids).to(card)[offset:]
+    assert cells.data_ptr() % 16 == 4 * offset % 16
+    before = histogram.hist_opt2.launches
+    got = histogram.hist_opt2(cells, 64)
+    torch.cuda.synchronize()
+    assert histogram.hist_opt2.launches == before + 1
+    kept = ids[offset:][(ids[offset:] >= 0) & (ids[offset:] < 64)]
+    torch.testing.assert_close(got, histogram.hist_plain(cells, 64), atol=0, rtol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(), np.bincount(kept, minlength=64))
+
+
+@pytest.mark.gpu
 def test_opt2_grid_cap_matches_the_kernel_source(card):
     lib = _build.load("histogram")
     assert lib.repro_hist_opt2_max_blocks() == histogram.OPT2_MAX_BLOCKS
@@ -340,7 +360,8 @@ def test_cuda_flash_and_gmm_bf16_kernels_run_on_the_tensor_cores(card):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_ssd_takes_the_mamba2_chunk(card, dtype):
-    """L 256, P 64, N 128 (Mamba2-2.7b): 220,416 B of shared memory."""
+    """L 256, P 64, N 128 (Mamba2-2.7b): 103,424 B of shared memory in
+    float32 (one ring stage), 72,704 in bfloat16."""
     x, b, cm = (_randn(card, i, 2, 2, 256, s, dtype=dtype) for i, s in enumerate((64, 128, 128)))
     a = (-_randn(card, 3, 2, 2, 256).abs() * 0.4).to(dtype)
     want = ssd.ssd_plain(x, a, b, cm)
@@ -364,7 +385,9 @@ def test_cuda_gmm_writes_zeros_for_an_id_out_of_range(card):
 @pytest.mark.parametrize(
     "bh, c, l, p, n",
     [(3, 4, 16, 8, 4), (2, 2, 64, 64, 16), (1, 2, 37, 20, 5), (4, 8, 128, 64, 64),
-     (2, 1, 256, 64, 16), (1, 1, 300, 3, 2), (1, 1, 1, 1, 1), (1, 1, 64, 128, 8)],
+     (2, 1, 256, 64, 16), (1, 1, 300, 3, 2), (1, 1, 1, 1, 1), (1, 1, 64, 128, 8),
+     (2, 3, 16, 8, 4), (1, 1, 64, 100, 3), (1, 1, 32, 32, 16), (1, 1, 200, 128, 130),
+     (1, 2, 130, 40, 200)],
 )
 def test_cuda_ssd_matches_plain_version(card, bh, c, l, p, n, dtype):
     x, b, cm = (_randn(card, i, bh, c, l, s, dtype=dtype) for i, s in enumerate((p, n, n)))
@@ -381,16 +404,66 @@ def test_cuda_ssd_matches_plain_version(card, bh, c, l, p, n, dtype):
 
 
 @pytest.mark.gpu
-def test_cuda_ssd_long_chunk_stays_finite(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_long_chunk_stays_finite(card, dtype):
     """Strong decays over a 256-step chunk: exp(cum[i] - cum[j]) for j > i
     overflows unless it is masked before the exponential."""
-    x, b, cm = (_randn(card, i, 1, 1, 256, s) for i, s in enumerate((64, 16, 16)))
-    a = -_randn(card, 3, 1, 1, 256).abs() * 4.0
+    x, b, cm = (_randn(card, i, 1, 1, 256, s, dtype=dtype) for i, s in enumerate((64, 16, 16)))
+    a = (-_randn(card, 3, 1, 1, 256).abs() * 4.0).to(dtype)
     y, s = ssd.ssd_chunk(x, a, b, cm)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
     want = ssd.ssd_plain(x, a, b, cm)
     _assert_within(y, want[0], ssd.tolerance(want[0], x))
+
+
+def _ssd_float64(x, a, b, c):
+    """The chunk term and end state in float64 on the card, on the values
+    the kernel sees (bf16 inputs widened exactly)."""
+    x, a, b, c = (t.double() for t in (x, a, b, c))
+    cum = torch.cumsum(a, dim=-1)
+    l = a.shape[-1]
+    keep = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(~keep, 0.0)
+    dec = torch.exp(seg).masked_fill(~keep, 0.0)
+    y = torch.matmul(torch.matmul(c, b.transpose(-1, -2)) * dec, x)
+    w = torch.exp(cum[..., -1:] - cum)
+    return y, torch.matmul((x * w[..., None]).transpose(-1, -2), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 16, 256, 64, 16), (80, 16, 256, 64, 128)])
+def test_cuda_ssd_published_chunks_match_plain_and_float64_and_repeat(card, shape, dtype):
+    """Jamba-v0.1-52B's chunks (128 heads of 64, state 16) and Mamba2-2.7b's
+    (80 heads of 64, state 128) at seq 4096: within ssd.tolerance of the
+    plain version and of a float64 oracle, and a second call gives the
+    same bits (no atomics, sums in a fixed order)."""
+    bh, c, l, p, n = shape
+    x, b, cm = (_randn(card, i, bh, c, l, s, dtype=dtype) for i, s in enumerate((p, n, n)))
+    a = (-_randn(card, 3, bh, c, l).abs() * 0.4).to(dtype)
+    got = ssd.ssd_chunk(x, a, b, cm)
+    again = ssd.ssd_chunk(x, a, b, cm)
+    want = ssd.ssd_plain(x, a, b, cm)
+    exact = _ssd_float64(x, a, b, cm)
+    torch.cuda.synchronize()
+    for g, ag, w_, e in zip(got, again, want, exact):
+        assert torch.equal(g, ag)
+        tol = ssd.tolerance(w_, x)
+        _assert_within(g, w_, tol)
+        _assert_within(g.double(), e, tol)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_bf16_kernel_runs_on_the_tensor_cores(card):
+    """Every ssd_tc_kernel function (4 widths of P x 4 counts of held C
+    fragments) holds HMMA instructions (cuobjdump -sass); the float32
+    ssd_chunk_kernel functions hold none."""
+    counts = _build.sass_counts("ssd")
+    tc = {fn: c for fn, c in counts.items() if "ssd_tc_kernel" in fn}
+    f32 = {fn: c for fn, c in counts.items() if "ssd_chunk_kernel" in fn}
+    assert len(tc) == 16 and all(c > 0 for c in tc.values()), counts
+    assert len(f32) == 4 and not any(f32.values()), counts
 
 
 @pytest.mark.gpu

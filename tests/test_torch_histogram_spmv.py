@@ -273,8 +273,12 @@ def _emulate_hist(cells, n_bins, variant, max_blocks=histogram.OPT2_MAX_BLOCKS):
                     bin_ = c if variant == "naive" else b * n_bins + c
                     out[dest][warp].append(np.array([bin_]))
         return out
-    grid = min(blocks, max_blocks)
+    # opt2: one int4 a thread at least, and a thread g of the grid reads
+    # int4s g, g + S, ... of the n // 4 whole ones, then (g < n % 4) the
+    # tail cell 4 (n // 4) + g
+    grid = min(math.ceil(n / 4096), max_blocks)
     chunk = 32 * math.ceil(n_bins / 1024)
+    threads = grid * 1024
     for b in range(grid):
         for t in range(1024):
             warp, lane = (b, t // 32), t % 32
@@ -284,7 +288,11 @@ def _emulate_hist(cells, n_bins, variant, max_blocks=histogram.OPT2_MAX_BLOCKS):
             bins = np.arange(lo + lane, min(lo + chunk, n_bins), 32)
             out["acc"][warp].append(b * n_bins + bins)  # zero, then flush
             out["cell_count"][warp].append(bins)
-            i = np.arange(b * 1024 + t, n, grid * 1024)
+            g = b * 1024 + t
+            i = [4 * v + e for v in range(g, n // 4, threads) for e in range(4)]
+            if g < n % 4:
+                i.append(4 * (n // 4) + g)
+            i = np.asarray(i, np.int64)
             c = np.asarray(cells, np.int64)[i]
             out["cells"][warp].append(i)
             out["acc"][warp].append(b * n_bins + c[(c >= 0) & (c < n_bins)])
@@ -319,7 +327,7 @@ def test_hist_spec_matches_kernel_thread_mapping_at_registry_shape(variant):
     n, n_bins = kreg.HIST_SHAPE
     hm = analyze(spec, GridSampler(None), ctx)
     acc = _emulate_hist(ctx["cells"], n_bins, variant)
-    _assert_spec_matches(hm, acc, _hist_shapes(variant, n, n_bins, 64))
+    _assert_spec_matches(hm, acc, _hist_shapes(variant, n, n_bins, 16))
     if variant == "scratch":
         assert hm.region("acc").region.space == "vmem_scratch"
 
@@ -339,14 +347,18 @@ def test_hist_spec_matches_kernel_thread_mapping_ragged(variant, n, n_bins, max_
         spec = getattr(histogram, f"hist_{'naive' if variant == 'naive' else 'opt'}_spec")(n, n_bins)
     hm = analyze(spec, GridSampler(None), {"cells": cells})
     acc = _emulate_hist(cells, n_bins, variant, max_blocks)
-    grid = min(math.ceil(n / 1024), max_blocks)
+    grid = min(math.ceil(n / 4096), max_blocks)
     _assert_spec_matches(hm, acc, _hist_shapes(variant, n, n_bins, grid))
 
 
 def test_hist_opt2_grid_is_capped_and_strides():
-    spec = histogram.hist_opt2_spec(10 * 1024 * histogram.OPT2_MAX_BLOCKS, 2048)
+    spec = histogram.hist_opt2_spec(10 * 4096 * histogram.OPT2_MAX_BLOCKS, 2048)
     assert spec.grid == (histogram.OPT2_MAX_BLOCKS * 32,)
-    assert histogram.hist_opt2_spec(65536, 2048).grid == (64 * 32,)
+    # one int4 a thread at least: 16 blocks for the registry's 65,536 ids
+    assert histogram.hist_opt2_spec(65536, 2048).grid == (16 * 32,)
+    assert histogram.opt2_blocks(4097) == 2 and histogram.opt2_blocks(1) == 1
+    # thread g reads int4s g, g + S, ... and the tail cell 4 (n // 4) + g
+    assert histogram.opt2_cells(1, 4 * 10 + 3, 4).tolist() == [4, 5, 6, 7, 20, 21, 22, 23, 36, 37, 38, 39, 41]
 
 
 # -- the CSR spec against an emulation of the paper's scalar CSR kernel ------
@@ -446,7 +458,7 @@ def test_h100_pattern_classes_per_rung(ref_name):
         # word (false sharing); a TPU program's block is the whole histogram
         ("histogram:naive", {("cell_count", FALSE_SHARING)}, {("cell_count", HOT)}),
         ("histogram:partials", set(), set()),
-        # every one of the 64 blocks flushes every bin: no single final store
+        # every one of the 16 blocks flushes every bin: no single final store
         ("histogram:scratch", {("cell_count", HOT)}, set()),
         # 32 random gathers a warp: ~14 warps a sector, ~2 a word; a TPU
         # program gathers 1024 over 36 tiles (hot), whose ragged edge
@@ -467,7 +479,7 @@ def test_pattern_divergences_from_reference_are_the_recorded_ones(ref_name, only
         ("histogram", "naive", "partials", (69912, 69912), "regressed",
          (("cell_count", FALSE_SHARING),), (("partials", FALSE_SHARING),), (),
          ("introduced", "persisting")),
-        ("histogram", "naive", "scratch", (69912, 24576), "improved",
+        ("histogram", "naive", "scratch", (69912, 12288), "improved",
          (("cell_count", FALSE_SHARING),), (("cell_count", HOT),), (),
          ("persisting",)),
         ("spmv", "csr", "zigzag", (83734, 81686), "improved",
@@ -556,7 +568,7 @@ def test_run_variant_on_cpu_runs_the_plain_version(ref_name):
                 (0, 1): ["[regressed] histogram: transfers 69912 -> 69912 (1.00x)",
                          "[fixed] false-sharing on cell_count",
                          "[INTRODUCED] false-sharing on partials"],
-                (0, 2): ["[ improved] histogram: transfers 69912 -> 24576 (2.84x)",
+                (0, 2): ["[ improved] histogram: transfers 69912 -> 12288 (5.69x)",
                          "[fixed] false-sharing on cell_count",
                          "[INTRODUCED] hot on cell_count"],
             },

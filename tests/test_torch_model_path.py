@@ -219,7 +219,7 @@ def test_gmm_plain_gives_zeros_for_an_id_out_of_range_as_the_kernel_does():
         (gmm.gmm, (torch.randn(64, 8), torch.randn(2, 8, 4), torch.tensor([0, 1], dtype=torch.int32), 48), "multiple of 32"),
         (gmm.gmm, (torch.randn(40, 8), torch.randn(2, 8, 4), torch.tensor([0], dtype=torch.int32), 32), "multiple of bm"),
         (gmm.gmm, (torch.randn(64, 8), torch.randn(2, 8, 4), torch.tensor([0, 1]), 32), "int32"),
-        (ssd.ssd_chunk, (torch.randn(1, 1, 256, 64), torch.randn(1, 1, 256), torch.randn(1, 1, 256, 160), torch.randn(1, 1, 256, 160)), "shared"),
+        (ssd.ssd_chunk, (torch.randn(1, 1, 256, 64), torch.randn(1, 1, 256), torch.randn(1, 1, 256, 381), torch.randn(1, 1, 256, 381)), "shared"),
         (ssd.ssd_chunk, (torch.randn(1, 1, 8, 130), torch.randn(1, 1, 8), torch.randn(1, 1, 8, 4), torch.randn(1, 1, 8, 4)), "p <= 128"),
         (ssd.ssd_chunk, (torch.randn(1, 1, 8, 4), torch.randn(1, 1, 8).double(), torch.randn(1, 1, 8, 4), torch.randn(1, 1, 8, 4)), "one dtype"),
     ],
@@ -231,11 +231,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(fn, args, match):
 
 def test_ssd_refuses_mamba2_chunk_with_the_limit():
     """Mamba2-2.7b's chunk (L 256, P 64, N 128) was refused while the
-    kernel staged all of C (336,000 B); with each warp staging its group's
-    rows of C it needs 220,416 B and is taken, matching the plain version
-    and the Pallas kernel (interpret mode, as tests/test_kernels.py runs
-    it).  A chunk past the new limit is still refused, naming the limit."""
-    assert ssd.smem_bytes(256, 64, 128) == 220416 <= ssd.MAX_SMEM
+    kernel staged all of C (336,000 B) and took 220,416 B with each warp
+    staging its group's rows of C; with B and x walked through a ring of
+    64-row tiles it needs 103,424 B in float32 (one stage) and 72,704 in
+    bfloat16 and is taken, matching the plain version and the Pallas
+    kernel (interpret mode, as tests/test_kernels.py runs it).  A chunk past
+    the float32 limit (N 381) is still refused, naming the limit."""
+    assert ssd.smem_bytes(256, 64, 128) == 103424 <= ssd.MAX_SMEM
+    assert ssd.smem_bytes(256, 64, 128, torch.bfloat16) == 72704
     x, bm, cm = _rand(0, (1, 1, 256, 64)), _rand(2, (1, 1, 256, 128)), _rand(3, (1, 1, 256, 128))
     a = -np.abs(_rand(1, (1, 1, 256))) * 0.4
     y, s = ssd.ssd_chunk(*(_t(t) for t in (x, a, bm, cm)))
@@ -245,9 +248,9 @@ def test_ssd_refuses_mamba2_chunk_with_the_limit():
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, pl, atol=0, rtol=0)
         assert float(np.abs(got.numpy() - np.asarray(w)).max()) <= ssd.tolerance(pl, _t(x))
-    past = (torch.randn(1, 1, 256, 64), -torch.rand(1, 1, 256), torch.randn(1, 1, 256, 160),
-            torch.randn(1, 1, 256, 160))
-    assert ssd.smem_bytes(256, 64, 160) > ssd.MAX_SMEM
+    past = (torch.randn(1, 1, 256, 64), -torch.rand(1, 1, 256), torch.randn(1, 1, 256, 381),
+            torch.randn(1, 1, 256, 381))
+    assert ssd.smem_bytes(256, 64, 381) > ssd.MAX_SMEM
     with pytest.raises(ValueError, match=str(ssd.MAX_SMEM)):
         ssd.ssd_chunk(*past)
 
@@ -334,43 +337,87 @@ def _emulate_gmm(m, k, n, ids, bm):
     return acc
 
 
-def _emulate_ssd(bh, c, l, p, n):
-    """Per-warp flat indices of X, A, B, C, Y and S for ssd_chunk_kernel:
-    one block of 256 threads per (chunk, head)."""
+def _emulate_ssd(bh, c, l, p, n, bf16=False):
+    """Per-warp flat indices of X, A, B, C, Y and S for csrc/ssd.cu, thread
+    by thread: ssd_tc_kernel (bf16: 128 threads, 16-byte chunks of 8) or
+    ssd_chunk_kernel (256 threads, chunks of 4).  Block b of a cell is a
+    state unit for b < units, else row tile tiles - 1 - (b - units); lane
+    i of warp 0 reads a run of ceil(l / 32) of a, and thread t stages chunks
+    t, t + threads, ... of each tile it walks."""
+    threads, per = (128, 8) if bf16 else (256, 4)
+    tiles, units_n = math.ceil(l / 64), math.ceil(n / 64)
+    units = math.ceil(p / 64) * units_n
+    b_width = (16 if bf16 else 4) * math.ceil(n / (16 if bf16 else 4))
+    x_width = next(w for w in (16, 32, 64, 128) if p <= w)
+    pc = x_width // 16  # float32: y columns a thread
     acc = {n_: {} for n_ in ("X", "A", "B", "C", "Y", "S")}
+
+    def stage(key, name, tid, cell, row0, width, cols):
+        cpr = width // per
+        for k in range(tid, 64 * cpr, threads):
+            r, ch = divmod(k, cpr)
+            if row0 + r < l:
+                e = np.arange(ch * per, min(ch * per + per, cols))
+                _add(acc, name, key, (cell * l + row0 + r) * cols + e)
+
     for h in range(bh):
         for ch in range(c):
             cell = h * c + ch
-            for tid in range(256):
-                w, lane = divmod(tid, 32)
-                key = (h, ch, w)
-                for name in acc:
-                    _add(acc, name, key, [])
-                _add(acc, "X", key, cell * l * p + np.arange(tid, l * p, 256))
-                _add(acc, "B", key, cell * l * n + np.arange(tid, l * n, 256))
-                _add(acc, "S", key, cell * p * n + np.arange(tid, p * n, 256))
-                if w == 0:
-                    per = math.ceil(l / 32)
-                    lo = min(lane * per, l)
-                    _add(acc, "A", key, cell * l + np.arange(lo, min(lo + per, l)))
-                for g in range(w, math.ceil(l / 4), 8):
-                    # the group's rows of C into the warp's slice: element
-                    # e of its (rows, N) by lane e mod 32
-                    rows = min(4, l - 4 * g)
-                    _add(acc, "C", key, (cell * l + 4 * g) * n + np.arange(lane, rows * n, 32))
-                    i = 4 * g + lane // 8
-                    cols = np.arange(lane % 8, p, 8)
-                    if i < l:
-                        _add(acc, "Y", key, (cell * l + i) * p + cols)
+            for b in range(units + tiles):
+                state = b < units
+                idx = b if state else tiles - 1 - (b - units)
+                for tid in range(threads):
+                    w, lane = divmod(tid, 32)
+                    key = (h, ch, b, w)
+                    for name in acc:
+                        _add(acc, name, key, [])
+                    if w == 0:
+                        run = math.ceil(l / 32)
+                        lo = min(lane * run, l)
+                        _add(acc, "A", key, cell * l + np.arange(lo, min(lo + run, l)))
+                    if not state:
+                        stage(key, "C", tid, cell, 64 * idx, b_width, n)
+                    for t in range(tiles if state else idx + 1):
+                        stage(key, "B", tid, cell, 64 * t, b_width, n)
+                        stage(key, "X", tid, cell, 64 * t, x_width, p)
+                    if not state and bf16:
+                        for row in (64 * idx + 16 * w + lane // 4, 64 * idx + 16 * w + lane // 4 + 8):
+                            cols = np.arange(2 * (lane % 4), x_width, 8)
+                            cols = np.stack([cols, cols + 1], 1).reshape(-1)
+                            if row < l:
+                                _add(acc, "Y", key, (cell * l + row) * p + cols[cols < p])
+                    elif not state:
+                        ty, tx = divmod(tid, 16)
+                        q = np.arange(pc)
+                        cols = 4 * tx + 64 * (q // 4) + q % 4 if pc >= 4 else pc * tx + q
+                        for row in range(64 * idx + 4 * ty, 64 * idx + 4 * ty + 4):
+                            if row < l:
+                                _add(acc, "Y", key, (cell * l + row) * p + cols[cols < p])
+                    p0, n0 = 64 * (idx // units_n), 64 * (idx % units_n)
+                    if state and bf16 and p0 + 16 * w < p:
+                        ntn = min(64, b_width - n0) // 8
+                        cols = n0 + np.arange(2 * (lane % 4), 8 * ntn, 8)
+                        cols = np.stack([cols, cols + 1], 1).reshape(-1)
+                        for row in (p0 + 16 * w + lane // 4, p0 + 16 * w + lane // 4 + 8):
+                            if row < p:
+                                _add(acc, "S", key, (cell * p + row) * n + cols[cols < n])
+                    elif state and not bf16:
+                        tn, tp = math.ceil(min(64, n - n0) / 4), math.ceil(min(64, p - p0) / 4)
+                        if tid < tp * tn:
+                            pa, nb = p0 + 4 * (tid // tn), n0 + 4 * (tid % tn)
+                            for row in range(pa, min(pa + 4, p)):
+                                _add(acc, "S", key, (cell * p + row) * n + np.arange(nb, min(nb + 4, n)))
     return acc
 
 
 def _assert_spec_matches(spec, acc, shapes, itemsize=4):
+    """``itemsize``: one for every region, or a dict by region name."""
     hm = analyze(spec, GridSampler(None))
     assert sorted(hm.region_names()) == sorted(shapes)
     for name, shape in shapes.items():
         per_warp = {key: [np.concatenate(parts)] for key, parts in acc[name].items()}
-        tags, wt, st, warps = heat_of_warps(per_warp, shape, itemsize)
+        size = itemsize[name] if isinstance(itemsize, dict) else itemsize
+        tags, wt, st, warps = heat_of_warps(per_warp, shape, size)
         rh = hm.region(name)
         np.testing.assert_array_equal(rh.tags_array, tags, err_msg=name)
         np.testing.assert_array_equal(rh.word_temps_matrix, wt, err_msg=name)
@@ -402,15 +449,24 @@ def test_gmm_spec_matches_kernel_thread_mapping(groups, k, n, bm):
     _assert_spec_matches(spec, acc, {"X": (m, k), "W": (len(groups), k, n), "O": (m, n)})
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "bh, c, l, p, n", [(2, 3, 16, 8, 4), (1, 2, 37, 20, 5), (1, 1, 300, 3, 2), (1, 1, 64, 100, 3)]
+    "bh, c, l, p, n",
+    [(2, 3, 16, 8, 4), (1, 2, 37, 20, 5), (1, 1, 300, 3, 2), (1, 1, 64, 100, 3),
+     (1, 1, 32, 32, 16), (1, 1, 64, 64, 16)],
 )
-def test_ssd_spec_matches_kernel_thread_mapping(bh, c, l, p, n):
-    acc = _emulate_ssd(bh, c, l, p, n)
-    spec = ssd.ssd_chunk_spec(bh, c, l, p, n)
+def test_ssd_spec_matches_kernel_thread_mapping(bh, c, l, p, n, dtype):
+    """Both routes, at odd shapes, the tiny model's chunk (L 32, P 32, N
+    16) and the model path's (L 64, P 64, N 16)."""
+    bf16 = dtype == "bfloat16"
+    acc = _emulate_ssd(bh, c, l, p, n, bf16=bf16)
+    spec = ssd.ssd_chunk_spec(bh, c, l, p, n, dtype=dtype)
+    assert spec.grid == (bh, c, ssd.units_of(p, n) + ssd.tiles_of(l), 4 if bf16 else 8)
     shapes = {"X": (bh, c, l, p), "A": (bh, c, l), "B": (bh, c, l, n), "C": (bh, c, l, n),
               "Y": (bh, c, l, p), "S": (bh, c, p, n)}
-    _assert_spec_matches(spec, acc, shapes)
+    size = 2 if bf16 else 4
+    _assert_spec_matches(spec, acc, shapes, {"X": size, "A": size, "B": size, "C": size,
+                                             "Y": 4, "S": 4})
 
 
 def test_gmm_spec_rejects_ids_out_of_range():
@@ -438,7 +494,9 @@ def test_model_family_pattern_divergences_are_the_recorded_ones():
     are re-read by every column block and each W slice by every row block
     of its expert (hot X, W), where a Pallas program takes all of N; a
     chunk's 128 log-decays share an (8, 128) TPU tile with seven other
-    chunks (false sharing on A), and are 16 whole sectors of one warp."""
+    chunks (false sharing on A), and are 16 whole sectors read by warp 0 of
+    each of the cell's blocks (two row tiles and a state unit at the
+    registry's shape, which flags no hot A: three reads a word)."""
     port = {name: _classes(analyze(*kreg.build(name)[:1], GridSampler(None))) for name in ("flash", "gmm", "ssd")}
     assert port["flash"] == {("K", HOT), ("V", HOT)}
     assert _ref_classes("flash") == {("Q", HOT), ("K", HOT), ("V", HOT), ("O", HOT)}
@@ -465,7 +523,8 @@ def test_model_families_keep_the_reference_names_and_shapes():
     # bm = 128 tiles run in 64-row blocks of 8 warps
     assert spec.grid == (16, 8, 8)
     assert kreg.build("flash")[0].grid == (4, 16, 8)
-    assert kreg.build("ssd")[0].grid == (4, 8, 8)
+    # two row tiles of 128 and one state unit a cell, 8 warps a block
+    assert kreg.build("ssd")[0].grid == (4, 8, 3, 8)
 
 
 @pytest.mark.parametrize("ref_name", ["flash", "gmm", "ssd"])

@@ -1,5 +1,5 @@
 """The bfloat16 routes of flash and gmm (tensor cores) and the SSD chunk's
-shared memory, on the CPU.
+shared memory and pattern classes, on the CPU.
 
 The CUDA kernels run only on the card (``tests/test_torch_cuda.py``).  Here
 numpy emulations of their thread mappings, thread by thread, are held
@@ -211,7 +211,9 @@ def test_bf16_pattern_classes_at_the_registry_shapes_are_pinned():
     the transfers (2-byte elements); the bf16 gmm flags hot X only, where
     the float32 route flags hot X and W: a 128 x 128 block covers a whole
     bm = 128 tile, so each W slice is staged by one block, while X rows are
-    still staged by each of the N/128 column blocks."""
+    still staged by each of the N/128 column blocks.  ssd flags nothing in
+    either route, as the reference flags only A (false sharing of its TPU
+    tile)."""
     f32 = _classes(flash.flash_spec(*kreg.FLASH_SHAPE, bkv=kreg.FLASH_BKV))
     bf = _classes(flash.flash_spec(*kreg.FLASH_SHAPE, bkv=kreg.FLASH_BKV, dtype=BF16))
     assert f32 == (1245184, {("K", HOT), ("V", HOT)})
@@ -221,6 +223,14 @@ def test_bf16_pattern_classes_at_the_registry_shapes_are_pinned():
     bf = _classes(gmm.gmm_spec(*kreg.GMM_SHAPE, ids, bm=kreg.GMM_BM, dtype=BF16))
     assert f32 == (1114112, {("X", HOT), ("W", HOT)})
     assert bf == (294912, {("X", HOT)})
+    # ssd (4, 8, 128, 64, 64): no class in either route; a cell's B and x
+    # are staged by both row tiles and the state unit (transfers 147968 in
+    # float32 while one block a cell staged them once), and the bf16 walk
+    # moves 2-byte inputs through 128 threads a block
+    f32 = _classes(ssd.ssd_chunk_spec(*kreg.SSD_SHAPE))
+    bf = _classes(ssd.ssd_chunk_spec(*kreg.SSD_SHAPE, dtype=BF16))
+    assert f32 == (247296, set())
+    assert bf == (148224, set())
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "float32"])
@@ -254,35 +264,64 @@ def test_bf16_names_and_padding():
 # -- the SSD chunk's shared memory -----------------------------------------------
 
 
-def _ssd_layout(l, p, n):
-    """The regions of csrc/ssd.cu's dynamic shared memory, in floats, in
-    the order the kernel carves them: x, B (rows padded to N + 1), cum,
-    the end-state decays, the 8 warps' 4 x 33 score tiles and their 4
-    rows of C (padded to N + 1)."""
-    return {"xs": l * p, "bs": l * (n + 1), "cum": l, "wdec": l, "sw": 8 * 4 * 33,
-            "cw": 8 * 4 * (n + 1)}
+def _ssd_layout(l, p, n, dtype):
+    """The regions of csrc/ssd.cu's dynamic shared memory, in bytes, in the
+    order the kernel carves them.  float32 (ssd_chunk_kernel): the ring's
+    tiles of B (rows of N rounded up to 4, plus 4 where that is a multiple
+    of 8) and of x (16, 32, 64 or 128 columns), two stages where two blocks
+    an SM still fit (<= 115,712 B a block), else one; the row tile's C, the
+    key-major 64 x 68 scores, cum and the end-state decays.  bfloat16
+    (ssd_tc_kernel): two stages of B and x and C's rows, each row padded by
+    8 bf16 (N rounded up to 16, P up to 16, 32, 64 or 128), then cum and the
+    decays in float32."""
+    lpad = 64 * math.ceil(l / 64)
+    pw = next(w for w in (16, 32, 64, 128) if p <= w)
+    if dtype == torch.bfloat16:
+        ldn = 16 * math.ceil(n / 16) + 8
+        return {"bs": 2 * 2 * 64 * ldn, "xs": 2 * 2 * 64 * (pw + 8), "cs": 2 * 64 * ldn,
+                "cum": 4 * lpad, "wdec": 4 * lpad}
+    n4 = 4 * math.ceil(n / 4)
+    ldn = n4 if n4 % 8 else n4 + 4
+
+    def layout(stages):
+        return {"bs": 4 * stages * 64 * ldn, "xs": 4 * stages * 64 * pw, "cs": 4 * 64 * ldn,
+                "ss": 4 * 64 * 68, "cum": 4 * lpad, "wdec": 4 * lpad}
+
+    two = layout(2)
+    return two if sum(two.values()) <= 115712 else layout(1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l, p, n", [(256, 64, 128), (256, 64, 16), (37, 20, 5), (1, 1, 1), (128, 64, 64)])
-def test_ssd_smem_bytes_is_the_kernel_layout(l, p, n):
-    assert ssd.smem_bytes(l, p, n) == 4 * sum(_ssd_layout(l, p, n).values())
+def test_ssd_smem_bytes_is_the_kernel_layout(l, p, n, dtype):
+    assert ssd.smem_bytes(l, p, n, dtype) == sum(_ssd_layout(l, p, n, dtype).values())
+    # float32 keeps two stages unless they would keep a second block off the SM
+    assert ssd.f32_stages(l, p, n) == (1 if (l, p, n) == (256, 64, 128) else 2)
 
 
 def test_ssd_published_chunks_launch_and_the_limit_is_named():
-    """Mamba2-2.7b's chunk needs 220,416 B (it was 336,000 with all of C
-    staged) and Jamba's 91,392 (106,624): no published config reaches the
-    227 KB limit.  At L 256, P 64 the largest state that launches is
-    N = 138; at P = 128, N = 81."""
+    """With B and x walked through a ring of 64-row tiles, Mamba2-2.7b's
+    chunk needs 103,424 B in float32 (one stage, so that two blocks share
+    an SM) and 72,704 in bfloat16 (220,416 while each warp staged its rows
+    of C beside all of x and B), Jamba's 67,584 and 29,696 (91,392): no
+    published config nears the 227 KB limit, and both launch in both
+    routes.  At L 256, P 64 the largest state that launches is N = 380 in
+    float32 and 544 in bfloat16; at P = 128, 348 and 496."""
     need = {}
     for arch, make in archs.FULL.items():
         cfg = make()
         if cfg.ssm_state:
-            need[arch] = ssd.smem_bytes(cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state)
-    assert need == {"mamba2-2.7b": 220416, "jamba-v0.1-52b": 91392}
-    assert max(need.values()) <= ssd.MAX_SMEM
-    for p, n_max in ((64, 138), (128, 81)):
-        assert ssd.smem_bytes(256, p, n_max) <= ssd.MAX_SMEM < ssd.smem_bytes(256, p, n_max + 1)
+            need[arch] = tuple(ssd.smem_bytes(cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state, dt)
+                               for dt in (torch.float32, torch.bfloat16))
+    assert need == {"mamba2-2.7b": (103424, 72704), "jamba-v0.1-52b": (67584, 29696)}
+    assert max(max(v) for v in need.values()) <= ssd.MAX_SMEM
+    for dt, p, n_max in ((torch.float32, 64, 380), (torch.float32, 128, 348),
+                         (torch.bfloat16, 64, 544), (torch.bfloat16, 128, 496)):
+        assert ssd.smem_bytes(256, p, n_max, dt) <= ssd.MAX_SMEM < ssd.smem_bytes(256, p, n_max + 1, dt)
     x = torch.randn(1, 1, 256, 128)
-    bc = torch.randn(1, 1, 256, 82)
+    bc = torch.randn(1, 1, 256, 349)
     with pytest.raises(ValueError, match=f"limit of {ssd.MAX_SMEM}"):
         ssd.ssd_chunk(x, -torch.rand(1, 1, 256), bc, bc)
+    bc = torch.randn(1, 1, 256, 497, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"limit of {ssd.MAX_SMEM}"):
+        ssd.ssd_chunk(x.bfloat16(), -torch.rand(1, 1, 256, dtype=torch.bfloat16), bc, bc)
