@@ -106,7 +106,24 @@ Phases:
    tolerances), and ``report`` on it; ``profile`` of the attn and moe
    rungs of the model families, each pair diffed; and ``profile -k flash
    -k gmm -k ssd``.
-4. Print one JSON line describing every kernel, each with the card's name
+4. The closed tuning loop (the paper's §VI-A, ending on ``tune gemm``),
+   through the CLI entry point, every launch count set to 0 just before
+   each command and read just after: ``tune gemm --budget 3 --cache DIR
+   --report`` at the registry's 1024^3 float32 (exit 0, at least one kernel
+   improved, every rung with a kernel holds a run record within gemm's
+   1e-3 of the plain version, the bundle has a "tuning trajectory"
+   section, every GEMM kernel launched); the same again on the warm cache
+   (no fresh grid walk, heat maps bit-identical to the cold run's, the runs
+   measured and checked again); ``tune --all`` serially over gemm, spmv,
+   histogram, gramschm, ttm, ragged_flash and paged_attn (one line per
+   family: transfers before -> after, the accepted moves); ``profile -k
+   gemm:v01`` then ``-k gemm`` into one session, ``check iter1 --baseline
+   iter0 --json -`` (exit exactly 1, ``"schema_version": 1``) and ``check
+   SESSION --anomaly``; ``lint --all`` and ``kernels --lint`` (exit 0).
+   The cold and warm ``tune gemm`` wall times (in process: the host's
+   turnaround of the command) are printed beside the card's name and
+   power limit.
+5. Print one JSON line describing every kernel, each with the card's name
    and power limit under ``config``, then the result line.
 
 The kernels redesigned for the card as a whole (GRAMSCHM opt, the ragged
@@ -127,6 +144,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -1255,6 +1273,145 @@ def drive_model_path(cli, kreg, load_iteration):
     return msg or launches
 
 
+def drive_tuning_loop(cli, kreg, smi):
+    """Phase 4, the closed tuning loop: {kernel name: launches made by the
+    phase's commands}, or a failure message."""
+    import torch
+
+    from repro_torch.core.render import run_text
+    from repro_torch.core.session import ProfileSession, heatmaps_equal
+    from repro_torch.core.tuner import trajectories_from_session
+    from repro_torch.kernels import (
+        flash, gemm, gmm, gramschm, histogram, paged_attn, ragged_flash, spmv, ssd, ttm,
+    )
+
+    card = torch.cuda.get_device_name(0)
+    wrappers = {
+        fn.__name__: fn
+        for module in (gemm, spmv, histogram, gramschm, ttm, flash, gmm, ssd,
+                       ragged_flash, paged_attn)
+        for fn in module.KERNELS.values()
+    }
+    root = ROOT / "build" / "chip_smoke_session" / "tune"
+    shutil.rmtree(root, ignore_errors=True)
+    cache = str(root / "cache")
+    launches = {name: 0 for name in wrappers}
+
+    def counted(argv, want_rc=0):
+        kreg.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(cli, argv)
+        wall = time.perf_counter() - t0
+        made = {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+        print(f"launches: {made}")
+        for name, count in made.items():
+            launches[name] += count
+        if rc != want_rc:
+            return None, None, f"{' '.join(argv[:2])} exited {rc}, not {want_rc}"
+        return out, wall, None
+
+    def checked_runs(sess_dir, label):
+        """Every rung with a kernel holds a run on this card within its
+        variant's tolerance; returns the iterations or a failure message."""
+        its = ProfileSession(sess_dir, create=False).iterations()
+        for it in its:
+            pk = it.kernels[0]
+            tuning = it.tuning or {}
+            cand = tuning.get("candidate") or {}
+            if tuning.get("role") == "baseline":
+                rung = pk.variant
+            elif cand.get("source") == "ladder":
+                rung = cand.get("variant")
+            else:
+                rung = None  # a generated candidate: spec surgery, no kernel
+            variant = kreg.get(pk.name).variant(rung) if rung else None
+            if variant is None or variant.kernel is None:
+                if pk.run is not None:
+                    return f"{label} {it.path.name}: a run on a rung with no kernel"
+                continue
+            run = pk.run or {}
+            if run.get("device") != card or not run.get("ms"):
+                return f"{label} {it.path.name}: no run on the card ({run})"
+            # run_variant held every element to the variant's tolerance (a
+            # miss is exit 1); a plain number is checked again here
+            tol = variant.atol
+            if run["launches"] < 1 or (not callable(tol) and run["max_abs_err"] > tol):
+                return f"{label} {it.path.name}: run {run} outside {tol}"
+            print(f"{label} {it.path.name} {pk.name}:{variant.name}: {run_text(run)}")
+        return its
+
+    # -- tune gemm, cold then warm ------------------------------------------------
+    walls = {}
+    for turn in ("cold", "warm"):
+        sess = root / f"gemm-{turn}"
+        argv = ["tune", "gemm", "--budget", "3", "--cache", cache, "--out", str(sess)]
+        out, walls[turn], msg = counted(argv + (["--report"] if turn == "cold" else []))
+        if msg:
+            return msg
+        if "tuned 1 kernel(s): 1 improved" not in out:
+            return f"tune gemm ({turn}) improved no kernel"
+        for v in ("v00", "v01", "v02"):
+            if gemm.KERNELS[v].launches < 1:
+                return f"tune gemm ({turn}) did not launch gemm_{v}"
+        its = checked_runs(sess, f"tune gemm ({turn})")
+        if isinstance(its, str):
+            return its
+        if turn == "cold":
+            cold = its
+            html = (sess / "report" / "index.html").read_text()
+            if "tuning trajectory" not in html:
+                return "tune gemm --report: no tuning trajectory section"
+            continue
+        misses = re.search(r"cache: \d+ hits \(\d+ memory, \d+ disk\), (\d+) misses", out)
+        if misses is None or int(misses.group(1)) != 0:
+            return f"tune gemm (warm) walked a grid: {misses and misses.group(0)}"
+        if len(its) != len(cold) or not all(
+            heatmaps_equal(a.kernels[0].heatmap, b.kernels[0].heatmap)
+            for a, b in zip(cold, its)
+        ):
+            return "tune gemm (warm): heat maps differ from the cold run's"
+    print(f"tune gemm wall time (in process, host turnaround): cold {walls['cold']:.2f} s, "
+          f"warm {walls['warm']:.2f} s, on {smi}")
+
+    # -- tune --all, serially --------------------------------------------------------
+    families = ["gemm", "spmv", "histogram", "gramschm", "ttm", "ragged_flash", "paged_attn"]
+    sess = root / "all"
+    out, wall, msg = counted(["tune", *families, "--all", "--budget", "24", "--cache", cache,
+                              "--out", str(sess), "-q"])
+    if msg:
+        return msg
+    its = checked_runs(sess, "tune --all")
+    if isinstance(its, str):
+        return its
+    for traj in trajectories_from_session(ProfileSession(sess, create=False)):
+        moves = [s["candidate"].get("label") for s in traj["steps"] if s["accepted"]]
+        print(f"tune --all {traj['kernel']}: transfers {traj['baseline']['transactions']} -> "
+              f"{traj['best']['transactions']}, accepted {moves or 'nothing'}")
+    print(f"tune --all wall time (in process): {wall:.2f} s")
+
+    # -- the regression gate, and lint ------------------------------------------------
+    sess = root / "check"
+    for ref in ("gemm:v01", "gemm"):
+        _, _, msg = counted(["profile", "-k", ref, "--out", str(sess), "-q"])
+        if msg:
+            return msg
+    out, _, msg = counted(["check", str(sess / "iter1"), "--baseline", str(sess / "iter0"),
+                           "--json", "-"], want_rc=1)
+    if msg:
+        return msg
+    if '"schema_version": 1' not in out:
+        return "check --json -: no schema_version 1 document"
+    kreg.reset_launch_counts()
+    rc, _ = run_cli(cli, ["check", str(sess), "--anomaly"])
+    if rc not in (0, 1):
+        return f"check --anomaly exited {rc}"
+    for argv in (["lint", "--all", "-q"], ["kernels", "--lint"]):
+        rc, _ = run_cli(cli, argv)
+        if rc != 0:
+            return f"{' '.join(argv)} exited {rc}"
+    return launches
+
+
 def run_cli(cli, argv):
     """Run one CLI command in process; returns (exit code, its stdout)."""
     buf = io.StringIO()
@@ -1479,7 +1636,12 @@ def main() -> int:
     if isinstance(model_launches, str):
         return fail(model_launches)
 
-    # -- phase 4: the record --------------------------------------------------
+    # -- phase 4: the closed tuning loop ----------------------------------------
+    tune_launches = drive_tuning_loop(cli, kreg, smi)
+    if isinstance(tune_launches, str):
+        return fail(tune_launches)
+
+    # -- phase 5: the record --------------------------------------------------
     kernels = []
     for v in gemm.KERNELS:
         row = rows[(v, "float32")]
@@ -1520,9 +1682,11 @@ def main() -> int:
                 launches=launches[name], decode_step_launches=step_launches[name], **row,
             )
         )
-    # what the records were measured on, kept apart from the measurements
+    # what the records were measured on, kept apart from the measurements;
+    # and the launches of phase 4's tune commands (0: not on the tune path)
     for row in kernels:
         row["config"] = dict(row.get("config", {}), card=smi)
+        row["tune_launches"] = tune_launches.get(row["name"], 0)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(

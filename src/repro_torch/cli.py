@@ -2,7 +2,10 @@
 
 Subcommands:
 
-* ``kernels`` — list the registered kernels and their ladder variants.
+* ``kernels`` — list the registered kernels and their ladder variants
+  (``--lint`` adds each variant's static lint verdict).
+* ``lint NAME[:VARIANT] | --all`` — predict heat-map patterns from the
+  specs alone: no kernel runs, no traces.
 * ``profile --kernel gemm --out sess/`` — profile kernels into the next
   iteration of a session directory.  Each variant's heat map is modeled
   from its spec, and its kernel is launched on seeded inputs at the
@@ -17,11 +20,22 @@ Subcommands:
   registered model's forward (and ``--backward``) pass into one iteration
   with per-layer attribution, each forward kind launched on the card at
   the model's shapes.
+* ``tune gemm --out sess/`` — close the paper's loop unattended: profile
+  the baseline, try the ladder's rungs and generated candidates, keep
+  what improves, every step an iteration.  Rungs with a kernel launch it
+  as ``profile`` does.
+* ``check sess/iter1 --baseline sess/iter0`` — the regression gate
+  (``--anomaly`` bands a session's own history; ``--static`` compares
+  two registry refs' lint reports).
+
+``profile``, ``model`` and ``tune`` take ``--cache DIR``, a
+content-addressed store of heat maps: an unchanged walk is served from
+it bit-identically.  The kernel's run on the card is measured every time.
 
 Exit codes: 0 success, 1 a gate failed (``diff --fail-on-regression``,
-``model --max-transfers``, or a kernel that disagrees with its plain
-version), 2 usage or load error.  There is no fallback: ``--device cuda``
-without a card is exit 2.
+``model --max-transfers``, ``check``, ``lint`` findings, or a kernel that
+disagrees with its plain version), 2 usage or load error.  There is no
+fallback: ``--device cuda`` without a card is exit 2.
 """
 
 from __future__ import annotations
@@ -44,7 +58,47 @@ def _build_parser() -> argparse.ArgumentParser:
     k = sub.add_parser(
         "kernels", help="list registered kernels and their variants"
     )
+    k.add_argument(
+        "--lint",
+        action="store_true",
+        help="add each variant's static lint verdict (clean/dirty/error) "
+        "and predicted pattern classes; no kernels are run",
+    )
     k.set_defaults(func=_cmd_kernels)
+
+    ln = sub.add_parser(
+        "lint",
+        help="statically predict heat-map inefficiencies from specs "
+        "alone (no runs, no traces; exit 0 clean / 1 findings / 2 error)",
+    )
+    ln.add_argument(
+        "ref",
+        nargs="*",
+        metavar="NAME[:VARIANT]",
+        help="registry refs to lint ('gemm' lints the baseline variant)",
+    )
+    ln.add_argument(
+        "--all", action="store_true",
+        help="lint every variant of every registered kernel",
+    )
+    ln.add_argument(
+        "--strict",
+        action="store_true",
+        help="promote warning-level findings to failures (exit 1); "
+        "error-level findings always fail",
+    )
+    ln.add_argument(
+        "--json",
+        default=None,
+        metavar="PATH",
+        help="write the schema-versioned JSON lint document to PATH "
+        "('-' for stdout; the human summary then moves to stderr)",
+    )
+    ln.add_argument(
+        "--quiet", "-q", action="store_true",
+        help="suppress the human summary (exit code + JSON only)",
+    )
+    ln.set_defaults(func=_cmd_lint)
 
     pr = sub.add_parser(
         "profile",
@@ -77,6 +131,8 @@ def _build_parser() -> argparse.ArgumentParser:
         help=_SAMPLER_HELP + "; default: per-kernel registry choice",
     )
     _add_device(pr)
+    _add_cache(pr)
+    _add_deferred(pr, resume=False)
     pr.add_argument("--label", default=None, help="iteration label")
     pr.add_argument("--note", default="", help="free-form iteration note")
     pr.add_argument(
@@ -193,7 +249,171 @@ def _build_parser() -> argparse.ArgumentParser:
         "--quiet", "-q", action="store_true", help="suppress the per-layer table"
     )
     _add_device(mo)
+    _add_cache(mo)
+    _add_deferred(mo, resume=True)
     mo.set_defaults(func=_cmd_model)
+
+    ck = sub.add_parser(
+        "check",
+        help="gate a candidate iteration against a baseline artifact "
+        "and/or its own session history (exit 0 pass / 1 fail / 2 error)",
+    )
+    ck.add_argument(
+        "candidate",
+        help="candidate iteration directory, or a session directory "
+        "(its latest iteration is gated; --anomaly needs a session)",
+    )
+    ck.add_argument(
+        "--baseline",
+        "-b",
+        default=None,
+        metavar="DIR",
+        help="baseline iteration (or session) directory to gate against",
+    )
+    ck.add_argument(
+        "--static",
+        action="store_true",
+        help="no-trace gate: candidate and --baseline are registry refs "
+        "(NAME[:VARIANT]) compared on their static lint reports "
+        "(incompatible with --anomaly and --region-map)",
+    )
+    ck.add_argument(
+        "--anomaly",
+        action="store_true",
+        help="also flag kernels whose latest heat map leaves their own "
+        "rolling median/MAD history bands (candidate must be a session "
+        "directory with enough iterations)",
+    )
+    ck.add_argument(
+        "--threshold",
+        "-t",
+        action="append",
+        default=[],
+        metavar="KEY=VALUE",
+        help="gate budget (repeatable): transfer-pct, aggregate-pct, "
+        "scratch-pct, severity (floats); new-patterns, missing (on|off); "
+        "allow-pattern=NAME (exempt a pattern class); defaults are "
+        "strict (zero tolerated growth)",
+    )
+    ck.add_argument(
+        "--region-map",
+        action="append",
+        default=[],
+        metavar="KERNEL:OLD=NEW",
+        help="rename a region between baseline and candidate (repeatable)",
+    )
+    ck.add_argument(
+        "--json",
+        default=None,
+        metavar="PATH",
+        help="write the schema-versioned JSON report to PATH "
+        "('-' for stdout; the human summary then moves to stderr)",
+    )
+    ck.add_argument(
+        "--min-history",
+        type=int,
+        default=None,
+        metavar="N",
+        help="anomaly bands need N prior iterations (default: 3)",
+    )
+    ck.add_argument(
+        "--nmads",
+        type=float,
+        default=None,
+        metavar="X",
+        help="anomaly band half-width in scaled MADs (default: 4.0)",
+    )
+    ck.add_argument(
+        "--include-rejected",
+        action="store_true",
+        help="band anomaly history over tuner-rejected candidates too",
+    )
+    ck.add_argument(
+        "--quiet", "-q", action="store_true",
+        help="suppress the human summary (exit code + JSON only)",
+    )
+    ck.set_defaults(func=_cmd_check)
+
+    tn = sub.add_parser(
+        "tune",
+        help="autotune kernels: profile, apply advisor actions, re-profile",
+    )
+    tn.add_argument(
+        "kernel",
+        nargs="*",
+        metavar="NAME[:VARIANT]",
+        help="kernel families to tune (the given variant is the starting "
+        "rung; default: the family's baseline)",
+    )
+    tn.add_argument(
+        "--all",
+        action="store_true",
+        help="tune the listed families (or the whole registry when none "
+        "are listed) under ONE global --budget, serially; deterministic "
+        "per --seed",
+    )
+    tn.add_argument(
+        "--budget",
+        "-b",
+        type=int,
+        default=None,  # resolved to tuner.DEFAULT_BUDGET in the handler
+        metavar="N",
+        help="max candidate re-profiles per family, or the global total "
+        "across families with --all (default: 8)",
+    )
+    tn.add_argument(
+        "--target-pattern",
+        action="append",
+        default=[],
+        metavar="PATTERN",
+        # repro_torch.core.patterns.ALL_PATTERNS, inlined so --help needs
+        # no numpy import; a typo must fail loudly, not tune nothing
+        choices=(
+            "hot", "hot-random", "scratch-abuse", "false-sharing",
+            "misalignment", "strided",
+        ),
+        help="only chase actions for this pattern (repeatable): hot, "
+        "hot-random, false-sharing, misalignment, strided, scratch-abuse",
+    )
+    tn.add_argument(
+        "--out",
+        "-o",
+        default="cuthermo-session",
+        metavar="DIR",
+        help="session directory the trajectory is persisted into "
+        "(default: ./cuthermo-session)",
+    )
+    tn.add_argument(
+        "--seed",
+        type=int,
+        default=0,
+        help="candidate tie-break seed (same seed => same trajectory)",
+    )
+    tn.add_argument(
+        "--no-generated",
+        action="store_true",
+        help="only try registry ladder variants, no generated candidates",
+    )
+    tn.add_argument(
+        "--no-prescreen",
+        action="store_true",
+        help="disable the static pre-screen (profile even candidates the "
+        "linter prices as strictly worse than the incumbent)",
+    )
+    tn.add_argument(
+        "--report",
+        action="store_true",
+        help="write the report bundle (with the tuning trajectory) to "
+        "<out>/report afterwards",
+    )
+    tn.add_argument(
+        "--quiet", "-q", action="store_true",
+        help="suppress per-step progress lines",
+    )
+    _add_device(tn)
+    _add_cache(tn)
+    _add_deferred(tn, resume=True)
+    tn.set_defaults(func=_cmd_tune)
     return p
 
 
@@ -210,6 +430,61 @@ def _add_device(parser: argparse.ArgumentParser) -> None:
         choices=("cuda", "cpu"),
         help="where each kernel runs on its seeded inputs (default: cuda; "
         "'cpu' runs the plain version and times nothing)",
+    )
+
+
+def _add_cache(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--cache",
+        default=None,
+        metavar="DIR",
+        help="content-addressed collection cache directory: an unchanged "
+        "walk returns its bit-identical stored heat map instead of "
+        "re-tracing (created on first use); kernel runs are measured "
+        "every time",
+    )
+
+
+#: Flags of the JAX package's CLI that need sharded collection and fault
+#: tolerance, which the port does not have yet (ROADMAP queue 1 item 4).
+_DEFERRED = ("--workers", "--inject-faults", "--resume")
+
+
+def _add_deferred(parser: argparse.ArgumentParser, resume: bool) -> None:
+    """Accept the deferred flags only to refuse them by name (exit 2)."""
+    parser.add_argument(
+        "--workers", "-w", default=None, metavar="N",
+        help="not ported yet (sharded collection: ROADMAP queue 1 item 4)",
+    )
+    parser.add_argument(
+        "--inject-faults", default=None, metavar="SPEC",
+        help="not ported yet (fault injection: ROADMAP queue 1 item 4)",
+    )
+    if resume:
+        parser.add_argument(
+            "--resume", action="store_true",
+            help="not ported yet (journaled resume: ROADMAP queue 1 item 4)",
+        )
+
+
+def _deferred(args: argparse.Namespace) -> Optional[int]:
+    """Exit 2, naming the work that brings it, for a deferred flag given."""
+    for flag in _DEFERRED:
+        value = getattr(args, flag[2:].replace("-", "_"), None)
+        if value not in (None, False):
+            return _error(
+                f"{flag} is not ported yet: sharded collection, fault "
+                "injection and journaled resume come with ROADMAP queue 1 "
+                "item 4 (scale-out and fault tolerance)"
+            )
+    return None
+
+
+def _cache_stats_line(cache) -> str:
+    st = cache.stats
+    return (
+        f"cache: {st.hits} hits ({st.memory_hits} memory, {st.disk_hits} "
+        f"disk), {st.misses} misses"
     )
 
 
@@ -249,6 +524,7 @@ def _parse_sampler(spec: Optional[str]):
 def _cmd_kernels(args: argparse.Namespace) -> int:
     """Handler for ``cuthermo kernels``."""
     from repro_torch import kernels as kreg
+    from repro_torch.core.lint import lint_ref
 
     for name in kreg.names():
         entry = kreg.get(name)
@@ -258,9 +534,74 @@ def _cmd_kernels(args: argparse.Namespace) -> int:
         )
         print(f"{name:<12} [{variants}]  {entry.summary}")
         for v in entry.variants:
-            print(f"  {v.name:<10} {v.role:<9} {v.note}")
+            if not args.lint:
+                print(f"  {v.name:<10} {v.role:<9} {v.note}")
+                continue
+            rep = lint_ref(f"{name}:{v.name}")
+            preds = ", ".join(f"{f.pattern}({f.region})" for f in rep.findings)
+            tx = (
+                "dynamic"
+                if rep.static_transactions is None
+                else f"{rep.static_transactions} transfers"
+            )
+            print(
+                f"  {v.name:<10} {rep.verdict():<6} {tx}"
+                + (f"  [{preds}]" if preds else "")
+            )
     print("(* = default/baseline variant)")
+    if args.lint:
+        print("(static lint verdicts: no kernels were run or traced)")
     return 0
+
+
+def _cmd_lint(args: argparse.Namespace) -> int:
+    """Handler for ``cuthermo lint``: 0 clean (or warnings only without
+    ``--strict``), 1 findings gate the run (any error-level finding;
+    warnings too under ``--strict``), 2 usage error (no refs, unknown
+    ref)."""
+    from repro_torch import kernels as kreg
+    from repro_torch.core.lint import LintError, lint_document, lint_ref
+
+    refs = list(args.ref)
+    if args.all:
+        for name in kreg.names():
+            for v in kreg.get(name).variants:
+                ref = f"{name}:{v.name}"
+                if ref not in refs:
+                    refs.append(ref)
+    if not refs:
+        return _error("lint: nothing to lint (pass NAME[:VARIANT] refs or --all)")
+    reports = []
+    for ref in refs:
+        try:
+            reports.append(lint_ref(ref))
+        except (KeyError, LintError) as e:
+            return _error(e.args[0] if e.args else e)
+    doc = lint_document(reports, strict=args.strict)
+    human = "\n\n".join(rep.summary() for rep in reports)
+    if not doc["passed"]:
+        n = len(doc["failures"])
+        human += f"\nlint FAILED ({n} finding{'s' if n != 1 else ''} gate)"
+    _emit(doc, human, args.json, args.quiet)
+    return 0 if doc["passed"] else 1
+
+
+def _emit(doc, human: str, json_path: Optional[str], quiet: bool) -> None:
+    """Write a JSON document (to a file, or stdout with ``-``, the human
+    summary then on stderr) and the human summary."""
+    import json
+
+    if json_path == "-":
+        print(json.dumps(doc, indent=2))
+        if not quiet:
+            print(human, file=sys.stderr)
+        return
+    if json_path:
+        with open(json_path, "w") as fh:
+            json.dump(doc, fh, indent=2)
+            fh.write("\n")
+    if not quiet:
+        print(human)
 
 
 def _cmd_profile(args: argparse.Namespace) -> int:
@@ -275,6 +616,9 @@ def _cmd_profile(args: argparse.Namespace) -> int:
         refs += [n for n in kreg.names() if n not in refs]
     if not refs:
         return _error("nothing to profile (pass --kernel NAME[:VARIANT] or --all)")
+    rc = _deferred(args)
+    if rc is not None:
+        return rc
     override = _parse_sampler(args.sampler)
     try:
         resolved = [kreg.resolve(ref) for ref in refs]
@@ -294,7 +638,7 @@ def _cmd_profile(args: argparse.Namespace) -> int:
     # one invocation profiles several variants of the same family
     families = [entry.name for entry, _ in uniq]
     try:
-        sess = ProfileSession(args.out)
+        sess = ProfileSession(args.out, cache=args.cache)
     except SessionError as e:
         return _error(e)
     profiled = []
@@ -316,10 +660,13 @@ def _cmd_profile(args: argparse.Namespace) -> int:
             variant=variant.name,
             region_map=entry.region_map,
             run=run,
+            cache=sess.cache,
         )
         profiled.append(pk)
         if not args.quiet:
             print(f"# {ref}")
+            if pk.cached:
+                print("(heat map served from the collection cache)")
             print(format_report(pk.heatmap))
             if run is not None:
                 print(run_text(run))
@@ -328,6 +675,8 @@ def _cmd_profile(args: argparse.Namespace) -> int:
         it = sess.add_iteration(profiled, label=args.label, note=args.note)
     except SessionError as e:
         return _error(e)
+    if sess.cache is not None:
+        print(_cache_stats_line(sess.cache))
     print(f"wrote {it.path} ({len(profiled)} kernels)")
     return 0
 
@@ -347,22 +696,76 @@ def _resolve_iteration_dir(path: str):
 
 
 def _cmd_report(args: argparse.Namespace) -> int:
-    """Handler for ``cuthermo report``."""
+    """Handler for ``cuthermo report``.
+
+    Pointed at a session that holds tuning runs, the bundle gains each
+    run's trajectory, and its body is each run's winning iteration when
+    the latest iteration belongs to a run.  A ``check.json`` beside the
+    iteration folds in the regression gate's verdict, and each kernel's
+    registry ref is linted again for the predicted-vs-observed table.
+    """
+    import dataclasses
+    import json
     import os
 
+    from repro_torch.core.lint import LintError, lint_ref, predicted_vs_observed
     from repro_torch.core.render import ReportEntry, write_report_bundle
-    from repro_torch.core.session import SessionError
+    from repro_torch.core.session import ProfileSession, SessionError, load_iteration
+    from repro_torch.core.tuner import trajectories_from_session
 
     try:
         it = _resolve_iteration_dir(args.iteration)
     except SessionError as e:
         return _error(e)
-    entries = [ReportEntry.from_profiled(pk) for pk in it.kernels]
+    tuning = None
+    kernels = list(it.kernels)
+    if os.path.isfile(os.path.join(args.iteration, "session.json")):
+        sess = ProfileSession(args.iteration, create=False)
+        tuning = trajectories_from_session(sess) or None
+        # the latest iteration may be a rejected candidate: show each run's
+        # winner, but only when the latest iteration is part of a run
+        if tuning and it.tuning is not None:
+            best = []
+            for traj in tuning:
+                try:
+                    best.extend(load_iteration(sess.root / traj["best"]["iteration"]).kernels)
+                except (SessionError, TypeError):
+                    best = []  # incomplete provenance: keep the default
+                    break
+            if best:
+                kernels = best
+                it = dataclasses.replace(it, label=f"{it.label} (tuned)")
+    check = None
+    check_path = it.path / "check.json"
+    if check_path.is_file():
+        try:
+            doc = json.loads(check_path.read_text())
+        except (OSError, ValueError):
+            doc = None  # a foreign or torn file adds no section
+        if isinstance(doc, dict) and doc.get("format") == "cuthermo-check":
+            check = doc
+    lint = []
+    for pk in kernels:
+        ref = f"{pk.name.partition(':')[0]}:{pk.variant}"
+        try:
+            rep = lint_ref(ref)
+        except (KeyError, LintError):
+            continue  # a tuner-generated variant has no registry ref
+        lint.append(
+            {
+                "kernel": pk.name,
+                "ref": ref,
+                "verdict": rep.verdict(),
+                "static_transactions": rep.static_transactions,
+                "rows": predicted_vs_observed(rep, pk.reports),
+            }
+        )
+    entries = [ReportEntry.from_profiled(pk) for pk in kernels]
     out = args.out or os.path.join(str(it.path), "report")
     title = args.title or f"cuthermo report — {it.label}"
     written = write_report_bundle(
         entries, out, title=title, faults=list(it.faults) or None,
-        layers=it.layers,
+        layers=it.layers, tuning=tuning, check=check, lint=lint or None,
     )
     print(f"wrote {written['index.html']}")
     print(f"wrote {written['report.md']}")
@@ -411,6 +814,7 @@ def _cmd_model(args: argparse.Namespace) -> int:
     import os
 
     from repro_torch import kernels as kreg
+    from repro_torch.core.cache import CollectionCache
     from repro_torch.core.model_profile import iteration_transactions, profile_model
     from repro_torch.core.render import ReportEntry, run_text, write_report_bundle
     from repro_torch.core.session import SessionError
@@ -426,9 +830,13 @@ def _cmd_model(args: argparse.Namespace) -> int:
         return 0
     if not args.name:
         return _error("model: pass a model NAME (or --list)")
+    rc = _deferred(args)
+    if rc is not None:
+        return rc
     sampler = _parse_sampler(args.sampler)
     if _no_card(args):
         return _error("no CUDA device: pass --device cpu to run the plain versions")
+    cache = CollectionCache(args.cache) if args.cache else None
     try:
         it = profile_model(
             args.name,
@@ -439,6 +847,7 @@ def _cmd_model(args: argparse.Namespace) -> int:
             label=args.label,
             note=args.note,
             device=args.device,
+            cache=cache,
         )
     except kreg.KernelMismatch as e:
         print(f"cuthermo: {e}", file=sys.stderr)
@@ -474,6 +883,8 @@ def _cmd_model(args: argparse.Namespace) -> int:
             layers=layers or None,
         )
         print(f"wrote {written['index.html']}")
+    if cache is not None:
+        print(_cache_stats_line(cache))
     print(f"wrote {it.path} ({len(it.kernels)} kernels, {total} transfers)")
     if args.max_transfers is not None and total > args.max_transfers:
         print(
@@ -481,6 +892,159 @@ def _cmd_model(args: argparse.Namespace) -> int:
             file=sys.stderr,
         )
         return 1
+    return 0
+
+
+def _cmd_check(args: argparse.Namespace) -> int:
+    """Handler for ``cuthermo check``: 0 every gate held, 1 at least one
+    gate failed (threshold blown, new/worsened pattern, missing kernel,
+    anomaly flag), 2 usage or load error (bad flags, unreadable or
+    malformed artifacts)."""
+    import json
+    import os
+
+    from repro_torch.core.check import (
+        CheckError,
+        CheckThresholds,
+        check_iterations,
+        check_session_anomalies,
+        check_static,
+        merge_reports,
+    )
+    from repro_torch.core.session import ProfileSession, SessionError
+
+    if not args.baseline and not args.anomaly:
+        return _error(
+            "check: nothing to gate against (pass --baseline DIR and/or --anomaly)"
+        )
+    region_maps = _parse_region_maps(args.region_map)
+    if region_maps is None:
+        return 2
+    try:
+        thresholds = CheckThresholds.from_specs(args.threshold)
+    except CheckError as e:
+        return _error(e)
+    candidate_it = None
+    try:
+        if args.static:
+            if args.anomaly or args.region_map:
+                return _error(
+                    "check: --static takes registry refs and is incompatible "
+                    "with --anomaly / --region-map (the family's registry "
+                    "region_map applies automatically)"
+                )
+            if not args.baseline:
+                return _error("check: --static needs --baseline NAME[:VARIANT]")
+            report = check_static(args.candidate, args.baseline, thresholds=thresholds)
+        else:
+            report = None
+            if args.baseline:
+                baseline = _resolve_iteration_dir(args.baseline)
+                candidate_it = _resolve_iteration_dir(args.candidate)
+                report = check_iterations(
+                    baseline, candidate_it, thresholds=thresholds,
+                    region_maps=region_maps,
+                )
+            if args.anomaly:
+                if not os.path.isfile(os.path.join(args.candidate, "session.json")):
+                    return _error(
+                        f"--anomaly needs a session directory, and "
+                        f"{args.candidate!r} has no session.json"
+                    )
+                kwargs = {"include_rejected": args.include_rejected}
+                if args.min_history is not None:
+                    kwargs["min_history"] = args.min_history
+                if args.nmads is not None:
+                    kwargs["nmads"] = args.nmads
+                anomaly = check_session_anomalies(
+                    ProfileSession(args.candidate, create=False), **kwargs
+                )
+                report = anomaly if report is None else merge_reports(report, anomaly)
+    except (CheckError, SessionError) as e:
+        return _error(e)
+    doc = report.as_dict()
+    # a copy beside the candidate lets `report` fold the verdict in; a
+    # read-only artifact tree must not turn a clean gate into an error
+    if candidate_it is not None:
+        try:
+            (candidate_it.path / "check.json").write_text(json.dumps(doc, indent=2) + "\n")
+        except OSError:
+            pass
+    _emit(doc, report.summary(), args.json, args.quiet)
+    return 0 if report.passed else 1
+
+
+def _cmd_tune(args: argparse.Namespace) -> int:
+    """Handler for ``cuthermo tune``: 0 tuned, 1 a rung's kernel disagrees
+    with its plain version, 2 usage or load error (nothing to tune,
+    unknown family, a deferred flag, no card for ``--device cuda``)."""
+    import os
+
+    from repro_torch import kernels as kreg
+    from repro_torch.core.render import ReportEntry, write_report_bundle
+    from repro_torch.core.session import ProfileSession, SessionError
+    from repro_torch.core.tuner import DEFAULT_BUDGET, TuneError, tune_all
+
+    if not args.kernel and not args.all:
+        return _error("tune: nothing to do (pass NAME[:VARIANT] families or --all)")
+    rc = _deferred(args)
+    if rc is not None:
+        return rc
+    if _no_card(args):
+        return _error("no CUDA device: pass --device cpu to run the plain versions")
+    try:
+        sess = ProfileSession(args.out, cache=args.cache)
+    except SessionError as e:
+        return _error(e)
+    progress = None if args.quiet else (lambda msg: print(f"  {msg}"))
+    budget = DEFAULT_BUDGET if args.budget is None else max(0, args.budget)
+    options = dict(
+        target_patterns=args.target_pattern or None,
+        seed=args.seed,
+        use_generated=not args.no_generated,
+        static_prescreen=not args.no_prescreen,
+        progress=progress,
+        device=args.device,
+    )
+    results = []
+    try:
+        if args.all:
+            res_all = tune_all(
+                args.kernel or None, budget=budget, session=sess,
+                cache=sess.cache, **options,
+            )
+            results = list(res_all.results)
+            print(res_all.summary())
+            print()
+        else:
+            for ref in args.kernel:
+                if not args.quiet:
+                    print(f"# tuning {ref}")
+                res = sess.tune(ref, budget=budget, **options)
+                results.append(res)
+                print(res.summary())
+                print()
+    except kreg.KernelMismatch as e:
+        print(f"cuthermo: {e}", file=sys.stderr)
+        return 1
+    except (TuneError, SessionError) as e:
+        return _error(e)
+    if sess.cache is not None:
+        print(_cache_stats_line(sess.cache))
+    if args.report:
+        written = write_report_bundle(
+            [ReportEntry.from_profiled(r.best) for r in results],
+            os.path.join(args.out, "report"),
+            title="cuthermo tune report",
+            tuning=[r.as_dict() for r in results],
+        )
+        print(f"wrote {written['index.html']}")
+    improved = sum(1 for r in results if r.improved)
+    fixed = sum(len(r.fixed_patterns) for r in results)
+    print(
+        f"tuned {len(results)} kernel(s): {improved} improved, "
+        f"{fixed} patterns fixed (trajectory in {sess.root})"
+    )
     return 0
 
 

@@ -79,7 +79,8 @@ def _action_for(rep, weight: float) -> Optional[Action]:
     """Map one report to its Action, given the region's transfer weight.
 
     Duck-typed over the report: anything with ``pattern`` / ``region`` /
-    ``detail()`` works.
+    ``detail()`` works: the dynamic ``patterns.PatternReport`` and the
+    static ``lint.LintFinding`` share that surface.
     """
     if rep.pattern == FALSE_SHARING:
         ratio = max(1.0, rep.detail("mean_ratio", 1.0))
@@ -162,6 +163,36 @@ def _advise_one(rep: PatternReport, hm: Heatmap) -> Optional[Action]:
     region_tx = hm.sector_transactions(rep.region)
     total_tx = max(1, hm.sector_transactions())
     return _action_for(rep, region_tx / total_tx)
+
+
+def advise_static(report) -> List[Action]:
+    """Actions for a static ``lint.LintReport``: no trace required.
+
+    The region weight the dynamic path reads off the heat map is taken
+    from the linter's modeled per-operand transfer totals instead; for
+    regions the static model cannot price (dynamic operands, scratch) the
+    finding's severity stands in.  Static-only findings (coverage gaps,
+    out-of-bounds origins, dead operands) have no knob in the Action
+    vocabulary and are skipped: they are spec bugs, not tuning
+    opportunities.
+    """
+    modeled = {
+        ov.region: ov.modeled_transactions
+        for ov in report.operands
+        if ov.modeled_transactions is not None
+    }
+    total = report.static_transactions
+    if total is None:
+        total = sum(modeled.values())
+    actions = []
+    for f in report.findings:
+        mt = modeled.get(f.region)
+        weight = mt / total if (mt is not None and total) else f.severity
+        act = _action_for(f, weight)
+        if act is not None:
+            actions.append(act)
+    actions.sort(key=lambda a: -a.est_transaction_saving)
+    return actions
 
 
 def advise(hm: Heatmap) -> List[Action]:

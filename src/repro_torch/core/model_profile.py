@@ -29,8 +29,9 @@ Discovered kernels are stamped with ``model.<model>.<kind>`` family refs
 model.transformer-tiny.attn:wide-kv`` profiles one rung of a model's kind.
 
 Not ported yet: the HLO sweep of the JAX package (it compiles the model's
-forward, which the port does not have), sharded collection, the
-collection cache, and journaled resume.
+forward, which the port does not have), sharded collection and journaled
+resume.  The collection cache applies (``cache``): an unchanged model
+re-profiles without a walk, and its kernels are launched again.
 
 Backward kernels are a *model*: attention/GEMM backward passes stream the
 same operand set with the data direction flipped (activations re-read,
@@ -46,6 +47,7 @@ import dataclasses
 from pathlib import Path
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+from repro_torch.core.cache import CollectionCache
 from repro_torch.core.collector import KernelSpec
 from repro_torch.core.session import (
     Iteration,
@@ -328,6 +330,7 @@ def profile_model(
     label: Optional[str] = None,
     note: str = "",
     device: str = "cuda",
+    cache: Union[None, str, Path, CollectionCache] = None,
 ) -> Iteration:
     """Profile one registered model into a session iteration.
 
@@ -336,7 +339,8 @@ def profile_model(
     plain version runs and nothing is timed), profiles each kernel's spec
     (full grid unless ``sampler`` says otherwise), and persists everything
     as the next iteration of the session at ``out`` with the validated
-    per-layer table.  Returns the loaded :class:`Iteration` (its
+    per-layer table.  ``cache`` (a CollectionCache, or a directory for
+    one) serves unchanged heat maps; the launches are made every time.  Returns the loaded :class:`Iteration` (its
     ``.layers`` carries the table).
 
     Raises ``KeyError`` for an unknown model and ``ValueError`` for a
@@ -353,7 +357,7 @@ def profile_model(
     discovered = discover(
         name, cfg, batch, seq, backward=backward, default_shapes=not overrides
     )
-    sess = ProfileSession(out)
+    sess = ProfileSession(out, cache=cache)
     measured: Dict[str, Tuple[str, Mapping]] = {}  # kind -> (kernel, run)
     profiled: List[ProfiledKernel] = []
     for d in discovered:
@@ -373,6 +377,7 @@ def profile_model(
                 name=d.name,
                 variant=f"{d.family}:{'bwd' if d.backward else 'fwd'}",
                 run=run,
+                cache=sess.cache,
             )
         )
     layers = {

@@ -449,6 +449,288 @@ def _layers_heading(layers: Mapping) -> str:
     )
 
 
+def _step_action_label(step: Mapping) -> str:
+    """Provenance label ('kind(region) <- pattern') of one step's spawner."""
+    action = (step.get("candidate") or {}).get("action") or {}
+    if not action:
+        return "—"
+    return (
+        f"{_html.escape(str(action.get('kind', '?')))}"
+        f"({_html.escape(str(action.get('region', '?')))}) "
+        f"&larr; {_html.escape(str(action.get('pattern', '?')))}"
+    )
+
+
+def _tuning_section_html(trajectories: Sequence[Mapping]) -> str:
+    """Tuning-trajectory section of the HTML bundle (one card per family).
+
+    ``trajectories`` are JSON-shaped trajectory dicts — exactly what
+    ``TuneResult.as_dict()`` produces, or what
+    ``repro_torch.core.tuner.trajectories_from_session`` recovers from
+    stored provenance.  Each card walks the steps: candidate, the advisor
+    action that spawned it, transfers, verdict, accepted/rejected, and
+    the rung's measured run where it launched a kernel.
+    """
+    if not trajectories:
+        return ""
+    parts = ["<h3>tuning trajectory</h3>"]
+    for t in trajectories:
+        base_tx = (t.get("baseline") or {}).get("transactions", 0)
+        best = t.get("best") or {}
+        run = t.get("run") or ""
+        title = str(t.get("kernel")) + (f" — {run}" if run else "")
+        parts.append(
+            f"<div class='card'><h4>{_html.escape(title)}"
+            f"</h4><p class='evidence'>baseline {base_tx} transfers "
+            f"&rarr; best <b>{_html.escape(str(best.get('label', '?')))}"
+            f"</b> {best.get('transactions', base_tx)} transfers "
+            f"({float(t.get('speedup', 1.0)):.2f}x modeled), "
+            f"{t.get('candidates_tried', len(t.get('steps', ())))} "
+            "candidates tried</p>"
+            "<table><tr><th>step</th><th>candidate</th>"
+            "<th>spawned by</th><th>transfers</th><th>verdict</th>"
+            "<th>fixed</th><th>kept</th><th>measured</th></tr>"
+        )
+        for s in t.get("steps", ()):
+            cand = s.get("candidate") or {}
+            verdict = str(s.get("verdict", ""))
+            vclass = (
+                f" class='verdict-{verdict}'"
+                if verdict in ("improved", "regressed")
+                else ""
+            )
+            fixed = (
+                ", ".join(
+                    f"{_html.escape(str(p))} on {_html.escape(str(r))}"
+                    for r, p in s.get("fixed", ())
+                )
+                or "&mdash;"
+            )
+            parts.append(
+                f"<tr><td>{s.get('step')}</td>"
+                f"<td>{_html.escape(str(cand.get('label', '?')))}</td>"
+                f"<td>{_step_action_label(s)}</td>"
+                f"<td>{s.get('transactions')}</td>"
+                f"<td{vclass}>{_html.escape(verdict)}</td>"
+                f"<td>{fixed}</td>"
+                f"<td>{'accepted' if s.get('accepted') else 'rejected'}</td>"
+                f"<td>{_html.escape(run_text(s.get('run'))) or '&mdash;'}"
+                "</td></tr>"
+            )
+        parts.append("</table></div>")
+    return "".join(parts)
+
+
+def _check_section_html(check: Mapping) -> str:
+    """Check-verdict section of the HTML bundle.
+
+    ``check`` is a check-report document — ``CheckReport.as_dict()``
+    output, or the ``check.json`` that ``cuthermo check`` drops next to
+    the candidate iteration.  Renders the gate outcome, the per-kernel
+    rows, and any anomaly flags.
+    """
+    if not check:
+        return ""
+    passed = bool(check.get("passed"))
+    vclass = "verdict-improved" if passed else "verdict-regressed"
+    verdict = "passed" if passed else "FAILED"
+    parts = [
+        "<h3>regression check</h3>",
+        f"<div class='card'><p>gate <b class='{vclass}'>{verdict}</b> "
+        f"[{_html.escape(str(check.get('mode', '')))}] "
+        f"candidate <b>{_html.escape(str(check.get('candidate', '')))}</b>"
+        + (
+            f" vs baseline "
+            f"<b>{_html.escape(str(check.get('baseline')))}</b>"
+            if check.get("baseline")
+            else ""
+        )
+        + "</p>",
+    ]
+    kernels = check.get("kernels") or ()
+    if kernels:
+        parts.append(
+            "<table><tr><th>kernel</th><th>status</th><th>transfers</th>"
+            "<th>&Delta;</th><th>scratch</th><th>new patterns</th></tr>"
+        )
+        for kc in kernels:
+            status = str(kc.get("status", ""))
+            sclass = (
+                " class='verdict-regressed'" if status == "fail"
+                else (" class='verdict-improved'" if status == "pass" else "")
+            )
+            delta = kc.get("transactions_delta_pct")
+            delta_s = "new (was 0)" if delta is None else f"{delta:+.1f}%"
+            news = (
+                ", ".join(
+                    f"{_html.escape(str(p))} on {_html.escape(str(r))}"
+                    for r, p in kc.get("new_patterns", ())
+                )
+                or "&mdash;"
+            )
+            parts.append(
+                f"<tr><td>{_html.escape(str(kc.get('kernel')))}</td>"
+                f"<td{sclass}>{_html.escape(status)}</td>"
+                f"<td>{kc.get('transactions_before')} &rarr; "
+                f"{kc.get('transactions_after')}</td>"
+                f"<td>{delta_s}</td>"
+                f"<td>{kc.get('scratch_before')} &rarr; "
+                f"{kc.get('scratch_after')}</td><td>{news}</td></tr>"
+            )
+        parts.append("</table>")
+    flags = (check.get("anomalies") or {}).get("flags") or ()
+    for a in flags:
+        parts.append(
+            f"<p class='evidence verdict-regressed'>anomaly: "
+            f"{_html.escape(str(a.get('kernel')))} "
+            f"{_html.escape(str(a.get('metric')))} {a.get('value')} "
+            f"outside [{a.get('lo')}, {a.get('hi')}] "
+            f"(median {a.get('median')} over {a.get('n_history')} "
+            "iterations)</p>"
+        )
+    for f in check.get("failures") or ():
+        parts.append(f"<p class='evidence'>!! {_html.escape(str(f))}</p>")
+    parts.append("</div>")
+    return "".join(parts)
+
+
+def _check_section_markdown(check: Mapping) -> List[str]:
+    """Markdown lines of the check-verdict section."""
+    if not check:
+        return []
+    verdict = "passed" if check.get("passed") else "FAILED"
+    lines = [
+        "",
+        f"## regression check — {verdict}",
+        "",
+        f"candidate `{check.get('candidate', '')}`"
+        + (
+            f" vs baseline `{check.get('baseline')}`"
+            if check.get("baseline")
+            else ""
+        )
+        + f" [{check.get('mode', '')}]",
+        "",
+    ]
+    kernels = check.get("kernels") or ()
+    if kernels:
+        lines += [
+            "| kernel | status | transfers | Δ | scratch |",
+            "|---|---|---:|---:|---:|",
+        ]
+        for kc in kernels:
+            delta = kc.get("transactions_delta_pct")
+            delta_s = "new (was 0)" if delta is None else f"{delta:+.1f}%"
+            lines.append(
+                f"| {kc.get('kernel')} | {kc.get('status')} "
+                f"| {kc.get('transactions_before')} → "
+                f"{kc.get('transactions_after')} | {delta_s} "
+                f"| {kc.get('scratch_before')} → "
+                f"{kc.get('scratch_after')} |"
+            )
+    for f in check.get("failures") or ():
+        lines.append(f"- !! {f}")
+    return lines
+
+
+def _lint_section_html(lint: Sequence[Mapping]) -> str:
+    """Predicted-vs-observed cross-tab of the HTML bundle.
+
+    ``lint`` is a sequence of per-kernel dicts carrying the static lint
+    verdict plus ``predicted_vs_observed`` rows (see
+    ``repro.core.lint.predicted_vs_observed``): each row lines one
+    ``(region, pattern)`` class up across the two pipelines — ``agree``
+    (both saw it), ``static-only`` (the linter predicted something the
+    trace could not confirm), ``dynamic-only`` (the trace found
+    something the affine model cannot see, e.g. data-dependent maps).
+    """
+    if not lint:
+        return ""
+    parts = [
+        "<h3>static lint: predicted vs observed</h3>",
+        "<p class='evidence'>the linter's no-trace predictions "
+        "(affine index-map model) lined up against the traced "
+        "detections; dynamic-only rows are what static analysis "
+        "fundamentally cannot see.</p>",
+    ]
+    for entry in lint:
+        rows = entry.get("rows") or ()
+        tx = entry.get("static_transactions")
+        tx_s = "dynamic (no static total)" if tx is None else f"{tx} transfers"
+        parts.append(
+            f"<div class='card'><h4>{_html.escape(str(entry.get('kernel')))}"
+            f" &middot; lint {_html.escape(str(entry.get('verdict', '')))}"
+            f" &middot; {_html.escape(tx_s)}</h4>"
+        )
+        if rows:
+            parts.append(
+                "<table><tr><th>pattern</th><th>region</th><th>status</th>"
+                "<th>predicted sev</th><th>observed sev</th><th>rule</th>"
+                "</tr>"
+            )
+            for r in rows:
+                status = str(r.get("status", ""))
+                sclass = (
+                    " class='verdict-improved'" if status == "agree"
+                    else (
+                        " class='verdict-regressed'"
+                        if status == "dynamic-only" else ""
+                    )
+                )
+                ps, os_ = r.get("predicted_severity"), r.get("observed_severity")
+                parts.append(
+                    f"<tr><td>{_html.escape(str(r.get('pattern')))}</td>"
+                    f"<td>{_html.escape(str(r.get('region')))}</td>"
+                    f"<td{sclass}>{_html.escape(status)}</td>"
+                    f"<td>{'&mdash;' if ps is None else f'{ps:.2f}'}</td>"
+                    f"<td>{'&mdash;' if os_ is None else f'{os_:.2f}'}</td>"
+                    f"<td>{_html.escape(str(r.get('rule') or '—'))}</td></tr>"
+                )
+            parts.append("</table>")
+        else:
+            parts.append(
+                "<p class='evidence'>clean both ways: nothing predicted, "
+                "nothing observed</p>"
+            )
+        parts.append("</div>")
+    return "".join(parts)
+
+
+def _lint_section_markdown(lint: Sequence[Mapping]) -> List[str]:
+    """Markdown lines of the predicted-vs-observed cross-tab."""
+    if not lint:
+        return []
+    lines = ["", "## static lint: predicted vs observed", ""]
+    for entry in lint:
+        tx = entry.get("static_transactions")
+        tx_s = "dynamic" if tx is None else f"{tx} transfers"
+        lines += [
+            f"### {entry.get('kernel')} — lint {entry.get('verdict', '')}, "
+            f"{tx_s}",
+            "",
+        ]
+        rows = entry.get("rows") or ()
+        if not rows:
+            lines += ["clean both ways: nothing predicted, nothing observed",
+                      ""]
+            continue
+        lines += [
+            "| pattern | region | status | predicted sev | observed sev |",
+            "|---|---|---|---:|---:|",
+        ]
+        for r in rows:
+            ps, os_ = r.get("predicted_severity"), r.get("observed_severity")
+            lines.append(
+                f"| {r.get('pattern')} | {r.get('region')} "
+                f"| {r.get('status')} "
+                f"| {'—' if ps is None else f'{ps:.2f}'} "
+                f"| {'—' if os_ is None else f'{os_:.2f}'} |"
+            )
+        lines.append("")
+    return lines
+
+
+
 def _layers_section_html(layers: Mapping) -> str:
     """Per-layer attribution section of the HTML bundle.
 
@@ -529,6 +811,9 @@ def render_session_html(
     max_runs_per_region: int = 64,
     faults: Optional[Sequence[Mapping]] = None,
     layers: Optional[Mapping] = None,
+    tuning: Optional[Sequence[Mapping]] = None,
+    check: Optional[Mapping] = None,
+    lint: Optional[Sequence[Mapping]] = None,
 ) -> str:
     """Self-contained HTML gallery for one profiled iteration.
 
@@ -536,7 +821,9 @@ def render_session_html(
     to at most ``max_runs_per_region`` runs), the detected patterns with
     their evidence lines, the advisor's actions, the measured kernel
     launch where the profile made one, and at the top a summary table
-    plus the device-memory traffic chart.  ``faults`` (an artifact-v6
+    plus the device-memory traffic chart.  ``tuning``, ``check`` and
+    ``lint`` add their sections (see :func:`write_report_bundle`).
+    ``faults`` (an artifact-v6
     recovered-fault block) adds the fault-recovery table, and ``layers``
     (a whole-model profile's per-layer attribution) the per-layer table.  The output
     embeds no external resources — one file opens anywhere.
@@ -577,6 +864,12 @@ def render_session_html(
         parts.append(_layers_section_html(layers))
     if faults:
         parts.append(_faults_section_html(faults))
+    if check:
+        parts.append(_check_section_html(check))
+    if lint:
+        parts.append(_lint_section_html(lint))
+    if tuning:
+        parts.append(_tuning_section_html(tuning))
     for i, e in enumerate(entries):
         hm = e.heatmap
         parts.append(
@@ -630,11 +923,51 @@ def render_session_html(
     return "".join(parts)
 
 
+def _tuning_section_markdown(trajectories: Sequence[Mapping]) -> List[str]:
+    """Markdown lines of the tuning-trajectory section (one table/family)."""
+    lines: List[str] = []
+    for t in trajectories:
+        base_tx = (t.get("baseline") or {}).get("transactions", 0)
+        best = t.get("best") or {}
+        lines += [
+            "",
+            f"## tuning trajectory — {t.get('kernel')}",
+            "",
+            f"baseline {base_tx} transfers → best "
+            f"`{best.get('label', '?')}` {best.get('transactions', base_tx)} "
+            f"transfers ({float(t.get('speedup', 1.0)):.2f}x modeled)",
+            "",
+            "| step | candidate | spawned by | transfers | verdict | kept | measured |",
+            "|---:|---|---|---:|---|---|---|",
+        ]
+        for s in t.get("steps", ()):
+            cand = s.get("candidate") or {}
+            action = cand.get("action") or {}
+            spawner = (
+                f"{action.get('kind', '?')}({action.get('region', '?')}) "
+                f"← {action.get('pattern', '?')}"
+                if action
+                else "—"
+            )
+            lines.append(
+                f"| {s.get('step')} | `{cand.get('label', '?')}` "
+                f"| {spawner} | {s.get('transactions')} "
+                f"| {s.get('verdict', '')} "
+                f"| {'accepted' if s.get('accepted') else 'rejected'} "
+                f"| {run_text(s.get('run')) or '—'} |"
+            )
+    return lines
+
+
+
 def render_session_markdown(
     entries: Sequence[ReportEntry],
     title: str = "cuthermo report",
     faults: Optional[Sequence[Mapping]] = None,
     layers: Optional[Mapping] = None,
+    tuning: Optional[Sequence[Mapping]] = None,
+    check: Optional[Mapping] = None,
+    lint: Optional[Sequence[Mapping]] = None,
 ) -> str:
     """Markdown digest of one iteration (the commit-message artifact)."""
     lines = [f"# {title}", ""]
@@ -690,6 +1023,12 @@ def render_session_markdown(
         lines += _layers_section_markdown(layers)
     if faults:
         lines += _faults_section_markdown(faults)
+    if check:
+        lines += _check_section_markdown(check)
+    if lint:
+        lines += _lint_section_markdown(lint)
+    if tuning:
+        lines += _tuning_section_markdown(tuning)
     lines.append("")
     return "\n".join(lines)
 
@@ -700,26 +1039,43 @@ def write_report_bundle(
     title: str = "cuthermo report",
     faults: Optional[Sequence[Mapping]] = None,
     layers: Optional[Mapping] = None,
+    tuning: Optional[Sequence[Mapping]] = None,
+    check: Optional[Mapping] = None,
+    lint: Optional[Sequence[Mapping]] = None,
 ) -> Dict[str, str]:
     """Write a whole-iteration report bundle into ``out_dir``.
 
     Produces ``index.html`` (self-contained gallery), ``report.md``
     (markdown digest) and one ``<kernel>.csv`` per entry (the exact
     Fig. 5 CSV artifact).  ``faults`` (an artifact-v6 recovered-fault
-    block, one dict per ``FaultEvent``) adds the fault-recovery table, and
+    block, one dict per ``FaultEvent``) adds the fault-recovery table,
     ``layers`` (a whole-model profile's per-layer attribution) the
-    per-layer table.
+    per-layer table, ``tuning`` (trajectory dicts from
+    ``TuneResult.as_dict()`` or ``tuner.trajectories_from_session``) the
+    tuning-trajectory section, ``check`` (a ``cuthermo check`` report
+    document) the regression gate's verdict, and ``lint`` (per-kernel
+    predicted-vs-observed dicts) the static-lint cross-tab.
     Returns a name->path mapping of everything written.
     """
     os.makedirs(out_dir, exist_ok=True)
     written: Dict[str, str] = {}
     index = os.path.join(out_dir, "index.html")
     with open(index, "w") as f:
-        f.write(render_session_html(entries, title=title, faults=faults, layers=layers))
+        f.write(
+            render_session_html(
+                entries, title=title, faults=faults, layers=layers,
+                tuning=tuning, check=check, lint=lint,
+            )
+        )
     written["index.html"] = index
     md = os.path.join(out_dir, "report.md")
     with open(md, "w") as f:
-        f.write(render_session_markdown(entries, title=title, faults=faults, layers=layers))
+        f.write(
+            render_session_markdown(
+                entries, title=title, faults=faults, layers=layers,
+                tuning=tuning, check=check, lint=lint,
+            )
+        )
     written["report.md"] = md
     seen: Dict[str, int] = {}
     for e in entries:

@@ -46,6 +46,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from .advisor import Action, advise
+from .cache import CacheKeyError, CollectionCache, spec_content_hash
 from .collector import KernelSpec, analyze
 from .diff import HeatmapDiff, diff as diff_heatmaps
 from .heatmap import Heatmap, RegionHeatmap
@@ -201,6 +202,12 @@ class ProfiledKernel:
     # the profile's measured launch of the kernel itself, when it made
     # one: {"device": name, "launches": n, "ms": median ms per launch}
     run: Optional[Mapping] = None
+    # collection-cache provenance: True when the heat map came from a
+    # CollectionCache hit instead of a fresh grid walk; ``cache_key`` is
+    # the spec's content hash ("" when profiled without a cache or the
+    # spec was uncacheable).  The run above is never cached.
+    cached: bool = False
+    cache_key: str = ""
 
     @property
     def shards(self) -> Tuple[ShardInfo, ...]:
@@ -232,16 +239,38 @@ def profile_kernel(
     variant: Optional[str] = None,
     region_map: Sequence[Tuple[str, str]] = (),
     run: Optional[Mapping] = None,
+    cache: Optional[CollectionCache] = None,
 ) -> ProfiledKernel:
     """Profile one spec into a ProfiledKernel (the single assembly point).
 
     Runs collect+analyze under the given sampler (full-grid by default),
     derives patterns and actions, and stamps the wall time.  ``run`` is
     the caller's measured launch of the kernel, stored verbatim.
+
+    ``cache`` (a :class:`~repro_torch.core.cache.CollectionCache`) makes
+    the collection content-addressed: a hit skips the grid walk and
+    returns the stored heat map (bit-identical to a fresh walk), a miss
+    walks and stores.  Only the heat map is cached: ``run`` is the
+    caller's, measured on every profile.  Specs whose callables cannot be
+    content-hashed profile uncached.
     """
     sampler = sampler or GridSampler(None)
     t0 = time.perf_counter()
-    hm = analyze(spec, sampler=sampler, dynamic_context=dynamic_context)
+    key = ""
+    hm = None
+    if cache is not None:
+        try:
+            key = spec_content_hash(spec, sampler, dynamic_context)
+        except CacheKeyError:
+            cache.note_uncacheable()
+        else:
+            hm = cache.get(key)
+    cached = hm is not None
+    if hm is None:
+        hm = analyze(spec, sampler=sampler, dynamic_context=dynamic_context)
+        # a truncated trace depends on the record cap, not only the spec
+        if cache is not None and key and hm.dropped == 0:
+            cache.put(key, hm)
     return ProfiledKernel(
         name=name or spec.name,
         variant=variant or spec.name,
@@ -251,6 +280,8 @@ def profile_kernel(
         wall_s=time.perf_counter() - t0,
         region_map=tuple(region_map),
         run=None if run is None else dict(run),
+        cached=cached,
+        cache_key=key,
     )
 
 
@@ -344,11 +375,96 @@ class SessionDiff:
 
 
 # ---------------------------------------------------------------------------
+# manifest-level history (the anomaly-band substrate)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HistoryPoint:
+    """One kernel's manifest-level metrics in one session iteration.
+
+    Built from ``manifest.json`` alone (no arrays are loaded), so history
+    queries over long sessions stay cheap.  ``scratch_words`` is ``None``
+    for artifacts written before format v4; consumers skip the metric
+    rather than assume zero.  ``tuning_role`` / ``tuning_accepted`` carry
+    the iteration's tuner provenance, so ``cuthermo check --anomaly`` can
+    leave out candidates the tuner already rejected.
+    """
+
+    iteration: str
+    label: str
+    created: float
+    kernel: str
+    variant: str
+    transactions: int
+    waste_ratio: float
+    patterns: Tuple[Tuple[str, str], ...]  # (region, pattern), sorted
+    scratch_words: Optional[int] = None
+    tuning_role: Optional[str] = None  # 'baseline' | 'candidate' | None
+    tuning_accepted: Optional[bool] = None
+
+    @property
+    def n_patterns(self) -> int:
+        """Count of detected inefficiency patterns at this point."""
+        return len(self.patterns)
+
+
+def _history_points_from_manifest(
+    manifest: Mapping, iteration: str
+) -> List[HistoryPoint]:
+    """One HistoryPoint per kernel entry of a loaded manifest."""
+    tuning = manifest.get("tuning") or {}
+    if not isinstance(tuning, dict):
+        raise SessionError(f"{iteration}: malformed manifest ('tuning' is not an object)")
+    points: List[HistoryPoint] = []
+    for entry in _manifest_kernels(manifest, iteration):
+        try:
+            patterns = tuple(
+                sorted(
+                    (str(p.get("region", "")), str(p.get("pattern", "")))
+                    for p in entry.get("patterns", [])
+                )
+            )
+            scratch = entry.get("scratch_words")
+            points.append(
+                HistoryPoint(
+                    iteration=iteration,
+                    label=str(manifest.get("label", iteration)),
+                    created=float(manifest.get("created", 0.0)),
+                    kernel=str(entry["name"]),
+                    variant=str(entry.get("variant", "")),
+                    transactions=int(entry.get("transactions", 0)),
+                    waste_ratio=float(entry.get("waste_ratio", 1.0)),
+                    patterns=patterns,
+                    scratch_words=None if scratch is None else int(scratch),
+                    tuning_role=tuning.get("role"),
+                    tuning_accepted=tuning.get("accepted"),
+                )
+            )
+        except (KeyError, TypeError, ValueError, AttributeError) as e:
+            raise SessionError(
+                f"{iteration}: malformed kernel entry in manifest ({e!r})"
+            ) from e
+    return points
+
+
+# ---------------------------------------------------------------------------
 # on-disk writers / readers
 # ---------------------------------------------------------------------------
 
 
+def _manifest_kernels(manifest: Mapping, where: object) -> List:
+    """The manifest's kernel entries, or SessionError when they are not a
+    list (a malformed manifest is a load error, never a traceback)."""
+    entries = manifest.get("kernels", [])
+    if not isinstance(entries, list):
+        raise SessionError(f"{where}: malformed manifest ('kernels' is not a list)")
+    return entries
+
+
 def _check_version(manifest: Mapping, path: Path) -> int:
+    if not isinstance(manifest, dict):
+        raise SessionError(f"{path}: malformed manifest (not a JSON object)")
     version = manifest.get("version")
     if version not in SUPPORTED_VERSIONS:
         supported = ", ".join(str(v) for v in SUPPORTED_VERSIONS)
@@ -444,6 +560,7 @@ def write_iteration(
     kernels: Sequence[ProfiledKernel],
     label: Optional[str] = None,
     note: str = "",
+    tuning: Optional[Mapping] = None,
     *,
     layers: Optional[Mapping] = None,
 ) -> Path:
@@ -455,8 +572,11 @@ def write_iteration(
     ``layers`` is whole-model profiling's per-layer attribution; its table
     is validated as an exact partition of ``kernels``
     (:func:`_validate_layers`) and stored under the manifest's ``layers``
-    key, as the JAX package stores it.  The manifest is committed last, so
-    a reader never finds a manifest whose arrays are missing.
+    key, as the JAX package stores it.  ``tuning`` is the tuner's
+    provenance for this iteration (which step, which candidate, which
+    action spawned it), stored verbatim under the manifest's ``tuning``
+    key.  The manifest is committed last, so a reader never finds a
+    manifest whose arrays are missing.
     """
     path = Path(path)
     if layers is not None:
@@ -510,6 +630,8 @@ def write_iteration(
     }
     if fault_block:
         manifest["faults"] = fault_block
+    if tuning is not None:
+        manifest["tuning"] = dict(tuning)
     if layers is not None:
         manifest["layers"] = dict(layers)
     _commit_json(path / "manifest.json", manifest)
@@ -536,6 +658,8 @@ def load_iteration(path: Union[str, Path]) -> Iteration:
             manifest = json.load(f)
     except (OSError, json.JSONDecodeError) as e:
         raise SessionError(f"{mpath}: unreadable manifest ({e})") from e
+    if not isinstance(manifest, dict):
+        raise SessionError(f"{mpath}: malformed manifest (not a JSON object)")
     if manifest.get("format") not in (None, ITERATION_FORMAT):
         raise SessionError(
             f"{mpath}: format {manifest.get('format')!r} is not "
@@ -543,7 +667,7 @@ def load_iteration(path: Union[str, Path]) -> Iteration:
         )
     version = _check_version(manifest, mpath)
     kernels: List[ProfiledKernel] = []
-    for entry in manifest.get("kernels", []):
+    for entry in _manifest_kernels(manifest, mpath):
         try:
             npz_path = path / entry["npz"]
         except (KeyError, TypeError) as e:
@@ -663,13 +787,27 @@ _ITER_RE = re.compile(r"^iter(\d+)$")
 class ProfileSession:
     """A directory of numbered tuning iterations (the paper's Fig. 2 loop).
 
-    Iterations are append-only: each ``add_iteration`` call
-    creates the next ``iterN`` directory.  Everything is reloadable by
-    any later process (and by the CLI) from the directory alone.
+    Iterations are append-only: each ``add_iteration`` (or ``tune``
+    step) creates the next ``iterN`` directory.  Everything is reloadable
+    by any later process (and by the CLI) from the directory alone.
     """
 
-    def __init__(self, root: Union[str, Path], create: bool = True):
-        """Open (and by default create) the session at ``root``."""
+    def __init__(
+        self,
+        root: Union[str, Path],
+        create: bool = True,
+        cache: Union[None, str, Path, CollectionCache] = None,
+    ):
+        """Open (and by default create) the session at ``root``.
+
+        ``cache`` backs every profile with a content-addressed
+        :class:`~repro_torch.core.cache.CollectionCache`: an existing
+        cache, or a directory path for an on-disk one.
+        """
+        if cache is None or isinstance(cache, CollectionCache):
+            self.cache = cache
+        else:
+            self.cache = CollectionCache(cache)
         self.root = Path(root)
         spath = self.root / "session.json"
         if spath.is_file():
@@ -730,12 +868,14 @@ class ProfileSession:
         kernels: Sequence[ProfiledKernel],
         label: Optional[str] = None,
         note: str = "",
+        tuning: Optional[Mapping] = None,
         *,
         layers: Optional[Mapping] = None,
     ) -> Iteration:
         """Persist already-profiled kernels as the next ``iterN`` directory.
 
-        ``layers`` is the per-layer attribution of a whole-model profile
+        ``tuning`` is stored as the iteration's tuner provenance and
+        ``layers`` as the per-layer attribution of a whole-model profile
         (validated; see :func:`write_iteration`).  The directory is claimed
         with an *exclusive* mkdir, so two processes profiling into the same
         session race to distinct ``iterN`` numbers instead of overwriting
@@ -754,12 +894,32 @@ class ProfileSession:
                 n += 1  # another writer claimed it; take the next slot
         path = write_iteration(
             self.root / name, kernels, label=label or name, note=note,
-            layers=layers,
+            tuning=tuning, layers=layers,
         )
         if name not in existing:
             existing.append(name)
         self._write_session_manifest(existing)
         return load_iteration(path)
+
+    def tune(self, kernel: str, budget: Optional[int] = None, **kwargs):
+        """Close the tuning loop for one kernel family into this session.
+
+        A front end over :func:`repro_torch.core.tuner.tune`: the baseline
+        and every candidate profile are persisted as iterations of this
+        session, each manifest carrying the tuning provenance, and the
+        session's cache serves repeated walks.  ``budget`` defaults to
+        :data:`repro_torch.core.tuner.DEFAULT_BUDGET`; ``kwargs`` are
+        ``tune``'s (``device``, ``seed``, ``target_patterns``, ...).
+        """
+        from .tuner import DEFAULT_BUDGET, tune as _tune
+
+        return _tune(
+            kernel,
+            budget=DEFAULT_BUDGET if budget is None else budget,
+            session=self,
+            cache=self.cache,
+            **kwargs,
+        )
 
     def iterations(self) -> List[Iteration]:
         """Load every iteration of this session, in creation order."""
@@ -782,6 +942,37 @@ class ProfileSession:
             )
         return load_iteration(self.root / which)
 
+    def history(
+        self, include_rejected: bool = True
+    ) -> Dict[str, List[HistoryPoint]]:
+        """Per-kernel metric history across every iteration, in order.
+
+        Reads only the iteration manifests (no arrays).  Returns manifest
+        kernel name -> :class:`HistoryPoint` list in iteration order.
+        ``include_rejected=False`` drops iterations the tuner profiled and
+        rejected, which would otherwise pollute a rolling anomaly band.
+        """
+        out: Dict[str, List[HistoryPoint]] = {}
+        for name in self.iteration_names():
+            mpath = self.root / name / "manifest.json"
+            try:
+                with open(mpath) as f:
+                    manifest = json.load(f)
+            except (OSError, json.JSONDecodeError) as e:
+                raise SessionError(f"{mpath}: unreadable manifest ({e})") from e
+            _check_version(manifest, mpath)
+            for pt in _history_points_from_manifest(manifest, name):
+                if not include_rejected and pt.tuning_accepted is False:
+                    continue
+                out.setdefault(pt.kernel, []).append(pt)
+        return out
+
+    def kernel_history(
+        self, kernel: str, include_rejected: bool = True
+    ) -> List[HistoryPoint]:
+        """One kernel's :meth:`history` row (empty when never profiled)."""
+        return self.history(include_rejected=include_rejected).get(kernel, [])
+
     def diff(
         self,
         before: Union[int, str, Iteration],
@@ -800,6 +991,7 @@ __all__ = [
     "ARTIFACT_VERSION",
     "SUPPORTED_VERSIONS",
     "TPU_ARTIFACT_VERSION",
+    "HistoryPoint",
     "Iteration",
     "KernelVerdict",
     "ProfileSession",

@@ -837,3 +837,54 @@ def test_cuda_paged_decode_bf16_split_kernels_run_on_the_tensor_cores(card):
     tc = {fn: c for fn, c in counts.items() if "paged_split_tc_kernel" in fn}
     assert len(tc) == 4 and all(c > 0 for c in tc.values()), counts
     assert all(c == 0 for fn, c in counts.items() if fn not in tc), counts
+
+
+@pytest.mark.gpu
+def test_cuda_tune_gemm_launches_each_rung_and_a_warm_cache_measures_again(card):
+    """``tune gemm`` launches the baseline's and each ladder rung's kernel
+    on the card, checked against the plain version, and stores the run; a
+    warm re-tune walks nothing and launches them all again."""
+    from repro_torch.core.cache import CollectionCache
+    from repro_torch.core.session import heatmaps_equal
+    from repro_torch.core.tuner import tune
+
+    cache = CollectionCache()
+    kreg.reset_launch_counts()
+    cold = tune("gemm", budget=3, seed=0, cache=cache)
+    rungs = (cold.baseline, *(s.profiled for s in cold.steps))
+    assert [pk.variant for pk in rungs] == ["v00", "ladder:v01", "ladder:v02"]
+    name = torch.cuda.get_device_name(card)
+    for pk in rungs:
+        assert pk.run["device"] == name and pk.run["ms"] > 0
+        assert pk.run["launches"] >= 21 and pk.run["max_abs_err"] <= 1e-3
+    assert all(fn.launches >= 21 for fn in gemm.KERNELS.values())
+    misses = cache.stats.misses
+    warm = tune("gemm", budget=3, seed=0, cache=cache)
+    assert cache.stats.misses == misses
+    for a, b in zip(rungs, (warm.baseline, *(s.profiled for s in warm.steps))):
+        assert b.cached and heatmaps_equal(a.heatmap, b.heatmap)
+        assert b.run["device"] == name and b.run["launches"] >= 21 and b.run["ms"] > 0
+    assert all(fn.launches >= 42 for fn in gemm.KERNELS.values())
+
+
+@pytest.mark.gpu
+def test_cuda_tune_stores_no_run_on_a_generated_candidate(card):
+    from repro_torch.core.tuner import tune
+
+    res = tune("ragged_flash", budget=4, seed=0)
+    runs = [(s.candidate.source, s.candidate.label, s.profiled.run) for s in res.steps]
+    assert res.baseline.run["ms"] > 0
+    for source, label, run in runs:
+        if source == "generated" or label == "ladder:prefill-ragged":
+            assert run is None, label
+        else:
+            assert run["launches"] >= 21 and run["ms"] > 0, label
+    assert any(source == "generated" for source, _, _ in runs)
+
+
+@pytest.mark.gpu
+def test_cuda_pin_budget_is_the_cards_shared_memory_per_block(card):
+    from repro_torch.core.tuner import pin_budget_bytes
+
+    props = torch.cuda.get_device_properties(card)
+    assert pin_budget_bytes("h100-sector") == props.shared_memory_per_block_optin

@@ -87,3 +87,36 @@ def heat_of_warps(per_warp, shape, itemsize):
     wt = np.zeros((tags.size, wps), np.int64)
     wt[np.searchsorted(tags, wk // wps), wk % wps] = wcount
     return tags, wt, scount, len(per_warp)
+
+
+def port_sampler(sampler):
+    """The port's GridSampler equal to a ``repro`` one."""
+    from repro_torch.core.trace import GridSampler
+
+    return GridSampler(sampler.target, window=sampler.window)
+
+
+def reference_rungs(name):
+    """The JAX package's registry family ``name`` as a port RegistryEntry:
+    every rung's spec rebuilt by ``to_port_spec`` under the TPU tile, no
+    kernel.  The tuner's rung source for holding it to the reference."""
+    from repro import kernels as rk
+    from repro_torch import kernels as pk
+
+    entry = rk.get(name)
+    return pk.RegistryEntry(
+        name=entry.name,
+        summary=entry.summary,
+        variants=tuple(
+            pk.KernelVariant(
+                v.name,
+                lambda v=v: to_port_spec(v.spec()),
+                context=v.context,
+                role=v.role,
+                note=v.note,
+            )
+            for v in entry.variants
+        ),
+        sampler=lambda: port_sampler(entry.sampler()),
+        region_map=tuple(entry.region_map),
+    )
