@@ -114,16 +114,44 @@ Phases:
    1e-3 of the plain version, the bundle has a "tuning trajectory"
    section, every GEMM kernel launched); the same again on the warm cache
    (no fresh grid walk, heat maps bit-identical to the cold run's, the runs
-   measured and checked again); ``tune --all`` serially over gemm, spmv,
+   measured and checked again); ``tune --all`` (no workers) over gemm, spmv,
    histogram, gramschm, ttm, ragged_flash and paged_attn (one line per
-   family: transfers before -> after, the accepted moves); ``profile -k
+   family: transfers before -> after, the accepted moves); each tune
+   command's run of a rung may be slower than phase 3's run of that rung
+   alone by no more than 10 % and 0.1 ms; ``profile -k
    gemm:v01`` then ``-k gemm`` into one session, ``check iter1 --baseline
    iter0 --json -`` (exit exactly 1, ``"schema_version": 1``) and ``check
    SESSION --anomaly``; ``lint --all`` and ``kernels --lint`` (exit 0).
    The cold and warm ``tune gemm`` wall times (in process: the host's
    turnaround of the command) are printed beside the card's name and
    power limit.
-5. Print one JSON line describing every kernel, each with the card's name
+5. Sharded collection and fault tolerance on the card's host, through the
+   CLI entry point, every launch count set to 0 just before each command
+   and read just after, with W = min(4, os.cpu_count()) workers: ``profile
+   -k gemm:v00`` at the registry's 1024^3 float32, serially and with
+   ``--workers W``, into one session (``diff`` prints ``unchanged``, the
+   heat maps are bit-identical, the walk times and the shard count are
+   printed), then the same walk split in process into the serial walk and
+   flush, a fresh pool's start, the walk on the started pool and the
+   parent's flush, with the grid size from which W workers would pay;
+   ``profile -k gemm:v01 --sampler full`` serially, with
+   ``--workers 2``, and with ``--workers 2 --inject-faults seed=7`` (exit
+   0, ``recovered faults:`` names pool-rebuild, shard-resplit,
+   shard-timeout and worker-crash, the heat map equals the serial one, the
+   manifest has its ``faults`` block; the recovery's overhead against the
+   clean sharded walk is printed); ``tune gemm --budget 3 --workers W`` on
+   a fresh cache (its trajectory equals phase 4's step for step, its cold
+   turnaround is printed beside phase 4's serial one, and each rung's time
+   is held to phase 3's as in phase 4); and phase 3's
+   full-width Jamba-v0.1-52B ``model`` run with ``--workers 2``, preempted
+   by a SIGTERM the process sends itself after the first kernel (exit 3,
+   journal kept), then ``--resume`` with the same flags (exit 0, journal
+   removed, heat maps bit-identical to phase 3's).  Every pool the CLI
+   closes is probed first: no worker may hold a CUDA context, have loaded
+   a kernel library or launched a kernel, and no library under ``build/``
+   may be rebuilt.  Each number is printed beside the card's name and
+   power limit and the host's core count.
+6. Print one JSON line describing every kernel, each with the card's name
    and power limit under ``config``, then the result line.
 
 The kernels redesigned for the card as a whole (GRAMSCHM opt, the ragged
@@ -144,6 +172,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -152,6 +181,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+# host turnarounds phase 4 measures and phase 5 sets its sharded ones beside
+TURNAROUND = {}
+# (family, rung) -> ms of phase 3's run of that rung, profiled alone: no
+# tune command's run of the same rung may be slower by more than ALONE_TOL
+ALONE_MS = {}
+# a tune run may be slower than the rung alone by this share, plus
+# ALONE_SLACK_MS: the event window of a ~0.05 ms call holds the host's
+# dispatch, which moved by up to 0.045 ms either way between two runs of
+# one rung with nothing else running; a run timed while other threads walk
+# in Python reads 0.4-3.5 ms slow
+ALONE_TOL, ALONE_SLACK_MS = 0.10, 0.10
 
 SHAPE = (1024, 1024, 1024)  # (m, n, k): the registry's gemm shape
 # gemm v02's timing shape: Jamba-v0.1-52B's MLP up-projection at batch 1,
@@ -1185,10 +1226,22 @@ def drive_serving_step(dev):
     return counts
 
 
+def jamba_argv(out: Path):
+    """The full-width model run: Jamba-v0.1-52B's widths and layout on
+    moe-tiny at one hybrid period (8 of 32 layers)."""
+    from repro_torch.configs.archs import jamba_52b
+
+    cfg = jamba_52b()
+    overrides = [f"{key}={getattr(cfg, key)}" for key in JAMBA_FIELDS]
+    argv = ["model", "moe-tiny", "--out", str(out), "--sampler", "window:8:2"]
+    for item in (*overrides, "n_layers=8", "name=jamba-v0.1-52b-cut8"):
+        argv += ["-c", item]
+    return argv
+
+
 def drive_model_path(cli, kreg, load_iteration):
     """Phase 3 for the model path: {kernel name: launches of the full-width
     run}, or a failure message."""
-    from repro_torch.configs.archs import jamba_52b
     from repro_torch.kernels import flash, gemm, gmm, ssd
 
     counted = {"flash_attention": flash.flash_attention, "gmm": gmm.gmm,
@@ -1218,12 +1271,7 @@ def drive_model_path(cli, kreg, load_iteration):
     # the full-width run: Jamba-v0.1-52B at one hybrid period; the launches
     # do not depend on the sampler, which keeps the host walk to one corner
     # of each grid
-    cfg = jamba_52b()
-    overrides = [f"{key}={getattr(cfg, key)}" for key in JAMBA_FIELDS]
-    argv = ["model", "moe-tiny", "--out", str(root / "jamba"), "--sampler", "window:8:2"]
-    for item in (*overrides, "n_layers=8", "name=jamba-v0.1-52b-cut8"):
-        argv += ["-c", item]
-    launches, msg = run_counted(argv, tuple(counted))
+    launches, msg = run_counted(jamba_argv(root / "jamba"), tuple(counted))
     if msg:
         return msg
     it = load_iteration(root / "jamba" / "iter0")
@@ -1271,6 +1319,20 @@ def drive_model_path(cli, kreg, load_iteration):
         ("flash_attention", "gmm", "ssd_chunk"),
     )
     return msg or launches
+
+
+def against_alone(label, name, rung, run):
+    """None when a tune command's run of ``name:rung`` is no slower than
+    phase 3's run of that rung alone (by more than ALONE_TOL and
+    ALONE_SLACK_MS), else a failure message: a rung timed while other work
+    held the host would read slow."""
+    alone = ALONE_MS.get((name, rung))
+    if alone is None:
+        return f"{label} {name}:{rung}: phase 3 has no time of the rung alone"
+    if run["ms"] - alone > ALONE_TOL * alone + ALONE_SLACK_MS:
+        return (f"{label} {name}:{rung}: {run['ms']:.4f} ms, but {alone:.4f} ms "
+                f"alone in phase 3")
+    return None
 
 
 def drive_tuning_loop(cli, kreg, smi):
@@ -1337,7 +1399,11 @@ def drive_tuning_loop(cli, kreg, smi):
             tol = variant.atol
             if run["launches"] < 1 or (not callable(tol) and run["max_abs_err"] > tol):
                 return f"{label} {it.path.name}: run {run} outside {tol}"
-            print(f"{label} {it.path.name} {pk.name}:{variant.name}: {run_text(run)}")
+            msg = against_alone(label, pk.name, variant.name, run)
+            if msg:
+                return msg
+            print(f"{label} {it.path.name} {pk.name}:{variant.name}: {run_text(run)} "
+                  f"(alone in phase 3: {ALONE_MS[(pk.name, variant.name)]:.4f} ms)")
         return its
 
     # -- tune gemm, cold then warm ------------------------------------------------
@@ -1372,8 +1438,9 @@ def drive_tuning_loop(cli, kreg, smi):
             return "tune gemm (warm): heat maps differ from the cold run's"
     print(f"tune gemm wall time (in process, host turnaround): cold {walls['cold']:.2f} s, "
           f"warm {walls['warm']:.2f} s, on {smi}")
+    TURNAROUND.update(tune_gemm_cold=walls["cold"], tune_gemm_session=root / "gemm-cold")
 
-    # -- tune --all, serially --------------------------------------------------------
+    # -- tune --all, no workers --------------------------------------------------------
     families = ["gemm", "spmv", "histogram", "gramschm", "ttm", "ragged_flash", "paged_attn"]
     sess = root / "all"
     out, wall, msg = counted(["tune", *families, "--all", "--budget", "24", "--cache", cache,
@@ -1412,15 +1479,269 @@ def drive_tuning_loop(cli, kreg, smi):
     return launches
 
 
-def run_cli(cli, argv):
-    """Run one CLI command in process; returns (exit code, its stdout)."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+def run_cli(cli, argv, with_err=False):
+    """Run one CLI command in process; returns (exit code, its stdout), and
+    its stderr too with ``with_err``."""
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.ExitStack() as stack:
+        if with_err:
+            stack.enter_context(contextlib.redirect_stderr(err))
         rc = cli.main(argv)
     out = buf.getvalue()
     print(f"$ cuthermo {' '.join(argv)}  -> exit {rc}")
     print(out.rstrip())
+    if with_err:
+        print(err.getvalue().rstrip())
+        return rc, out, err.getvalue()
     return rc, out
+
+
+def sigterm_after(n, fn):
+    """``fn`` that sends this process SIGTERM after its n-th call: a
+    deterministic preemption, raised in process (the tests' hook)."""
+    import signal
+
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == n:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    return wrapped
+
+
+def shard_split(kreg, workers, on):
+    """Where a sharded walk of gemm:v00 (the registry's 1024^3, its sampler)
+    goes on this host, on the host's clock: the serial walk and its flush;
+    a fresh pool's start (spawn, and the registry import, torch's among
+    it), the walk on the started pool and the parent's flush of its
+    chunks; and a fresh interpreter's import of the collector, then of
+    torch.  The walk and flush grow with the grid and the start does not,
+    so W workers pay from ``break_even`` times this walk's grid points.
+    Prints the numbers and returns them."""
+    from repro_torch.core.collector import ShardedCollector, collect
+    from repro_torch.core.heatmap import Analyzer
+    from repro_torch.core.trace import sampled_grid_size
+
+    entry, _ = kreg.resolve("gemm:v00")
+    spec, ctx = kreg.build("gemm:v00")
+    sampler = entry.sampler()
+
+    def flush_s(bufs):
+        t0 = time.perf_counter()
+        an = Analyzer(spec.name, spec.grid, sampler.describe())
+        for buf in bufs:
+            an.ingest(buf)
+        an.flush()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    buf, _ = collect(spec, sampler, ctx)
+    row = dict(points=sampled_grid_size(spec.grid, sampler), workers=workers,
+               serial_walk_s=time.perf_counter() - t0, serial_flush_s=flush_s([buf]))
+    with ShardedCollector(workers) as sc:
+        row["pool_start_s"] = sc.warmup()
+        t0 = time.perf_counter()
+        bufs, infos = sc.collect(spec, sampler, ctx)
+        row["walk_s"] = time.perf_counter() - t0
+        row["slowest_shard_s"] = max(i.wall_s for i in infos)
+    row["flush_s"] = flush_s(bufs)
+    code = ("import time; t0 = time.perf_counter(); import repro_torch.core.collector; "
+            "t1 = time.perf_counter(); import torch; "
+            "print(t1 - t0, time.perf_counter() - t1)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    row["import_collector_s"], row["import_torch_s"] = map(float, out.stdout.split())
+    gain = row["serial_walk_s"] + row["serial_flush_s"] - row["walk_s"] - row["flush_s"]
+    row["break_even"] = row["pool_start_s"] / gain if gain > 0 else None
+    pays = (f"{row['break_even']:.1f}x this grid ({row['break_even'] * row['points']:.0f} "
+            "points)" if gain > 0 else "never: the sharded walk and flush are no faster")
+    print(f"gemm:v00 walk split ({row['points']} grid points): serial walk "
+          f"{row['serial_walk_s']:.3f} s + flush {row['serial_flush_s']:.3f} s; {workers} "
+          f"workers: pool start {row['pool_start_s']:.3f} s, walk {row['walk_s']:.3f} s "
+          f"(slowest shard {row['slowest_shard_s']:.3f} s), flush {row['flush_s']:.3f} s; "
+          f"fresh import: collector {row['import_collector_s']:.2f} s, then torch "
+          f"{row['import_torch_s']:.2f} s; {workers} workers pay from {pays}, {on}")
+    return row
+
+
+def drive_scale_out(cli, kreg, smi, load_iteration):
+    """Phase 5: sharded collection, fault recovery and resume on the card's
+    host; {kernel name: launches made by the phase's commands}, or a
+    failure message."""
+    from repro_torch.core import model_profile
+    from repro_torch.core.collector import ShardedCollector
+    from repro_torch.core.session import ProfileSession, heatmaps_equal
+    from repro_torch.core.tuner import trajectories_from_session
+    from repro_torch.kernels import (
+        _build, flash, gemm, gmm, gramschm, histogram, paged_attn, ragged_flash, spmv, ssd, ttm,
+    )
+
+    cores = os.cpu_count() or 1
+    workers = min(4, cores)
+    on = f"on {smi}, host {cores} cores"
+    print(f"scale-out: W = {workers} workers, {on}")
+    wrappers = {
+        fn.__name__: fn
+        for module in (gemm, spmv, histogram, gramschm, ttm, flash, gmm, ssd,
+                       ragged_flash, paged_attn)
+        for fn in module.KERNELS.values()
+    }
+    launches = {name: 0 for name in wrappers}
+    root = ROOT / "build" / "chip_smoke_session" / "scale"
+    shutil.rmtree(root, ignore_errors=True)
+    libs = {p: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")}
+
+    # probe every pool the CLI closes: its workers walked, nothing more
+    states = []
+    close = ShardedCollector.close
+
+    def probing_close(self):
+        if self._pool is not None:
+            states.extend(self.worker_states())
+        close(self)
+
+    def counted(argv, want_rc=0):
+        kreg.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(cli, argv, with_err=True)
+        wall = time.perf_counter() - t0
+        made = {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+        print(f"launches: {made}")
+        for name, count in made.items():
+            launches[name] += count
+        if rc != want_rc:
+            return None, None, None, f"{' '.join(argv[:3])} exited {rc}, not {want_rc}"
+        return out, err, wall, None
+
+    def walk_s(sess, i):
+        pk = load_iteration(sess / f"iter{i}").kernels[0]
+        return pk, pk.wall_s
+
+    ShardedCollector.close = probing_close
+    try:
+        # -- gemm v00 at 1024^3: serial, then W workers, into one session ---------
+        sess = root / "gemm-v00"
+        _, _, _, msg = counted(["profile", "-k", "gemm:v00", "--out", str(sess), "-q"])
+        if msg:
+            return msg
+        out, _, wall, msg = counted(["profile", "-k", "gemm:v00", "--workers", str(workers),
+                                     "--out", str(sess)])
+        if msg:
+            return msg
+        if f"collected in {workers} shards" not in out:
+            return f"profile --workers {workers} did not collect in {workers} shards"
+        (serial, t_serial), (sharded, t_sharded) = walk_s(sess, 0), walk_s(sess, 1)
+        if not heatmaps_equal(serial.heatmap, sharded.heatmap) or len(sharded.shards) != workers:
+            return "gemm:v00: the sharded heat map differs from the serial one"
+        rc, diff_out = run_cli(cli, ["diff", str(sess / "iter0"), str(sess / "iter1")])
+        if rc != 0 or "[unchanged] gemm" not in diff_out:
+            return "diff of the serial and sharded gemm:v00 is not 'unchanged'"
+        print(f"gemm:v00 1024^3 walk: serial {t_serial:.3f} s, {len(sharded.shards)} shards on "
+              f"{workers} workers {t_sharded:.3f} s (pool start included; the command "
+              f"{wall:.2f} s), {on}")
+        shard_split(kreg, workers, on)
+
+        # -- gemm v01 full grid: serial, clean sharded, injected faults -----------
+        sess = root / "faults"
+        base = ["profile", "-k", "gemm:v01", "--sampler", "full", "--out", str(sess), "-q"]
+        for extra in ([], ["--workers", "2"], ["--workers", "2", "--inject-faults", "seed=7"]):
+            _, err, _, msg = counted(base + extra)
+            if msg:
+                return msg
+        # a healthy shard slower than the plan's 1.5 s watchdog is re-run
+        # too, so the counts may grow; the four kinds must all be there
+        kinds = ("pool-rebuild", "shard-resplit", "shard-timeout", "worker-crash")
+        line = next((l for l in err.splitlines() if l.startswith("recovered faults:")), "")
+        if not all(f"{kind} x" in line for kind in kinds):
+            return f"the injected run reported {line!r}, not all of {kinds}"
+        (serial, t_serial), (clean, t_clean), (faulty, t_faulty) = (
+            walk_s(sess, i) for i in range(3)
+        )
+        if not (heatmaps_equal(serial.heatmap, clean.heatmap)
+                and heatmaps_equal(serial.heatmap, faulty.heatmap)):
+            return "gemm:v01: a sharded heat map differs from the serial one"
+        manifest = json.loads((sess / "iter2" / "manifest.json").read_text())
+        if {f["kind"] for f in manifest.get("faults", ())} != set(kinds):
+            return "the injected run's manifest lacks its faults block"
+        print(f"gemm:v01 1024^3 walk: serial {t_serial:.3f} s, 2 workers {t_clean:.3f} s, "
+              f"2 workers with seed=7 faults {t_faulty:.3f} s (fault_recovery overhead "
+              f"{100 * (t_faulty - t_clean) / t_clean:.1f} %), {on}")
+
+        # -- tune gemm with W workers on a fresh cache ------------------------------
+        sess = root / "tune-gemm"
+        out, _, wall, msg = counted(["tune", "gemm", "--budget", "3", "--workers", str(workers),
+                                     "--cache", str(root / "cache"), "--out", str(sess)])
+        if msg:
+            return msg
+
+        def steps(path):
+            (traj,) = trajectories_from_session(ProfileSession(path, create=False))
+            return (traj["baseline"]["transactions"], traj["best"]["transactions"],
+                    [(s["candidate"]["label"], s["accepted"]) for s in traj["steps"]])
+
+        for it in ProfileSession(sess, create=False).iterations():
+            pk = it.kernels[0]
+            if pk.run is not None:
+                cand = (it.tuning or {}).get("candidate") or {}
+                msg = against_alone(f"tune gemm --workers {workers}", pk.name,
+                                    cand.get("variant") or pk.variant, pk.run)
+                if msg:
+                    return msg
+        got, want = steps(sess), steps(TURNAROUND["tune_gemm_session"])
+        if got != want or got[:2] != (168820736, 3276800):
+            return f"tune gemm --workers {workers}: trajectory {got}, phase 4's {want}"
+        print(f"tune gemm trajectory {got}: equal to phase 4's")
+        print(f"tune gemm cold turnaround: serial {TURNAROUND['tune_gemm_cold']:.2f} s (phase 4), "
+              f"{workers} workers {wall:.2f} s, {on}")
+
+        # -- the full-width model run, preempted then resumed -----------------------
+        out_dir = root / "jamba"
+        argv = jamba_argv(out_dir) + ["--workers", "2"]
+        profile = model_profile.profile_kernel
+        model_profile.profile_kernel = sigterm_after(1, profile)
+        try:
+            _, err, _, msg = counted(argv, want_rc=3)
+        finally:
+            model_profile.profile_kernel = profile
+        if msg:
+            return msg
+        journal = out_dir / model_profile.MODEL_JOURNAL
+        if not journal.is_file() or "preempted after 1/" not in err:
+            return "the preempted model run left no journal"
+        partial = load_iteration(out_dir / json.loads(journal.read_text())["partial"])
+        _, _, _, msg = counted(argv + ["--resume"])
+        if msg:
+            return msg
+        if journal.exists():
+            return "model --resume left its journal"
+        got = load_iteration(out_dir / "iter1")
+        want = load_iteration(ROOT / "build" / "chip_smoke_session" / "model" / "jamba" / "iter0")
+        if got.layers != want.layers or [pk.name for pk in got.kernels] != [
+            pk.name for pk in want.kernels
+        ] or not all(heatmaps_equal(a.heatmap, b.heatmap) for a, b in zip(got.kernels, want.kernels)):
+            return "the resumed model run's heat maps differ from phase 3's"
+        if got.kernels[0].run != partial.kernels[0].run:
+            return "the resumed model run dropped the run measured before the preemption"
+        print(f"model (Jamba-v0.1-52B, 8 layers, 2 workers): preempted after "
+              f"{len(partial.kernels)} kernel, resumed to {len(got.kernels)} kernels, "
+              f"heat maps equal to phase 3's")
+    finally:
+        ShardedCollector.close = close
+
+    bad = [s for s in states if s["cuda_initialized"] or s["libraries"] or s["launches"]]
+    print(f"pool workers probed: {len(states)}, with a CUDA context, a library or a launch: {bad}")
+    if not states or bad:
+        return f"pool workers touched the card: {bad or 'none probed'}"
+    if {p: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")} != libs:
+        return "a kernel library was rebuilt during the sharded runs"
+    for name in ("gemm_v00", "gemm_v01", "gemm_v02", "flash_attention", "gmm", "ssd_chunk"):
+        if launches[name] < 1:
+            return f"the scale-out phase did not launch {name}"
+    return launches
 
 
 def main() -> int:
@@ -1597,6 +1918,8 @@ def main() -> int:
         for i, (kref, _, _) in enumerate(members):
             pk = load_iteration(sess / f"iter{i}").kernels[0]
             classes = sorted(f"{r.pattern}@{r.region}" for r in pk.reports)
+            if pk.run:
+                ALONE_MS[(pk.name, pk.variant)] = pk.run["ms"]
             measured = (
                 f"measured {pk.run['ms']:.4f} ms on {pk.run['device']}"
                 if pk.run else "spec only"
@@ -1641,7 +1964,12 @@ def main() -> int:
     if isinstance(tune_launches, str):
         return fail(tune_launches)
 
-    # -- phase 5: the record --------------------------------------------------
+    # -- phase 5: sharded collection, fault recovery, resume --------------------
+    scale_launches = drive_scale_out(cli, kreg, smi, load_iteration)
+    if isinstance(scale_launches, str):
+        return fail(scale_launches)
+
+    # -- phase 6: the record --------------------------------------------------
     kernels = []
     for v in gemm.KERNELS:
         row = rows[(v, "float32")]
@@ -1687,6 +2015,7 @@ def main() -> int:
     for row in kernels:
         row["config"] = dict(row.get("config", {}), card=smi)
         row["tune_launches"] = tune_launches.get(row["name"], 0)
+        row["scale_out_launches"] = scale_launches.get(row["name"], 0)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(

@@ -31,11 +31,17 @@ Subcommands:
 ``profile``, ``model`` and ``tune`` take ``--cache DIR``, a
 content-addressed store of heat maps: an unchanged walk is served from
 it bit-identically.  The kernel's run on the card is measured every time.
+They also take ``--workers N`` (the walks shard over N spawn worker
+processes; heat maps stay bit-identical) and ``--inject-faults SPEC``
+(deterministic worker crashes and hangs the walk recovers from); ``model``
+and ``tune --all`` take ``--resume`` after a SIGTERM/SIGINT.
 
 Exit codes: 0 success, 1 a gate failed (``diff --fail-on-regression``,
 ``model --max-transfers``, ``check``, ``lint`` findings, or a kernel that
-disagrees with its plain version), 2 usage or load error.  There is no
-fallback: ``--device cuda`` without a card is exit 2.
+fails to build, launch or agree with its plain version), 2 usage or load
+error, 3 preempted (``model``, ``tune --all``: the journal is kept, finish
+with ``--resume``).  There is no fallback: ``--device cuda`` without a
+card is exit 2, and fault recovery covers the walk, never a kernel.
 """
 
 from __future__ import annotations
@@ -132,7 +138,7 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     _add_device(pr)
     _add_cache(pr)
-    _add_deferred(pr, resume=False)
+    _add_scale_out(pr, resume=None)
     pr.add_argument("--label", default=None, help="iteration label")
     pr.add_argument("--note", default="", help="free-form iteration note")
     pr.add_argument(
@@ -250,7 +256,12 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     _add_device(mo)
     _add_cache(mo)
-    _add_deferred(mo, resume=True)
+    _add_scale_out(
+        mo,
+        resume="resume a preempted run from the session's model journal: "
+        "kernels the preempted run flushed (and their runs on the card) "
+        "are reused verbatim, only the rest is profiled",
+    )
     mo.set_defaults(func=_cmd_model)
 
     ck = sub.add_parser(
@@ -349,8 +360,8 @@ def _build_parser() -> argparse.ArgumentParser:
         "--all",
         action="store_true",
         help="tune the listed families (or the whole registry when none "
-        "are listed) under ONE global --budget, serially; deterministic "
-        "per --seed",
+        "are listed) under ONE global --budget, their walks concurrent; "
+        "deterministic per --seed",
     )
     tn.add_argument(
         "--budget",
@@ -412,7 +423,12 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     _add_device(tn)
     _add_cache(tn)
-    _add_deferred(tn, resume=True)
+    _add_scale_out(
+        tn,
+        resume="(with --all) resume a preempted run: replay the journaled "
+        "arguments deterministically; completed walks come back "
+        "bit-identical from the cache when one is given",
+    )
     tn.set_defaults(func=_cmd_tune)
     return p
 
@@ -445,39 +461,61 @@ def _add_cache(parser: argparse.ArgumentParser) -> None:
     )
 
 
-#: Flags of the JAX package's CLI that need sharded collection and fault
-#: tolerance, which the port does not have yet (ROADMAP queue 1 item 4).
-_DEFERRED = ("--workers", "--inject-faults", "--resume")
-
-
-def _add_deferred(parser: argparse.ArgumentParser, resume: bool) -> None:
-    """Accept the deferred flags only to refuse them by name (exit 2)."""
+def _add_scale_out(
+    parser: argparse.ArgumentParser, resume: Optional[str]
+) -> None:
+    """``--workers`` and ``--inject-faults``, and ``--resume`` (with its
+    help text) where the command keeps a journal."""
     parser.add_argument(
-        "--workers", "-w", default=None, metavar="N",
-        help="not ported yet (sharded collection: ROADMAP queue 1 item 4)",
+        "--workers",
+        "-w",
+        type=int,
+        default=1,
+        metavar="N",
+        help="shard the walks across N spawn worker processes (default: 1, "
+        "serial); heat maps are bit-identical for traces within the "
+        "record cap, artifacts gain per-shard provenance.  Kernels still "
+        "run in this process",
     )
     parser.add_argument(
-        "--inject-faults", default=None, metavar="SPEC",
-        help="not ported yet (fault injection: ROADMAP queue 1 item 4)",
+        "--inject-faults",
+        default=None,
+        metavar="SPEC",
+        help="deterministically inject worker crashes and hangs into the "
+        "sharded walk (e.g. 'seed=7' or 'seed=7,timeouts=0'); recovery is "
+        "recorded as FaultEvent provenance and the heat maps stay "
+        "bit-identical to a clean run",
     )
-    if resume:
-        parser.add_argument(
-            "--resume", action="store_true",
-            help="not ported yet (journaled resume: ROADMAP queue 1 item 4)",
-        )
+    if resume is not None:
+        parser.add_argument("--resume", action="store_true", help=resume)
 
 
-def _deferred(args: argparse.Namespace) -> Optional[int]:
-    """Exit 2, naming the work that brings it, for a deferred flag given."""
-    for flag in _DEFERRED:
-        value = getattr(args, flag[2:].replace("-", "_"), None)
-        if value not in (None, False):
-            return _error(
-                f"{flag} is not ported yet: sharded collection, fault "
-                "injection and journaled resume come with ROADMAP queue 1 "
-                "item 4 (scale-out and fault tolerance)"
-            )
-    return None
+def _parse_fault_plan(spec: Optional[str]):
+    """Parse a ``--inject-faults`` value into a FaultPlan (None = off)."""
+    if spec is None:
+        return None
+    from repro_torch.core.faultinject import FaultInjectError, FaultPlan
+
+    try:
+        plan = FaultPlan.parse(spec)
+    except FaultInjectError as e:
+        _error(e)
+        raise SystemExit(2)
+    print(f"fault injection armed: {plan.describe()}", file=sys.stderr)
+    return plan
+
+
+def _print_fault_summary(faults) -> None:
+    """One stderr line summarizing an iteration's recovery provenance."""
+    if not faults:
+        return
+    from repro_torch.core.resilience import FaultEvent, summarize_faults
+
+    events = tuple(
+        FaultEvent.from_dict({k: v for k, v in f.items() if k != "kernel"})
+        for f in faults
+    )
+    print(f"recovered faults: {summarize_faults(events)}", file=sys.stderr)
 
 
 def _cache_stats_line(cache) -> str:
@@ -616,10 +654,8 @@ def _cmd_profile(args: argparse.Namespace) -> int:
         refs += [n for n in kreg.names() if n not in refs]
     if not refs:
         return _error("nothing to profile (pass --kernel NAME[:VARIANT] or --all)")
-    rc = _deferred(args)
-    if rc is not None:
-        return rc
     override = _parse_sampler(args.sampler)
+    plan = _parse_fault_plan(args.inject_faults)
     try:
         resolved = [kreg.resolve(ref) for ref in refs]
     except KeyError as e:
@@ -638,45 +674,64 @@ def _cmd_profile(args: argparse.Namespace) -> int:
     # one invocation profiles several variants of the same family
     families = [entry.name for entry, _ in uniq]
     try:
-        sess = ProfileSession(args.out, cache=args.cache)
+        sess = ProfileSession(args.out, cache=args.cache, fault_plan=plan)
     except SessionError as e:
         return _error(e)
     profiled = []
-    for entry, variant in uniq:
-        ref = f"{entry.name}:{variant.name}"
-        run = None
-        if variant.kernel is not None:
-            try:
-                run = kreg.run_variant(variant, args.device)
-            except kreg.KernelMismatch as e:
-                print(f"cuthermo: {ref}: {e}", file=sys.stderr)
-                return 1
-        spec, ctx = kreg.build(ref)
-        pk = profile_kernel(
-            spec,
-            override or entry.sampler(),
-            ctx,
-            name=entry.name if families.count(entry.name) == 1 else ref,
-            variant=variant.name,
-            region_map=entry.region_map,
-            run=run,
-            cache=sess.cache,
-        )
-        profiled.append(pk)
-        if not args.quiet:
-            print(f"# {ref}")
-            if pk.cached:
-                print("(heat map served from the collection cache)")
-            print(format_report(pk.heatmap))
-            if run is not None:
-                print(run_text(run))
-            print()
     try:
-        it = sess.add_iteration(profiled, label=args.label, note=args.note)
-    except SessionError as e:
-        return _error(e)
+        # one warm pool shared by every kernel of this invocation, owned
+        # (and closed) by the session
+        collector = sess.collector(max(1, args.workers))
+        for entry, variant in uniq:
+            ref = f"{entry.name}:{variant.name}"
+            run = None
+            if variant.kernel is not None:
+                try:
+                    run = kreg.run_variant(variant, args.device)
+                except kreg.KernelMismatch as e:
+                    print(f"cuthermo: {ref}: {e}", file=sys.stderr)
+                    return 1
+            # built through the registry, so the spec is source-stamped:
+            # that ref is what shard workers rebuild it from
+            spec, ctx = kreg.build(ref)
+            pk = profile_kernel(
+                spec,
+                override or entry.sampler(),
+                ctx,
+                name=entry.name if families.count(entry.name) == 1 else ref,
+                variant=variant.name,
+                region_map=entry.region_map,
+                run=run,
+                collector=collector,
+                cache=sess.cache,
+            )
+            profiled.append(pk)
+            if not args.quiet:
+                print(f"# {ref}")
+                if pk.cached:
+                    print("(heat map served from the collection cache)")
+                if pk.shards:
+                    print(
+                        f"(collected in {len(pk.shards)} shards: "
+                        + ", ".join(
+                            f"#{s.shard} {s.records} records"
+                            for s in pk.shards
+                        )
+                        + ")"
+                    )
+                print(format_report(pk.heatmap))
+                if run is not None:
+                    print(run_text(run))
+                print()
+        try:
+            it = sess.add_iteration(profiled, label=args.label, note=args.note)
+        except SessionError as e:
+            return _error(e)
+    finally:
+        sess.close()
     if sess.cache is not None:
         print(_cache_stats_line(sess.cache))
+    _print_fault_summary(it.faults)
     print(f"wrote {it.path} ({len(profiled)} kernels)")
     return 0
 
@@ -810,8 +865,11 @@ def _cmd_model(args: argparse.Namespace) -> int:
     """Handler for ``cuthermo model``: 0 profiled (and under budget), 1 the
     ``--max-transfers`` budget is blown or a kernel disagrees with its
     plain version, 2 usage or load error (no NAME, unknown model, bad
-    ``--config`` override, no card for ``--device cuda``)."""
+    ``--config`` override, invalid ``--resume``, no card for ``--device
+    cuda``), 3 preempted: a SIGTERM/SIGINT flushed a partial iteration and
+    left a journal; re-run with ``--resume`` and the same flags."""
     import os
+    import signal
 
     from repro_torch import kernels as kreg
     from repro_torch.core.cache import CollectionCache
@@ -819,6 +877,7 @@ def _cmd_model(args: argparse.Namespace) -> int:
     from repro_torch.core.render import ReportEntry, run_text, write_report_bundle
     from repro_torch.core.session import SessionError
     from repro_torch.models.registry import MODELS
+    from repro_torch.runtime.fault import Preempted, PreemptionHandler
 
     if args.list:
         for name, entry in MODELS.items():
@@ -830,13 +889,14 @@ def _cmd_model(args: argparse.Namespace) -> int:
         return 0
     if not args.name:
         return _error("model: pass a model NAME (or --list)")
-    rc = _deferred(args)
-    if rc is not None:
-        return rc
     sampler = _parse_sampler(args.sampler)
+    plan = _parse_fault_plan(args.inject_faults)
     if _no_card(args):
         return _error("no CUDA device: pass --device cpu to run the plain versions")
     cache = CollectionCache(args.cache) if args.cache else None
+    # SIGTERM/SIGINT flip a flag; profile_model sees it at the next kernel
+    # boundary, flushes a partial iteration and raises Preempted
+    handler = PreemptionHandler().register((signal.SIGTERM, signal.SIGINT))
     try:
         it = profile_model(
             args.name,
@@ -848,12 +908,21 @@ def _cmd_model(args: argparse.Namespace) -> int:
             note=args.note,
             device=args.device,
             cache=cache,
+            workers=max(1, args.workers),
+            fault_plan=plan,
+            preemption=handler,
+            resume=args.resume,
         )
+    except Preempted as e:
+        print(f"cuthermo: {e}", file=sys.stderr)
+        return 3
     except kreg.KernelMismatch as e:
         print(f"cuthermo: {e}", file=sys.stderr)
         return 1
     except (KeyError, ValueError, SessionError) as e:
         return _error(e.args[0] if e.args else e)
+    finally:
+        handler.unregister()
     total = iteration_transactions(it)
     layers = it.layers or {}
     if not args.quiet:
@@ -881,10 +950,12 @@ def _cmd_model(args: argparse.Namespace) -> int:
             os.path.join(str(it.path), "report"),
             title=f"cuthermo model report — {it.label}",
             layers=layers or None,
+            faults=list(it.faults) or None,
         )
         print(f"wrote {written['index.html']}")
     if cache is not None:
         print(_cache_stats_line(cache))
+    _print_fault_summary(it.faults)
     print(f"wrote {it.path} ({len(it.kernels)} kernels, {total} transfers)")
     if args.max_transfers is not None and total > args.max_transfers:
         print(
@@ -975,44 +1046,102 @@ def _cmd_check(args: argparse.Namespace) -> int:
 
 
 def _cmd_tune(args: argparse.Namespace) -> int:
-    """Handler for ``cuthermo tune``: 0 tuned, 1 a rung's kernel disagrees
-    with its plain version, 2 usage or load error (nothing to tune,
-    unknown family, a deferred flag, no card for ``--device cuda``)."""
+    """Handler for ``cuthermo tune``: 0 tuned, 1 a rung's kernel fails to
+    build, launch or agree with its plain version, 2 usage or load error
+    (nothing to tune, unknown family, ``--resume`` without ``--all`` or
+    without a journal, no card for ``--device cuda``), 3 preempted: with
+    ``--all``, a SIGTERM/SIGINT stopped the scheduler at a round boundary
+    (committed iterations are durable, the run journal stays); ``tune
+    --all --resume`` replays the journaled run deterministically."""
+    import json
     import os
+    import signal
 
     from repro_torch import kernels as kreg
     from repro_torch.core.render import ReportEntry, write_report_bundle
     from repro_torch.core.session import ProfileSession, SessionError
     from repro_torch.core.tuner import DEFAULT_BUDGET, TuneError, tune_all
+    from repro_torch.runtime.fault import Preempted, PreemptionHandler
 
     if not args.kernel and not args.all:
         return _error("tune: nothing to do (pass NAME[:VARIANT] families or --all)")
-    rc = _deferred(args)
-    if rc is not None:
-        return rc
+    if args.resume and not args.all:
+        return _error(
+            "tune: --resume requires --all (single-family tune has no run "
+            "journal)"
+        )
+    plan = _parse_fault_plan(args.inject_faults)
     if _no_card(args):
         return _error("no CUDA device: pass --device cpu to run the plain versions")
     try:
-        sess = ProfileSession(args.out, cache=args.cache)
+        sess = ProfileSession(args.out, cache=args.cache, fault_plan=plan)
     except SessionError as e:
         return _error(e)
     progress = None if args.quiet else (lambda msg: print(f"  {msg}"))
     budget = DEFAULT_BUDGET if args.budget is None else max(0, args.budget)
-    options = dict(
-        target_patterns=args.target_pattern or None,
-        seed=args.seed,
-        use_generated=not args.no_generated,
-        static_prescreen=not args.no_prescreen,
-        progress=progress,
-        device=args.device,
-    )
+    workers = max(1, args.workers)
     results = []
     try:
         if args.all:
-            res_all = tune_all(
-                args.kernel or None, budget=budget, session=sess,
-                cache=sess.cache, **options,
+            run = {
+                "format": "cuthermo-tune-journal",
+                "version": 1,
+                "kernels": list(args.kernel),
+                "budget": budget,
+                "seed": args.seed,
+                "target_patterns": list(args.target_pattern),
+                "use_generated": not args.no_generated,
+                "static_prescreen": not args.no_prescreen,
+            }
+            jpath = sess.root / "tune.journal.json"
+            if args.resume:
+                # resume by replay: the journal's arguments, not the
+                # command line's, define the run; re-executing them is
+                # deterministic (seeded tie-breaks, ordered commitment)
+                try:
+                    run = json.loads(jpath.read_text())
+                except (OSError, json.JSONDecodeError) as e:
+                    return _error(f"nothing to resume ({jpath}: {e})")
+                if run.get("format") != "cuthermo-tune-journal":
+                    return _error(f"{jpath} is not a tune journal")
+                print(
+                    f"resuming journaled tune --all (seed {run['seed']}, "
+                    f"budget {run['budget']})",
+                    file=sys.stderr,
+                )
+            else:
+                tmp = jpath.with_name(jpath.name + ".tmp")
+                tmp.write_text(json.dumps(run, indent=2) + "\n")
+                os.replace(tmp, jpath)
+            handler = PreemptionHandler().register(
+                (signal.SIGTERM, signal.SIGINT)
             )
+            try:
+                res_all = tune_all(
+                    run["kernels"] or None,
+                    budget=int(run["budget"]),
+                    target_patterns=run["target_patterns"] or None,
+                    seed=int(run["seed"]),
+                    use_generated=bool(run["use_generated"]),
+                    static_prescreen=bool(run["static_prescreen"]),
+                    session=sess,
+                    collector=sess.collector(workers),
+                    cache=sess.cache,
+                    progress=progress,
+                    device=args.device,
+                    preemption=handler,
+                )
+            except Preempted as e:
+                print(f"cuthermo: {e}", file=sys.stderr)
+                print(
+                    "cuthermo: run journal kept; finish with "
+                    "`tune --all --resume`",
+                    file=sys.stderr,
+                )
+                return 3
+            finally:
+                handler.unregister()
+            jpath.unlink(missing_ok=True)
             results = list(res_all.results)
             print(res_all.summary())
             print()
@@ -1020,7 +1149,17 @@ def _cmd_tune(args: argparse.Namespace) -> int:
             for ref in args.kernel:
                 if not args.quiet:
                     print(f"# tuning {ref}")
-                res = sess.tune(ref, budget=budget, **options)
+                res = sess.tune(
+                    ref,
+                    budget=budget,
+                    workers=workers,
+                    target_patterns=args.target_pattern or None,
+                    seed=args.seed,
+                    use_generated=not args.no_generated,
+                    static_prescreen=not args.no_prescreen,
+                    progress=progress,
+                    device=args.device,
+                )
                 results.append(res)
                 print(res.summary())
                 print()
@@ -1029,14 +1168,22 @@ def _cmd_tune(args: argparse.Namespace) -> int:
         return 1
     except (TuneError, SessionError) as e:
         return _error(e)
+    finally:
+        sess.close()
     if sess.cache is not None:
         print(_cache_stats_line(sess.cache))
+    faults = [
+        dict(e.as_dict(), kernel=r.kernel)
+        for r in results
+        for e in r.faults
+    ]
     if args.report:
         written = write_report_bundle(
             [ReportEntry.from_profiled(r.best) for r in results],
             os.path.join(args.out, "report"),
             title="cuthermo tune report",
             tuning=[r.as_dict() for r in results],
+            faults=faults or None,
         )
         print(f"wrote {written['index.html']}")
     improved = sum(1 for r in results if r.improved)

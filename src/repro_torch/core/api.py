@@ -21,7 +21,7 @@ from .heatmap import Heatmap
 from .patterns import PatternReport, detect_all, patterns_by_region
 from .render import render_ascii, render_csv, render_html, save
 from .session import Iteration, ProfileSession, SessionDiff, SessionError
-from .trace import GridSampler
+from .trace import GridSampler, KernelWhitelist
 
 
 def heatmap(
@@ -71,6 +71,7 @@ __all__ = [
     "Heatmap",
     "Iteration",
     "KernelSpec",
+    "KernelWhitelist",
     "PatternReport",
     "ProfileSession",
     "SessionDiff",

@@ -23,25 +23,47 @@ Each operand carries its geometry (``geometry_kind``): ``"h100-sector"``
 Level 2.  For data-dependent addressing, ``drain_dynamic`` converts a
 concrete (programs x slots) index trace into records via bulk
 ``divmod`` / ``np.unique``.
+
+Sharded collection.  Heat maps are a merge monoid (distinct-visitor
+counts are set unions, see :mod:`repro_torch.core.heatmap`), so the
+sampled grid can be partitioned into contiguous program runs, walked by
+independent workers and merged exactly.  ``ShardedCollector`` runs the
+shards on a spawn process pool: a worker rebuilds the spec from its
+``KernelSpec.source`` (a registry ``name:variant`` ref or a builder
+triple; the spec itself holds index-map lambdas and cannot cross a
+process boundary), walks its ``sampled[lo:hi]`` slice under each
+operand's own geometry into a shard-stamped ``TraceBuffer``, and ships
+the columnar chunks back.  The parent re-keys the worker-local
+disjointness tokens and flushes ONE Analyzer over the union of chunks,
+bit-identical to the serial walk.  Workers only walk: they import the
+kernel registry to rebuild specs, but never touch the card, so a pool
+started after the parent made its CUDA context (spawn, never fork) is
+safe.  Recovery from crashed or hung workers is governed by a
+:class:`~repro_torch.core.resilience.ResiliencePolicy`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, ClassVar, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .heatmap import Analyzer, Heatmap
+from .resilience import DEFAULT_POLICY, FaultEvent, ResiliencePolicy
 from .tiles import Geometry, block_to_2d, make_geometry
 from .trace import (
     GridSampler,
     RegionInfo,
+    ShardInfo,
     SiteInfo,
     TraceBuffer,
     linearize_array,
     sampled_grid_array,
+    sampled_grid_size,
+    sampled_grid_slice,
     unique_pairs,
 )
 
@@ -64,6 +86,15 @@ _MAP_EVAL_ERRORS = (
     ZeroDivisionError,
     FloatingPointError,
 )
+
+
+class ShardError(RuntimeError):
+    """A shard worker failed; the message carries shard + spec context.
+
+    Raised in the worker, so it crosses the process boundary as a
+    picklable exception.  Rebuild guard violations (a stale source) keep
+    their own types: they are usage errors, not transient faults.
+    """
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,9 +163,11 @@ class KernelSpec:
     # optional dynamic access models keyed by operand or scratch name:
     # fn(program_id, **context_arrays) -> iterable of flat element indices
     dynamic: Tuple[Tuple[str, Callable[..., Iterable[int]]], ...] = ()
-    # where the spec came from: a registry ref ("name:variant") or a
-    # ("module:function", args, kwargs) builder triple (whole-model
-    # profiling stamps its kernels); provenance only, never walked
+    # how to rebuild this spec in another process: a registry ref
+    # ("gemm:v01", which also rebuilds the seeded dynamic context) or a
+    # ("module:function", args, kwargs) builder triple (see
+    # ``sourced_spec``).  A ShardedCollector worker rebuilds from it;
+    # specs without one are sharded in process.
     source: Optional[object] = None
 
 
@@ -311,10 +344,21 @@ def collect(
     sampler: Optional[GridSampler] = None,
     dynamic_context: Optional[Dict[str, np.ndarray]] = None,
     max_records: int = 2_000_000,
+    *,
+    pids: Optional[np.ndarray] = None,
+    owns_once: bool = True,
+    shard_id: Optional[int] = None,
 ) -> Tuple[TraceBuffer, CollectStats]:
-    """Level-1 collection: walk the sampled grid and record every access."""
+    """Level-1 collection: walk the sampled grid and record every access.
+
+    ``pids`` overrides the walked program set (a ``(P, ndim)`` slice of
+    ``sampled_grid_array``: how a shard walks only its partition);
+    ``owns_once`` says whether this walk owns ``once=True`` operands
+    (exactly one shard, the one holding the first sampled program, must
+    emit them); ``shard_id`` stamps every emitted chunk.
+    """
     sampler = sampler or GridSampler()
-    buf = TraceBuffer(max_records=max_records)
+    buf = TraceBuffer(max_records=max_records, shard_id=shard_id)
     stats = CollectStats()
     t0 = time.perf_counter()
 
@@ -326,7 +370,10 @@ def collect(
         )
     dyn_fns = dict(kernel.dynamic)
 
-    pids = sampled_grid_array(kernel.grid, sampler)
+    if pids is None:
+        pids = sampled_grid_array(kernel.grid, sampler)
+    else:
+        pids = np.asarray(pids, dtype=np.int64)
     n_programs = int(pids.shape[0])
     stats.programs = n_programs
     if n_programs == 0:
@@ -337,6 +384,8 @@ def collect(
     for op in kernel.operands:
         if op.name in dyn_fns:
             continue  # handled below with concrete indices
+        if op.once and not owns_once:
+            continue  # another shard owns the single-program operand
         site = SiteInfo(op.name, f"{kernel.name}/{op.name}", op.space, op.kind)
         group = TraceBuffer.new_group()
         geom = op.geometry
@@ -435,6 +484,746 @@ def analyze(
     an = Analyzer(kernel.name, kernel.grid, sampler.describe())
     an.ingest(buf)
     return an.flush()
+
+
+# ---------------------------------------------------------------------------
+# sharded collection: partition the sampled grid, collect on a process pool,
+# merge exactly (the heat-map algebra makes the merge a set union)
+# ---------------------------------------------------------------------------
+
+
+def split_budget(total: int, shards: int) -> List[int]:
+    """Split a global record budget into near-equal per-shard budgets.
+
+    Sums exactly to ``total``, so a sharded collection admits at most as
+    many records as the serial cap.  When the cap bites, the records
+    admitted differ from serial, so bit-identity holds for traces within
+    the cap (``ShardedCollector.analyze`` warns when a shard dropped).
+    """
+    shards = max(1, int(shards))
+    base, extra = divmod(int(total), shards)
+    return [base + (1 if i < extra else 0) for i in range(shards)]
+
+
+def shard_bounds(total: int, shards: int) -> List[Tuple[int, int]]:
+    """Contiguous, near-equal [lo, hi) partitions of ``total`` programs.
+
+    Never returns empty shards: the count is clipped to ``total`` (a
+    3-program grid sharded 8 ways is 3 shards of one program).  ``total
+    == 0`` yields one empty shard, so bookkeeping still sees a shard.
+    """
+    shards = max(1, min(int(shards), max(total, 1)))
+    edges = np.linspace(0, total, shards + 1).astype(np.int64)
+    return [(int(edges[i]), int(edges[i + 1])) for i in range(shards)]
+
+
+def collect_shard(
+    kernel: KernelSpec,
+    sampler: GridSampler,
+    dynamic_context: Optional[Dict[str, np.ndarray]],
+    lo: int,
+    hi: int,
+    shard: int,
+    max_records: int = 2_000_000,
+) -> Tuple[TraceBuffer, ShardInfo]:
+    """Collect one contiguous sampled-grid shard ``sampled[lo:hi]``.
+
+    A pure function of its arguments: the unit both the in-process path
+    and the pool workers execute.  The shard holding the first sampled
+    program (``lo == 0``) owns ``once=True`` operands.  Each operand is
+    walked under its own ``geometry_kind``.
+    """
+    t0 = time.perf_counter()
+    pids = sampled_grid_slice(kernel.grid, sampler, lo, hi)
+    buf, _ = collect(
+        kernel,
+        sampler,
+        dynamic_context,
+        max_records,
+        pids=pids,
+        owns_once=(lo == 0),
+        shard_id=shard,
+    )
+    # pack one-chunk-per-key runs before the buffer crosses a process
+    # boundary: per-chunk pickle and flush costs would dominate otherwise
+    buf.consolidate()
+    info = ShardInfo(
+        shard=shard,
+        lo=int(lo),
+        hi=int(hi),
+        programs=int(pids.shape[0]),
+        records=len(buf),
+        dropped=buf.dropped,
+        wall_s=time.perf_counter() - t0,
+    )
+    return buf, info
+
+
+def _warm_worker(_: int) -> bool:
+    """Pool warm-up: pay the kernel-registry import once per worker.
+
+    The import brings in ``torch`` (specs of the registry's families are
+    built next to their kernels' wrappers); nothing here or in a shard
+    touches ``torch.cuda`` or builds a kernel.
+    """
+    from repro_torch import kernels  # noqa: F401  (the import is the work)
+
+    return True
+
+
+def _worker_state(_: int) -> Dict[str, int]:
+    """What this process has done to the card: whether it holds a CUDA
+    context, how many kernel libraries it loaded and how many kernels it
+    launched.  A pool worker must report zeros (:meth:`ShardedCollector.
+    worker_states`)."""
+    import os
+    import sys
+
+    time.sleep(0.05)  # let every idle worker take a probe
+    torch = sys.modules.get("torch")
+    build = sys.modules.get("repro_torch.kernels._build")
+    launches = sum(
+        fn.launches
+        for name, module in list(sys.modules.items())
+        if name.startswith("repro_torch.kernels.")
+        for fn in getattr(module, "KERNELS", {}).values()
+    )
+    return {
+        "pid": os.getpid(),
+        "cuda_initialized": int(torch is not None and torch.cuda.is_initialized()),
+        "libraries": len(build._LOADED) if build is not None else 0,
+        "launches": launches,
+    }
+
+
+def sourced_spec(fn_ref: str, *args, **kwargs) -> KernelSpec:
+    """Build a spec from a ``"module:function"`` ref and stamp its source.
+
+    The ref plus plain arguments is picklable, so the spec can be
+    collected by a ``ShardedCollector`` pool at any shape::
+
+        sourced_spec("repro_torch.kernels.gemm:gemm_v01_spec", 4096, 4096, 4096)
+    """
+    spec = _build_from_ref(fn_ref, args, kwargs)
+    return dataclasses.replace(spec, source=(fn_ref, args, kwargs))
+
+
+def _build_from_ref(fn_ref: str, args, kwargs) -> KernelSpec:
+    import importlib
+
+    mod_name, _, fn_name = fn_ref.partition(":")
+    fn = getattr(importlib.import_module(mod_name), fn_name)
+    return fn(*args, **(kwargs or {}))
+
+
+def _rebuild_spec(source) -> Tuple[KernelSpec, Optional[Dict[str, np.ndarray]]]:
+    """Worker-side spec reconstruction from either source form."""
+    if isinstance(source, str):
+        from repro_torch import kernels as kreg
+
+        return kreg.build(source)
+    fn_ref, args, kwargs = source
+    return _build_from_ref(fn_ref, args, kwargs), None
+
+
+def _spec_fingerprint(spec: KernelSpec) -> Tuple:
+    """Cheap picklable structural identity of a spec.
+
+    Guards the source round trip: a parent spec whose structure was
+    changed after stamping (shapes, blocks, operand set, geometry) must
+    be rejected, not silently replaced by the pristine rebuild.  Index-map
+    *code* cannot be fingerprinted; that one hole stays open.
+    """
+    return (
+        spec.name,
+        tuple(spec.grid),
+        tuple(
+            (op.name, tuple(op.shape), np.dtype(op.dtype).str,
+             tuple(op.block_shape), op.kind, op.space,
+             tuple(op.origin), op.once, op.geometry_kind)
+            for op in spec.operands
+        ),
+        tuple(
+            (sc.name, tuple(sc.shape), np.dtype(sc.dtype).str, sc.kind,
+             sc.access_model is None, sc.geometry_kind)
+            for sc in spec.scratch
+        ),
+        tuple(name for name, _ in spec.dynamic),
+    )
+
+
+#: Worker-process memo of rebuilt (spec, seeded context) pairs, keyed by
+#: the pickled (source, fingerprint) pair, so a warm worker collecting
+#: one kernel across tune steps rebuilds it once.  Entries are stored only
+#: after the fingerprint guard passes.
+_REBUILD_MEMO: Dict[bytes, Tuple[KernelSpec, Optional[Dict[str, np.ndarray]]]] = {}
+
+_REBUILD_MEMO_MAX = 16
+
+
+def _rebuild_spec_cached(
+    source, fingerprint: Tuple
+) -> Tuple[KernelSpec, Optional[Dict[str, np.ndarray]]]:
+    """Fingerprint-guarded :func:`_rebuild_spec` with a per-process memo."""
+    import pickle
+
+    try:
+        key = pickle.dumps((source, fingerprint))
+    except Exception:  # noqa: BLE001 — unpicklable key: just don't memoize
+        key = None
+    if key is not None:
+        hit = _REBUILD_MEMO.get(key)
+        if hit is not None:
+            return hit
+    spec, ctx = _rebuild_spec(source)
+    if _spec_fingerprint(spec) != fingerprint:
+        raise ValueError(
+            f"shard worker rebuilt {source!r} into a spec that does not "
+            "structurally match the parent's (grid, operand, scratch or "
+            "geometry layout differs); the parent spec was modified after "
+            "source stamping — collect it serially instead"
+        )
+    if key is not None:
+        if len(_REBUILD_MEMO) >= _REBUILD_MEMO_MAX:
+            _REBUILD_MEMO.pop(next(iter(_REBUILD_MEMO)))
+        _REBUILD_MEMO[key] = (spec, ctx)
+    return spec, ctx
+
+
+def _collect_shard_task(task: dict) -> Tuple[TraceBuffer, ShardInfo]:
+    """Pool entry point: rebuild the spec from its source ref, collect.
+
+    Nothing unpicklable crosses the process boundary.  The task's
+    fingerprint carries each operand's geometry kind from the parent, and
+    the rebuilt spec, walked as is, must match it: a worker never walks an
+    ``h100-sector`` operand as a TPU tile.  An explicit dynamic context
+    overrides the seeded one.  ``task['inject']`` is an optional
+    fault-injection directive run before the walk
+    (:mod:`repro_torch.core.faultinject`); walk failures are re-raised as
+    :class:`ShardError` with shard and spec context.
+    """
+    if task.get("inject"):
+        from .faultinject import apply_worker_directive
+
+        apply_worker_directive(task["inject"])
+    spec, ctx = _rebuild_spec_cached(task["source"], task["fingerprint"])
+    if task["dynamic_context"] is not None:
+        ctx = task["dynamic_context"]
+    try:
+        return collect_shard(
+            spec,
+            task["sampler"],
+            ctx,
+            task["lo"],
+            task["hi"],
+            task["shard"],
+            task["max_records"],
+        )
+    except ShardError:
+        raise
+    except Exception as e:
+        raise ShardError(
+            f"shard {task['shard']} [{task['lo']}:{task['hi']}) of "
+            f"{spec.name!r} (source {task['source']!r}): "
+            f"{type(e).__name__}: {e}"
+        ) from e
+
+
+def _unify_shard_groups(bufs: Sequence[TraceBuffer]) -> None:
+    """Re-key worker-local disjointness tokens across shard buffers.
+
+    Each worker numbers its tokens from 1, so tokens of different shards
+    collide without meaning anything.  Every chunk of one *site* gets one
+    fresh parent token across all shards: sound because the shards
+    partition the sampled grid, which keeps pids pairwise disjoint per
+    site and lets the Analyzer keep its weighted fast path.
+    """
+    tokens: Dict[SiteInfo, int] = {}
+    for buf in bufs:
+        for chunk in buf.chunks:
+            if chunk.group is None:
+                continue
+            token = tokens.get(chunk.site)
+            if token is None:
+                token = tokens[chunk.site] = TraceBuffer.new_group()
+            chunk.group = token
+
+
+class ShardedCollector:
+    """Partition a sampled grid and collect it on a process pool.
+
+    The pool is lazy and persistent: it spins up on first use (``spawn``
+    by default: the parent holds a CUDA context once a kernel has run,
+    and fork after CUDA initialization is not safe) and is reused across
+    calls until :meth:`close`.  Use as a context manager, or call
+    :meth:`close` yourself.
+
+    Specs without a ``source`` cannot cross the process boundary (their
+    index maps are lambdas); those are sharded and merged **in process**:
+    the same algebra, no parallelism.
+
+    Collection is fault tolerant under ``policy``:
+
+    * a shard that fails cleanly is resubmitted with exponential backoff,
+      up to ``policy.attempts`` deliveries;
+    * a dead worker (``BrokenProcessPool``) tears the pool down, respawns
+      it and resubmits every unfinished shard; after
+      ``policy.max_pool_failures`` consecutive broken rounds the
+      collector degrades to serial in-process collection
+      (``serial-fallback``, recorded);
+    * a shard still running ``policy.shard_timeout_s`` after its round
+      started is declared hung: its worker is killed and the shard re-runs
+      in process, re-split into ``policy.resplit`` smaller pid runs.
+
+    Every recovery is a :class:`~repro_torch.core.resilience.FaultEvent`
+    that :meth:`analyze` attaches to ``Heatmap.faults``.  Only the walk is
+    recovered: the collector never runs a kernel.  ``fault_plan`` (a
+    :class:`~repro_torch.core.faultinject.FaultPlan`) deterministically
+    injects worker crashes and hangs.
+    """
+
+    def __init__(
+        self,
+        workers: int,
+        *,
+        max_records: int = 2_000_000,
+        start_method: str = "spawn",
+        policy: Optional[ResiliencePolicy] = None,
+        fault_plan=None,
+    ):
+        self.workers = max(1, int(workers))
+        self.max_records = max_records
+        self.start_method = start_method
+        self.fault_plan = fault_plan
+        if policy is not None:
+            self.policy = policy
+        elif fault_plan is not None:
+            # injected hangs must expire in test time, not production time
+            self.policy = fault_plan.policy()
+        else:
+            self.policy = DEFAULT_POLICY
+        self._pool = None
+        # tune_all's threads share one collector: pool creation must be
+        # race-free, and fault events are per thread
+        self._pool_lock = threading.Lock()
+        self._tls = threading.local()
+
+    @property
+    def last_fault_events(self) -> Tuple[FaultEvent, ...]:
+        """Recovery events of this thread's most recent :meth:`collect`."""
+        return getattr(self._tls, "events", ())
+
+    # -- pool lifecycle -----------------------------------------------------
+    def _ensure_pool(self):
+        with self._pool_lock:
+            if self._pool is None:
+                import concurrent.futures
+                import multiprocessing
+
+                self._pool = concurrent.futures.ProcessPoolExecutor(
+                    max_workers=self.workers,
+                    mp_context=multiprocessing.get_context(self.start_method),
+                )
+            return self._pool
+
+    def _warm(self, pool) -> None:
+        """Pay worker spawn + imports BEFORE a watchdog-timed round.
+
+        The watchdog times shard execution; on a cold pool the first round
+        would also absorb process spawn and the registry import (torch's
+        among it), and a tight watchdog would declare booting workers
+        hung.  Idempotent per pool instance.
+        """
+        if getattr(pool, "_cuthermo_warm", False):
+            return
+        list(pool.map(_warm_worker, range(self.workers)))
+        pool._cuthermo_warm = True
+
+    def warmup(self) -> float:
+        """Start the pool and import the registry in every worker, outside
+        any timed section; returns the wall time in seconds."""
+        t0 = time.perf_counter()
+        self._warm(self._ensure_pool())
+        return time.perf_counter() - t0
+
+    def worker_states(self) -> List[Dict[str, int]]:
+        """Probe the pool's workers (:func:`_worker_state`), one answer per
+        worker that took a probe, by pid.  Workers only walk: each should
+        hold no CUDA context, no kernel library and no launch."""
+        pool = self._ensure_pool()
+        self._warm(pool)
+        states = pool.map(_worker_state, range(4 * self.workers))
+        return sorted({s["pid"]: s for s in states}.values(), key=lambda s: s["pid"])
+
+    def close(self) -> None:
+        """Shut the pool down (idempotent)."""
+        with self._pool_lock:
+            if self._pool is not None:
+                self._pool.shutdown()
+                self._pool = None
+
+    def _kill_pool(self) -> None:
+        """Tear the pool down the hard way (hung or broken workers).
+
+        ``shutdown`` alone would block behind a hung worker, so worker
+        processes are terminated first; the next :meth:`_ensure_pool`
+        spins a fresh pool up.
+        """
+        with self._pool_lock:
+            pool, self._pool = self._pool, None
+        if pool is None:
+            return
+        for p in list(getattr(pool, "_processes", {}).values() or []):
+            try:
+                if p.is_alive():
+                    p.terminate()
+            except (OSError, ValueError, AttributeError):
+                pass  # already dead / already closed
+        try:
+            pool.shutdown(wait=False, cancel_futures=True)
+        except (OSError, RuntimeError):
+            pass
+
+    def __enter__(self) -> "ShardedCollector":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- collection ---------------------------------------------------------
+    def collect(
+        self,
+        kernel: KernelSpec,
+        sampler: Optional[GridSampler] = None,
+        dynamic_context: Optional[Dict[str, np.ndarray]] = None,
+    ) -> Tuple[List[TraceBuffer], Tuple[ShardInfo, ...]]:
+        """Collect every shard; returns (shard buffers, shard infos).
+
+        The buffers' group tokens are already unified: ingesting them all
+        into one Analyzer flushes the exact single-pass heat map.  The
+        call's recovery events are :attr:`last_fault_events`; a shard
+        re-split by the watchdog contributes one buffer and one
+        ``ShardInfo`` per sub-run, all under its shard id.
+        """
+        sampler = sampler or GridSampler()
+        total = sampled_grid_size(kernel.grid, sampler)
+        bounds = shard_bounds(total, self.workers)
+        # the GLOBAL record cap is divided across shards
+        budgets = split_budget(self.max_records, len(bounds))
+        events: List[FaultEvent] = []
+        if kernel.source is None or len(bounds) == 1:
+            results = {
+                i: [collect_shard(
+                    kernel, sampler, dynamic_context, lo, hi, i, budgets[i]
+                )]
+                for i, (lo, hi) in enumerate(bounds)
+            }
+        else:
+            results = self._collect_resilient(
+                kernel, sampler, dynamic_context, bounds, budgets, events
+            )
+        pairs = [pair for i in sorted(results) for pair in results[i]]
+        bufs = [b for b, _ in pairs]
+        infos = tuple(i for _, i in pairs)
+        self._tls.events = tuple(events)
+        _unify_shard_groups(bufs)
+        return bufs, infos
+
+    def _collect_resilient(
+        self,
+        kernel: KernelSpec,
+        sampler: GridSampler,
+        dynamic_context: Optional[Dict[str, np.ndarray]],
+        bounds: List[Tuple[int, int]],
+        budgets: List[int],
+        events: List[FaultEvent],
+    ) -> Dict[int, List[Tuple[TraceBuffer, ShardInfo]]]:
+        """The recovery loop: submit rounds of shards until all complete.
+
+        Each round submits every unfinished shard and waits under the hang
+        watchdog.  Clean failures retry with backoff (``policy.attempts``);
+        a broken pool is rebuilt and the round repeated (up to
+        ``policy.max_pool_failures``, then serial fallback); hung shards
+        are expired and re-run in process, which always terminates.
+        """
+        import concurrent.futures
+        from concurrent.futures.process import BrokenProcessPool
+
+        policy = self.policy
+        plan = self.fault_plan
+        fingerprint = _spec_fingerprint(kernel)
+        n = len(bounds)
+
+        def task_for(i: int, attempt: int) -> dict:
+            lo, hi = bounds[i]
+            inject = (
+                plan.directive(kernel.name, n, i, attempt)
+                if plan is not None
+                else None
+            )
+            return {
+                "source": kernel.source,
+                "fingerprint": fingerprint,
+                "sampler": sampler,
+                "dynamic_context": dynamic_context,
+                "lo": lo,
+                "hi": hi,
+                "shard": i,
+                "max_records": budgets[i],
+                "inject": inject,
+            }
+
+        results: Dict[int, List[Tuple[TraceBuffer, ShardInfo]]] = {}
+        attempts = {i: 0 for i in range(n)}
+        pool_failures = 0
+        remaining = set(range(n))
+        while remaining:
+            if pool_failures >= policy.max_pool_failures:
+                # graceful degradation: no parallelism, same heat map
+                events.append(
+                    FaultEvent(
+                        kind="serial-fallback",
+                        where="collector",
+                        detail=(
+                            f"{len(remaining)} shard(s) collected serially "
+                            f"after {pool_failures} consecutive pool failures"
+                        ),
+                    )
+                )
+                for i in sorted(remaining):
+                    results[i] = self._run_shard_local(
+                        kernel, sampler, dynamic_context, bounds[i],
+                        budgets[i], i, events,
+                    )
+                remaining.clear()
+                break
+            pool = self._ensure_pool()
+            try:
+                self._warm(pool)
+            except BrokenProcessPool:
+                # a worker died while booting (injection never targets
+                # warm-up): count it against the pool-failure budget
+                pool_failures += 1
+                self._kill_pool()
+                events.append(
+                    FaultEvent(
+                        kind="worker-crash",
+                        where="collector",
+                        detail="process pool broke during warm-up",
+                    )
+                )
+                continue
+            round_start = time.monotonic()
+            futs = {}
+            for i in sorted(remaining):
+                futs[pool.submit(_collect_shard_task,
+                                 task_for(i, attempts[i]))] = i
+                attempts[i] += 1
+            done, not_done = concurrent.futures.wait(
+                futs, timeout=policy.shard_timeout_s
+            )
+            broken = False
+            retry_backoff = 0.0
+            for fut in sorted(done, key=lambda f: futs[f]):
+                i = futs[fut]
+                try:
+                    results[i] = [fut.result()]
+                    remaining.discard(i)
+                except BrokenProcessPool:
+                    # one dead worker fails every pending future: record
+                    # the crash once, rebuild below, resubmit next round
+                    if not broken:
+                        events.append(
+                            FaultEvent(
+                                kind="worker-crash",
+                                where="collector",
+                                shard=i,
+                                attempt=attempts[i] - 1,
+                                wall_s=time.monotonic() - round_start,
+                                detail="process pool broke (worker died)",
+                            )
+                        )
+                    broken = True
+                except Exception as e:
+                    if attempts[i] >= policy.attempts:
+                        raise
+                    events.append(
+                        FaultEvent(
+                            kind="shard-retry",
+                            where="collector",
+                            shard=i,
+                            attempt=attempts[i] - 1,
+                            detail=f"{type(e).__name__}: {e}"[:200],
+                        )
+                    )
+                    retry_backoff = max(
+                        retry_backoff, policy.backoff_s(attempts[i])
+                    )
+            if not_done:
+                # the hang watchdog: kill the wedged workers, re-run the
+                # hung shards in process (re-split into smaller pid runs)
+                hung = sorted(futs[f] for f in not_done)
+                for f in not_done:
+                    f.cancel()
+                self._kill_pool()
+                for i in hung:
+                    events.append(
+                        FaultEvent(
+                            kind="shard-timeout",
+                            where="collector",
+                            shard=i,
+                            attempt=attempts[i] - 1,
+                            wall_s=time.monotonic() - round_start,
+                            detail=(
+                                f"no result within "
+                                f"{policy.shard_timeout_s:.1f}s; "
+                                "worker killed, shard re-run in process"
+                            ),
+                        )
+                    )
+                    results[i] = self._run_shard_local(
+                        kernel, sampler, dynamic_context, bounds[i],
+                        budgets[i], i, events, resplit=policy.resplit,
+                    )
+                    remaining.discard(i)
+            if broken:
+                pool_failures += 1
+                self._kill_pool()
+                if remaining and pool_failures < policy.max_pool_failures:
+                    events.append(
+                        FaultEvent(
+                            kind="pool-rebuild",
+                            where="collector",
+                            detail=(
+                                f"respawning {self.workers} workers "
+                                f"(consecutive failure {pool_failures})"
+                            ),
+                        )
+                    )
+                    time.sleep(policy.backoff_s(pool_failures))
+            else:
+                if retry_backoff:
+                    time.sleep(retry_backoff)
+                if remaining:
+                    pool_failures = 0  # progress without breakage: reset
+        return results
+
+    def _run_shard_local(
+        self,
+        kernel: KernelSpec,
+        sampler: GridSampler,
+        dynamic_context: Optional[Dict[str, np.ndarray]],
+        bound: Tuple[int, int],
+        budget: int,
+        shard: int,
+        events: List[FaultEvent],
+        resplit: int = 1,
+    ) -> List[Tuple[TraceBuffer, ShardInfo]]:
+        """Re-run one shard in process, optionally re-split.
+
+        Sub-runs keep the shard's id and partition its ``[lo, hi)``, so
+        token unification and the merge algebra are unaffected; the
+        globally first sub-run owns ``once=`` operands (``collect_shard``
+        derives ownership from the global ``lo``).  Injected directives
+        never reach this path: the in-process re-run is the recovery.
+        """
+        from repro_torch.runtime.fault import retry as _retry
+
+        lo, hi = bound
+        k = max(1, min(int(resplit), max(hi - lo, 1)))
+        pieces = [(lo + a, lo + b) for a, b in shard_bounds(hi - lo, k)]
+        if len(pieces) > 1:
+            events.append(
+                FaultEvent(
+                    kind="shard-resplit",
+                    where="collector",
+                    shard=shard,
+                    detail=(
+                        f"re-running [{lo}:{hi}) in process as "
+                        f"{len(pieces)} smaller runs"
+                    ),
+                )
+            )
+        sub_budgets = split_budget(budget, len(pieces))
+        out: List[Tuple[TraceBuffer, ShardInfo]] = []
+        for j, (plo, phi) in enumerate(pieces):
+            def _run(plo=plo, phi=phi, j=j):
+                return collect_shard(
+                    kernel, sampler, dynamic_context, plo, phi, shard,
+                    sub_budgets[j],
+                )
+
+            def _note(attempt, exc):
+                events.append(
+                    FaultEvent(
+                        kind="shard-retry",
+                        where="collector",
+                        shard=shard,
+                        attempt=attempt,
+                        detail=(
+                            f"in-process re-run: "
+                            f"{type(exc).__name__}: {exc}"
+                        )[:200],
+                    )
+                )
+
+            out.append(
+                _retry(
+                    _run,
+                    attempts=self.policy.attempts,
+                    base_delay=self.policy.base_delay,
+                    retryable=(Exception,),
+                    on_retry=_note,
+                )()
+            )
+        return out
+
+    def analyze(
+        self,
+        kernel: KernelSpec,
+        sampler: Optional[GridSampler] = None,
+        dynamic_context: Optional[Dict[str, np.ndarray]] = None,
+    ) -> Heatmap:
+        """Sharded collect + merge + flush: the parallel :func:`analyze`.
+
+        Bit-identical to :func:`analyze` on the same arguments for any
+        trace within the record cap, with per-shard provenance in
+        ``Heatmap.shards`` and recovery provenance in ``Heatmap.faults``.
+        When the cap bites, drop totals stay exact but the surviving
+        records differ from serial truncation, and a RuntimeWarning says
+        so.
+        """
+        sampler = sampler or GridSampler()
+        bufs, infos = self.collect(kernel, sampler, dynamic_context)
+        dropped = sum(i.dropped for i in infos)
+        if dropped:
+            import warnings
+
+            warnings.warn(
+                f"{kernel.name}: {dropped} records dropped at the "
+                f"max_records={self.max_records} cap; a truncated "
+                "sharded heat map is not bit-identical to the serial "
+                "build (raise max_records or sample a window)",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        an = Analyzer(kernel.name, kernel.grid, sampler.describe())
+        for buf in bufs:
+            an.ingest(buf)
+        return dataclasses.replace(
+            an.flush(), shards=infos, faults=self.last_fault_events
+        )
+
+
+def analyze_sharded(
+    kernel: KernelSpec,
+    sampler: Optional[GridSampler] = None,
+    dynamic_context: Optional[Dict[str, np.ndarray]] = None,
+    workers: int = 2,
+) -> Heatmap:
+    """One-shot sharded :func:`analyze` (owns a pool for the call)."""
+    with ShardedCollector(workers) as sc:
+        return sc.analyze(kernel, sampler, dynamic_context)
 
 
 def drain_dynamic(

@@ -17,6 +17,10 @@ This is a faithful port of CUTHERMO's Analyzer (§IV-B2), vectorized:
 * Word and sector granularity come from each region's geometry
   (:mod:`repro_torch.core.tiles`): 32 B sectors of 4 B words on the
   H100, or the TPU tile for parity with the JAX package.
+* ``SectorHistory`` (the paper's bitmask history) is kept for the seed
+  engine (:mod:`repro_torch.core._reference`), and ``Analyzer._maps``
+  reconstructs the full bitmask state on demand so mask-level invariants
+  stay testable.
 
 Invariants (property-tested):
   * sector mask == OR of its word masks (sector temp >= every word temp)
@@ -33,6 +37,7 @@ import numpy as np
 from .resilience import FaultEvent
 from .tiles import TPUTile
 from .trace import (
+    AccessRecord,
     RegionInfo,
     ShardInfo,
     TraceBuffer,
@@ -40,6 +45,39 @@ from .trace import (
     linearize_array,
     unique_pairs,
 )
+
+
+@dataclasses.dataclass
+class SectorHistory:
+    """Bitmask history for one sector: per-word masks + whole-sector mask."""
+
+    words: int
+    word_masks: List[int] = dataclasses.field(default_factory=list)
+    sector_mask: int = 0
+
+    def __post_init__(self) -> None:
+        if not self.word_masks:
+            self.word_masks = [0] * self.words
+
+    def update(self, word_offset: int, contributor: int) -> None:
+        bit = 1 << contributor
+        self.word_masks[word_offset] |= bit
+        self.sector_mask |= bit
+
+    def word_temps(self) -> List[int]:
+        return [m.bit_count() for m in self.word_masks]
+
+    def sector_temp(self) -> int:
+        return self.sector_mask.bit_count()
+
+
+def fallback_region(name: str) -> RegionInfo:
+    """The region a name with no registered geometry is flushed under
+    (one 8 x 128 f32 TPU tile, as the JAX package flushes it)."""
+    return RegionInfo(
+        name=name,
+        geometry=TPUTile(shape=(8, 128), itemsize=4, name=name),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +125,47 @@ class HeatKeys:
     sector_pids: np.ndarray  # (M,) linearized program ids, parallel
     pids: np.ndarray  # (P,) distinct contributor ids, ascending
 
+    @classmethod
+    def empty(cls) -> "HeatKeys":
+        """The monoid identity: no touches, no contributors."""
+        z = np.empty(0, np.int64)
+        return cls(z, z, z, z, z)
+
+    def union(self, other: "HeatKeys") -> "HeatKeys":
+        """Exact set union (the monoid operation)."""
+        wk, wp = unique_pairs(
+            np.concatenate([self.word_keys, other.word_keys]),
+            np.concatenate([self.word_pids, other.word_pids]),
+        )
+        st, sp = unique_pairs(
+            np.concatenate([self.sector_tags, other.sector_tags]),
+            np.concatenate([self.sector_pids, other.sector_pids]),
+        )
+        return HeatKeys(
+            word_keys=wk,
+            word_pids=wp,
+            sector_tags=st,
+            sector_pids=sp,
+            pids=np.union1d(self.pids, other.pids),
+        )
+
+    def equals(self, other: "HeatKeys") -> bool:
+        """Array-wise equality of the two key-set states."""
+        return (
+            np.array_equal(self.word_keys, other.word_keys)
+            and np.array_equal(self.word_pids, other.word_pids)
+            and np.array_equal(self.sector_tags, other.sector_tags)
+            and np.array_equal(self.sector_pids, other.sector_pids)
+            and np.array_equal(self.pids, other.pids)
+        )
+
 
 def _temps_from_keys(
     keys: HeatKeys, words: int
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """Derive (tags, word_temps, sector_temps, n_programs) from key sets
-    (the counting step of the Analyzer's exact path)."""
+    (the counting step of the Analyzer's exact path, shared by
+    :meth:`RegionHeatmap.merge`)."""
     n_programs = int(keys.pids.shape[0])
     if keys.word_keys.size == 0:
         return (
@@ -121,9 +194,12 @@ class RegionHeatmap:
         sector_temps_array   (S,)        int64 whole-sector counts
 
     ``rows`` materializes the legacy ``HeatRow`` tuple lazily (cached);
-    constructing from ``rows=`` is still supported for the reference
-    path and hand-built fixtures.
+    constructing from ``rows=`` is still supported for the seed engine
+    and hand-built fixtures.
 
+    ``key_state`` optionally carries the packed key sets the temperatures
+    were counted from (``Analyzer.flush(keep_keys=True)``); it is what
+    makes :meth:`merge` exact.
     """
 
     def __init__(
@@ -135,9 +211,11 @@ class RegionHeatmap:
         tags: Optional[np.ndarray] = None,
         word_temps: Optional[np.ndarray] = None,
         sector_temps: Optional[np.ndarray] = None,
+        key_state: Optional[HeatKeys] = None,
     ):
         self.region = region
         self.n_programs = int(n_programs)
+        self.key_state = key_state
         if rows is not None:
             rows = tuple(rows)
             self._rows: Optional[Tuple[HeatRow, ...]] = rows
@@ -222,8 +300,55 @@ class RegionHeatmap:
     def touched_sectors(self) -> int:
         return int(self._tags.shape[0])
 
+    # -- merge algebra ------------------------------------------------------
+    def merge(self, other: "RegionHeatmap") -> "RegionHeatmap":
+        """Exact union of two heat maps of the SAME region.
+
+        Unions the packed key sets and recounts distinct contributors
+        (never sums temperatures), so the result is bit-identical to one
+        pass over the combined trace even when the two sides share
+        contributors.  Both sides must carry ``key_state``, and their
+        regions must agree, geometry included: a ``tpu-tile`` shard never
+        merges into an ``h100-sector`` map.
+        """
+        mine, theirs = self.region.geometry.kind, other.region.geometry.kind
+        if mine != theirs:
+            raise ValueError(
+                f"cannot merge region {self.region.name!r} walked under "
+                f"geometry {mine!r} with one walked under {theirs!r}"
+            )
+        if self.region != other.region:
+            raise ValueError(
+                f"cannot merge heat maps of different regions: "
+                f"{self.region.name!r} vs {other.region.name!r}"
+            )
+        if self.key_state is None or other.key_state is None:
+            raise ValueError(
+                f"region {self.region.name!r}: merge needs the packed "
+                "key-set state on both sides; flush the shards with "
+                "Analyzer.flush(keep_keys=True)"
+            )
+        merged = self.key_state.union(other.key_state)
+        tags, word_temps, sector_temps, n_programs = _temps_from_keys(
+            merged, self.words_per_sector()
+        )
+        return RegionHeatmap(
+            region=self.region,
+            n_programs=n_programs,
+            tags=tags,
+            word_temps=word_temps,
+            sector_temps=sector_temps,
+            key_state=merged,
+        )
+
     def words_per_sector(self) -> int:
         return self.region.geometry.words_per_sector
+
+    def valid_words(self, tag: int) -> int:
+        """Words of sector ``tag`` that actually exist."""
+        return int(
+            self.region.geometry.valid_words_array(np.asarray([tag]))[0]
+        )
 
     def valid_words_array(self) -> np.ndarray:
         """Words of each flushed sector that actually exist (edge sectors
@@ -268,6 +393,48 @@ class Heatmap:
 
     def region_names(self) -> List[str]:
         return [r.region.name for r in self.regions]
+
+    # -- merge algebra ------------------------------------------------------
+    def merge(self, other: "Heatmap") -> "Heatmap":
+        """Exact union of two heat maps of the same kernel launch.
+
+        Regions are aligned by name and merged through
+        :meth:`RegionHeatmap.merge`; a region present on one side only
+        passes through.  Record and drop counts add (each record or drop
+        happened in exactly one shard buffer), shard and fault provenance
+        concatenate.  With shards that partition a sampled grid the
+        result is bit-identical to the single-pass build.
+        """
+        if self.kernel != other.kernel or self.grid != other.grid:
+            raise ValueError(
+                f"cannot merge heat maps of different launches: "
+                f"{self.kernel!r} {self.grid} vs {other.kernel!r} "
+                f"{other.grid}"
+            )
+        sampler = (
+            self.sampler
+            if self.sampler == other.sampler
+            else f"{self.sampler}+{other.sampler}"
+        )
+        mine = {r.region.name: r for r in self.regions}
+        theirs = {r.region.name: r for r in other.regions}
+        merged: List[RegionHeatmap] = []
+        for name in sorted(set(mine) | set(theirs)):
+            a, b = mine.get(name), theirs.get(name)
+            merged.append(
+                a.merge(b) if a is not None and b is not None
+                else (a if a is not None else b)
+            )
+        return Heatmap(
+            kernel=self.kernel,
+            grid=self.grid,
+            sampler=sampler,
+            regions=tuple(merged),
+            n_records=self.n_records + other.n_records,
+            dropped=self.dropped + other.dropped,
+            shards=self.shards + other.shards,
+            faults=self.faults + other.faults,
+        )
 
     # -- transaction model --------------------------------------------------
     def _tx_regions(self, region: Optional[str]) -> Tuple[RegionHeatmap, ...]:
@@ -413,6 +580,55 @@ class Analyzer:
             buf.chunks[-1] if buf.chunks else None,
         )
 
+    def _ingest_record(self, rec: AccessRecord) -> None:
+        """Ingest one record (the exact path)."""
+        tmp = TraceBuffer()
+        tmp.append(rec)
+        tmp._flush_pending()
+        for chunk in tmp.chunks:
+            lin = linearize_array(chunk.pids, self.grid)
+            self._chunk_map.setdefault(chunk.site.array, []).append(
+                _IngestedChunk(chunk, lin)
+            )
+            self._n_records += chunk.n_records
+
+    # -- the paper's bitmask state, reconstructed -----------------------------
+    def _words_for(self, name: str) -> int:
+        return self._region_for(name).geometry.words_per_sector
+
+    def _region_for(self, name: str) -> RegionInfo:
+        region = self._regions.get(name)
+        return region if region is not None else fallback_region(name)
+
+    @property
+    def _maps(self) -> Dict[str, Dict[int, SectorHistory]]:
+        """The seed's region -> {tag -> SectorHistory} bitmask state,
+        reconstructed from the columnar chunks (testing only)."""
+        out: Dict[str, Dict[int, SectorHistory]] = {}
+        for name in set(self._regions) | set(self._chunk_map):
+            words = self._words_for(name)
+            smap: Dict[int, SectorHistory] = {}
+            for ich in self._chunk_map.get(name, []):
+                chunk, lin = ich.chunk, ich.lin
+                tags = chunk.tags.tolist()
+                wrds = chunk.words.tolist()
+                if chunk.ptr is None:
+                    spans = [(pid, 0, len(tags)) for pid in lin.tolist()]
+                else:
+                    ptr = chunk.ptr.tolist()
+                    spans = [
+                        (pid, ptr[i], ptr[i + 1])
+                        for i, pid in enumerate(lin.tolist())
+                    ]
+                for pid, t0, t1 in spans:
+                    for j in range(t0, t1):
+                        hist = smap.get(tags[j])
+                        if hist is None:
+                            hist = smap[tags[j]] = SectorHistory(words=words)
+                        hist.update(wrds[j], pid)
+            out[name] = smap
+        return out
+
     # -- flush ----------------------------------------------------------------
     @staticmethod
     def _check_words(name: str, chunk: TraceChunk, words: int) -> None:
@@ -426,9 +642,14 @@ class Analyzer:
             )
 
     def _flush_region(
-        self, name: str, words: int
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-        """(tags, word_temps (S, words), sector_temps, n_programs)."""
+        self, name: str, words: int, keep_keys: bool = False
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int, Optional[HeatKeys]]:
+        """(tags, word_temps (S, words), sector_temps, n_programs, keys).
+
+        ``keep_keys`` forces the exact (key, pid) materialization and also
+        returns the packed :class:`HeatKeys` state, the carrier of the
+        merge monoid; the weighted fast path cannot keep keys.
+        """
         entries = self._chunk_map.get(name, [])
         if not entries:
             return (
@@ -436,11 +657,12 @@ class Analyzer:
                 np.empty((0, words), np.int64),
                 np.empty(0, np.int64),
                 0,
+                HeatKeys.empty() if keep_keys else None,
             )
         all_lins = np.unique(np.concatenate([e.lin for e in entries]))
         n_programs = int(all_lins.shape[0])
         groups = {e.chunk.group for e in entries}
-        if len(groups) == 1 and None not in groups:
+        if not keep_keys and len(groups) == 1 and None not in groups:
             key_parts: List[np.ndarray] = []
             keyw_parts: List[np.ndarray] = []
             tag_parts: List[np.ndarray] = []
@@ -474,6 +696,7 @@ class Analyzer:
                     np.empty((0, words), np.int64),
                     np.empty(0, np.int64),
                     n_programs,
+                    None,
                 )
             all_keys = np.concatenate(key_parts)
             all_kw = np.concatenate(keyw_parts)
@@ -494,9 +717,11 @@ class Analyzer:
                 word_temps,
                 sector_counts.astype(np.int64),
                 n_programs,
+                None,
             )
         # exact path: expand to (key, pid) events, dedupe into the packed
-        # key-set state, and count through _temps_from_keys
+        # key-set state, and count through _temps_from_keys (the arithmetic
+        # RegionHeatmap.merge uses, so merges and flushes cannot diverge)
         ev_keys: List[np.ndarray] = []
         ev_pids: List[np.ndarray] = []
         for e in entries:
@@ -524,22 +749,28 @@ class Analyzer:
             sector_pids=spids,
             pids=all_lins,
         )
-        return _temps_from_keys(keys_state, words)
+        tags, word_temps, sector_temps, n_programs = _temps_from_keys(
+            keys_state, words
+        )
+        return (
+            tags, word_temps, sector_temps, n_programs,
+            keys_state if keep_keys else None,
+        )
 
-    def flush(self) -> Heatmap:
-        """Flush the ingested state into a :class:`Heatmap`."""
+    def flush(self, keep_keys: bool = False) -> Heatmap:
+        """Flush the ingested state into a :class:`Heatmap`.
+
+        ``keep_keys=True`` attaches the packed key-set state to every
+        region (`RegionHeatmap.key_state`) so the result takes part in the
+        exact merge algebra (`Heatmap.merge`); it costs the full (key,
+        pid) materialization, so use it on shard-sized traces.
+        """
         region_maps: List[RegionHeatmap] = []
         for name in sorted(set(self._regions) | set(self._chunk_map)):
-            region = self._regions.get(name)
-            if region is None:
-                # unregistered region: synthesize a geometry stub
-                region = RegionInfo(
-                    name=name,
-                    geometry=TPUTile(shape=(8, 128), itemsize=4, name=name),
-                )
+            region = self._region_for(name)
             words = region.geometry.words_per_sector
-            tags, word_temps, sector_temps, n_programs = self._flush_region(
-                name, words
+            tags, word_temps, sector_temps, n_programs, keys = (
+                self._flush_region(name, words, keep_keys=keep_keys)
             )
             region_maps.append(
                 RegionHeatmap(
@@ -548,6 +779,7 @@ class Analyzer:
                     tags=tags,
                     word_temps=word_temps,
                     sector_temps=sector_temps,
+                    key_state=keys,
                 )
             )
         return Heatmap(

@@ -29,9 +29,13 @@ Discovered kernels are stamped with ``model.<model>.<kind>`` family refs
 model.transformer-tiny.attn:wide-kv`` profiles one rung of a model's kind.
 
 Not ported yet: the HLO sweep of the JAX package (it compiles the model's
-forward, which the port does not have), sharded collection and journaled
-resume.  The collection cache applies (``cache``): an unchanged model
-re-profiles without a walk, and its kernels are launched again.
+forward, which the port does not have).  The collection cache applies
+(``cache``): an unchanged model re-profiles without a walk, and its
+kernels are launched again.  Sharded collection applies (``workers``):
+the walks run on a spawn pool, the launches in this process.  The run is
+preemption-safe: a journal (:data:`MODEL_JOURNAL`) at the session root
+lets ``--resume`` finish a preempted run with the kernels (and the runs
+measured on the card) the preempted one already profiled.
 
 Backward kernels are a *model*: attention/GEMM backward passes stream the
 same operand set with the data direction flipped (activations re-read,
@@ -44,6 +48,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import json
+import os
 from pathlib import Path
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -53,13 +59,16 @@ from repro_torch.core.session import (
     Iteration,
     ProfileSession,
     ProfiledKernel,
+    load_iteration,
     profile_kernel,
 )
 from repro_torch.core.trace import GridSampler
+from repro_torch.runtime.fault import Preempted
 
 __all__ = [
     "DiscoveredKernel",
     "KernelCall",
+    "MODEL_JOURNAL",
     "bwd_spec",
     "discover",
     "intercept",
@@ -68,6 +77,11 @@ __all__ = [
     "layers_table",
     "profile_model",
 ]
+
+
+#: Name of the resumable-run journal ``profile_model`` keeps at the
+#: session root while a whole-model profile is in flight.
+MODEL_JOURNAL = "model.journal.json"
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +334,47 @@ def iteration_transactions(it: Iteration) -> int:
     return sum(pk.transactions for pk in it.kernels)
 
 
+def _commit_journal(path: Path, journal: Dict) -> None:
+    """Atomically (re)write the model-run journal (temp + rename)."""
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(journal, indent=2) + "\n")
+    os.replace(tmp, path)
+
+
+def _load_partial(sess: ProfileSession, name: str, overrides, backward):
+    """Validate a resume journal and load its partial iteration's kernels.
+
+    Returns ``{kernel name: ProfiledKernel}`` of the work the preempted
+    run already flushed (empty when it was preempted before any kernel
+    finished).  Raises ``ValueError`` (the CLI's exit 2) when there is
+    nothing to resume or the journaled run does not match the requested
+    one: resuming another model would splice foreign heat maps in.
+    """
+    jpath = sess.root / MODEL_JOURNAL
+    if not jpath.is_file():
+        raise ValueError(
+            f"{sess.root}: nothing to resume (no {MODEL_JOURNAL}; the "
+            "previous run either completed or never started)"
+        )
+    try:
+        journal = json.loads(jpath.read_text())
+    except (OSError, json.JSONDecodeError) as e:
+        raise ValueError(f"{jpath}: unreadable model journal ({e})") from e
+    want = {"model": name, "overrides": list(overrides),
+            "backward": bool(backward)}
+    got = {k: journal.get(k) for k in want}
+    if journal.get("format") != "cuthermo-model-journal" or got != want:
+        raise ValueError(
+            f"{jpath}: journaled run {got} does not match the requested "
+            f"run {want}; re-run without --resume to start over"
+        )
+    partial = journal.get("partial")
+    if not partial:
+        return {}
+    it = load_iteration(sess.root / partial)
+    return {pk.name: pk for pk in it.kernels}
+
+
 def profile_model(
     name: str,
     out: Union[str, Path],
@@ -331,6 +386,10 @@ def profile_model(
     note: str = "",
     device: str = "cuda",
     cache: Union[None, str, Path, CollectionCache] = None,
+    workers: int = 1,
+    fault_plan=None,
+    preemption=None,
+    resume: bool = False,
 ) -> Iteration:
     """Profile one registered model into a session iteration.
 
@@ -340,13 +399,26 @@ def profile_model(
     (full grid unless ``sampler`` says otherwise), and persists everything
     as the next iteration of the session at ``out`` with the validated
     per-layer table.  ``cache`` (a CollectionCache, or a directory for
-    one) serves unchanged heat maps; the launches are made every time.  Returns the loaded :class:`Iteration` (its
-    ``.layers`` carries the table).
+    one) serves unchanged heat maps; the launches are made every time.
+    ``workers`` shards the walks over a spawn pool (``fault_plan``
+    injects faults into it); the launches stay in this process.  Returns
+    the loaded :class:`Iteration` (its ``.layers`` carries the table).
+
+    The run is preemption-safe: :data:`MODEL_JOURNAL` lives at the
+    session root while it is in flight, and when ``preemption`` (e.g. a
+    :class:`repro_torch.runtime.fault.PreemptionHandler`) reports
+    ``requested`` between kernels, the kernels profiled so far are
+    flushed as a *partial* iteration, the journal names it, and
+    :class:`~repro_torch.runtime.fault.Preempted` is raised.
+    ``resume=True`` picks such a run up: the journal is checked against
+    the requested arguments, the partial iteration's kernels (heat maps
+    and the runs measured on the card) are reused verbatim, and only the
+    rest is profiled, so the heat maps equal an uninterrupted run's.
 
     Raises ``KeyError`` for an unknown model and ``ValueError`` for a
-    malformed override (the CLI maps both to exit 2), and
-    ``repro_torch.kernels.KernelMismatch`` when a kernel disagrees with its
-    plain version.
+    malformed override or an invalid resume (the CLI maps both to exit
+    2), and ``repro_torch.kernels.KernelMismatch`` when a kernel
+    disagrees with its plain version.
     """
     from repro_torch.kernels import run_variant
     from repro_torch.models.registry import apply_overrides, get_model, kind_variant
@@ -357,39 +429,87 @@ def profile_model(
     discovered = discover(
         name, cfg, batch, seq, backward=backward, default_shapes=not overrides
     )
-    sess = ProfileSession(out, cache=cache)
-    measured: Dict[str, Tuple[str, Mapping]] = {}  # kind -> (kernel, run)
-    profiled: List[ProfiledKernel] = []
-    for d in discovered:
-        run = None
-        if not d.backward:
-            if d.kind in measured:
-                first, rec = measured[d.kind]
-                run = dict(rec, shared_with=first)
-            else:
-                run = run_variant(kind_variant(cfg, d.kind, batch, seq), device)
-                measured[d.kind] = (d.name, run)
-        profiled.append(
-            profile_kernel(
-                d.spec,
-                sampler or GridSampler(None),
-                None,
-                name=d.name,
-                variant=f"{d.family}:{'bwd' if d.backward else 'fwd'}",
-                run=run,
-                cache=sess.cache,
-            )
+    with ProfileSession(
+        out, cache=cache, workers=workers, fault_plan=fault_plan
+    ) as sess:
+        done: Dict[str, ProfiledKernel] = (
+            _load_partial(sess, name, overrides, backward) if resume else {}
         )
-    layers = {
-        "model": name,
-        "batch": batch,
-        "seq": seq,
-        "overrides": list(overrides),
-        "table": layers_table(discovered, profiled),
-    }
-    return sess.add_iteration(
-        profiled,
-        label=label or f"model-{name}",
-        note=note or f"whole-model profile of {name}",
-        layers=layers,
-    )
+        journal: Dict[str, object] = {
+            "format": "cuthermo-model-journal",
+            "version": 1,
+            "model": name,
+            "overrides": list(overrides),
+            "backward": bool(backward),
+            "partial": None,
+        }
+        jpath = sess.root / MODEL_JOURNAL
+        _commit_journal(jpath, journal)
+        collector = sess.collector()
+        measured: Dict[str, Tuple[str, Mapping]] = {}  # kind -> (kernel, run)
+        profiled: List[ProfiledKernel] = []
+        for d in discovered:
+            if d.name in done:
+                pk = done[d.name]
+                if pk.run and not pk.run.get("shared_with"):
+                    measured.setdefault(d.kind, (d.name, pk.run))
+                profiled.append(pk)
+                continue
+            if preemption is not None and getattr(
+                preemption, "requested", False
+            ):
+                # flush what we have as a partial iteration, so --resume
+                # only pays for the rest
+                if profiled:
+                    it = sess.add_iteration(
+                        profiled,
+                        label=f"model-{name}-partial",
+                        note=(
+                            f"preempted after {len(profiled)}/"
+                            f"{len(discovered)} kernels; resumable"
+                        ),
+                    )
+                    journal["partial"] = it.path.name
+                    _commit_journal(jpath, journal)
+                raise Preempted(
+                    f"model profile of {name} preempted after "
+                    f"{len(profiled)}/{len(discovered)} kernels; "
+                    "resume with --resume"
+                )
+            run = None
+            if not d.backward:
+                if d.kind in measured:
+                    first, rec = measured[d.kind]
+                    run = dict(rec, shared_with=first)
+                else:
+                    run = run_variant(
+                        kind_variant(cfg, d.kind, batch, seq), device
+                    )
+                    measured[d.kind] = (d.name, run)
+            profiled.append(
+                profile_kernel(
+                    d.spec,
+                    sampler or GridSampler(None),
+                    None,
+                    name=d.name,
+                    variant=f"{d.family}:{'bwd' if d.backward else 'fwd'}",
+                    run=run,
+                    collector=collector,
+                    cache=sess.cache,
+                )
+            )
+        layers = {
+            "model": name,
+            "batch": batch,
+            "seq": seq,
+            "overrides": list(overrides),
+            "table": layers_table(discovered, profiled),
+        }
+        it = sess.add_iteration(
+            profiled,
+            label=label or f"model-{name}",
+            note=note or f"whole-model profile of {name}",
+            layers=layers,
+        )
+        jpath.unlink(missing_ok=True)
+        return it

@@ -28,8 +28,16 @@ Versions.  The port reads v1–v7 and writes two:
   non-TPU region is stamped 7.  The JAX package rejects v7 loudly, so it
   can never rebuild H100 sectors as TPU tiles and misread the arrays.
 
-Every file is committed atomically (temp + fsync + rename, manifest
-last), so a reader never sees a half-written manifest.
+Writes are crash safe: every file of an iteration is committed
+atomically (temp + fsync + rename, manifest last) under a journal
+sidecar, so a kill at any instant leaves a complete iteration, a
+completable one (everything durable, only the manifest rename missing),
+or a torn one that :meth:`ProfileSession.recover` quarantines — never a
+directory that half-loads.
+
+A session with ``workers > 1`` collects through one persistent
+:class:`~repro_torch.core.collector.ShardedCollector` pool; the heat maps
+are bit-identical to serial ones and carry per-shard provenance.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ import numpy as np
 
 from .advisor import Action, advise
 from .cache import CacheKeyError, CollectionCache, spec_content_hash
-from .collector import KernelSpec, analyze
+from .collector import KernelSpec, ShardedCollector, analyze
 from .diff import HeatmapDiff, diff as diff_heatmaps
 from .heatmap import Heatmap, RegionHeatmap
 from .patterns import PatternReport, detect_all
@@ -239,6 +247,8 @@ def profile_kernel(
     variant: Optional[str] = None,
     region_map: Sequence[Tuple[str, str]] = (),
     run: Optional[Mapping] = None,
+    workers: int = 1,
+    collector: Optional[ShardedCollector] = None,
     cache: Optional[CollectionCache] = None,
 ) -> ProfiledKernel:
     """Profile one spec into a ProfiledKernel (the single assembly point).
@@ -246,6 +256,11 @@ def profile_kernel(
     Runs collect+analyze under the given sampler (full-grid by default),
     derives patterns and actions, and stamps the wall time.  ``run`` is
     the caller's measured launch of the kernel, stored verbatim.
+
+    ``collector`` (a :class:`~repro_torch.core.collector.ShardedCollector`,
+    reusable across kernels) or ``workers > 1`` routes the walk through
+    sharded collection: the heat map is bit-identical either way, and the
+    sharded one carries per-shard (and any recovery) provenance.
 
     ``cache`` (a :class:`~repro_torch.core.cache.CollectionCache`) makes
     the collection content-addressed: a hit skips the grid walk and
@@ -267,7 +282,15 @@ def profile_kernel(
             hm = cache.get(key)
     cached = hm is not None
     if hm is None:
-        hm = analyze(spec, sampler=sampler, dynamic_context=dynamic_context)
+        if collector is not None:
+            hm = collector.analyze(spec, sampler, dynamic_context)
+        elif workers > 1:
+            with ShardedCollector(workers) as sc:
+                hm = sc.analyze(spec, sampler, dynamic_context)
+        else:
+            hm = analyze(
+                spec, sampler=sampler, dynamic_context=dynamic_context
+            )
         # a truncated trace depends on the record cap, not only the spec
         if cache is not None and key and hm.dropped == 0:
             cache.put(key, hm)
@@ -487,18 +510,58 @@ def iteration_version(kernels: Sequence[ProfiledKernel]) -> int:
     return TPU_ARTIFACT_VERSION if tpu_only else ARTIFACT_VERSION
 
 
-def _commit_bytes(path: Path, data: bytes) -> None:
-    """Atomically commit ``data`` at ``path`` (temp + fsync + rename)."""
+#: Name of the write-in-progress journal sidecar inside an iteration
+#: directory.  It exists from the first byte of an iteration write until
+#: after the manifest commit; a directory holding one was torn by a crash
+#: (or is being written right now) and is the input to
+#: :meth:`ProfileSession.recover`.
+JOURNAL_NAME = ".journal.json"
+
+#: Hooks called around every atomic file commit of an iteration write:
+#: ``hook(path, event)`` with ``event`` = ``"staged"`` (the temp file is
+#: durable, the rename has not happened) or ``"committed"`` (renamed into
+#: place).  :class:`repro_torch.core.faultinject.WriteKillPoint` installs
+#: itself here to model ``kill -9`` at exact points; production code
+#: leaves the list empty.
+_write_commit_hooks: List = []
+
+
+def _notify_hooks(path: Path, event: str) -> None:
+    for hook in list(_write_commit_hooks):
+        hook(path, event)
+
+
+def _commit_bytes(path: Path, data: bytes, *, notify: bool = True) -> None:
+    """Atomically commit ``data`` at ``path`` (temp + fsync + rename).
+
+    If the process dies at any instant, ``path`` holds its complete old
+    content or the complete new one, never a prefix.  The temp file is
+    ``<name>.tmp`` in the same directory, which is what
+    :meth:`ProfileSession.recover` looks for when it completes a write
+    that died between the fsync and the rename.
+    """
     tmp = path.with_name(path.name + ".tmp")
     with open(tmp, "wb") as f:
         f.write(data)
         f.flush()
         os.fsync(f.fileno())
+    if notify:
+        _notify_hooks(path, "staged")
     os.replace(tmp, path)
+    if notify:
+        _notify_hooks(path, "committed")
 
 
-def _commit_json(path: Path, obj: Mapping) -> None:
-    _commit_bytes(path, json.dumps(obj, indent=2).encode("utf-8"))
+def _commit_json(path: Path, obj: Mapping, *, notify: bool = True) -> None:
+    _commit_bytes(
+        path, json.dumps(obj, indent=2).encode("utf-8"), notify=notify
+    )
+
+
+def _commit_npz(path: Path, arrays: Mapping[str, np.ndarray]) -> None:
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    _commit_bytes(path, buf.getvalue())
 
 
 def _validate_layers(
@@ -575,8 +638,13 @@ def write_iteration(
     key, as the JAX package stores it.  ``tuning`` is the tuner's
     provenance for this iteration (which step, which candidate, which
     action spawned it), stored verbatim under the manifest's ``tuning``
-    key.  The manifest is committed last, so a reader never finds a
-    manifest whose arrays are missing.
+    key.
+
+    The write is crash safe: a :data:`JOURNAL_NAME` sidecar naming every
+    file is committed first, every npz and the manifest are committed
+    atomically (manifest last), and the journal is removed only after
+    the manifest rename.  A kill at any instant leaves a directory that
+    :meth:`ProfileSession.recover` classifies exactly.
     """
     path = Path(path)
     if layers is not None:
@@ -591,15 +659,22 @@ def write_iteration(
         )
     path.mkdir(parents=True, exist_ok=True)
     label = label or path.name
+    version = iteration_version(kernels)
+    # plan the write up front so the journal names every file to expect
     seen: Dict[str, int] = {}
+    npz_names = [f"{dedupe_stem(slugify(pk.name), seen)}.npz" for pk in kernels]
+    journal = {
+        "format": "cuthermo-journal",
+        "version": version,
+        "label": label,
+        "npz": npz_names,
+    }
+    _commit_json(path / JOURNAL_NAME, journal, notify=False)
     entries = []
     fault_block: List[dict] = []
-    for pk in kernels:
+    for npz_name, pk in zip(npz_names, kernels):
         meta, arrays = heatmap_to_arrays(pk.heatmap)
-        npz_name = f"{dedupe_stem(slugify(pk.name), seen)}.npz"
-        buf = io.BytesIO()
-        np.savez_compressed(buf, **arrays)
-        _commit_bytes(path / npz_name, buf.getvalue())
+        _commit_npz(path / npz_name, arrays)
         for ev in pk.heatmap.faults:
             fault_block.append(dict(ev.as_dict(), kernel=pk.name))
         entry = {
@@ -622,7 +697,7 @@ def write_iteration(
         entries.append(entry)
     manifest = {
         "format": ITERATION_FORMAT,
-        "version": iteration_version(kernels),
+        "version": version,
         "label": label,
         "note": note,
         "created": time.time(),
@@ -635,6 +710,7 @@ def write_iteration(
     if layers is not None:
         manifest["layers"] = dict(layers)
     _commit_json(path / "manifest.json", manifest)
+    (path / JOURNAL_NAME).unlink(missing_ok=True)
     return path
 
 
@@ -797,13 +873,25 @@ class ProfileSession:
         root: Union[str, Path],
         create: bool = True,
         cache: Union[None, str, Path, CollectionCache] = None,
+        workers: int = 1,
+        fault_plan=None,
     ):
         """Open (and by default create) the session at ``root``.
 
         ``cache`` backs every profile with a content-addressed
         :class:`~repro_torch.core.cache.CollectionCache`: an existing
         cache, or a directory path for an on-disk one.
+
+        ``workers > 1`` collects every later profile through ONE sharded
+        process pool that persists across the session's profile and tune
+        calls (spawn + import paid once; close it with :meth:`close` or
+        use the session as a context manager).  ``fault_plan`` (a
+        :class:`repro_torch.core.faultinject.FaultPlan`) threads
+        deterministic fault injection into that pool.
         """
+        self.workers = max(1, int(workers))
+        self.fault_plan = fault_plan
+        self._collector: Optional[ShardedCollector] = None
         if cache is None or isinstance(cache, CollectionCache):
             self.cache = cache
         else:
@@ -817,6 +905,37 @@ class ProfileSession:
             self._write_session_manifest([])
         else:
             raise SessionError(f"{self.root}: no session.json (create=False)")
+
+    # -- collector lifecycle -----------------------------------------------
+    def collector(
+        self, workers: Optional[int] = None
+    ) -> Optional[ShardedCollector]:
+        """The session's persistent shard pool (None when serial).
+
+        Created on first use and reused by every later profile or tune
+        call; asking for a different worker count replaces it.  The
+        session owns it (:meth:`close`).
+        """
+        n = self.workers if workers is None else max(1, int(workers))
+        if n <= 1:
+            return None
+        if self._collector is None or self._collector.workers != n:
+            if self._collector is not None:
+                self._collector.close()
+            self._collector = ShardedCollector(n, fault_plan=self.fault_plan)
+        return self._collector
+
+    def close(self) -> None:
+        """Shut down the session's persistent shard pool (idempotent)."""
+        if self._collector is not None:
+            self._collector.close()
+            self._collector = None
+
+    def __enter__(self) -> "ProfileSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _read_session_manifest(self) -> Mapping:
         spath = self.root / "session.json"
@@ -843,6 +962,7 @@ class ProfileSession:
                 "version": TPU_ARTIFACT_VERSION,
                 "iterations": iterations,
             },
+            notify=False,
         )
 
     def iteration_names(self) -> List[str]:
@@ -861,6 +981,112 @@ class ProfileSession:
                 int(_ITER_RE.match(n).group(1)) if _ITER_RE.match(n) else -1,
                 n,
             ),
+        )
+
+    # -- crash recovery ----------------------------------------------------
+    def recover(self) -> List[FaultEvent]:
+        """Complete or quarantine iterations torn by a crash or kill.
+
+        Scans every ``iterN`` directory for the :data:`JOURNAL_NAME`
+        sidecar an interrupted :func:`write_iteration` leaves, and
+        resolves each one:
+
+        * journal present, manifest loads: the write finished and only the
+          journal removal was lost; the journal is removed.
+        * journal present, ``manifest.json.tmp`` durable and every npz it
+          names present: the write died between the manifest fsync and
+          its rename; the rename is performed (nothing is reconstructed).
+        * anything else: the iteration is torn and moves to
+          ``<root>/quarantine/``, freeing its slot.
+
+        Returns one ``torn-iteration`` event per resolved directory.  Not
+        called on open: a journal is also what a concurrently running
+        writer looks like, so recovery is an explicit decision.
+        """
+        events: List[FaultEvent] = []
+        for d in sorted(self.root.iterdir()):
+            if not d.is_dir() or not _ITER_RE.match(d.name):
+                continue
+            jpath = d / JOURNAL_NAME
+            mpath = d / "manifest.json"
+            tpath = d / "manifest.json.tmp"
+            if not jpath.is_file():
+                if mpath.is_file():
+                    continue  # healthy (or written before journals)
+                # claimed (mkdir) but killed before the journal commit
+                events.append(self._quarantine(d, "no journal, no manifest"))
+                continue
+            if mpath.is_file() and self._iteration_loads(d):
+                jpath.unlink(missing_ok=True)
+                self._sweep_tmps(d)
+                events.append(
+                    FaultEvent(
+                        kind="torn-iteration",
+                        where="session",
+                        detail=(
+                            f"{d.name}: write completed, journal removal "
+                            "lost; journal removed"
+                        ),
+                    )
+                )
+                continue
+            if tpath.is_file():
+                # the manifest temp was fsync'd before the rename: if it
+                # parses and its npz files exist, the content is durable
+                try:
+                    manifest = json.loads(tpath.read_text())
+                    npz_ok = all(
+                        (d / e["npz"]).is_file()
+                        for e in manifest.get("kernels", [])
+                    )
+                except (OSError, json.JSONDecodeError, KeyError, TypeError):
+                    npz_ok = False
+                if npz_ok:
+                    os.replace(tpath, mpath)
+                    if self._iteration_loads(d):
+                        jpath.unlink(missing_ok=True)
+                        self._sweep_tmps(d)
+                        events.append(
+                            FaultEvent(
+                                kind="torn-iteration",
+                                where="session",
+                                detail=(
+                                    f"{d.name}: completed from durable "
+                                    "temp manifest"
+                                ),
+                            )
+                        )
+                        continue
+            events.append(self._quarantine(d, "torn write (incomplete)"))
+        self._write_session_manifest(self.iteration_names())
+        return events
+
+    @staticmethod
+    def _iteration_loads(d: Path) -> bool:
+        try:
+            load_iteration(d)
+            return True
+        except SessionError:
+            return False
+
+    @staticmethod
+    def _sweep_tmps(d: Path) -> None:
+        for tmp in d.glob("*.tmp"):
+            tmp.unlink(missing_ok=True)
+
+    def _quarantine(self, d: Path, why: str) -> FaultEvent:
+        qroot = self.root / "quarantine"
+        qroot.mkdir(exist_ok=True)
+        target = qroot / d.name
+        k = 1
+        while target.exists():
+            k += 1
+            target = qroot / f"{d.name}-{k}"
+        d.rename(target)
+        return FaultEvent(
+            kind="torn-iteration",
+            where="session",
+            detail=f"{d.name}: {why}; quarantined to {target.name}",
         )
 
     def add_iteration(
@@ -901,13 +1127,20 @@ class ProfileSession:
         self._write_session_manifest(existing)
         return load_iteration(path)
 
-    def tune(self, kernel: str, budget: Optional[int] = None, **kwargs):
+    def tune(
+        self,
+        kernel: str,
+        budget: Optional[int] = None,
+        workers: Optional[int] = None,
+        **kwargs,
+    ):
         """Close the tuning loop for one kernel family into this session.
 
         A front end over :func:`repro_torch.core.tuner.tune`: the baseline
         and every candidate profile are persisted as iterations of this
-        session, each manifest carrying the tuning provenance, and the
-        session's cache serves repeated walks.  ``budget`` defaults to
+        session, each manifest carrying the tuning provenance; the
+        session's cache serves repeated walks and its shard pool
+        (``workers``) collects them.  ``budget`` defaults to
         :data:`repro_torch.core.tuner.DEFAULT_BUDGET`; ``kwargs`` are
         ``tune``'s (``device``, ``seed``, ``target_patterns``, ...).
         """
@@ -917,6 +1150,7 @@ class ProfileSession:
             kernel,
             budget=DEFAULT_BUDGET if budget is None else budget,
             session=self,
+            collector=self.collector(workers),
             cache=self.cache,
             **kwargs,
         )
@@ -989,6 +1223,7 @@ class ProfileSession:
 
 __all__ = [
     "ARTIFACT_VERSION",
+    "JOURNAL_NAME",
     "SUPPORTED_VERSIONS",
     "TPU_ARTIFACT_VERSION",
     "HistoryPoint",

@@ -39,9 +39,12 @@ in bulk by the collector:
             count distinct contributors with weighted sums instead of
             per-bit set union; chunks without a token (record-at-a-time
             appends) take the exact dedup path.
+    shard   optional shard id (see ``ShardInfo``): which contiguous
+            sampled-grid partition produced this chunk.  Provenance
+            only; it never changes dedup semantics.
 
 ``ShardInfo`` is the per-shard provenance that sharded collections
-record in artifacts (v2 onward); the port loads and writes it.
+(``repro_torch.core.collector.ShardedCollector``) record in artifacts.
 """
 
 from __future__ import annotations
@@ -89,6 +92,7 @@ class TraceChunk:
     words: np.ndarray  # (T,) int64
     ptr: Optional[np.ndarray] = None  # (P+1,) int64 CSR; None = broadcast
     group: Optional[int] = None  # disjointness token; None = compat/exact
+    shard: Optional[int] = None  # producing shard id; None = unsharded
 
     @property
     def n_records(self) -> int:
@@ -210,6 +214,16 @@ class GridSampler:
         return f"grid[{','.join(map(str, self.target))}{w},...]"
 
 
+class KernelWhitelist:
+    """Kernel-sampling: only trace kernels whose name matches the whitelist."""
+
+    def __init__(self, names: Optional[Iterable[str]] = None):
+        self.names = None if names is None else set(names)
+
+    def admits(self, kernel_name: str) -> bool:
+        return self.names is None or kernel_name in self.names
+
+
 class RecordView(Sequence[AccessRecord]):
     """Lazy sequence view over a TraceBuffer's records.
 
@@ -273,13 +287,16 @@ class TraceBuffer:
 
     _group_counter = itertools.count(1)
 
-    def __init__(self, max_records: int = 2_000_000):
+    def __init__(
+        self, max_records: int = 2_000_000, shard_id: Optional[int] = None
+    ):
         self.chunks: List[TraceChunk] = []
         self.regions: dict[str, RegionInfo] = {}
         self.max_records = max_records
         self.dropped = 0
         self._n_records = 0
         self._pending: List[AccessRecord] = []
+        self.shard_id = shard_id
 
     # -- registration ------------------------------------------------------
     def register_region(self, region: RegionInfo) -> None:
@@ -329,7 +346,7 @@ class TraceBuffer:
                 words = np.empty(0, dtype=np.int64)
             self.chunks.append(
                 TraceChunk(site=site, pids=pids, tags=tags, words=words,
-                           ptr=ptr, group=None)
+                           ptr=ptr, group=None, shard=self.shard_id)
             )
 
         for rec in pending:
@@ -390,9 +407,64 @@ class TraceBuffer:
                 words=np.asarray(words, dtype=np.int64),
                 ptr=None if ptr is None else np.asarray(ptr, dtype=np.int64),
                 group=group,
+                shard=self.shard_id,
             )
         )
         self._n_records += p
+
+    # -- compaction --------------------------------------------------------
+    def consolidate(self, min_chunks: int = 32) -> None:
+        """Pack runs of small same-(site, group) broadcast chunks into one
+        CSR chunk each.
+
+        A spec whose visitors map to mostly distinct blocks emits one tiny
+        broadcast chunk per block key; per-chunk costs (pickling across a
+        shard-pool boundary, the Analyzer's per-chunk flush loop) then
+        dominate the data.  Consolidation is exact: the CSR chunk carries
+        the same records, the same per-record touch sets and the same
+        ``group`` token.  Sites with fewer than ``min_chunks`` chunks are
+        left alone, and so are runs whose chunks hold more than two
+        records on average (CSR would duplicate their shared touch sets).
+        """
+        self._flush_pending()
+        runs: dict = {}
+        for chunk in self.chunks:
+            if chunk.ptr is not None or chunk.group is None:
+                continue
+            key = (chunk.site, chunk.group, chunk.shard, chunk.pids.shape[1])
+            runs.setdefault(key, []).append(chunk)
+        merged: dict = {}
+        drop: set = set()
+        for (site, group, shard, _), chunks in runs.items():
+            if len(chunks) < min_chunks:
+                continue
+            if sum(c.n_records for c in chunks) > 2 * len(chunks):
+                continue
+            pids = np.concatenate([c.pids for c in chunks])
+            counts = np.concatenate(
+                [
+                    np.full(c.n_records, c.tags.shape[0], dtype=np.int64)
+                    for c in chunks
+                ]
+            )
+            ptr = np.zeros(pids.shape[0] + 1, dtype=np.int64)
+            np.cumsum(counts, out=ptr[1:])
+            tags = np.concatenate([np.tile(c.tags, c.n_records) for c in chunks])
+            words = np.concatenate(
+                [np.tile(c.words, c.n_records) for c in chunks]
+            )
+            merged[id(chunks[0])] = TraceChunk(
+                site=site, pids=pids, tags=tags, words=words,
+                ptr=ptr, group=group, shard=shard,
+            )
+            drop.update(id(c) for c in chunks)
+        if not merged:
+            return
+        self.chunks = [
+            merged.get(id(c), c)
+            for c in self.chunks
+            if id(c) not in drop or id(c) in merged
+        ]
 
     # -- views -------------------------------------------------------------
     @property
@@ -433,6 +505,13 @@ def unique_pairs(
     return a[keep], b[keep]
 
 
+def linearize(program_id: ProgramId, grid: Sequence[int]) -> int:
+    """Row-major linear program id (the 'warp id' written into bitmasks)."""
+    if not program_id:
+        return 0
+    return int(np.ravel_multi_index(tuple(program_id), tuple(grid)))
+
+
 def linearize_array(pids: np.ndarray, grid: Sequence[int]) -> np.ndarray:
     """Vectorized ``linearize``: (P, ndim) coords -> (P,) int64 linear ids."""
     pids = np.asarray(pids, dtype=np.int64)
@@ -464,6 +543,36 @@ def _sampled_axes(
     return axes
 
 
+def enumerate_grid(grid: Sequence[int]) -> Iterable[ProgramId]:
+    """All grid program ids in row-major order."""
+    if not grid:
+        yield ()
+        return
+    for flat in range(int(np.prod(grid, dtype=np.int64))):
+        yield tuple(int(x) for x in np.unravel_index(flat, tuple(grid)))
+
+
+def sampled_grid(
+    grid: Sequence[int], sampler: GridSampler
+) -> Iterable[ProgramId]:
+    """Grid program ids admitted by the sampler, one at a time, row-major."""
+    grid = tuple(int(g) for g in grid)
+    if sampler.target is None:
+        yield from enumerate_grid(grid)
+        return
+    k = min(len(sampler.target), len(grid))
+    if k == 0:
+        yield from enumerate_grid(grid)
+        return
+    head = sampler.target[: k - 1]
+    lo = sampler.target[k - 1] * sampler.window
+    hi = min(lo + sampler.window, grid[k - 1])
+    tail = grid[k:]
+    for mid in range(lo, hi):
+        for pid_tail in enumerate_grid(tail):
+            yield head + (mid,) + pid_tail
+
+
 def sampled_grid_array(
     grid: Sequence[int], sampler: GridSampler
 ) -> np.ndarray:
@@ -473,3 +582,44 @@ def sampled_grid_array(
         return np.zeros((1, 0), dtype=np.int64)
     mesh = np.meshgrid(*_sampled_axes(grid, sampler), indexing="ij")
     return np.stack([m.reshape(-1) for m in mesh], axis=1)
+
+
+def sampled_grid_size(grid: Sequence[int], sampler: GridSampler) -> int:
+    """``len(sampled_grid_array(grid, sampler))`` without materializing it
+    (O(ndim): how the shard partitioner sizes its bounds)."""
+    grid = tuple(int(g) for g in grid)
+    if len(grid) == 0:
+        return 1
+    n = 1
+    for axis in _sampled_axes(grid, sampler):
+        n *= int(axis.shape[0])
+    return n
+
+
+def sampled_grid_slice(
+    grid: Sequence[int], sampler: GridSampler, lo: int, hi: int
+) -> np.ndarray:
+    """Rows ``[lo, hi)`` of ``sampled_grid_array``, computed directly.
+
+    The sampled grid is the row-major cross product of the per-dimension
+    admitted coordinates, so a contiguous row run unravels
+    arithmetically: O(hi - lo) instead of O(total), which keeps a shard's
+    cost proportional to the shard.
+    """
+    grid = tuple(int(g) for g in grid)
+    lo, hi = int(lo), int(hi)
+    if len(grid) == 0:
+        return np.zeros((max(hi - lo, 0), 0), dtype=np.int64)
+    axes = _sampled_axes(grid, sampler)
+    sizes = tuple(int(a.shape[0]) for a in axes)
+    total = 1
+    for s in sizes:
+        total *= s
+    lo = max(0, min(lo, total))
+    hi = max(lo, min(hi, total))
+    if hi == lo:
+        return np.zeros((0, len(grid)), dtype=np.int64)
+    multi = np.unravel_index(np.arange(lo, hi, dtype=np.int64), sizes)
+    return np.stack(
+        [axes[d][multi[d]] for d in range(len(axes))], axis=1
+    ).astype(np.int64, copy=False)

@@ -37,7 +37,9 @@ Every step is persisted as a session iteration whose manifest records
 which Action spawned which candidate (the JAX package's ``tuning``
 block, see ``docs/file-format.md``), so the whole trajectory is
 auditable and re-renderable later.  ``cuthermo tune`` is the CLI front
-end.  :func:`tune_all` runs its families serially.
+end.  :func:`tune_all` tunes many families at once: the scheduler
+thread runs each round's kernels on the card one after another, then
+their walks overlap on a thread pool over one shared shard pool.
 """
 
 from __future__ import annotations
@@ -48,9 +50,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.runtime.fault import Preempted
+
 from .advisor import Action
 from .cache import CollectionCache
-from .collector import KernelSpec, OperandSpec
+from .collector import KernelSpec, OperandSpec, ShardedCollector
 from .diff import HeatmapDiff, diff as diff_heatmaps
 from .heatmap import Heatmap
 from .lint import static_transactions
@@ -540,7 +544,17 @@ def _resolve(rungs: Rungs, ref: str):
 
 
 def _build(rungs: Rungs, ref: str):
-    """The (spec, dynamic context) of a rung, as ``kernels.build`` makes it."""
+    """The (spec, dynamic context) of a rung, as ``kernels.build`` makes it.
+
+    A rung of the port's registry is source-stamped (``kernels.build``),
+    so a sharded collector rebuilds it in a worker; a rung from another
+    source of rungs (the test seam) has no ref a worker could rebuild and
+    is sharded in process.
+    """
+    from repro_torch import kernels as kreg
+
+    if rungs is kreg.get:
+        return kreg.build(ref)
     _, variant = _resolve(rungs, ref)
     return variant.spec(), variant.dynamic_context()
 
@@ -1214,6 +1228,8 @@ def tune(
     static_prescreen: bool = True,
     session: Optional[ProfileSession] = None,
     sampler: Optional[GridSampler] = None,
+    workers: int = 1,
+    collector: Optional[ShardedCollector] = None,
     cache: Optional[CollectionCache] = None,
     progress: Optional[Callable[[str], None]] = None,
     device: str = "cuda",
@@ -1232,7 +1248,10 @@ def tune(
     iteration whose manifest carries the tuning provenance (which Action
     spawned which candidate); without one the run is in-memory only.
     ``seed`` fixes the candidate tie-break order — two runs with the
-    same arguments and seed produce identical trajectories.  ``cache``
+    same arguments and seed produce identical trajectories.  ``workers`` /
+    ``collector`` shard the walks over a process pool (bit-identical heat
+    maps; a generated candidate has no source a worker could rebuild and
+    is sharded in process).  ``cache``
     (a :class:`~repro_torch.core.cache.CollectionCache`) serves repeated
     walks bit-identical cached heat maps instead of re-tracing.
     ``static_prescreen`` (on by default) prices every candidate with the
@@ -1244,8 +1263,9 @@ def tune(
     ``device`` (``"cuda"`` by default, ``"cpu"`` for the plain version),
     checked against its plain version: :meth:`_TuneLoop.launch`.  The
     record is the profile's ``run``; it is measured on every profile,
-    cache or no cache, and never ranked on.  ``rungs`` is the test seam
-    of :func:`ladder_candidates`.
+    cache or no cache, and never ranked on.  A launch failure is never a
+    candidate failure: it ends the run.  ``rungs`` is the test seam of
+    :func:`ladder_candidates`.
     """
     loop = _TuneLoop(
         kernel,
@@ -1260,39 +1280,51 @@ def tune(
         device=device,
         rungs=rungs,
     )
-    spec, ctx = loop.baseline_build()
-    pk = profile_kernel(
-        spec,
-        loop.sampler,
-        ctx,
-        name=loop.entry.name,
-        variant=loop.start.name,
-        region_map=loop.entry.region_map,
-        run=loop.launch(),
-        cache=cache,
-    )
-    loop.commit_baseline(pk, spec, ctx)
-    while True:
-        trial = loop.propose()
-        if trial is None:
-            break
-        cand, cspec, cctx = trial
-        run = loop.launch(cand)
-        try:
-            pk = profile_kernel(
-                cspec,
-                loop.sampler,
-                cctx,
-                name=loop.entry.name,
-                variant=cand.label,
-                region_map=cand.region_map,
-                run=run,
-                cache=cache,
-            )
-        except Exception as e:  # noqa: BLE001 — one broken spec is skipped
-            loop.record_failure(cand, e)
-            continue
-        loop.commit(cand, cspec, cctx, pk)
+    own_collector = False
+    if collector is None and workers > 1:
+        collector = ShardedCollector(workers)
+        own_collector = True
+    try:
+        spec, ctx = loop.baseline_build()
+        pk = profile_kernel(
+            spec,
+            loop.sampler,
+            ctx,
+            name=loop.entry.name,
+            variant=loop.start.name,
+            region_map=loop.entry.region_map,
+            run=loop.launch(),
+            collector=collector,
+            cache=cache,
+        )
+        loop.commit_baseline(pk, spec, ctx)
+        while True:
+            trial = loop.propose()
+            if trial is None:
+                break
+            cand, cspec, cctx = trial
+            run = loop.launch(cand)
+            try:
+                pk = profile_kernel(
+                    cspec,
+                    loop.sampler,
+                    cctx,
+                    name=loop.entry.name,
+                    variant=cand.label,
+                    region_map=cand.region_map,
+                    run=run,
+                    collector=collector,
+                    cache=cache,
+                )
+            except Preempted:
+                raise
+            except Exception as e:  # noqa: BLE001 — one broken spec is skipped
+                loop.record_failure(cand, e)
+                continue
+            loop.commit(cand, cspec, cctx, pk)
+    finally:
+        if own_collector:
+            collector.close()
     return loop.result()
 
 
@@ -1344,30 +1376,51 @@ def tune_all(
     use_generated: bool = True,
     static_prescreen: bool = True,
     session: Optional[ProfileSession] = None,
+    workers: int = 1,
+    collector: Optional[ShardedCollector] = None,
     cache: Optional[CollectionCache] = None,
     progress: Optional[Callable[[str], None]] = None,
     device: str = "cuda",
     rungs: Optional[Rungs] = None,
+    max_threads: Optional[int] = None,
+    preemption=None,
 ) -> TuneAllResult:
-    """Tune many families under ONE global candidate budget, serially.
+    """Tune many families concurrently under ONE global candidate budget.
 
     Each family runs its own :class:`_TuneLoop`; the scheduler works in
     rounds.  Every round it asks each still-active family (in input
     order) to propose its next candidate until the global budget is
-    reserved, profiles the batch, then commits the results back into
-    their loops in family order.  A loop's trajectory depends only on
-    the sequence of results committed into it, so two runs with the same
-    arguments and seed give identical trajectories, and each family's
-    trajectory is the one :func:`tune` gives with the same seed as long
-    as the global budget does not cut it short.
+    reserved, profiles the batch on a thread pool over the SHARED
+    ``collector`` and ``cache``, then commits the results back into
+    their loops in family order (*ordered result commitment*).  A loop's
+    trajectory depends only on the sequence of results committed into
+    it, so two runs with the same arguments and seed give identical
+    trajectories, and each family's trajectory is the one :func:`tune`
+    gives with the same seed as long as the global budget does not cut
+    it short.  Iterations are committed in the scheduler thread, so
+    their numbering is deterministic too.
+
+    Each round's kernel runs are made first, one after another on the
+    scheduler thread, while no walk runs; only then do the walks go to
+    the threads.  So no kernel overlaps another on the card, and no
+    thread holds the interpreter inside a run's CUDA-event window: each
+    run's times are the ones it gives when its family is tuned alone.
 
     ``kernels`` defaults to every registry family.  ``budget`` caps the
     TOTAL candidate profiles across all families (baselines are free,
     as in :func:`tune`); a family that converges stops proposing and its
-    unused share flows to the rest.  A candidate whose profile raises is
+    unused share flows to the rest.  A candidate whose walk raises is
     recorded as a ``candidate-failure`` fault on its family's loop and
-    skipped.  ``device`` and ``rungs`` are :func:`tune`'s.
+    skipped; a kernel that fails to build, launch or agree ends the run.
+    ``preemption`` (any object with a boolean ``requested``, e.g. a
+    :class:`repro_torch.runtime.fault.PreemptionHandler`) is checked at
+    every round boundary: when set, the scheduler raises
+    :class:`~repro_torch.runtime.fault.Preempted` between rounds, after
+    the last round's iterations have durably committed.  ``device`` and
+    ``rungs`` are :func:`tune`'s.
     """
+    import concurrent.futures
+
     if kernels is None:
         from repro_torch import kernels as kreg
 
@@ -1394,58 +1447,100 @@ def tune_all(
         )
         for k in kernels
     ]
+    own_collector = False
+    if collector is None and workers > 1:
+        collector = ShardedCollector(workers)
+        own_collector = True
     t0 = time.perf_counter()
     spent = 0
     rounds = 0
+    pool = concurrent.futures.ThreadPoolExecutor(
+        max_workers=max_threads or min(len(loops), 8),
+        thread_name_prefix="tune-all",
+    )
 
-    def profile(loop, spec, ctx, variant, region_map, run):
-        return profile_kernel(
-            spec,
-            loop.sampler,
-            ctx,
-            name=loop.entry.name,
-            variant=variant,
-            region_map=region_map,
-            run=run,
-            cache=cache,
-        )
+    def walk(loop, spec, ctx, cand, run):
+        """Walk one profile (its kernel already ran); a walk failure comes
+        back as the second element."""
+        try:
+            pk = profile_kernel(
+                spec,
+                loop.sampler,
+                ctx,
+                name=loop.entry.name,
+                variant=loop.start.name if cand is None else cand.label,
+                region_map=(
+                    loop.entry.region_map if cand is None else cand.region_map
+                ),
+                run=run,
+                collector=collector,
+                cache=cache,
+            )
+        except Preempted:
+            raise
+        except Exception as e:  # noqa: BLE001 — one broken spec is skipped
+            return None, e
+        return pk, None
 
-    # round 0: every baseline (free — budget counts candidates)
-    for loop in loops:
-        spec, ctx = loop.baseline_build()
-        pk = profile(
-            loop, spec, ctx, loop.start.name, loop.entry.region_map, loop.launch()
-        )
-        loop.commit_baseline(pk, spec, ctx)
+    try:
+        # round 0: every baseline (free: budget counts candidates)
+        builds = [loop.baseline_build() for loop in loops]
+        # every kernel of the round runs here, serially, before any walk:
+        # a launch failure raises and ends the run
+        runs = [loop.launch(None) for loop in loops]
+        futs = [
+            pool.submit(walk, loop, spec, ctx, None, run)
+            for loop, (spec, ctx), run in zip(loops, builds, runs)
+        ]
+        for loop, (spec, ctx), fut in zip(loops, builds, futs):
+            pk, err = fut.result()
+            if err is not None:
+                raise err  # a baseline that cannot be walked has no loop
+            loop.commit_baseline(pk, spec, ctx)
 
-    active = list(loops)
-    while active and spent < budget:
-        rounds += 1
-        batch = []  # (loop, cand, spec, ctx)
-        still = []
-        for loop in active:
-            if spent + len(batch) >= budget:
-                still.append(loop)  # no slot this round, stay active
-                continue
-            trial = loop.propose()
-            if trial is None:
-                continue  # converged: drops out of the schedule
-            batch.append((loop, *trial))
-            still.append(loop)
-        active = still
-        if not batch:
-            break
-        # ordered result commitment: state only advances here, in family
-        # order
-        for loop, cand, cspec, cctx in batch:
-            run = loop.launch(cand)
-            try:
-                pk = profile(loop, cspec, cctx, cand.label, cand.region_map, run)
-            except Exception as e:  # noqa: BLE001 — one broken spec is skipped
-                loop.record_failure(cand, e)
-                continue
-            loop.commit(cand, cspec, cctx, pk)
-            spent += 1
+        active = list(loops)
+        while active and spent < budget:
+            if preemption is not None and getattr(
+                preemption, "requested", False
+            ):
+                raise Preempted(
+                    f"tune --all preempted at a round boundary after "
+                    f"{rounds} round(s), {spent} candidate profile(s); "
+                    "committed iterations are durable — resume to replay"
+                )
+            rounds += 1
+            batch = []  # (loop, cand, spec, ctx)
+            still = []
+            for loop in active:
+                if spent + len(batch) >= budget:
+                    still.append(loop)  # no slot this round, stay active
+                    continue
+                trial = loop.propose()
+                if trial is None:
+                    continue  # converged: drops out of the schedule
+                batch.append((loop, *trial))
+                still.append(loop)
+            active = still
+            if not batch:
+                break
+            runs = [loop.launch(cand) for loop, cand, _, _ in batch]
+            futs = [
+                pool.submit(walk, loop, cspec, cctx, cand, run)
+                for (loop, cand, cspec, cctx), run in zip(batch, runs)
+            ]
+            # ordered result commitment: walks finish in any order, state
+            # only advances here, in family order
+            for (loop, cand, cspec, cctx), fut in zip(batch, futs):
+                pk, err = fut.result()
+                if err is not None:
+                    loop.record_failure(cand, err)
+                    continue
+                loop.commit(cand, cspec, cctx, pk)
+                spent += 1
+    finally:
+        pool.shutdown()
+        if own_collector:
+            collector.close()
 
     return TuneAllResult(
         results=tuple(loop.result() for loop in loops),

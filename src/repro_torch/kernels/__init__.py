@@ -606,10 +606,17 @@ def resolve(ref: str) -> Tuple[RegistryEntry, KernelVariant]:
 def build(ref: str) -> Tuple[KernelSpec, Optional[Dict[str, np.ndarray]]]:
     """Resolve + build a profile-ready (spec, dynamic_context) pair.
 
-    Deterministic: two calls for the same ref collect identical traces.
+    The spec is *source-stamped* with its canonical ``name:variant`` ref,
+    which is what lets a ``ShardedCollector`` worker rebuild the same
+    spec (and seeded context) in another process: the spec object holds
+    index-map lambdas and cannot be pickled.  Deterministic: two calls
+    for the same ref collect identical traces.
     """
-    _, variant = resolve(ref)
-    return variant.spec(), variant.dynamic_context()
+    entry, variant = resolve(ref)
+    spec = dataclasses.replace(
+        variant.spec(), source=f"{entry.name}:{variant.name}"
+    )
+    return spec, variant.dynamic_context()
 
 
 def reset_launch_counts() -> None:

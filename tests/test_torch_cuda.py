@@ -888,3 +888,85 @@ def test_cuda_pin_budget_is_the_cards_shared_memory_per_block(card):
 
     props = torch.cuda.get_device_properties(card)
     assert pin_budget_bytes("h100-sector") == props.shared_memory_per_block_optin
+
+
+@pytest.mark.gpu
+def test_cuda_spawn_workers_hold_no_context_and_rebuild_nothing(card):
+    """The parent holds a CUDA context and the built libraries before the
+    pool starts (the kernel runs first); the spawn workers that walk the
+    shards create no context, load no library, launch nothing, and no
+    library under build/ is rebuilt."""
+    from repro_torch.core.collector import ShardedCollector, analyze
+    from repro_torch.core.resilience import ResiliencePolicy
+    from repro_torch.core.session import heatmaps_equal
+    from repro_torch.core.trace import GridSampler
+
+    kreg.run_variant(kreg.get("gemm").variant("v01"), "cuda", iters=1)
+    assert torch.cuda.is_initialized()
+    libs = {p: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")}
+    assert libs
+    spec, ctx = kreg.build("gemm:v01")
+    sampler = GridSampler((0,), window=64)
+    serial = analyze(spec, sampler, ctx)
+    with ShardedCollector(2, policy=ResiliencePolicy(shard_timeout_s=120.0)) as sc:
+        hm = sc.analyze(spec, sampler, ctx)
+        states = sc.worker_states()
+    assert len(hm.shards) == 2 and heatmaps_equal(hm, serial)
+    assert states
+    for state in states:
+        assert state["cuda_initialized"] == 0, state
+        assert state["libraries"] == 0 and state["launches"] == 0, state
+    assert {p: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")} == libs
+
+
+@pytest.mark.gpu
+def test_cuda_tune_all_times_each_rung_as_when_run_alone(card, tmp_path):
+    """tune_all overlaps its families' walks on threads, yet each rung's
+    time on the card is the one it gives alone: no slower than a
+    run_variant of the same rung made afterwards with nothing else running
+    by more than 10 % and 0.1 ms (the host's dispatch in the event window
+    of a ~0.05 ms call moves by up to 0.045 ms; a run timed while threads
+    walk reads 0.4-3.5 ms slow)."""
+    from repro_torch.core.session import ProfileSession
+    from repro_torch.core.tuner import tune_all
+
+    sess = ProfileSession(str(tmp_path / "s"))
+    tune_all(["ttm", "histogram", "gramschm"], budget=3, device="cuda",
+             workers=2, session=sess)
+    timed = [
+        (it.kernels[0], (it.tuning or {}).get("candidate") or {})
+        for it in sess.iterations()
+        if it.kernels[0].run is not None
+    ]
+    assert len(timed) >= 4
+    for pk, cand in timed:
+        rung = cand.get("variant") or pk.variant
+        alone = kreg.run_variant(kreg.get(pk.name).variant(rung), "cuda")["ms"]
+        assert pk.run["ms"] - alone <= 0.1 * alone + 0.1, (pk.name, rung, pk.run["ms"], alone)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_failure_under_workers_and_faults_is_not_recovered(card, tmp_path, monkeypatch):
+    """Fault recovery covers the walk only: with --workers 2 and faults
+    armed, a kernel that disagrees with its plain version exits 1, and a
+    build failure ends the command (no retry, no fallback)."""
+    import dataclasses
+
+    from repro_torch import cli
+
+    entry = kreg.REGISTRY["ttm"]
+    good = entry.variants[0]
+    bad = dataclasses.replace(good, kernel=lambda *a, **k: good.kernel(*a, **k) + 1)
+    monkeypatch.setitem(
+        kreg.REGISTRY, "ttm", dataclasses.replace(entry, variants=(bad,) + entry.variants[1:])
+    )
+    argv = ["profile", "-k", "ttm", "--workers", "2", "--inject-faults", "seed=7"]
+    assert cli.main([*argv, "--out", str(tmp_path / "a")]) == 1
+    monkeypatch.setitem(kreg.REGISTRY, "ttm", entry)
+
+    def refuse(*_a, **_k):
+        raise _build.KernelBuildError("injected build failure")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    with pytest.raises(_build.KernelBuildError):
+        cli.main([*argv, "--out", str(tmp_path / "b")])

@@ -40,6 +40,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.kernels.flash, repro_torch.kernels.gmm, repro_torch.kernels.ssd\n"
         "import repro_torch.kernels.ragged_flash, repro_torch.kernels.paged_attn\n"
         "import repro_torch.models, repro_torch.configs, repro_torch.core.model_profile\n"
+        "import repro_torch.core._reference, repro_torch.core.faultinject\n"
+        "import repro_torch.runtime.fault, repro_torch.core.tuner\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"

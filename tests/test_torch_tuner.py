@@ -533,13 +533,19 @@ def test_cli_tune_report_and_exit_contract(tmp_path, capsys):
         ["model", "transformer-tiny", "--workers", "2"],
     ],
 )
-def test_cli_deferred_flags_exit_2_and_name_the_work(argv, tmp_path, capsys):
+def test_cli_scale_out_flags_exit_as_the_reference(argv, tmp_path, capsys):
+    """The seven command lines the port once refused run, and exit with
+    the reference CLI's code on the same arguments (``--device cpu`` for
+    the port): 0, or 2 for a ``--resume`` with no journal."""
+    from repro import cli as ref_cli
     from repro_torch.cli import main
 
-    assert main([*argv, "--device", "cpu", "--out", str(tmp_path / "s")]) == 2
+    want = ref_cli.main([*argv, "--out", str(tmp_path / "ref")])
+    got = main([*argv, "--device", "cpu", "--out", str(tmp_path / "port")])
+    assert got == want
+    assert got == (2 if "--resume" in argv else 0)
     err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP queue 1 item 4" in err
-    assert not (tmp_path / "s").exists()
+    assert "not ported yet" not in err
 
 
 def test_cli_tune_without_a_card_is_exit_2(tmp_path, capsys):
@@ -547,3 +553,18 @@ def test_cli_tune_without_a_card_is_exit_2(tmp_path, capsys):
 
     assert main(["tune", "gemm", "--out", str(tmp_path / "s")]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_h100_spmv_trajectory_stops_at_zigzag_with_no_pin_for_false_sharing():
+    """ROADMAP queue 3 item 4, decided: under ``H100Sector`` the advisor
+    maps false sharing on the gathered x to ``retile`` (no sector
+    meaning), as the reference maps it, so ``tune spmv`` stops at
+    ``ladder:zigzag`` (1.03x) where the reference's ``pin(x)`` for hot
+    gives 15.22x.  No ``pin`` is offered for false sharing."""
+    res = tune("spmv", device="cpu")
+    assert [(s.candidate.label, s.accepted, s.transactions) for s in res.steps] == [
+        ("ladder:zigzag", True, 81686)
+    ]
+    assert res.baseline.transactions == 83734 and res.converged
+    assert res.silent == ("retile(x)",)
+    assert not any("pin" in s.candidate.label for s in res.steps)
