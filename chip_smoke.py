@@ -105,7 +105,9 @@ Phases:
    gmm, ssd and gemm_v01 must run at Jamba's widths within their
    tolerances), and ``report`` on it; ``profile`` of the attn and moe
    rungs of the model families, each pair diffed; and ``profile -k flash
-   -k gmm -k ssd``.
+   -k gmm -k ssd``.  Each ``model`` run ends with its op-level sweep on
+   meta tensors, which allocate nothing; the full-width run must print its
+   sweep line, and its peak memory is printed.
 4. The closed tuning loop (the paper's §VI-A, ending on ``tune gemm``),
    through the CLI entry point, every launch count set to 0 just before
    each command and read just after: ``tune gemm --budget 3 --cache DIR
@@ -151,7 +153,28 @@ Phases:
    a kernel library or launched a kernel, and no library under ``build/``
    may be rebuilt.  Each number is printed beside the card's name and
    power limit and the host's core count.
-6. Print one JSON line describing every kernel, each with the card's name
+6. The model forward at full width, through the port's entry points
+   (``LM``, ``prefill``, ``decode_step``): Jamba-v0.1-52B from its
+   published config, cut to one hybrid period (8 of 32 layers, every
+   block kind), batch 1.  Each block kind (mamba+mlp, mamba+moe,
+   attn+mlp) in float32 against float64 on the card, on the same
+   parameters, at 512 tokens (``BLOCK_TOL``); then the cut in bfloat16
+   (26.0 GB): a 4096-token prefill (median of ``FWD_RUNS`` CUDA-event
+   runs) and 32 decode steps after it, with tokens/s, the parameter
+   bytes, the peak memory, a ``torch.profiler`` breakdown of one prefill
+   and one decode step (the card's busy time and idle share, the ops with
+   the most device time), and the op sweep's FLOPs and bytes beside
+   ``core/roofline.py``'s terms and the share of the bound reached (the
+   memory term from the bytes each function needs: parameters, cache
+   state, tokens and logits; the eager ops' own bytes are printed as a
+   diagnostic), the decode step profiled and counted being the last timed
+   one; the
+   bfloat16 logits against the float32 cut's on the same draws
+   (``BF16_TOL`` on the positions routed alike in both); float32
+   prefill(504) plus 8 decode steps against the forward of 512
+   (``DECODE_TOL``).  Each tolerance is stated with the constants and
+   printed beside the value observed.
+7. Print one JSON line describing every kernel, each with the card's name
    and power limit under ``config``, then the result line.
 
 The kernels redesigned for the card as a whole (GRAMSCHM opt, the ragged
@@ -244,6 +267,26 @@ MODEL_TIMING_SHAPES = {
 # Mamba2-2.7b's SSD chunk (src/repro_torch/configs/archs.py:mamba2_2_7b:
 # 80 heads of 64, state 128, chunks of 256) at batch 1, seq 4096
 MAMBA2_SSD_SHAPE = (80, 16, 256, 64, 128)
+# phase 6, the model forward: Jamba-v0.1-52B from its published config
+# (src/repro_torch/configs/archs.py:jamba_52b) at full width, its depth cut
+# to one hybrid period (8 of 32 layers: every block kind), in bfloat16
+FWD_LAYERS = 8
+FWD_PREFILL, FWD_DECODE = 4096, 32  # prompt tokens, then decode steps
+FWD_RUNS = 3  # timed prefills (after one warm-up)
+BLOCK_SEQ = 512  # tokens of the per-block float32-vs-float64 check
+# max|float32 - float64| of a block's update (its output less its input)
+# over max|float64 update|: float32's 2^-24 rounding summed over K = 14336
+BLOCK_TOL = 1e-4
+# |bf16 - float32| / |float32| of the logits (Frobenius norms), on the
+# positions whose experts were the same in every MoE layer of both runs
+# (bfloat16's 2^-9 rounding through 8 layers: 3.0-3.5% on the CPU at
+# widths 64-512, about flat in the width; a position routed otherwise
+# differs by a whole expert); and the least share of positions routed
+# alike for that check to say anything
+BF16_TOL, ALIKE_MIN = 5e-2, 0.5
+# prefill(S - 8) then 8 decode steps against the forward of S, float32:
+# max|err| over max|logits|, the CPU tests' whole-model tolerance
+DECODE_SEQ, DECODE_STEPS, DECODE_TOL = 512, 8, 1e-4
 # Jamba-v0.1-52B's fields that layout() and kind_spec read; the full-width
 # run applies them to moe-tiny at one hybrid period (8 layers)
 JAMBA_FIELDS = (
@@ -1239,9 +1282,11 @@ def jamba_argv(out: Path):
     return argv
 
 
-def drive_model_path(cli, kreg, load_iteration):
+def drive_model_path(cli, kreg, load_iteration, smi):
     """Phase 3 for the model path: {kernel name: launches of the full-width
     run}, or a failure message."""
+    import torch
+
     from repro_torch.kernels import flash, gemm, gmm, ssd
 
     counted = {"flash_attention": flash.flash_attention, "gmm": gmm.gmm,
@@ -1249,9 +1294,12 @@ def drive_model_path(cli, kreg, load_iteration):
     root = ROOT / "build" / "chip_smoke_session" / "model"
     shutil.rmtree(root, ignore_errors=True)
 
+    outputs = {}
+
     def run_counted(argv, must):
         kreg.reset_launch_counts()
         rc, out = run_cli(cli, argv)
+        outputs["last"] = out
         counts = {name: fn.launches for name, fn in counted.items()}
         print(f"launches: {counts}")
         if rc != 0:
@@ -1270,10 +1318,16 @@ def drive_model_path(cli, kreg, load_iteration):
 
     # the full-width run: Jamba-v0.1-52B at one hybrid period; the launches
     # do not depend on the sampler, which keeps the host walk to one corner
-    # of each grid
+    # of each grid.  Its op sweep counts the float32 cut's forward on meta
+    # tensors: the peak memory is the launches' alone.
+    torch.cuda.reset_peak_memory_stats()
     launches, msg = run_counted(jamba_argv(root / "jamba"), tuple(counted))
     if msg:
         return msg
+    print(f"full-width model run: peak memory {torch.cuda.max_memory_allocated()} B "
+          f"(torch.cuda.max_memory_allocated), on {smi}")
+    if "  op sweep (forward): " not in outputs["last"]:
+        return "the full-width model run printed no op sweep line"
     it = load_iteration(root / "jamba" / "iter0")
     rows = {row["path"]: row["kinds"] for row in it.layers["table"]}
     if rows != JAMBA_LAYERS:
@@ -1713,11 +1767,13 @@ def drive_scale_out(cli, kreg, smi, load_iteration):
         if not journal.is_file() or "preempted after 1/" not in err:
             return "the preempted model run left no journal"
         partial = load_iteration(out_dir / json.loads(journal.read_text())["partial"])
-        _, _, _, msg = counted(argv + ["--resume"])
+        out, _, _, msg = counted(argv + ["--resume"])
         if msg:
             return msg
         if journal.exists():
             return "model --resume left its journal"
+        if "  op sweep (forward): " not in out:
+            return "the resumed model run printed no op sweep line"
         got = load_iteration(out_dir / "iter1")
         want = load_iteration(ROOT / "build" / "chip_smoke_session" / "model" / "jamba" / "iter0")
         if got.layers != want.layers or [pk.name for pk in got.kernels] != [
@@ -1742,6 +1798,268 @@ def drive_scale_out(cli, kreg, smi, load_iteration):
         if launches[name] < 1:
             return f"the scale-out phase did not launch {name}"
     return launches
+
+
+def cast_tree(tree, dtype):
+    """A nested dict of tensors, each cast to ``dtype``."""
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
+
+
+def recording_routes(moe_mod, routes):
+    """A stand-in for ``moe._router`` that appends each call's expert ids
+    (sorted per token) to ``routes``."""
+    router = moe_mod._router
+
+    def record(params, x2d, cfg):
+        out = router(params, x2d, cfg)
+        routes.append(out[0].sort(dim=-1).values)
+        return out
+
+    return router, record
+
+
+def state_bytes(caches, kv_slots):
+    """Bytes of a cache tree's state: each KV buffer (``k``, ``v``) at
+    ``kv_slots`` of its sequence slots, every other tensor (SSM and
+    convolution state) whole."""
+    import torch
+
+    if isinstance(caches, dict):
+        return sum(v[:, :kv_slots].numel() * v.element_size() if k in ("k", "v")
+                   else state_bytes(v, kv_slots) for k, v in caches.items())
+    if isinstance(caches, (list, tuple)):
+        return sum(state_bytes(c, kv_slots) for c in caches)
+    return caches.numel() * caches.element_size() if isinstance(caches, torch.Tensor) else 0
+
+
+def event_ms(fn):
+    """(result, ms, host ms) of one call: the CUDA-event time (synchronised)
+    and the host's time to return from issuing it."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    out = fn()
+    host = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), host
+
+
+def device_breakdown(label, fn, smi, measured_ms, top=8):
+    """Profile one call of ``fn`` (``torch.profiler``, CPU and CUDA) and
+    print the card's busy time (the device time of the kernels each aten
+    op launched, summed), its idle share against the CUDA-event median
+    ``measured_ms``, and the ops with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # kernels appear twice, as their own rows and in their op's self time:
+    # count the ops (CPU rows) only
+    rows = [(e.self_device_time_total / 1e3, e.key, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CPU") and e.self_device_time_total > 0]
+    busy = sum(ms for ms, _, _ in rows)
+    print(f"{label} under torch.profiler: card busy {busy:.3f} ms against the measured "
+          f"{measured_ms:.3f} ms, idle share {max(0.0, 1 - busy / measured_ms):.3f}, on {smi}")
+    for ms, key, n in sorted(rows, reverse=True)[:top]:
+        print(f"  {ms:10.3f} ms  {n:5d}x  {key}")
+
+
+def drive_model_forward(smi, base=None, dev=None):
+    """Phase 6: the model forward at full width on the card, through the
+    port's entry points (``LM``, ``prefill``, ``decode_step``); None, or a
+    failure message.  ``base`` and ``dev`` (the Jamba cut, the card) are
+    for a rehearsal at a small size."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.archs import jamba_52b
+    from repro_torch.core import op_cost, roofline
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import LM
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import block_apply, block_defs
+
+    dev = dev or torch.device("cuda", 0)
+    base = base or dataclasses.replace(jamba_52b(), n_layers=FWD_LAYERS, name="jamba-v0.1-52b-cut8")
+    total, active = base.param_counts()
+    print(f"model forward: {base.name} (d_model {base.d_model}, {base.n_heads} heads over "
+          f"{base.n_kv_heads} KV of {base.head_dim}, d_ff {base.d_ff}, {base.n_experts} experts "
+          f"top-{base.top_k} {base.moe_impl}, SSD state {base.ssm_state}, vocab {base.vocab}), "
+          f"{FWD_LAYERS} of 32 layers: {total} parameters, {active} active, on {smi}")
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # -- each block kind at full width: float32 against float64 ---------------
+    scfg = dataclasses.replace(base, dtype=torch.float32).stack_config()
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, BLOCK_SEQ, base.d_model)).astype(np.float32)).to(dev)
+    pos = torch.arange(BLOCK_SEQ, device=dev)[None]
+    for kind in sorted(set(base.layout()), key=lambda k: k.tag()):
+        with torch.no_grad():
+            p32 = init_params(block_defs(scfg, kind), gen(1), dtype=torch.float32, device=dev)
+            y32, _, _ = block_apply(p32, x, pos, scfg, kind)
+            p64 = cast_tree(p32, torch.float64)
+            del p32
+            y64, _, _ = block_apply(p64, x.double(), pos, scfg, kind)
+            del p64
+            upd32, upd64 = y32.double() - x.double(), y64 - x.double()
+            err = float((upd32 - upd64).abs().max() / upd64.abs().max())
+        torch.cuda.empty_cache()
+        print(f"block {kind.tag()} (1 x {BLOCK_SEQ}): float32 vs float64 max|err| / max|update| "
+              f"{err:.3e} (tol {BLOCK_TOL:.0e})")
+        if not err <= BLOCK_TOL:
+            return f"block {kind.tag()}: float32 vs float64 {err:.3e} > {BLOCK_TOL:.0e}"
+
+    # -- the bfloat16 cut: prefill, then decode ---------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(base, device=dev, generator=gen(0))
+    torch.cuda.synchronize()
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"built the bfloat16 cut in {time.perf_counter() - t0:.1f} s: {param_bytes / 1e9:.2f} GB "
+          f"of parameters")
+    toks = torch.randint(0, base.vocab, (1, FWD_PREFILL + FWD_DECODE), generator=gen(2),
+                         device=dev)
+    prompt = toks[:, :FWD_PREFILL]
+    with torch.no_grad():
+        empty = model.init_caches(1, FWD_PREFILL + FWD_DECODE, dtype=torch.bfloat16)
+
+        def prefill():
+            return model.prefill(prompt, empty, last_only=True)
+
+        prefill()  # warm-up
+        pre, pre_host = zip(*(event_ms(prefill)[1:] for _ in range(FWD_RUNS)))
+        (logits, caches), _, _ = event_ms(prefill)
+        if tuple(logits.shape) != (1, 1, base.padded_vocab) or not bool(torch.isfinite(logits).all()):
+            return f"prefill: logits {tuple(logits.shape)} are not finite of the padded vocab"
+        prefill_out = caches
+        dec, dec_host = [], []
+        for t in range(FWD_DECODE):
+            last_in = caches  # the caches the last timed step reads
+            (logits, caches), ms, host = event_ms(
+                lambda: model.decode_step(toks[:, FWD_PREFILL + t : FWD_PREFILL + t + 1], caches))
+            dec.append(ms)
+            dec_host.append(host)
+            if not bool(torch.isfinite(logits).all()):
+                return f"decode step {t}: logits are not finite"
+        peak16 = torch.cuda.max_memory_allocated()
+        pre_ms, dec_ms = float(np.median(pre)), float(np.median(dec))
+        # the last timed step again (caches are values, so it is the same
+        # step at the same position), profiled and counted
+        def last_step():
+            return model.decode_step(toks[:, -1:], last_in)
+
+        device_breakdown("prefill", prefill, smi, pre_ms)
+        device_breakdown("decode step", last_step, smi, dec_ms)
+        _, pre_cost = op_cost.count(prefill)
+        _, dec_cost = op_cost.count(last_step)
+        # the bytes each function needs: the parameters once, the caches'
+        # state written (prefill) or read and written (decode: the KV up to
+        # its position read, one slot written), the tokens and the logits
+        io = toks.element_size() + logits.numel() * logits.element_size()
+        pos = FWD_PREFILL + FWD_DECODE - 1
+        pre_need = (param_bytes + state_bytes(prefill_out, FWD_PREFILL)
+                    + FWD_PREFILL * toks.element_size() + logits.numel() * logits.element_size())
+        dec_need = (param_bytes + state_bytes(last_in, pos + 1) + state_bytes(last_in, 1) + io)
+    print(f"prefill 1 x {FWD_PREFILL} (bfloat16, last position unembedded): median {pre_ms:.3f} ms "
+          f"of {[round(v, 3) for v in pre]}, {FWD_PREFILL / pre_ms * 1e3:.1f} tokens/s; the host "
+          f"issues it in {float(np.median(pre_host)):.3f} ms; on {smi}")
+    print(f"decode {FWD_DECODE} steps at 1 x {FWD_PREFILL}..{FWD_PREFILL + FWD_DECODE - 1}: median "
+          f"{dec_ms:.3f} ms (min {min(dec):.3f}, max {max(dec):.3f}), {1e3 / dec_ms:.1f} tokens/s; "
+          f"the host issues a step in {float(np.median(dec_host)):.3f} ms; on {smi}")
+    print(f"parameters {param_bytes} B, peak memory {peak16} B (torch.cuda.max_memory_allocated)")
+    for label, cost, need, ms, model_flops in (
+            ("prefill", pre_cost, pre_need, pre_ms, 2.0 * active * FWD_PREFILL),
+            ("decode step", dec_cost, dec_need, dec_ms, 2.0 * active)):
+        terms = roofline.from_raw(label, 1, cost.flops, need, cost.wire_bytes,
+                                  model_flops=model_flops)
+        print(f"{label} op sweep: {cost.flops:.4e} flops ({cost.product_flops:.4e} in products), "
+              f"{cost.bytes:.4e} bytes moved by the eager ops ({cost.bytes / roofline.HBM_BW * 1e3:.3f} "
+              f"ms at 3.35 TB/s, a diagnostic), {cost.collective_count} collectives; roofline (H100 "
+              f"SXM datasheet, bf16): compute {terms.compute_s * 1e3:.3f} ms, memory "
+              f"{terms.memory_s * 1e3:.3f} ms for the {need:.4e} bytes the function needs -> "
+              f"{terms.bound}-bound at {terms.step_s * 1e3:.3f} ms; share of the bound reached "
+              f"{terms.share_of_bound(ms / 1e3):.3f}; active-parameter FLOPs {model_flops:.4e}; "
+              f"on {smi}")
+    weights_ms = param_bytes / roofline.HBM_BW * 1e3
+    print(f"decode step reads every parameter (capacity dispatch runs every expert): "
+          f"{param_bytes / 1e9:.2f} GB / 3.35 TB/s = {weights_ms:.3f} ms; measured {dec_ms:.3f} ms, "
+          f"{weights_ms / dec_ms:.3f} of it")
+
+    # -- bfloat16 logits against float32's, the same draws unrounded ------------
+    routes16 = []
+    router, record = recording_routes(moe_mod, routes16)
+    moe_mod._router = record
+    try:
+        with torch.no_grad():
+            logits16, _, _ = model.apply(prompt)
+    finally:
+        moe_mod._router = router
+    del model, empty, caches, logits, prefill_out, last_in
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = dataclasses.replace(base, dtype=torch.float32)
+    model = LM(cfg32, device=dev, generator=gen(0))
+    routes32 = []
+    router, record = recording_routes(moe_mod, routes32)
+    moe_mod._router = record
+    try:
+        with torch.no_grad():
+            logits32, _, _ = model.apply(prompt)
+    finally:
+        moe_mod._router = router
+    alike = torch.stack([(a == b).all(dim=-1) for a, b in zip(routes16, routes32)]).all(dim=0)
+    scale = float(logits32.abs().max())
+    diff = (logits16 - logits32)[0]
+    share = float(alike.float().mean())
+    rel_alike = (float(diff[alike].norm() / logits32[0, alike].norm()) if bool(alike.any())
+                 else float("inf"))
+    rel = float(diff.norm() / logits32.norm())
+    agree = float((logits16.argmax(-1) == logits32.argmax(-1)).float().mean())
+    print(f"bfloat16 vs float32 logits (1 x {FWD_PREFILL}, {len(routes32)} MoE layers): positions "
+          f"routed alike {share:.4f} (least {ALIKE_MIN}); on them |err| / |logits| "
+          f"{rel_alike:.3e} (tol {BF16_TOL:.0e}); over all positions {rel:.3e}, max|err| / "
+          f"max|logits| {float(diff.abs().max()) / scale:.3e}, argmax agreement {agree:.4f}")
+    del logits16, diff
+    if not (share >= ALIKE_MIN and rel_alike <= BF16_TOL):
+        return f"bfloat16 vs float32 logits: {share:.4f} routed alike, {rel_alike:.3e} on them"
+
+    # -- float32: prefill(S - 8) and 8 decode steps against the forward of S --------
+    # Capacity dispatch drops by the group's length, so the forward of S and a
+    # prefill of S - 8 would drop different tokens: at capacity factor
+    # n_experts / top_k no token drops.  The SSD chunk must divide the
+    # sequence (ssd_ref raises otherwise): 8 divides both S - 8 and S.
+    model.cfg = dataclasses.replace(cfg32, capacity_factor=float(base.n_experts / base.top_k),
+                                    ssm_chunk=DECODE_STEPS)
+    model.stack_cfg = model.cfg.stack_config()
+    seq = toks[:, :DECODE_SEQ]
+    with torch.no_grad():
+        full, _, _ = model.apply(seq)
+        out, caches = model.prefill(seq[:, :-DECODE_STEPS],
+                                    model.init_caches(1, DECODE_SEQ, dtype=torch.float32))
+        steps = [out]
+        for t in range(DECODE_SEQ - DECODE_STEPS, DECODE_SEQ):
+            out, caches = model.decode_step(seq[:, t : t + 1], caches)
+            steps.append(out)
+        err = float((torch.cat(steps, dim=1) - full).abs().max() / full.abs().max())
+    peak32 = torch.cuda.max_memory_allocated()
+    print(f"float32 prefill({DECODE_SEQ - DECODE_STEPS}) + {DECODE_STEPS} decode steps vs the "
+          f"forward of {DECODE_SEQ}: max|err| / max|logits| {err:.3e} (tol {DECODE_TOL:.0e}); "
+          f"float32 cut's peak memory {peak32} B")
+    del model, full, caches, out, steps, logits32
+    torch.cuda.empty_cache()
+    if not err <= DECODE_TOL:
+        return f"float32 decode vs forward: {err:.3e} > {DECODE_TOL:.0e}"
+    return None
 
 
 def main() -> int:
@@ -1955,7 +2273,7 @@ def main() -> int:
     if isinstance(tc_launches, str):
         return fail(tc_launches)
 
-    model_launches = drive_model_path(cli, kreg, load_iteration)
+    model_launches = drive_model_path(cli, kreg, load_iteration, smi)
     if isinstance(model_launches, str):
         return fail(model_launches)
 
@@ -1969,7 +2287,12 @@ def main() -> int:
     if isinstance(scale_launches, str):
         return fail(scale_launches)
 
-    # -- phase 6: the record --------------------------------------------------
+    # -- phase 6: the model forward at full width --------------------------------
+    msg = drive_model_forward(smi)
+    if msg:
+        return fail(msg)
+
+    # -- phase 7: the record --------------------------------------------------
     kernels = []
     for v in gemm.KERNELS:
         row = rows[(v, "float32")]

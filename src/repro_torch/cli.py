@@ -240,8 +240,9 @@ def _build_parser() -> argparse.ArgumentParser:
     mo.add_argument(
         "--no-hlo",
         action="store_true",
-        help="skip the HLO-level sweep (the port has no sweep yet: every "
-        "run is a --no-hlo run)",
+        help="skip the op-level sweep (the port's HLO sweep: one forward, "
+        "with --backward the loss and its gradients, counted op by op on "
+        "meta tensors, which hold shapes and no values; no layers.hlo block)",
     )
     mo.add_argument(
         "--report",
@@ -874,7 +875,7 @@ def _cmd_model(args: argparse.Namespace) -> int:
     from repro_torch import kernels as kreg
     from repro_torch.core.cache import CollectionCache
     from repro_torch.core.model_profile import iteration_transactions, profile_model
-    from repro_torch.core.render import ReportEntry, run_text, write_report_bundle
+    from repro_torch.core.render import ReportEntry, _hlo_line, run_text, write_report_bundle
     from repro_torch.core.session import SessionError
     from repro_torch.models.registry import MODELS
     from repro_torch.runtime.fault import Preempted, PreemptionHandler
@@ -912,6 +913,7 @@ def _cmd_model(args: argparse.Namespace) -> int:
             fault_plan=plan,
             preemption=handler,
             resume=args.resume,
+            hlo=not args.no_hlo,
         )
     except Preempted as e:
         print(f"cuthermo: {e}", file=sys.stderr)
@@ -940,10 +942,8 @@ def _cmd_model(args: argparse.Namespace) -> int:
         for pk in it.kernels:
             if pk.run and not pk.run.get("shared_with"):
                 print(f"  {pk.name}: {pk.run.get('shapes')} {run_text(pk.run)}")
-    print(
-        "hlo sweep: not ported (it compiles the model's forward, which the "
-        "port does not have yet); per-layer table only"
-    )
+    hlo = layers.get("hlo")
+    print(f"  {_hlo_line(hlo)}" if hlo else "  op sweep: skipped (--no-hlo)")
     if args.report:
         written = write_report_bundle(
             [ReportEntry.from_profiled(pk) for pk in it.kernels],

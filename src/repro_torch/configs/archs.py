@@ -2,15 +2,18 @@
 
 Copied as data from the JAX package (``repro/configs/archs.py``), with the
 same names and sources.  ``FULL`` maps each arch id to its ``config()``
-builder.  Whole-model profiling runs them through
-``models.registry.apply_overrides`` (Jamba's layout at a cut depth is the
-port's full-width model run); the forward pass and the reduced smoke
-configs come with the port's forward.
+builder (full size), ``SMOKE`` to a reduced same-family config for CPU
+tests, built by the reference's own reduction (``_smoke``).  Whole-model
+profiling runs them through ``models.registry.apply_overrides`` (Jamba's
+layout at a cut depth is the port's full-width model run).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict
+
+import torch
 
 from repro_torch.models.model import ModelConfig
 
@@ -156,8 +159,53 @@ FULL: Dict[str, Callable[[], ModelConfig]] = {
 }
 
 
-def get_config(arch_id: str) -> ModelConfig:
-    """The published config of ``arch_id``; KeyError with the known ids."""
-    if arch_id not in FULL:
-        raise KeyError(f"unknown arch {arch_id}; known: {sorted(FULL)}")
-    return FULL[arch_id]()
+# -- smoke configs: same family, tiny dims -------------------------------------
+
+
+def _smoke(full: ModelConfig, **overrides) -> ModelConfig:
+    base = dict(
+        n_layers=min(full.n_layers, 4),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(full.n_kv_heads, 2) if full.n_kv_heads > 1 else 1,
+        d_ff=128 if full.d_ff else 0,
+        vocab=512,
+        head_dim=16,
+        vocab_pad_multiple=1,
+        remat="none",
+        dtype=torch.float32,
+        dense_d_ff=128 if full.dense_d_ff else None,
+        max_source_positions=64,
+    )
+    if full.n_experts:
+        base.update(n_experts=4, top_k=min(full.top_k, 2),
+                    n_shared_experts=full.n_shared_experts)
+    if full.ssm_state:
+        base.update(ssm_state=16, ssm_head_dim=16, ssm_expand=2, ssm_chunk=8)
+    if full.attn_kind == "mla":
+        base.update(q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=16,
+                    qk_rope_head_dim=8, v_head_dim=16, head_dim=None)
+    if full.hybrid_period:
+        base.update(n_layers=8, hybrid_period=4, hybrid_attn_index=2)
+    if full.n_dense_layers:
+        base.update(n_layers=4, n_dense_layers=1)
+    if full.n_encoder_layers:
+        base.update(n_encoder_layers=2, n_layers=2)
+    if full.mrope_sections:
+        base.update(mrope_sections=(4, 2, 2))
+    base.update(overrides)
+    return dataclasses.replace(full, **base)
+
+
+SMOKE: Dict[str, Callable[[], ModelConfig]] = {
+    aid: (lambda aid=aid: _smoke(FULL[aid]())) for aid in FULL
+}
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
+    """The published config of ``arch_id`` (its reduced smoke config with
+    ``smoke``); KeyError with the known ids."""
+    table = SMOKE if smoke else FULL
+    if arch_id not in table:
+        raise KeyError(f"unknown arch {arch_id}; known: {sorted(table)}")
+    return table[arch_id]()

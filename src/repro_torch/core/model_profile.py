@@ -22,15 +22,20 @@ into ONE session iteration whose manifest carries per-layer attribution.
    :func:`repro_torch.core.session.profile_kernel` and persisted with a
    per-layer rollup table, validated on write as an exact partition, so
    per-layer transfer totals sum to the iteration total by construction.
+4. **The op-level sweep** (:func:`op_sweep`, the JAX package's HLO
+   sweep): the model's forward (with ``backward``, its loss and the
+   gradients) runs once on meta tensors, which allocate nothing, under
+   :func:`repro_torch.core.op_cost.count`; its FLOPs, bytes and
+   collectives land in the manifest's ``layers.hlo`` block,
+   marked ``"source": "torch-ops"`` (the reference's blocks are XLA's).
 
 Discovered kernels are stamped with ``model.<model>.<kind>`` family refs
 (``repro_torch.kernels.get`` delegates those to
 ``repro_torch.models.registry.kernel_entry``), so ``cuthermo profile -k
 model.transformer-tiny.attn:wide-kv`` profiles one rung of a model's kind.
 
-Not ported yet: the HLO sweep of the JAX package (it compiles the model's
-forward, which the port does not have).  The collection cache applies
-(``cache``): an unchanged model re-profiles without a walk, and its
+The collection cache applies (``cache``): an unchanged model re-profiles
+without a walk, and its
 kernels are launched again.  Sharded collection applies (``workers``):
 the walks run on a spawn pool, the launches in this process.  The run is
 preemption-safe: a journal (:data:`MODEL_JOURNAL`) at the session root
@@ -75,6 +80,7 @@ __all__ = [
     "iteration_transactions",
     "layer_scope",
     "layers_table",
+    "op_sweep",
     "profile_model",
 ]
 
@@ -375,6 +381,48 @@ def _load_partial(sess: ProfileSession, name: str, overrides, backward):
     return {pk.name: pk for pk in it.kernels}
 
 
+def op_sweep(cfg, batch: int, seq: int, backward: bool = False) -> Dict:
+    """Run the model pass once on meta tensors and count what it dispatches.
+
+    Builds the model on the ``meta`` device, where tensors carry shapes
+    and dtypes and no values, so nothing is allocated whatever the
+    model's size (the reference lowers over abstract parameters alike).
+    It runs the forward on (batch, seq) tokens (or, with ``backward``,
+    the loss and ``torch.autograd.grad`` over every parameter) under
+    :func:`repro_torch.core.op_cost.count`.  The counts depend on shapes
+    alone: the dropless MoE, whose group sizes are data, counts the same
+    for any split of its rows (:func:`repro_torch.models.moe.moe_apply_ragged`).
+    Returns the JSON-ready ``layers.hlo`` manifest block, with the keys
+    the reference's has and ``"source": "torch-ops"``.
+    """
+    import torch
+
+    from repro_torch.core import op_cost
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="meta")
+    tokens = torch.zeros((batch, seq), dtype=torch.long, device="meta")
+    if backward:
+        labels = torch.zeros_like(tokens)
+
+        def run():
+            loss, _ = model.loss(tokens, labels)
+            return torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    else:
+
+        def run():
+            with torch.no_grad():
+                return model.apply(tokens)[0]
+
+    _, cost = op_cost.count(run)
+    return {
+        "backward": bool(backward),
+        "source": "torch-ops",
+        "heat": {"collective_count": cost.collective_count},
+        "cost": cost.as_dict(),
+    }
+
+
 def profile_model(
     name: str,
     out: Union[str, Path],
@@ -390,6 +438,7 @@ def profile_model(
     fault_plan=None,
     preemption=None,
     resume: bool = False,
+    hlo: bool = True,
 ) -> Iteration:
     """Profile one registered model into a session iteration.
 
@@ -398,7 +447,9 @@ def profile_model(
     plain version runs and nothing is timed), profiles each kernel's spec
     (full grid unless ``sampler`` says otherwise), and persists everything
     as the next iteration of the session at ``out`` with the validated
-    per-layer table.  ``cache`` (a CollectionCache, or a directory for
+    per-layer table, then runs the op-level sweep (:func:`op_sweep`, on
+    meta tensors; ``hlo=False`` skips it).
+    ``cache`` (a CollectionCache, or a directory for
     one) serves unchanged heat maps; the launches are made every time.
     ``workers`` shards the walks over a spawn pool (``fault_plan``
     injects faults into it); the launches stay in this process.  Returns
@@ -505,6 +556,8 @@ def profile_model(
             "overrides": list(overrides),
             "table": layers_table(discovered, profiled),
         }
+        if hlo:
+            layers["hlo"] = op_sweep(cfg, batch, seq, backward=backward)
         it = sess.add_iteration(
             profiled,
             label=label or f"model-{name}",

@@ -429,11 +429,13 @@ def run_text(run: Optional[Mapping]) -> str:
 
 
 def _hlo_line(hlo: Mapping) -> str:
-    """The HLO sweep summary of a JAX-package model artifact."""
+    """The sweep summary of a model artifact's ``layers.hlo`` block: the
+    port's op-level sweep (``"source": "torch-ops"``) or a JAX-package
+    artifact's HLO sweep."""
     cost = hlo.get("cost") or {}
     heat = hlo.get("heat") or {}
     return (
-        "HLO sweep"
+        ("op sweep" if hlo.get("source") == "torch-ops" else "HLO sweep")
         + (" (forward+backward)" if hlo.get("backward") else " (forward)")
         + f": {cost.get('flops', 0):.3g} flops, "
         f"{cost.get('bytes', 0):.3g} bytes, "
@@ -736,8 +738,9 @@ def _layers_section_html(layers: Mapping) -> str:
 
     ``layers`` is the iteration manifest's ``layers`` mapping written by
     whole-model profiling: the per-layer rollup table (an exact partition
-    of the iteration's kernels, validated on write), and in the JAX
-    package's artifacts the HLO sweep summary.
+    of the iteration's kernels, validated on write), and the sweep
+    summary when the run made one (the port's op sweep, or a JAX-package
+    artifact's HLO sweep).
     """
     if not layers:
         return ""

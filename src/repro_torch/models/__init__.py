@@ -1,11 +1,39 @@
-"""repro_torch.models — model configurations and the model -> kernel bridge.
+"""repro_torch.models — the model definitions and the model -> kernel bridge.
 
-So far the port holds what whole-model profiling reads: ``ModelConfig``
-(``model``) and the registry of profiled models with its kernel
-derivation (``registry``).  The forward pass comes with its own slice.
+``model`` holds ``ModelConfig``, the decoder-only ``LM`` and
+``build_model``; ``encdec`` the whisper backbone; ``attention``, ``moe``,
+``mamba``, ``layers``, ``params`` and ``transformer`` the pieces, each
+named as its counterpart in the JAX package.  ``registry`` holds the
+profiled models and their kernel derivation.
 """
 
-from . import model, registry
-from .model import BlockKind, ModelConfig
+from . import (
+    attention,
+    encdec,
+    frontends,
+    layers,
+    mamba,
+    model,
+    moe,
+    params,
+    registry,
+    transformer,
+)
+from .model import LM, BlockKind, ModelConfig, build_model
 
-__all__ = ["BlockKind", "ModelConfig", "model", "registry"]
+__all__ = [
+    "LM",
+    "BlockKind",
+    "ModelConfig",
+    "attention",
+    "build_model",
+    "encdec",
+    "frontends",
+    "layers",
+    "mamba",
+    "model",
+    "moe",
+    "params",
+    "registry",
+    "transformer",
+]

@@ -934,7 +934,9 @@ def test_profile_model_end_to_end(tmp_path):
     kreg.reset_launch_counts()
     it = mp.profile_model("mamba-tiny", tmp_path / "sess", device="cpu")
     assert it.layers["model"] == "mamba-tiny"
-    assert "hlo" not in it.layers
+    # the op-level sweep ran on the CPU and wrote the reference's block
+    assert it.layers["hlo"]["source"] == "torch-ops"
+    assert it.layers["hlo"]["backward"] is False and it.layers["hlo"]["cost"]["flops"] > 0
     table = it.layers["table"]
     assert [row["path"] for row in table] == ["layer0", "layer1", "head"]
     assert sum(row["transactions"] for row in table) == mp.iteration_transactions(it) > 0
@@ -988,7 +990,7 @@ def test_model_exit_0_prints_per_layer_table(model_session):
     assert "# model mamba-tiny" in out
     for path in ("layer0", "layer1", "head", "total"):
         assert path in out
-    assert "hlo sweep: not ported" in out
+    assert "op sweep: skipped (--no-hlo)" in out
     assert (sess / "iter0").is_dir()
 
 
