@@ -46,7 +46,10 @@ Phases:
    yardstick ``torch.linalg.vecdot``), at the registry's size and at a
    timing size larger than L2 (the histograms against ``np.bincount`` at
    both sizes); and every histogram kernel must drop ids outside [0,
-   n_bins).  opt2, called twice, must give the same bits.
+   n_bins).  opt2, called twice, must give the same bits.  ``spmv_ell``
+   also records, at both sizes, its device time by kernel
+   (``torch.profiler``) and the host's time to issue one call, beside
+   ``torch.linalg.vecdot``'s.
    Then the model path's kernels: flash attention, the grouped matmul
    and the SSD chunk, each at the registry's shape (against the plain
    version and a float64 host product; flash and gmm in float32 and
@@ -174,7 +177,36 @@ Phases:
    prefill(504) plus 8 decode steps against the forward of 512
    (``DECODE_TOL``).  Each tolerance is stated with the constants and
    printed beside the value observed.
-7. Print one JSON line describing every kernel, each with the card's name
+7. Serving on the card, through the port's entry points: Granite-8B from
+   its published config, whole, in bfloat16 (16.1 GB).  First
+   ``launch.serve.main`` with the reference's traffic (8 slots, max_seq
+   2048, 16 requests of prompts of 2-11 tokens, 64 tokens each), then a
+   ``Server`` with 8 slots and 16 prompts of 256-1024 tokens from a numpy
+   seed.  For each: tokens/s, the median and largest decode tick,
+   admissions and the prefill time of each, the card's busy time and idle
+   share over decode ticks 10-19 (``torch.profiler``, the ops with the
+   most device time by input shape), the peak memory, and each tick's
+   bound (``core/roofline.py``: the weights read once plus the live
+   slots' K/V up to the shared length) with the share reached; every
+   request must end with its 64 tokens.  Then the whole model in float32:
+   request 0, the longest prompt of the first wave, must decode token for
+   token as a batch-1 ``prefill`` and ``decode_step``; how many of the
+   other seven agree with their own direct decode is printed (they decode
+   at the shared cache length, as in the reference).
+8. Training on the card: Granite-8B's widths at depth 16 of 36 (bf16
+   parameters and gradients, float32 AdamW moments), batch 4 x 4096,
+   ``remat="full"``, AdamW warmed up over 2000 steps to 3e-3, clipped at
+   1.0, 8 steps of ``run`` on ``SyntheticSource``: the step times (median
+   of steps 1-6), tokens/s, the peak memory, the share of the 6ND bound
+   and of the op sweep's compute term, and the card's idle share in step
+   7 (``torch.profiler``).  The loss and the gradient norm must be finite
+   at every step and the loss must fall from step 0 to step 7.  Then
+   ``launch.train.main --smoke`` on the card with ``--ckpt-dir``: a
+   SIGTERM during step 6 writes the preemption checkpoint (and
+   ``Preempted`` stops the run), the checkpoint's parameters restored on
+   the card must hash equal to the saved, and ``--resume`` must start at
+   step 6.  Each phase prints its time.
+9. Print one JSON line describing every kernel, each with the card's name
    and power limit under ``config``, then the result line.
 
 The kernels redesigned for the card as a whole (GRAMSCHM opt, the ragged
@@ -317,6 +349,37 @@ REPEAT_CHECKED = ("gramschm_k3_opt", "ragged_decode_attention", "paged_decode_at
 MODEL_PATH_SSD_SHAPE = (256, 1, 64, 64, 16)
 SPMV_COLS = 36417  # the registry's column count
 SPMV_WIDTH = 16  # ELL width at the registry's 65,536 rows
+# spmv_ell also records, at both of its shapes, its device time by kernel
+# and the host's time to issue one call, beside torch.linalg.vecdot's
+SPLIT_TIMED = ("spmv_ell",)
+# phase 7, serving: Granite-8B from its published config
+# (src/repro_torch/configs/archs.py:granite_8b, [arXiv:2405.04324]), whole,
+# in bfloat16; the reference's entry point and traffic, then longer prompts
+SERVE_ARGV = ["--arch", "granite-8b", "--slots", "8", "--max-seq", "2048",
+              "--requests", "16", "--max-tokens", "64"]
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_MAX_TOKENS, SERVE_MAX_SEQ = 8, 16, 64, 2048
+LONG_PROMPT = (256, 1024)  # prompt lengths of the library-level run, inclusive
+SERVE_PROFILED = (10, 20)  # decode ticks under torch.profiler (no admission)
+# the f32 check: request 0, the longest prompt of the first wave, against a
+# direct batch-1 decode; the other requests share its cache length
+CHECK_PROMPTS = (11, 2, 10)  # request 0's length, then the others' range
+CHECK_REQUESTS, CHECK_TOKENS, CHECK_MAX_SEQ = 8, 16, 64
+# phase 8, training: Granite-8B's widths at depth 16 of 36, bfloat16
+# parameters and gradients, float32 AdamW moments (44.3 GB; 36 layers would
+# need 96.6 GB), the train_4k length.  The first steps of a long run,
+# warmed up over 2000 steps to the peak rate.  AdamW's first steps move
+# every element by about the rate, and at these widths that moves the
+# function far: on an H100 80GB HBM3 at 700 W, a rate of 3e-3 at step 1
+# (the launcher's warmup of max(steps // 10, 1)) took the loss from 11.59
+# to 24.23, 3e-5 (warmup 100) to 14.03, 1.5e-6 (warmup 2000) to 11.43 and
+# down to 7.56 by step 7; at rate 0 it stays at 11.58-11.67
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4, 4096, 8
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 3e-3, 2000, 100_000
+# the training entry point on the card: the smoke config, a SIGTERM after
+# PREEMPT_AT steps, then --resume
+TRAIN_ARGV = ["--arch", "granite-8b", "--smoke", "--steps", "12", "--ckpt-every", "5",
+              "--device", "cuda"]
+PREEMPT_AT = 7
 
 # the story each family's diffs must tell (phase 3), by pair of iterations;
 # the histogram's and spmv's classes under the H100 geometry are ROADMAP
@@ -592,13 +655,17 @@ def check_cases(kreg, dev):
                     return f"{name} {shape}: max|err| {err} > {tol}"
                 if exact is not None and not rec["max_abs_err_vs_float64"] <= tol:
                     return f"{name} {shape}: vs float64 {rec['max_abs_err_vs_float64']} > {tol}"
-                if name in REPEAT_CHECKED and which == "large":
+                if (name in REPEAT_CHECKED and which == "large") or name in SPLIT_TIMED:
                     rec["device_kernels_ms"] = device_kernels_ms(lambda: fn(*args, **kwargs))
                     rec["host_ms"] = host_ms(lambda: fn(*args, **kwargs))
                     rec["library_host_ms"] = host_ms(case["library"])
-                    print(f"{name} {which} {shape}: device time by kernel (torch.profiler) "
-                          f"{rec['device_kernels_ms']}; host time to issue a call "
-                          f"{rec['host_ms']:.4f} ms, the library's {rec['library_host_ms']:.4f} ms")
+                    line = (f"{name} {which} {shape}: device time by kernel (torch.profiler) "
+                            f"{rec['device_kernels_ms']}; host time to issue a call "
+                            f"{rec['host_ms']:.4f} ms, the library's {rec['library_host_ms']:.4f} ms")
+                    if name in SPLIT_TIMED:
+                        rec["library_device_kernels_ms"] = device_kernels_ms(case["library"])
+                        line += f"; the library's device time {rec['library_device_kernels_ms']}"
+                    print(line)
                 if which == "registry":
                     rows[name] = dict(source=case["source"], **rec)
                 else:
@@ -2062,6 +2129,370 @@ def drive_model_forward(smi, base=None, dev=None):
     return None
 
 
+def card_busy_ms(prof, by_shape=False):
+    """(busy ms, rows) of a ``torch.profiler`` run: the device time of every
+    kernel, copy and memset (each once: the CUDA rows; an op's CPU row
+    holds its kernels' time again, and so does a "Command Buffer Full"
+    row when the launch queue was full), and (ms, op, calls) for each aten
+    op (its input shapes too with ``by_shape``, recorded with
+    ``record_shapes=True``)."""
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3
+    rows = [(e.self_device_time_total / 1e3,
+             f"{e.key} {e.input_shapes}" if by_shape else e.key, e.count)
+            for e in prof.key_averages(group_by_input_shape=by_shape)
+            if str(e.device_type).endswith("CPU") and e.key.startswith("aten::")
+            and e.self_device_time_total > 0]
+    return busy, rows
+
+
+@contextlib.contextmanager
+def serve_timer(server_cls):
+    """Time a ``Server``'s work from outside while in use, by wrapping the
+    class's ``step`` and ``_prefill_slot``: each admission's prefill, and
+    each decode tick (a step less its admissions) with the slots live in it
+    and the shared cache length it wrote, on the host's clock (both end in
+    a read of the sampled tokens, which waits for the card).  The ticks
+    ``SERVE_PROFILED`` run under ``torch.profiler``: their busy time on the
+    card against their wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import caches_length
+
+    step, prefill = server_cls.step, server_cls._prefill_slot
+    rec = dict(prefill_ms=[], ticks=[], busy_ms=None, window_ms=0.0, top=[])
+    prof = []
+
+    def timed_prefill(srv, slot, req):
+        t0 = time.perf_counter()
+        prefill(srv, slot, req)
+        rec["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def timed_step(srv):
+        idx = len(rec["ticks"])
+        if idx == SERVE_PROFILED[0] and not prof:
+            torch.cuda.synchronize()
+            prof.append(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                record_shapes=True))
+            prof[0].__enter__()
+        n_adm, before = len(rec["prefill_ms"]), srv.steps
+        live = min(srv.cfg.batch_slots,
+                   sum(r is not None for r in srv.active) + len(srv.queue))
+        t0 = time.perf_counter()
+        step(srv)
+        ms = (time.perf_counter() - t0) * 1e3 - sum(rec["prefill_ms"][n_adm:])
+        if srv.steps > before:
+            rec["ticks"].append(dict(ms=ms, live=live, length=caches_length(srv.caches)))
+            if SERVE_PROFILED[0] <= idx < SERVE_PROFILED[1]:
+                rec["window_ms"] += ms + sum(rec["prefill_ms"][n_adm:])
+        if prof and rec["busy_ms"] is None and len(rec["ticks"]) == SERVE_PROFILED[1]:
+            torch.cuda.synchronize()
+            prof[0].__exit__(None, None, None)
+            rec["busy_ms"], rows = card_busy_ms(prof[0], by_shape=True)
+            rec["top"] = sorted(rows, reverse=True)[:6]
+
+    server_cls.step, server_cls._prefill_slot = timed_step, timed_prefill
+    try:
+        yield rec
+    finally:
+        server_cls.step, server_cls._prefill_slot = step, prefill
+        if prof and rec["busy_ms"] is None:  # the run ended inside the window
+            prof[0].__exit__(None, None, None)
+
+
+def report_serving(label, rec, wall_s, reqs, cfg, param_bytes, smi):
+    """Print a serving run's numbers (each beside the card), check that
+    every request ended with its max_tokens tokens; None or a failure."""
+    import numpy as np
+
+    from repro_torch.core import roofline
+
+    short = [r.rid for r in reqs if len(r.out_tokens) != r.max_tokens or not r.done]
+    if short:
+        return f"{label}: requests {short} did not end with their max_tokens tokens"
+    ticks = rec["ticks"]
+    tick_ms = np.array([t["ms"] for t in ticks])
+    generated = sum(len(r.out_tokens) for r in reqs)
+    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * 2  # K and V, bf16
+    bounds = []
+    for t in ticks:
+        need = param_bytes + t["live"] * t["length"] * kv_token
+        terms = roofline.from_raw(label, 1, cfg.model_flops_decode(t["live"]), need, 0.0)
+        bounds.append(terms.step_s * 1e3)
+    bounds = np.array(bounds)
+    share = bounds / tick_ms
+    pre = np.array(rec["prefill_ms"])
+    print(f"{label}: {len(reqs)} requests, {generated} tokens in {wall_s:.3f} s, "
+          f"{generated / wall_s:.1f} tokens/s; {len(ticks)} decode ticks, median "
+          f"{float(np.median(tick_ms)):.3f} ms, max {float(tick_ms.max()):.3f} ms, "
+          f"{sum(t['live'] for t in ticks) / tick_ms.sum() * 1e3:.1f} tokens/s over the ticks; "
+          f"{len(pre)} admissions, prefill median {float(np.median(pre)):.3f} ms, max "
+          f"{float(pre.max()):.3f} ms per admission; on {smi}")
+    print(f"{label}: decode tick bound (core/roofline.py: the {param_bytes / 1e9:.2f} GB of "
+          f"weights read once plus the live slots' K/V up to the shared length, over 3.35 "
+          f"TB/s) median {float(np.median(bounds)):.3f} ms (min {float(bounds.min()):.3f}, max "
+          f"{float(bounds.max()):.3f}); share of the bound reached: median "
+          f"{float(np.median(share)):.3f}, least {float(share.min()):.3f}")
+    if rec["busy_ms"] is not None:
+        print(f"{label}: ticks {SERVE_PROFILED[0]}..{SERVE_PROFILED[1] - 1} under "
+              f"torch.profiler: card busy {rec['busy_ms']:.3f} ms of {rec['window_ms']:.3f} ms, "
+              f"idle share {max(0.0, 1 - rec['busy_ms'] / rec['window_ms']):.3f}")
+        for ms, key, n in rec["top"]:
+            print(f"  {ms:10.3f} ms  {n:5d}x  {key}")
+    return None
+
+
+def direct_greedy(model, prompt, n, max_seq, dtype):
+    """``n`` greedy tokens of a batch-1 ``prefill`` then ``decode_step``."""
+    import torch
+
+    dev = model.device
+    with torch.no_grad():
+        caches = model.init_caches(1, max_seq, dtype=dtype)
+        logits, caches = model.prefill(torch.from_numpy(prompt).long()[None].to(dev), caches)
+        toks = [int(logits[0, -1].argmax())]
+        for _ in range(n - 1):
+            logits, caches = model.decode_step(torch.tensor([[toks[-1]]], device=dev), caches)
+            toks.append(int(logits[0, 0].argmax()))
+    return toks
+
+
+def drive_serving(smi, cfg=None, dev=None):
+    """Phase 7: Granite-8B served whole on the card, through the port's
+    entry points (``launch.serve.main``, ``Server``); None, or a failure
+    message.  ``cfg`` and ``dev`` are for a rehearsal at a small size."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.archs import granite_8b
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import LM
+    from repro_torch.runtime import Request, ServeConfig, Server
+
+    dev = dev or torch.device("cuda", 0)
+    cfg = cfg or granite_8b()
+    total, _ = cfg.param_counts()
+    param_bytes = total * 2
+    print(f"serving: {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads} KV of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"tied), whole: {total} parameters, {param_bytes / 1e9:.2f} GB in bfloat16, on {smi}")
+
+    # -- the reference's entry point and traffic ------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got = []
+    real_submit = Server.submit
+    Server.submit = lambda srv, req: (got.append(req), real_submit(srv, req))[1]
+    try:
+        with serve_timer(Server) as rec:
+            t0 = time.perf_counter()
+            out = launch_serve.main(SERVE_ARGV)
+            wall = time.perf_counter() - t0
+    finally:
+        Server.submit = real_submit
+    print(f"launch.serve.main({' '.join(SERVE_ARGV)}) -> {out}; wall {wall:.3f} s with the "
+          f"model's build; peak memory {torch.cuda.max_memory_allocated()} B")
+    msg = report_serving("serve (entry point, prompts of 2-11 tokens)", rec, out["seconds"],
+                         got, cfg, param_bytes, smi)
+    if msg:
+        return msg
+
+    # -- longer prompts, through the library ------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(
+        LONG_PROMPT[0], LONG_PROMPT[1] + 1))).astype(np.int32), max_tokens=SERVE_MAX_TOKENS)
+        for i in range(SERVE_REQUESTS)]
+    srv = Server(model, ServeConfig(batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ),
+                 dtype=cfg.dtype)
+    for r in reqs:
+        srv.submit(r)
+    with serve_timer(Server) as rec:
+        t0 = time.perf_counter()
+        srv.run_until_done()
+        wall = time.perf_counter() - t0
+    print(f"serve (library, prompts of {LONG_PROMPT[0]}-{LONG_PROMPT[1]} tokens: "
+          f"{sorted(len(r.prompt) for r in reqs)}): peak memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    msg = report_serving(f"serve (library, prompts of {LONG_PROMPT[0]}-{LONG_PROMPT[1]})", rec,
+                         wall, reqs, cfg, param_bytes, smi)
+    del model, srv
+    torch.cuda.empty_cache()
+    if msg:
+        return msg
+
+    # -- float32: the first request against a direct decode ------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = LM(cfg32, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(8)
+    lengths = [CHECK_PROMPTS[0]] + [int(rng.integers(CHECK_PROMPTS[1], CHECK_PROMPTS[2] + 1))
+                                    for _ in range(CHECK_REQUESTS - 1)]
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_tokens=CHECK_TOKENS) for i, n in enumerate(lengths)]
+    srv = Server(model, ServeConfig(batch_slots=SERVE_SLOTS, max_seq=CHECK_MAX_SEQ),
+                 dtype=torch.float32)
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_done()
+    direct = [direct_greedy(model, r.prompt, CHECK_TOKENS, CHECK_MAX_SEQ, torch.float32)
+              for r in reqs]
+    agree = [r.rid for r, d in zip(reqs, direct) if r.out_tokens == d]
+    print(f"float32 (whole, {cfg.n_layers} of {cfg.n_layers} layers, {total * 4 / 1e9:.2f} GB; peak "
+          f"{torch.cuda.max_memory_allocated()} B): request 0 (prompt {lengths[0]}, the longest "
+          f"of the first wave) against a batch-1 prefill + decode_step: "
+          f"{'equal' if 0 in agree else 'DIFFERENT'} over {CHECK_TOKENS} tokens; the other "
+          f"{CHECK_REQUESTS - 1} (prompts {lengths[1:]}, decoded at the shared length): "
+          f"{len(agree) - (0 in agree)} equal to their direct decode (recorded, not gated)")
+    del model, srv
+    torch.cuda.empty_cache()
+    if 0 not in agree:
+        return (f"serving float32: request 0 gave {reqs[0].out_tokens}, the direct decode "
+                f"{direct[0]}")
+    return None
+
+
+def drive_training(smi, cfg=None, dev=None):
+    """Phase 8: training at Granite-8B's widths on the card, through the
+    port's entry points (``build_train_step``, ``run``, ``launch.train.main``);
+    None, or a failure message.  ``cfg`` and ``dev`` are for a rehearsal at
+    a small size."""
+    import dataclasses
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import restore_tree
+    from repro_torch.configs.archs import granite_8b
+    from repro_torch.core import roofline
+    from repro_torch.core.model_profile import op_sweep
+    from repro_torch.data import DataConfig, SyntheticSource, TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.runtime import (
+        Preempted, TrainConfig, build_train_step, init_state, model_loss, run,
+    )
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = dev or torch.device("cuda", 0)
+    cfg = cfg or dataclasses.replace(granite_8b(), n_layers=TRAIN_LAYERS,
+                                     name=f"granite-8b-cut{TRAIN_LAYERS}")
+    total, _ = cfg.param_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    opt = adamw(cosine_warmup(TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL))
+    tc = TrainConfig(max_grad_norm=1.0)
+    state = init_state(dict(model.named_parameters()), opt, tc)
+    step = build_train_step(lambda p, t, l: model_loss(model, p, t, l), opt, tc)
+    pipe = TokenPipeline(SyntheticSource(DataConfig(global_batch=TRAIN_BATCH,
+                                                    seq_len=TRAIN_SEQ, vocab=cfg.vocab)))
+    print(f"training: {cfg.name} ({cfg.n_layers} of 36 layers at Granite-8B's widths, "
+          f"remat {cfg.remat}): {total} parameters in bfloat16, AdamW moments in float32 "
+          f"(peak rate {TRAIN_LR} after {TRAIN_WARMUP} warmup steps of {TRAIN_TOTAL}, "
+          f"clipped at 1.0); batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, the first {TRAIN_STEPS} "
+          f"steps, on {smi}")
+    times, losses, norms = [], [], []
+    clock = [time.perf_counter()]
+
+    def record(i, st, metrics):
+        losses.append(float(metrics["loss"]))  # waits for the step
+        norms.append(float(metrics["grad_norm"]))
+        now = time.perf_counter()
+        times.append(now - clock[0])
+        clock[0] = now
+        print(f"  step {i}: loss {losses[-1]:.4f}, grad_norm {norms[-1]:.4f}, "
+              f"{times[-1] * 1e3:.1f} ms")
+
+    state, _ = run(step, state, pipe, TRAIN_STEPS - 1, (record,))
+    # the last step under torch.profiler: the card's busy time in a step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        clock[0] = time.perf_counter()
+        state, _ = run(step, state, pipe, 1, (record,), start_step=TRAIN_STEPS - 1)
+    busy, rows = card_busy_ms(prof)
+    peak = torch.cuda.max_memory_allocated()
+    steady = np.array(times[1:-1]) * 1e3  # the first step allocates, the last is profiled
+    med = float(np.median(steady))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops = cfg.model_flops_train(TRAIN_BATCH, TRAIN_SEQ)
+    sweep = op_sweep(cfg, TRAIN_BATCH, TRAIN_SEQ, backward=True)["cost"]
+    terms = roofline.from_raw(cfg.name, 1, sweep["flops"], 0.0, 0.0, model_flops=model_flops)
+    model_bound = model_flops / roofline.PEAK_FLOPS_BF16 * 1e3
+    print(f"training step: median {med:.1f} ms over steps 1..{TRAIN_STEPS - 2} (min "
+          f"{float(steady.min()):.1f}, max {float(steady.max()):.1f}; first {times[0] * 1e3:.1f}), "
+          f"{tokens / med * 1e3:.1f} tokens/s; peak memory {peak} B; on {smi}")
+    print(f"training step bound: 6 N D = {model_flops:.4e} FLOPs over 989 TFLOP/s = "
+          f"{model_bound:.1f} ms, share reached {model_bound / med:.3f}; the op sweep (loss + "
+          f"grad with remat, meta tensors) counts {sweep['flops']:.4e} FLOPs "
+          f"({sweep['product_flops']:.4e} in products) -> {terms.compute_s * 1e3:.1f} ms, share "
+          f"{terms.compute_s * 1e3 / med:.3f}")
+    print(f"training step {TRAIN_STEPS - 1} under torch.profiler: card busy {busy:.1f} ms of "
+          f"{times[-1] * 1e3:.1f} ms, idle share {max(0.0, 1 - busy / (times[-1] * 1e3)):.3f}")
+    for ms, key, n in sorted(rows, reverse=True)[:8]:
+        print(f"  {ms:10.3f} ms  {n:5d}x  {key}")
+    del state, step, model, prof
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        return f"training: a loss or grad norm is not finite: {losses}, {norms}"
+    if not losses[-1] < losses[0]:
+        return f"training: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})"
+
+    # -- the entry point: preempted by SIGTERM, then resumed --------------------------
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        argv = TRAIN_ARGV + ["--ckpt-dir", ckpt]
+        real = launch_train.build_train_step
+        launch_train.build_train_step = lambda *a, **k: sigterm_after(PREEMPT_AT, real(*a, **k))
+        try:
+            launch_train.main(argv)
+            return "launch.train: the SIGTERM did not stop the run"
+        except Preempted as e:
+            print(f"launch.train.main({' '.join(argv)}) with a SIGTERM after step "
+                  f"{PREEMPT_AT - 1}: {e}")
+        finally:
+            launch_train.build_train_step = real
+        steps = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt) if d.startswith("step_"))
+        if steps != [5, PREEMPT_AT - 1]:
+            return f"launch.train: checkpoints at steps {steps}, want [5, {PREEMPT_AT - 1}]"
+        step_dir = Path(ckpt) / f"step_{PREEMPT_AT - 1:08d}"
+        manifest = json.loads((step_dir / "manifest.json").read_text())
+        target = {"params": {name[len("params/"):]: torch.empty(
+            m["shape"], dtype=getattr(torch, m["dtype"]), device=dev)
+            for name, m in manifest["leaves"].items()}}
+        restored, _, extra = restore_tree(ckpt, target, PREEMPT_AT - 1)
+
+        def sha(t):
+            t = t.cpu()
+            raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+            return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+
+        bad = [k for k, t in restored["params"].items()
+               if t.device != dev or sha(t) != manifest["leaves"][f"params/{k}"]["sha"]]
+        print(f"the preemption checkpoint (step {PREEMPT_AT - 1}, data_step "
+              f"{extra['data_step']}): {len(restored['params'])} parameters restored on "
+              f"{dev}, {len(restored['params']) - len(bad)} hash-equal to the saved")
+        if bad:
+            return f"launch.train: restored parameters differ from the saved: {bad[:4]}"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = launch_train.main(argv + ["--resume"])
+        print(buf.getvalue().rstrip())
+        print(f"launch.train.main(... --resume) -> {out}")
+        if f"resumed from step {PREEMPT_AT - 1}" not in buf.getvalue():
+            return "launch.train --resume did not start at the preemption's step"
+        if not np.isfinite(out["final_loss"]):
+            return f"launch.train --resume: final loss {out['final_loss']}"
+    return None
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2292,7 +2723,21 @@ def main() -> int:
     if msg:
         return fail(msg)
 
-    # -- phase 7: the record --------------------------------------------------
+    # -- phase 7: serving Granite-8B whole -----------------------------------------
+    t0 = time.perf_counter()
+    msg = drive_serving(smi)
+    if msg:
+        return fail(msg)
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 8: training at Granite-8B's widths -------------------------------------
+    t0 = time.perf_counter()
+    msg = drive_training(smi)
+    if msg:
+        return fail(msg)
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 9: the record --------------------------------------------------
     kernels = []
     for v in gemm.KERNELS:
         row = rows[(v, "float32")]

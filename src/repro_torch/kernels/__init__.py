@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import cpu_math
 from repro_torch.core.collector import KernelSpec
 from repro_torch.core.trace import GridSampler
 
@@ -29,6 +30,8 @@ from . import (
     flash, gemm, gmm, gramschm, histogram, ops, paged_attn, ragged_flash,
     ref, spmv, ssd, ttm,
 )
+
+cpu_math.prepare()  # before any plain version runs on the CPU
 
 #: Inputs of one launch: ``(device, generator) -> positional tensors``.
 InputMaker = Callable[[torch.device, torch.Generator], Tuple[torch.Tensor, ...]]

@@ -181,8 +181,8 @@ def ssd_plain(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     l = a.shape[-1]
     seg = cum[..., :, None] - cum[..., None, :]
     keep = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
-    # masked to 0 before the exp and to 0 after it (an exp of -inf lanes is
-    # sometimes off by 1e-4 on the first CPU call in a process)
+    # masked to 0 before the exp (no overflow above the diagonal) and to 0
+    # after it; a process's first exp on the CPU is set up by cpu_math
     dec = torch.exp(seg.masked_fill(~keep, 0.0)).masked_fill(~keep, 0.0)
     scores = torch.matmul(cmat.float(), bmat.float().transpose(-1, -2)) * dec
     y = torch.matmul(scores.to(x.dtype).float(), x.float())

@@ -7,6 +7,8 @@ named as its counterpart in the JAX package.  ``registry`` holds the
 profiled models and their kernel derivation.
 """
 
+from repro_torch import cpu_math
+
 from . import (
     attention,
     encdec,
@@ -20,6 +22,8 @@ from . import (
     transformer,
 )
 from .model import LM, BlockKind, ModelConfig, build_model
+
+cpu_math.prepare()  # before any forward runs on the CPU
 
 __all__ = [
     "LM",

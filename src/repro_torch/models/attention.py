@@ -9,10 +9,10 @@ to be measured (ROADMAP, "Later").
 
 Score and value products accumulate and return float32 for
 half-precision operands, as the reference's
-``preferred_element_type=jnp.float32`` does (:func:`matmul_acc`).  Plain
-autograd through the chunk loop gives the reference's custom-VJP
-gradients; it keeps each chunk's probabilities for the backward, where
-the reference recomputes them.
+``preferred_element_type=jnp.float32`` does (:func:`matmul_acc`).
+``flash_xla``'s backward is the reference's custom VJP: it recomputes
+each chunk's probabilities from the saved logsumexp, so nothing of size
+Sq x Skv is kept for it.
 
 KV caches are dicts of buffers plus a Python-int ``length``; writes are
 functional (:func:`update_seq_buffer` returns a new buffer), as the
@@ -118,49 +118,125 @@ def _chunk_mask(kpos, qpos, skv, causal, window, kv_length):
     return mask
 
 
+def _grouped(q: Tensor, n_kv: int) -> Tensor:
+    """(B, Sq, H, D) -> (B, KV, G*Sq, D), scaled by 1/sqrt(D): the query
+    heads grouped under their KV head."""
+    b, sq, h, d = q.shape
+    g = h // n_kv
+    scale = 1.0 / math.sqrt(d)
+    return (q.reshape(b, sq, n_kv, g, d).permute(0, 2, 3, 1, 4) * scale).reshape(
+        b, n_kv, g * sq, d)
+
+
+def _chunk_scores(q5, k, c0, chunk, qpos, skv, causal, window, kv_length):
+    """The masked scaled scores of one KV chunk, (B, KV, G, Sq, c) in
+    float32 (float64 for float64 operands), and the chunk's K (B, KV, D, c)."""
+    b, kvh, gsq, _ = q5.shape
+    sq = qpos.shape[-2]
+    kc = k[:, c0 : c0 + chunk].permute(0, 2, 3, 1)
+    c = kc.shape[-1]
+    s = matmul_acc(q5, kc).reshape(b, kvh, gsq // sq, sq, c)
+    kpos = c0 + torch.arange(c, device=q5.device)
+    mask = _chunk_mask(kpos, qpos, skv, causal, window, kv_length)
+    return torch.where(mask, s, NEG_INF), kc
+
+
+def _flash_fwd(q, k, v, q_positions, kv_length, causal, window, chunk):
+    """Online-softmax forward: (out5 (B, KV, G, Sq, D), lse (B, KV, G, Sq))
+    in float32 (float64 for float64 operands)."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    chunk = min(chunk, skv)
+    acc_t = hi_dtype(q)
+    q5 = _grouped(q, kvh)
+    qpos = q_positions[:, None, None, :, None]
+    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=acc_t, device=q.device)
+    l = torch.zeros((b, kvh, g, sq), dtype=acc_t, device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, d), dtype=acc_t, device=q.device)
+    for c0 in range(0, skv, chunk):
+        s, _ = _chunk_scores(q5, k, c0, chunk, qpos, skv, causal, window, kv_length)
+        vc = v[:, c0 : c0 + chunk].permute(0, 2, 1, 3)  # (B, KV, c, D)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.clamp(m_new, min=-0.5e30)  # fully-masked row guard
+        p = torch.exp(s - m_safe[..., None])
+        corr = torch.exp(m - m_safe)
+        l = l * corr + p.sum(dim=-1)
+        pv = matmul_acc(p.to(vc.dtype).reshape(b, kvh, g * sq, -1), vc)
+        acc = acc * corr[..., None] + pv.reshape(b, kvh, g, sq, d)
+        m = m_safe
+    l = torch.clamp(l, min=1e-30)
+    return acc / l[..., None], m + torch.log(l)
+
+
+def _flash_bwd(q, k, v, q_positions, kv_length, causal, window, chunk, out5, lse, dout):
+    """The reference's ``_flash_bwd``: each chunk's probabilities
+    recomputed from the saved logsumexp, nothing of size Sq x Skv kept."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    chunk = min(chunk, skv)
+    acc_t = hi_dtype(q)
+    q5 = _grouped(q, kvh)
+    qpos = q_positions[:, None, None, :, None]
+    do5 = dout.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4).to(acc_t)
+    delta = (do5 * out5).sum(dim=-1)  # rowsum(dO * O), (B, KV, G, Sq)
+    do4 = do5.reshape(b, kvh, g * sq, d)
+    q4 = q5.to(acc_t)
+    dq = torch.zeros((b, kvh, g * sq, d), dtype=acc_t, device=q.device)
+    dks, dvs = [], []
+    for c0 in range(0, skv, chunk):
+        s, kc = _chunk_scores(q5, k, c0, chunk, qpos, skv, causal, window, kv_length)
+        p = torch.exp(s - lse[..., None])  # exact probabilities, recomputed
+        c = p.shape[-1]
+        p4 = p.reshape(b, kvh, g * sq, c)
+        vc = v[:, c0 : c0 + chunk].permute(0, 2, 1, 3).to(acc_t)  # (B, KV, c, D)
+        dvs.append(p4.transpose(-1, -2) @ do4)
+        dp = (do4 @ vc.transpose(-1, -2)).reshape(b, kvh, g, sq, c)
+        ds = (p * (dp - delta[..., None])).reshape(b, kvh, g * sq, c)  # d(scaled scores)
+        dq = dq + ds @ kc.to(acc_t).transpose(-1, -2)
+        dks.append(ds.transpose(-1, -2) @ q4)
+    dq = dq.reshape(b, kvh, g, sq, d) * (1.0 / math.sqrt(d))
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    dk = torch.cat(dks, dim=2).permute(0, 2, 1, 3)  # (B, Skv, KV, D)
+    dv = torch.cat(dvs, dim=2).permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashXLA(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp``: the forward saves its output
+    (float32) and the rows' logsumexp; the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_length, causal, window, chunk):
+        out5, lse = _flash_fwd(q, k, v, q_positions, kv_length, causal, window, chunk)
+        ctx.save_for_backward(q, k, v, q_positions, out5, lse)
+        ctx.static = (kv_length, causal, window, chunk)
+        b, sq, h, d = q.shape
+        return out5.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_positions, out5, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, q_positions, *ctx.static, out5, lse, dout)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_xla(
     q: Tensor,  # (B, Sq, H, D)
     k: Tensor,  # (B, Skv, KV, D)
     v: Tensor,  # (B, Skv, KV, D)
     q_positions: Tensor,  # (B, Sq) int
-    kv_length: Any = None,  # valid cache length (int or scalar tensor)
+    kv_length: Optional[int] = None,  # valid cache length
     causal: bool = True,
     window: Optional[int] = None,
     chunk: int = 512,
 ) -> Tensor:
     """Online-softmax attention looped over KV chunks.  Exact; O(chunk)
     live scores.  The last chunk is the tail itself, where the reference
-    pads it and masks the pad: the pad's probabilities are exactly 0."""
-    b, sq, h, d = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    scale = 1.0 / math.sqrt(d)
-    chunk = min(chunk, skv)
-    acc_t = hi_dtype(q)
-    # (B, KV, G*Sq, D): query heads grouped under their KV head
-    q5 = (q.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4) * scale).reshape(b, kvh, g * sq, d)
-    qpos = q_positions[:, None, None, :, None]
-    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=acc_t, device=q.device)
-    l = torch.zeros((b, kvh, g, sq), dtype=acc_t, device=q.device)
-    acc = torch.zeros((b, kvh, g, sq, d), dtype=acc_t, device=q.device)
-    for c0 in range(0, skv, chunk):
-        kc = k[:, c0 : c0 + chunk].permute(0, 2, 3, 1)  # (B, KV, D, c)
-        vc = v[:, c0 : c0 + chunk].permute(0, 2, 1, 3)  # (B, KV, c, D)
-        c = kc.shape[-1]
-        s = matmul_acc(q5, kc).reshape(b, kvh, g, sq, c)
-        kpos = c0 + torch.arange(c, device=q.device)
-        mask = _chunk_mask(kpos, qpos, skv, causal, window, kv_length)
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        m_safe = torch.clamp(m_new, min=-0.5e30)  # fully-masked row guard
-        p = torch.exp(s - m_safe[..., None])
-        corr = torch.exp(m - m_safe)
-        l = l * corr + p.sum(dim=-1)
-        pv = matmul_acc(p.to(vc.dtype).reshape(b, kvh, g * sq, c), vc)
-        acc = acc * corr[..., None] + pv.reshape(b, kvh, g, sq, d)
-        m = m_safe
-    out5 = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out5.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    pads it and masks the pad: the pad's probabilities are exactly 0.
+    Its backward recomputes each chunk's probabilities (:class:`_FlashXLA`)."""
+    return _FlashXLA.apply(q, k, v, q_positions, kv_length, causal, window, chunk)
 
 
 def attention_ref(

@@ -27,6 +27,7 @@ from .layers import (
 )
 from .model import ModelConfig, _default_generator, caches_length
 from .params import ParamDef, ParamTree
+from .transformer import remat_wrap
 
 Tensor = torch.Tensor
 
@@ -84,18 +85,24 @@ class EncDec(ParamTree):
     def device(self) -> torch.device:
         return self.dec_pos.device
 
-    def encode(self, frames: Tensor) -> Tensor:
-        """frames: (B, S_enc, d_model) precomputed frontend embeddings."""
+    def encode(self, frames: Tensor, remat: Optional[str] = None) -> Tensor:
+        """frames: (B, S_enc, d_model) precomputed frontend embeddings;
+        ``remat`` overrides ``cfg.remat`` (serving passes ``"none"``)."""
         cfg = self.cfg
         p = self.tree()
         b, s, _ = frames.shape
         x = frames.to(cfg.dtype) + sinusoidal_positions(s, cfg.d_model, frames.device).to(cfg.dtype)
         pos = torch.arange(s, device=frames.device)[None].expand(b, s)
-        for blk in p["encoder"]:
+
+        def body(blk, x):
             y, _ = attn_apply(blk["attn"], layernorm(blk["norm1"], x, cfg.norm_eps), pos,
                               self.enc_attn)
             x = x + y
-            x = x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps))
+            return x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps))
+
+        run = remat_wrap(body, remat or cfg.remat, None)
+        for blk in p["encoder"]:
+            x = run(blk, x)
         return layernorm(p["enc_norm"], x, cfg.norm_eps)
 
     def decode(
@@ -111,14 +118,19 @@ class EncDec(ParamTree):
         pos = (start + torch.arange(s, device=tokens.device))[None].expand(b, s)
         x = embed(p["embed"], tokens).to(cfg.dtype) + p["dec_pos"][pos].to(cfg.dtype)
         new_caches: Optional[List[Dict[str, Any]]] = [] if caches is not None else None
-        for i, blk in enumerate(p["decoder"]):
-            cache = caches[i] if caches is not None else None
+
+        def body(blk, x, enc, cache):
             y, nc = attn_apply(blk["self_attn"], layernorm(blk["norm1"], x, cfg.norm_eps), pos,
                                self.dec_attn, cache)
             x = x + y
             x = x + cross_attn_apply(blk["cross_attn"], layernorm(blk["norm_x"], x, cfg.norm_eps),
                                      enc, self.dec_attn)
-            x = x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps))
+            return x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps)), nc
+
+        run = remat_wrap(body, cfg.remat, caches)
+        for i, blk in enumerate(p["decoder"]):
+            cache = caches[i] if caches is not None else None
+            x, nc = run(blk, x, enc, cache)
             if new_caches is not None:
                 new_caches.append(nc)
         x = layernorm(p["dec_norm"], x, cfg.norm_eps)
@@ -139,7 +151,7 @@ class EncDec(ParamTree):
                 (b, min(self.cfg.max_source_positions, 128), self.cfg.d_model),
                 dtype=self.cfg.dtype, device=tokens.device,
             )
-        enc = self.encode(embeddings)
+        enc = self.encode(embeddings, remat="none" if caches is not None else None)
         start = caches_length(caches) if caches is not None else 0
         logits, new_caches = self.decode(tokens, enc, caches, start)
         return logits, new_caches, torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -162,6 +174,7 @@ class EncDec(ParamTree):
         logits, new_caches, _ = self.apply(tokens, caches=caches, embeddings=embeddings)
         return logits, new_caches
 
-    def prefill(self, tokens: Tensor, caches, embeddings: Optional[Tensor] = None):
+    def prefill(self, tokens: Tensor, caches, embeddings: Optional[Tensor] = None,
+                last_only: bool = False):
         logits, new_caches, _ = self.apply(tokens, caches=caches, embeddings=embeddings)
-        return logits, new_caches
+        return (logits[:, -1:] if last_only else logits), new_caches

@@ -16,6 +16,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from . import attention as attn_mod
 from . import mamba as mamba_mod
@@ -63,7 +64,7 @@ class StackConfig:
     moe: Optional[MoEConfig] = None
     norm: str = "rmsnorm"  # 'rmsnorm' | 'layernorm'
     norm_eps: float = 1e-6
-    remat: str = "none"  # 'none' | 'full' (recorded; the port recomputes nothing)
+    remat: str = "none"  # 'none' | 'full': each block recomputed in the backward
 
 
 def segments(layout: Sequence[BlockKind]) -> List[Tuple[Tuple[BlockKind, ...], int]]:
@@ -177,6 +178,18 @@ def block_cache(
 # ---------------------------------------------------------------------------
 
 
+def remat_wrap(fn, remat: str, caches: Any):
+    """``fn``, or ``fn`` under ``torch.utils.checkpoint`` when ``remat`` is
+    ``"full"``, there are no caches and autograd is recording."""
+    if remat != "full" or caches is not None or not torch.is_grad_enabled():
+        return fn
+
+    def recomputed(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return recomputed
+
+
 def stack_caches(
     cfg: StackConfig, batch: int, max_seq: int,
     dtype: Any = torch.bfloat16, device: Any = None,
@@ -193,12 +206,16 @@ def stack_apply(
     caches: Optional[Sequence[Dict[str, Any]]] = None,
 ) -> Tuple[Tensor, Optional[List[Dict[str, Any]]], Tensor]:
     """Run the full stack: each layer's parameters (and cache) in turn.
-    Returns (x, new_caches, total_aux_loss)."""
+    Returns (x, new_caches, total_aux_loss).  With ``remat == "full"`` a
+    pass that records gradients keeps only each block's input and
+    recomputes the block in the backward (the reference's
+    ``jax.checkpoint``); prefill and decode never do."""
     new_caches: Optional[List[Dict[str, Any]]] = [] if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    run = remat_wrap(block_apply, cfg.remat, caches)
     for i, (params, kind) in enumerate(zip(layers, cfg.layout)):
         cache = caches[i] if caches is not None else None
-        x, nc, aux = block_apply(params, x, positions, cfg, kind, cache)
+        x, nc, aux = run(params, x, positions, cfg, kind, cache)
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)

@@ -970,3 +970,177 @@ def test_cuda_kernel_failure_under_workers_and_faults_is_not_recovered(card, tmp
     monkeypatch.setattr(_build, "load", refuse)
     with pytest.raises(_build.KernelBuildError):
         cli.main([*argv, "--out", str(tmp_path / "b")])
+
+
+# -- the runtime on the card: serving, the optimizer, checkpoints ---------------------
+
+
+def _granite_cut(layers, dtype):
+    import dataclasses
+
+    from repro_torch.configs.archs import granite_8b
+
+    return dataclasses.replace(granite_8b(), n_layers=layers, dtype=dtype)
+
+
+def _greedy(model, prompt, n, max_seq):
+    dev = model.device
+    with torch.no_grad():
+        caches = model.init_caches(1, max_seq, dtype=torch.float32)
+        lg, caches = model.prefill(torch.from_numpy(prompt).long()[None].to(dev), caches)
+        toks = [int(lg[0, -1].argmax())]
+        for _ in range(n - 1):
+            lg, caches = model.decode_step(torch.tensor([[toks[-1]]], device=dev), caches)
+            toks.append(int(lg[0, 0].argmax()))
+    return toks
+
+
+@pytest.mark.gpu
+def test_cuda_server_matches_direct_decode(card):
+    """Granite-8B's widths at depth 2 in float32: the request that sets the
+    shared cache length decodes as a batch-1 prefill and decode_step, with
+    every cache tensor on the card."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Request, ServeConfig, Server
+
+    cfg = _granite_cut(2, torch.float32)
+    model = build_model(cfg, device=card, generator=torch.Generator(device=card).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (9, 4, 6)]
+    srv = Server(model, ServeConfig(batch_slots=2, max_seq=48), dtype=torch.float32)
+    reqs = [Request(rid=i, prompt=p, max_tokens=6) for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_done()
+    assert reqs[0].out_tokens == _greedy(model, prompts[0], 6, 48)
+    assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
+    for layer in srv.caches:
+        assert all(v.device == card for k, v in layer.items() if k != "length")
+
+
+@pytest.mark.gpu
+def test_cuda_decode_tick_reads_back_only_the_sampled_tokens(card):
+    import warnings
+
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Request, ServeConfig, Server
+
+    cfg = _granite_cut(1, torch.bfloat16)
+    model = build_model(cfg, device=card, generator=torch.Generator(device=card).manual_seed(0))
+    srv = Server(model, ServeConfig(batch_slots=4, max_seq=64), dtype=torch.bfloat16)
+    for i in range(3):
+        srv.submit(Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32), max_tokens=8))
+    srv.step()  # admits all three, then decodes
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for _ in range(4):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                srv.step()
+            syncs = [w for w in caught if "synchronizing" in str(w.message)]
+            assert len(syncs) == 1, [str(w.message) for w in caught]
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["f32", "bf16", "int8"])
+def test_cuda_adamw_step_matches_the_cpu(card, state_dtype):
+    from repro_torch.optim import adamw, cosine_warmup
+
+    rng = np.random.default_rng(1)
+    tree = {"w": rng.standard_normal((64, 48)).astype(np.float32),
+            "b": rng.standard_normal(48).astype(np.float32)}
+    grads = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in tree.items()}
+    out = {}
+    for dev in ("cpu", card):
+        opt = adamw(cosine_warmup(1e-2, 1, 4), state_dtype=state_dtype)
+        params = {k: torch.tensor(v, device=dev) for k, v in tree.items()}
+        state = opt.init(params)
+        params, state = opt.update({k: torch.tensor(v, device=dev) for k, v in grads.items()},
+                                   state, params)
+        assert all(t.device == torch.device(dev) for t in list(params.values()) + list(state.m.values()))
+        out[str(dev)] = params, state
+    (p_cpu, s_cpu), (p_gpu, s_gpu) = out["cpu"], out[str(card)]
+    for k in tree:
+        scale = float(p_cpu[k].abs().max())
+        assert float((p_gpu[k].cpu() - p_cpu[k]).abs().max()) <= 1e-6 * scale
+        if state_dtype == "int8":
+            assert int((s_gpu.m[k].cpu().int() - s_cpu.m[k].int()).abs().max()) <= 1
+        else:
+            torch.testing.assert_close(s_gpu.v[k].cpu().float(), s_cpu.v[k].float(),
+                                       rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_restores_onto_the_targets_device(card, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+
+    g = torch.Generator(device=card).manual_seed(0)
+    tree = {"a": torch.randn(8, 4, device=card, generator=g),
+            "b": torch.randn(16, device=card, generator=g).to(torch.bfloat16)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(tree, 3)
+    mgr.wait()
+    on_card, step, _ = mgr.restore({k: torch.empty_like(v) for k, v in tree.items()})
+    on_host, _, _ = mgr.restore({k: torch.empty_like(v, device="cpu") for k, v in tree.items()})
+    assert step == 3
+    for k, v in tree.items():
+        assert on_card[k].device == card and on_host[k].device.type == "cpu"
+        assert on_card[k].dtype == v.dtype and torch.equal(on_card[k], v)
+        assert torch.equal(on_host[k], v.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_xla_backward_matches_float64_on_the_host(card, dtype):
+    """The recomputing backward on the card (bf16 products with float32
+    results on the tensor cores) against the same function in float64."""
+    from repro_torch.models.attention import flash_xla
+
+    g = torch.Generator().manual_seed(0)
+    b, s, h, kv, d = 2, 300, 8, 2, 64
+    host = [torch.randn(b, s, n, d, generator=g, dtype=torch.float64) for n in (h, kv, kv)]
+    dout = torch.randn(b, s, h, d, generator=g, dtype=torch.float64)
+    pos = torch.arange(s)[None].expand(b, s)
+
+    def grads(tensors, do, positions):
+        leaves = [t.detach().requires_grad_() for t in tensors]
+        out = flash_xla(*leaves, positions, None, True, None, 128)
+        return torch.autograd.grad(out, leaves, do)
+
+    want = grads(host, dout, pos)
+    got = grads([t.to(card, dtype) for t in host], dout.to(card, dtype), pos.to(card))
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for a, w in zip(got, want):
+        err = float((a.double().cpu() - w).abs().max())
+        assert err <= tol * float(w.abs().max()), err
+
+
+@pytest.mark.gpu
+def test_cuda_model_gradients_match_the_host(card):
+    """A float32 SMOKE model's loss and gradients (remat on) on the card
+    against the same model on the host."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import model_loss
+
+    cfg = dataclasses.replace(get_config("granite-8b", smoke=True), remat="full")
+    host = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    dev = build_model(cfg, device=card)
+    dev.load_state_dict(host.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 33)))
+    out = []
+    for model in (host, dev):
+        params = dict(model.named_parameters())
+        t = toks.to(model.device)
+        loss, _ = model_loss(model, params, t[:, :-1], t[:, 1:])
+        out.append((loss, dict(zip(params, torch.autograd.grad(loss, list(params.values()))))))
+    (lh, gh), (ld, gd) = out
+    assert abs(float(ld.detach()) - float(lh.detach())) <= 1e-5 * abs(float(lh.detach()))
+    for k, g in gh.items():
+        assert float((gd[k].cpu() - g).abs().max()) <= 1e-4 * float(g.abs().max()) + 1e-9, k

@@ -181,7 +181,9 @@ def test_model_backward_sweeps_the_gradients(tmp_path, capsys):
     argv = ["model", "transformer-tiny", "--device", "cpu", "--out", str(tmp_path / "s"),
             "--backward", "-q"]
     assert cli.main(argv) == 0
-    assert "  op sweep (forward+backward): 3.31e+08 flops, " in capsys.readouterr().out
+    # the attention backward recomputes each chunk's scores, as the
+    # reference's custom VJP does: 2 layers x 2.1e6 FLOPs more than autograd
+    assert "  op sweep (forward+backward): 3.35e+08 flops, " in capsys.readouterr().out
 
 
 def test_no_hlo_omits_the_block(tmp_path, capsys):
