@@ -206,6 +206,21 @@ Phases:
    ``Preempted`` stops the run), the checkpoint's parameters restored on
    the card must hash equal to the saved, and ``--resume`` must start at
    step 6.  Each phase prints its time.
+10. The mesh path on the card (run before the record): a one-rank NCCL
+   group and a (1, 1) ("data", "model") mesh from ``launch.mesh``.  (a)
+   Granite-8B's widths at depth 4, laid out by the training launcher's
+   mesh code: one float32 step at batch 2 x 4096 against the same step
+   with no mesh (loss within 1e-4, every parameter within 1e-3), then
+   bfloat16 at 4 x 4096, 4 steps and one under ``torch.profiler`` each
+   way (the median step, peak memory, idle share), and the host's time
+   to issue a step at 2 x 256 each way (DTensor's host cost).  (b)
+   ``moe_apply_ep`` at Jamba-v0.1-52B's MoE widths, 4096 tokens, float32:
+   within 1e-4 of max|y| of ``moe_apply_capacity`` and of ``moe_ref`` on
+   the positions kept; then each path's bfloat16 time and the NCCL
+   kernels' device time.  (c) The dry-run of granite-3-2b x decode_32k on
+   256 and 512 placeholder ranks, in a process of its own started first:
+   chips, per-device bytes, FLOPs, wire bytes by collective, the bound
+   and the seconds.  Any failure fails the script.
 9. Print one JSON line describing every kernel, each with the card's name
    and power limit under ``config``, then the result line.
 
@@ -380,6 +395,40 @@ TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 3e-3, 2000, 100_000
 TRAIN_ARGV = ["--arch", "granite-8b", "--smoke", "--steps", "12", "--ckpt-every", "5",
               "--device", "cuda"]
 PREEMPT_AT = 7
+
+# phase 10, the mesh path on one card: a one-rank NCCL group and a (1, 1)
+# ("data", "model") mesh.  (a) Granite-8B's widths
+# (src/repro_torch/configs/archs.py:granite_8b, [arXiv:2405.04324]) at depth
+# 4 of 36, laid out by the launcher's mesh code: one float32 step at batch
+# 2 x 4096 against the same step with no mesh, then bfloat16 at 4 x 4096
+# (train_4k's sequence), 4 timed steps each way and one under torch.profiler
+MESH_LAYERS, MESH_CHECK_BATCH, MESH_BATCH, MESH_SEQ, MESH_STEPS = 4, 2, 4, 4096, 4
+# DTensor's host cost: the host's time to issue a step where the card is
+# not what bounds it (at 4 x 4096 the launch queue fills and the host
+# waits on the card), batch 2 x 256
+HOST_BATCH, HOST_SEQ = 2, 256
+# the reference's tolerances (tests/test_sharding_multidevice.py:118-119)
+MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-4, 1e-3
+# (b) Jamba-v0.1-52B's MoE widths (configs/archs.py:jamba_52b: 16 experts,
+# top-2, d 4096, d_ff 14336), 4096 tokens: EP against capacity and moe_ref,
+# float32, within EP_TOL of max|y| (on the positions routed alike and kept,
+# against moe_ref, which drops nothing); then bfloat16 timings
+MOE_TOKENS, EP_TOL, MOE_ITERS = 4096, 1e-4, 10
+# (c) the dry-run of the reference test's cell on 256 and 512 placeholder
+# ranks, in a process of its own on the card's host, alongside (a) and (b)
+DRYRUN_TIMEOUT = 300
+DRYRUN_SCRIPT = """
+import json, time
+from repro_torch.launch import dryrun
+out = {}
+for multi in (False, True):
+    dryrun.fake_world(512 if multi else 256)
+    t0 = time.perf_counter()
+    res = dryrun.run_cell("granite-3-2b", "decode_32k", multi, verbose=False)
+    res["wall_s"] = time.perf_counter() - t0
+    out["2x16x16" if multi else "16x16"] = res
+print(json.dumps(out))
+"""
 
 # the story each family's diffs must tell (phase 3), by pair of iterations;
 # the histogram's and spmv's classes under the H100 geometry are ROADMAP
@@ -2493,6 +2542,253 @@ def drive_training(smi, cfg=None, dev=None):
     return None
 
 
+def timed_steps(step, state, batches, dev, n):
+    """Run ``n`` steps of ``step`` on ``batches`` (each ends in a read of the
+    loss); (state, losses, wall ms each, host ms to issue each)."""
+    losses, wall, host = [], [], []
+    for toks, labs in batches[:n]:
+        t0 = time.perf_counter()
+        state, metrics = step(state, toks, labs)
+        host.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, wall, host
+
+
+def mesh_training(mesh, smi, dev, cfg=None, batch=None, check_batch=None, seq=None):
+    """Phase 10 (a): the launcher's mesh layout of a training step against
+    no mesh; None, or a failure message."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.archs import granite_8b
+    from repro_torch.data import DataConfig, SyntheticSource, TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.runtime import TrainConfig, build_train_step, init_state, model_loss
+
+    cfg = cfg or dataclasses.replace(granite_8b(), n_layers=MESH_LAYERS,
+                                     name=f"granite-8b-cut{MESH_LAYERS}")
+    batch, check_batch, seq = batch or MESH_BATCH, check_batch or MESH_CHECK_BATCH, seq or MESH_SEQ
+    opt = adamw(cosine_warmup(TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL))
+    tc = TrainConfig(max_grad_norm=1.0)
+
+    def batches(b, n, seq=seq):
+        pipe = TokenPipeline(SyntheticSource(DataConfig(global_batch=b, seq_len=seq,
+                                                        vocab=cfg.vocab)))
+        return [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in next(pipe))
+                for _ in range(n)]
+
+    # the float32 check: one step of the same state, with and without the mesh
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = LM(cfg32, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    params = dict(model.named_parameters())
+    toks, labs = batches(check_batch, 1)[0]
+
+    def loss(p, t, l):
+        return model_loss(model, p, t, l)
+
+    plain, m1 = build_train_step(loss, opt, tc, donate=False)(init_state(params, opt, tc),
+                                                              toks, labs)
+    plain = {k: v.detach() for k, v in plain.params.items()}
+    rules, specs, dparams = launch_train.layout_params(model, params, mesh)
+    state, m2 = build_train_step(loss, opt, tc, mesh=mesh, rules=rules)(
+        init_state(dparams, opt, tc), toks, labs)
+    loss_err = abs(float(m1["loss"]) - float(m2["loss"]))
+    param_err = max(float((state.params[k].full_tensor() - v).abs().max())
+                    for k, v in plain.items())
+    kinds = sorted({str(p) for sp in specs.values() for p in sp})
+    print(f"mesh step {cfg32.name} float32, batch {check_batch} x {seq}, on a (1, 1) "
+          f"(data, model) mesh over one NCCL rank (specs use {kinds}): loss "
+          f"{float(m2['loss']):.6f} against {float(m1['loss']):.6f} with no mesh, |err| "
+          f"{loss_err:.3e} (tol {MESH_LOSS_TOL:.0e}); parameters max|err| {param_err:.3e} "
+          f"(tol {MESH_PARAM_TOL:.0e}); on {smi}")
+    del model, params, plain, dparams, state
+    torch.cuda.empty_cache()
+    if not (loss_err <= MESH_LOSS_TOL and param_err <= MESH_PARAM_TOL):
+        return f"mesh step: loss |err| {loss_err}, parameters {param_err}"
+
+    # bfloat16 at batch x seq: the same steps with and without the mesh
+    steps = batches(batch, MESH_STEPS + 1)
+    small = batches(HOST_BATCH, MESH_STEPS, seq=HOST_SEQ)
+    rec = {}
+    for label in ("no mesh", "mesh"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        params = dict(model.named_parameters())
+        kw = {}
+        if label == "mesh":
+            rules, _, params = launch_train.layout_params(model, params, mesh)
+            kw = dict(mesh=mesh, rules=rules)
+
+        def loss(p, t, l, model=model):
+            return model_loss(model, p, t, l)
+
+        step = build_train_step(loss, opt, tc, **kw)
+        state, losses, wall, host = timed_steps(step, init_state(params, opt, tc), steps, dev,
+                                                MESH_STEPS)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step(state, *steps[MESH_STEPS])
+            float(metrics["loss"])
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        busy, _ = card_busy_ms(prof)
+        peak = torch.cuda.max_memory_allocated()
+        state, _, small_wall, small_host = timed_steps(step, state, small, dev, MESH_STEPS)
+        rec[label] = dict(med=float(np.median(wall[1:])), host=float(np.median(host[1:])),
+                          peak=peak, losses=losses, idle=max(0.0, 1 - busy / prof_ms),
+                          busy=busy, prof_ms=prof_ms, small_host=float(np.median(small_host[1:])),
+                          small_wall=float(np.median(small_wall[1:])))
+        r = rec[label]
+        print(f"mesh step {cfg.name} bfloat16, batch {batch} x {seq}, {label}: median "
+              f"{r['med']:.1f} ms over steps 1..{MESH_STEPS - 1} (first {wall[0]:.1f}), host "
+              f"issue {r['host']:.1f} ms median; peak memory {r['peak']} B; step "
+              f"{MESH_STEPS} under torch.profiler: card busy {busy:.1f} of {prof_ms:.1f} ms, "
+              f"idle share {r['idle']:.3f}; losses {[round(x, 4) for x in losses]}; at batch "
+              f"{HOST_BATCH} x {HOST_SEQ}: host issue {r['small_host']:.1f} ms, step "
+              f"{r['small_wall']:.1f} ms (medians of steps 1..{MESH_STEPS - 1}); on {smi}")
+        del model, params, state, step, prof
+        if not all(np.isfinite(losses)):
+            return f"mesh step bfloat16 ({label}): a loss is not finite: {losses}"
+    a, b = rec["mesh"], rec["no mesh"]
+    print(f"DTensor's host cost of a step (batch {HOST_BATCH} x {HOST_SEQ}): issue "
+          f"{a['small_host']:.1f} ms against {b['small_host']:.1f} ms with no mesh "
+          f"(+{a['small_host'] - b['small_host']:.1f} ms); at {batch} x {seq}: step "
+          f"{a['med']:.1f} against {b['med']:.1f} ms ({a['med'] / b['med']:.3f}x), idle share "
+          f"{a['idle']:.3f} against {b['idle']:.3f}, peak {a['peak']} against {b['peak']} B; "
+          f"on {smi}")
+    torch.cuda.empty_cache()
+    return None
+
+
+def mesh_ep(mesh, smi, dev, moe_cfg=None, tokens=None):
+    """Phase 10 (b): expert parallelism against the capacity path and the
+    dense oracle; None, or a failure message."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.archs import jamba_52b
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.params import init_params
+    from repro_torch.parallel.context import use_mesh, use_rules
+    from repro_torch.parallel.sharding import make_rules
+
+    mcfg = moe_cfg or dataclasses.replace(jamba_52b().moe_config(), moe_impl="ep")
+    tokens = tokens or MOE_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(moe_mod.moe_defs(mcfg), gen, dtype=torch.float32, device=dev)
+    x = torch.randn((1, tokens, mcfg.d_model), generator=gen, device=dev)
+
+    def ep(p, x):
+        with use_mesh(mesh), use_rules(make_rules()):
+            return moe_mod.moe_apply_ep(p, x, mcfg)
+
+    y_ep, aux_ep = ep(params, x)
+    y_cap, aux_cap = moe_mod.moe_apply_capacity(params, x, mcfg)
+    y_ref, _ = moe_mod.moe_ref(params, x, mcfg)
+    # the positions every one of whose slots the capacity kept
+    top_e, _, _ = moe_mod._router(params, x.reshape(tokens, -1), mcfg)
+    flat = top_e.reshape(-1)
+    onehot = (flat[:, None] == torch.arange(mcfg.n_experts, device=dev)).long()
+    pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+    kept = (pos < moe_mod.capacity(mcfg, tokens)).reshape(tokens, mcfg.top_k).all(-1)
+    scale = float(y_cap.abs().max())
+    err_cap = float((y_ep - y_cap).abs().max()) / scale
+    err_ref = float((y_ep - y_ref)[0][kept].abs().max()) / scale
+    print(f"EP {tokens} tokens, {mcfg.n_experts} experts top-{mcfg.top_k}, d {mcfg.d_model}, "
+          f"d_ff {mcfg.d_ff}, float32, on the (1, 1) mesh: against capacity max|err| "
+          f"{err_cap:.3e} of max|y| (aux {float(aux_ep):.6f} / {float(aux_cap):.6f}), against "
+          f"moe_ref {err_ref:.3e} on the {int(kept.sum())} of {tokens} positions kept (tol "
+          f"{EP_TOL:.0e}); on {smi}")
+    del y_ep, y_cap, y_ref
+    if not (err_cap <= EP_TOL and err_ref <= EP_TOL):
+        return f"EP: max|err| {err_cap} against capacity, {err_ref} against moe_ref"
+
+    p16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    x16 = x.to(torch.bfloat16)
+    del params
+    for label, fn in (("capacity", lambda: moe_mod.moe_apply_capacity(p16, x16, mcfg)),
+                      ("EP", lambda: ep(p16, x16))):
+        for _ in range(2):
+            fn()
+        calls = [event_ms(fn) for _ in range(MOE_ITERS)]
+        ms = float(np.median([c[1] for c in calls]))
+        host = float(np.median([c[2] for c in calls]))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy, rows = card_busy_ms(prof)
+        # the NCCL kernels (the exchanges), each once: not their "nccl:" annotations
+        a2a = [(e.self_device_time_total / 1e3, e.key, e.count) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and e.key.startswith("ncclDevKernel")]
+        print(f"{label} bfloat16, {tokens} tokens: {ms:.3f} ms median of {MOE_ITERS} (CUDA "
+              f"events), host issue {host:.3f} ms; under torch.profiler the card busy "
+              f"{busy:.3f} ms; NCCL kernels {sum(t for t, _, _ in a2a):.3f} ms in "
+              f"{sum(n for _, _, n in a2a)} launches; on {smi}")
+        for t, key, n in sorted(rows, reverse=True)[:6]:
+            print(f"  {t:10.3f} ms  {n:5d}x  {key}")
+    return None
+
+
+def drive_mesh(smi, dev=None):
+    """Phase 10: the mesh path on one card — (a) the sharded training step,
+    (b) EP against capacity, (c) the dry-run in a process of its own; None,
+    or a failure message."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = dev or torch.device("cuda", 0)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry = subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT], stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    try:
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            torch.cuda.set_device(dev)
+            dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                    world_size=1)
+            try:
+                mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+                msg = mesh_training(mesh, smi, dev) or mesh_ep(mesh, smi, dev)
+            finally:
+                dist.destroy_process_group()
+        if msg:
+            return msg
+        out, err = dry.communicate(timeout=DRYRUN_TIMEOUT)
+        if dry.returncode != 0:
+            return f"dry-run exited {dry.returncode}: {err[-2000:]}"
+        cells = json.loads(out.strip().splitlines()[-1])
+        for mesh_name, r in cells.items():
+            print(f"dry-run granite-3-2b x decode_32k on {mesh_name} placeholder ranks (the "
+                  f"card's host): chips {r['chips']}, per-device bytes {r['per_device_bytes']} "
+                  f"(parameters {r['param_bytes_per_device']}), FLOPs {r['cost']['flops']:.4e} "
+                  f"({r['cost']['product_flops']:.4e} in products), bytes "
+                  f"{r['cost']['bytes']:.4e}, wire bytes {r['collectives']['by_op']}, bound "
+                  f"{r['bound']} ({r['roofline']['step_s'] * 1e3:.3f} ms), {r['wall_s']:.1f} s")
+            if not (r["ok"] and r["cost"]["flops"] > 0
+                    and r["cost"]["product_flops"] * r["chips"] >= r["model_flops"]):
+                return f"dry-run on {mesh_name}: {r}"
+        return None
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2736,6 +3032,13 @@ def main() -> int:
     if msg:
         return fail(msg)
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 10: the mesh path on one card ------------------------------------------
+    t0 = time.perf_counter()
+    msg = drive_mesh(smi)
+    if msg:
+        return fail(msg)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 9: the record --------------------------------------------------
     kernels = []

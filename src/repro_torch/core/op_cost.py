@@ -19,7 +19,16 @@ pass dispatches instead:
     program's traffic, an upper bound on a fused one's.
   * **collectives** — the c10d ops seen (``c10d``, ``_c10d_functional``;
     a functional collective's wait and wrapper are not), with their input
-    bytes as wire bytes and neither FLOPs nor HBM bytes: 0 on one device.
+    bytes as wire bytes and neither FLOPs nor HBM bytes: 0 on one device;
+    ``by_collective`` splits them by op name, as the reference's
+    ``hlo_cost`` splits its collectives.
+
+:func:`count` counts a single-device pass.  :func:`count_local` counts
+one rank's share of a pass over DTensors (the dry-run): it lets each
+DTensor op run its local ops and collectives and counts those, on the
+rank's blocks, skipping the global-shape ops DTensor runs on fake
+tensors to work out an output's shape; its product FLOPs come from the
+same formulas (``flop_registry``) that ``FlopCounterMode`` applies.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ class OpCost:
     wire_bytes: float = 0.0
     collective_count: int = 0
     ops: int = 0
+    by_collective: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def product_flops(self) -> float:
@@ -96,8 +106,11 @@ class ByteCounter(TorchDispatchMode):
         outputs = tree_leaves(out)
         if func.namespace in _COLLECTIVE_NAMESPACES:
             if not func.__name__.startswith(_NOT_COLLECTIVES):  # bookkeeping
+                wire = _tensor_bytes(inputs)
                 self.cost.collective_count += 1
-                self.cost.wire_bytes += _tensor_bytes(inputs)
+                self.cost.wire_bytes += wire
+                name = func._overloadpacket.__name__
+                self.cost.by_collective[name] = self.cost.by_collective.get(name, 0.0) + wire
             return out
         self.cost.bytes += _tensor_bytes(inputs + outputs)
         if func._overloadpacket not in flop_registry:
@@ -107,11 +120,49 @@ class ByteCounter(TorchDispatchMode):
         return out
 
 
+class LocalCounter(ByteCounter):
+    """:class:`ByteCounter` for a pass over DTensors: a DTensor op is
+    handed back (``NotImplemented``) so that its local ops reach this mode
+    on the rank's blocks; fake tensors (DTensor's shape propagation) are
+    not counted; products are counted here from ``flop_registry``."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        if any(issubclass(t, FakeTensor) for t in types):
+            return func(*args, **kwargs)
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        formula = _LOCAL_FLOPS.get(func._overloadpacket) or flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.cost.flops += formula(*args, **kwargs, out_val=out)
+        return out
+
+
 def _bmm_flop(a_shape, b_shape, *_, out_shape=None, **kwargs) -> int:
     """``bmm`` and its ``out_dtype`` overload (whose extra argument the
     stock formula takes for its output shape): 2 * b * m * n * k."""
     b, m, k = a_shape
     return 2 * b * m * k * b_shape[-1]
+
+
+def _bmm_local(a, b, *args, out_val=None, **kwargs) -> int:
+    return _bmm_flop(tuple(a.shape), tuple(b.shape))
+
+
+_LOCAL_FLOPS = {torch.ops.aten.bmm: _bmm_local}
+
+
+def count_local(fn: Callable[[], Any]) -> Tuple[Any, OpCost]:
+    """Run ``fn()`` (a pass over DTensors) and count this rank's share:
+    (its result, the cost)."""
+    with LocalCounter() as counter:
+        result = fn()
+    counter.cost.flops += counter.cost.elementwise_flops
+    return result, counter.cost
 
 
 def count(fn: Callable[[], Any]) -> Tuple[Any, OpCost]:

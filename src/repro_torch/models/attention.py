@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.context import constrain_logical, split_dim
 from .layers import apply_mrope, apply_rope, hi_dtype, rmsnorm, rmsnorm_defs
 from .params import ParamDef
 
@@ -90,16 +91,30 @@ def matmul_acc(a: Tensor, b: Tensor) -> Tensor:
     return out.reshape(*lead, a.shape[-2], b.shape[-1])
 
 
+class _MergeDims(torch.autograd.Function):
+    """``t.flatten(dim, dim + 1)``, whose gradient is split back with
+    :func:`split_dim` (on a mesh, a split that the heads do not divide is
+    gathered first)."""
+
+    @staticmethod
+    def forward(ctx, t, dim):
+        ctx.dim, ctx.split = dim, tuple(t.shape[dim:dim + 2])
+        return t.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return split_dim(grad, ctx.dim, ctx.split), None
+
+
 def _proj(x: Tensor, w: Tensor) -> Tensor:
     """``einsum('bsd,dhk->bshk')``: x times a (d, heads, head_dim) weight."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    return split_dim(x @ _MergeDims.apply(w.to(x.dtype), 1), -1, (h, k))
 
 
 def _out(o: Tensor, w: Tensor) -> Tensor:
     """``einsum('bshk,hkd->bsd')``: heads back to the model width."""
-    h, k, d = w.shape
-    return o.flatten(-2) @ w.to(o.dtype).reshape(h * k, d)
+    return _MergeDims.apply(o, o.dim() - 2) @ _MergeDims.apply(w.to(o.dtype), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +139,7 @@ def _grouped(q: Tensor, n_kv: int) -> Tensor:
     b, sq, h, d = q.shape
     g = h // n_kv
     scale = 1.0 / math.sqrt(d)
-    return (q.reshape(b, sq, n_kv, g, d).permute(0, 2, 3, 1, 4) * scale).reshape(
+    return (split_dim(q, 2, (n_kv, g)).permute(0, 2, 3, 1, 4) * scale).reshape(
         b, n_kv, g * sq, d)
 
 
@@ -220,6 +235,44 @@ class _FlashXLA(torch.autograd.Function):
         q, k, v, q_positions, out5, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd(q, k, v, q_positions, *ctx.static, out5, lse, dout)
         return dq, dk, dv, None, None, None, None, None
+
+
+def _per_rank_heads(fn, q: Tensor, k: Tensor, v: Tensor, q_positions: Tensor, *args):
+    """``fn(q, k, v, q_positions, *args)``; on a mesh (DTensor ``q``), each
+    rank runs it on its batch rows and query heads.  The KV heads are
+    repeated to the query heads first (replicated over the model axis,
+    then split like the query heads), so each rank's heads are whole: the
+    chunked attention's reshapes and its autograd Function never meet a
+    split they cannot lay out."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, q_positions, *args)
+    b, sk, kvh, d = k.shape
+    h = q.shape[2]
+    heads = ("act_batch", None, "heads", None)
+    q = constrain_logical(q, heads)
+
+    def spread(t: Tensor) -> Tensor:
+        t = constrain_logical(t, ("act_batch", None, None, None))
+        t = t[:, :, :, None, :].expand(b, sk, kvh, h // kvh, d).reshape(b, sk, h, d)
+        return constrain_logical(t, heads)
+
+    mesh = q.device_mesh
+    pos = _batch_rows(q_positions, q)
+    out = fn(q.to_local(), spread(k).to_local(), spread(v).to_local(), pos, *args)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
+
+
+def _batch_rows(t: Tensor, like) -> Tensor:
+    """This rank's rows of ``t`` (the same full tensor on every rank),
+    split over the batch as ``like`` (a DTensor) is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = like.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in like.placements]
+    full = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return full.redistribute(mesh, pl).to_local()
 
 
 def flash_xla(
@@ -351,13 +404,19 @@ def attn_apply(
         k_all, v_all = new_cache["k"].to(q.dtype), new_cache["v"].to(q.dtype)
         kv_len = new_cache["length"]
         if s == 1:
+            # on a mesh, the one-token query's heads gathered over the model
+            # axis: the score products then split the batch alone, where
+            # the batch and the heads both split would flatten into a
+            # strided layout
+            q = constrain_logical(q, ("act_batch", None, None, None))
             out = attention_ref(q, k_all, v_all, qpos1d, kv_length=kv_len,
                                 causal=False, window=cfg.sliding_window)
         else:
-            out = flash_xla(q, k_all, v_all, qpos1d, kv_len, cfg.causal,
-                            cfg.sliding_window, cfg.chunk)
+            out = _per_rank_heads(flash_xla, q, k_all, v_all, qpos1d, kv_len, cfg.causal,
+                                  cfg.sliding_window, cfg.chunk)
     elif use_flash:
-        out = flash_xla(q, k, v, qpos1d, None, cfg.causal, cfg.sliding_window, cfg.chunk)
+        out = _per_rank_heads(flash_xla, q, k, v, qpos1d, None, cfg.causal,
+                              cfg.sliding_window, cfg.chunk)
     else:
         out = attention_ref(q, k, v, qpos1d, causal=cfg.causal, window=cfg.sliding_window)
     return _out(out, params["wo"]), new_cache

@@ -13,6 +13,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.context import constrain_logical
 from .attention import AttnConfig, attn_apply, attn_defs, cross_attn_apply, init_cache
 from .layers import (
     cross_entropy,
@@ -92,13 +93,15 @@ class EncDec(ParamTree):
         p = self.tree()
         b, s, _ = frames.shape
         x = frames.to(cfg.dtype) + sinusoidal_positions(s, cfg.d_model, frames.device).to(cfg.dtype)
+        x = constrain_logical(x, ("act_batch", None, None))
         pos = torch.arange(s, device=frames.device)[None].expand(b, s)
 
         def body(blk, x):
             y, _ = attn_apply(blk["attn"], layernorm(blk["norm1"], x, cfg.norm_eps), pos,
                               self.enc_attn)
             x = x + y
-            return x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps))
+            x = x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps))
+            return constrain_logical(x, ("act_batch", None, None))
 
         run = remat_wrap(body, remat or cfg.remat, None)
         for blk in p["encoder"]:
@@ -117,6 +120,8 @@ class EncDec(ParamTree):
         b, s = tokens.shape
         pos = (start + torch.arange(s, device=tokens.device))[None].expand(b, s)
         x = embed(p["embed"], tokens).to(cfg.dtype) + p["dec_pos"][pos].to(cfg.dtype)
+        # the vocab-sharded embedding gather leaves x with no layout: constrain
+        x = constrain_logical(x, ("act_batch", None, None))
         new_caches: Optional[List[Dict[str, Any]]] = [] if caches is not None else None
 
         def body(blk, x, enc, cache):
@@ -125,7 +130,8 @@ class EncDec(ParamTree):
             x = x + y
             x = x + cross_attn_apply(blk["cross_attn"], layernorm(blk["norm_x"], x, cfg.norm_eps),
                                      enc, self.dec_attn)
-            return x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps)), nc
+            x = x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps))
+            return constrain_logical(x, ("act_batch", None, None)), nc
 
         run = remat_wrap(body, cfg.remat, caches)
         for i, blk in enumerate(p["decoder"]):
@@ -134,7 +140,8 @@ class EncDec(ParamTree):
             if new_caches is not None:
                 new_caches.append(nc)
         x = layernorm(p["dec_norm"], x, cfg.norm_eps)
-        return unembed(p["embed"], x), new_caches
+        logits = constrain_logical(unembed(p["embed"], x), ("act_batch", None, "vocab"))
+        return logits, new_caches
 
     def apply(
         self,

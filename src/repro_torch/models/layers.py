@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.context import gather_rows
 from .params import ParamDef
 
 Tensor = torch.Tensor
@@ -174,7 +175,10 @@ def embed_defs(vocab: int, d_model: int) -> Dict[str, ParamDef]:
 
 
 def embed(params: Dict[str, Tensor], tokens: Tensor) -> Tensor:
-    return params["embedding"][tokens]
+    table = params["embedding"]
+    if hasattr(table, "placements"):  # a DTensor: see gather_rows
+        return gather_rows(table, tokens)
+    return table[tokens]
 
 
 def unembed(params: Dict[str, Tensor], x: Tensor) -> Tensor:
@@ -196,8 +200,11 @@ def cross_entropy(
     """Mean negative log-likelihood of ``labels``; with ``mask``, the
     masked mean (over at least one position)."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    # the gathered column keeps its dim until it is combined with logz: a
+    # vocab-sharded DTensor's gather result is reduced over the model axis
+    # there, with a mask of the gather's own shape
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    nll = (logz[..., None] - gold)[..., 0]
     if mask is not None:
         nll = nll * mask
         return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)

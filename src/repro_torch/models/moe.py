@@ -11,9 +11,10 @@ expert's run of sorted rows) and its capacity path einsums.
   * ``'capacity'`` — GShard-style grouped fixed-capacity dispatch into a
     (G, E, C, d) buffer; tokens beyond an expert's capacity in their
     group are dropped, first come first served in (token, slot) order.
-  * ``'ep'`` — the reference's expert parallelism over a device mesh.
-    With no mesh (the port shards nothing yet) it is the capacity path,
-    as the reference's is without one.
+  * ``'ep'`` — expert parallelism over a ``DeviceMesh``: each rank routes
+    its own tokens and two all-to-alls move the slots to the ranks that
+    hold their experts and back (:func:`moe_apply_ep`).  With no mesh it
+    is the capacity path, as the reference's is without one.
 
 Top-k takes the larger router probability first and, on a tie, the
 lower expert id (a stable descending sort), as ``jax.lax.top_k`` does.
@@ -22,11 +23,13 @@ lower expert id (a stable descending sort), as ``jax.lax.top_k`` does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import math
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.context import constrain_logical
 from .layers import hi
 from .params import ParamDef
 
@@ -79,7 +82,7 @@ def _router(params, x2d: Tensor, cfg: MoEConfig):
     me = probs.mean(dim=0)  # mean router prob per expert
     # first-choice counts by scatter: bincount would wait on the card for
     # its output size
-    ce = torch.zeros(cfg.n_experts, dtype=probs.dtype, device=probs.device).scatter_add_(
+    ce = torch.zeros(cfg.n_experts, dtype=probs.dtype, device=probs.device).scatter_add(
         0, top_e[:, 0], torch.ones(t, dtype=probs.dtype, device=probs.device)) / t
     aux = cfg.n_experts * torch.sum(me * ce) * cfg.aux_loss_weight
     return top_e, top_w.to(x2d.dtype), aux
@@ -120,7 +123,7 @@ def moe_apply_ragged(
     xs = x2d[token_idx[order]]  # (T*k, d) gather
     # rows per expert by scatter, which meta tensors run too (bincount's
     # output size is data)
-    counts = torch.zeros(cfg.n_experts, dtype=torch.long, device=x.device).scatter_add_(
+    counts = torch.zeros(cfg.n_experts, dtype=torch.long, device=x.device).scatter_add(
         0, flat_e, torch.ones_like(flat_e))
     if x.device.type == "meta":
         # no values (the op sweep): any split of the T*k rows dispatches
@@ -173,11 +176,16 @@ def moe_apply_capacity(
 
     disp = torch.zeros((b, e + 1, cap, d), dtype=x.dtype, device=x.device)
     disp = disp.index_put((gi, e_idx, p_idx), x[gi, tok])[:, :e]
+    # EP layout: groups stay data-sharded, experts shard over the model
+    # axis (the reference measured +9 GiB/layer on deepseek train_4k
+    # with the buffers left expert-replicated)
+    disp = constrain_logical(disp, ("act_batch", "expert", None, None))
 
     g = torch.einsum("gecd,edf->gecf", disp, params["w_gate"].to(x.dtype))
     u = torch.einsum("gecd,edf->gecf", disp, params["w_up"].to(x.dtype))
     h = _silu_f32(g, x.dtype) * u
     eo = torch.einsum("gecf,efd->gecd", h, params["w_down"].to(x.dtype))
+    eo = constrain_logical(eo, ("act_batch", "expert", None, None))
 
     # gather back per (group, token, slot), weight, sum over slots
     yk = eo[gi, e_idx.clamp(0, e - 1), p_idx]  # (G, S*k, d)
@@ -195,12 +203,191 @@ def _shared_ffn(params, x2d: Tensor) -> Tensor:
     return (_silu_f32(g, x2d.dtype) * u) @ params["shared_w_down"].to(x2d.dtype)
 
 
+# ---------------------------------------------------------------------------
+# EP: explicit all-to-all expert parallelism
+# ---------------------------------------------------------------------------
+
+# (id of a mesh, its expert axes) -> (this rank's process group over those
+# axes, the group rank of the member with each expert-parallel index)
+_EP_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[Any, List[int]]] = {}
+
+
+def _ep_group(mesh, axes: Tuple[str, ...]):
+    """The process group over the mesh ``axes`` (this rank's), and for
+    each expert-parallel index j (``axes`` major to minor, as JAX numbers
+    a device along several axes) the group rank of the member at j."""
+    import torch.distributed as dist
+
+    key = (id(mesh), axes)
+    if key in _EP_GROUPS:
+        return _EP_GROUPS[key]
+    names = list(mesh.mesh_dim_names)
+    ranks = mesh.mesh.permute(
+        [names.index(a) for a in names if a not in axes] + [names.index(a) for a in axes])
+    ranks = ranks.reshape(-1, math.prod(mesh.shape[names.index(a)] for a in axes))
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
+    else:
+        group, _ = dist.new_subgroups_by_enumeration([sorted(r.tolist()) for r in ranks])
+    me = dist.get_rank()
+    mine = next(r.tolist() for r in ranks if me in r.tolist())
+    # new groups number their members in rank order
+    order = sorted(mine) if len(axes) > 1 else list(mine)
+    _EP_GROUPS[key] = (group, [order.index(r) for r in mine])
+    return _EP_GROUPS[key]
+
+
+def _on_mesh(t: Tensor, mesh) -> Tensor:
+    """``t`` as a DTensor on ``mesh`` (a plain tensor is replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _exchange(buf: Tensor, group, where: List[int]) -> Tensor:
+    """All-to-all of ``buf`` (ep_size, ...): block j goes to the member at
+    expert-parallel index j, and block j of the result came from it."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+
+    n = buf.shape[0]
+    inv = [where.index(r) for r in range(n)]  # group rank -> expert-parallel index
+    out = all_to_all_single_autograd(buf[inv].reshape(n * buf.shape[1], *buf.shape[2:]),
+                                     None, None, group)
+    out = out.reshape(buf.shape)
+    return out[where]
+
+
+def moe_apply_ep(
+    params: Dict[str, Tensor],
+    x: Tensor,  # (B, S, d) — seq must divide the model axis
+    cfg: MoEConfig,
+) -> Tuple[Tensor, Tensor]:
+    """Expert parallelism with explicit all-to-alls (the DeepSeek/GShard
+    production pattern), the reference's ``shard_map`` as DTensor local
+    compute.
+
+    Layout: tokens enter (batch over the data axes, seq over model); each
+    rank routes its local tokens, scatters them into an (E, C, d) send
+    buffer (C from the local token count), exchanges it over the expert
+    axes so each rank receives the slots of its own E/ep experts, runs
+    the local expert FFN and exchanges back: two all-to-alls a layer,
+    through the autograd-aware functional collective so gradients cross
+    them.  The shared experts are added after the exchange.  Falls back
+    to :func:`moe_apply_capacity` as the reference does: no mesh or
+    rules, no ``model`` axis, or a sequence or expert count that does not
+    divide."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from ..parallel.context import active_mesh, active_rules
+    from ..parallel.sharding import PartitionSpec, mesh_shape, placements
+
+    mesh, rules = active_mesh(), active_rules()
+    if mesh is None or rules is None or "model" not in mesh.mesh_dim_names:
+        return moe_apply_capacity(params, x, cfg)
+    sizes = mesh_shape(mesh)
+    msize = sizes["model"]
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    if s % msize:
+        return moe_apply_capacity(params, x, cfg)
+    batch_axes = tuple(rules.get("act_batch"))
+    bsize = math.prod(sizes[a] for a in batch_axes)
+    bpart = batch_axes if b % max(bsize, 1) == 0 and bsize > 1 else None
+    # the axes over which ranks hold different tokens
+    token_axes = {"model"} | set(bpart or ())
+    ep_axes = tuple(rules.get("expert")) or ("model",)
+    if not set(ep_axes) <= token_axes:
+        # ranks with the same tokens would send an expert the same slots
+        # twice, and its weights' gradients would count them twice
+        ep_axes = ("model",)
+    ep_size = math.prod(sizes[a] for a in ep_axes)
+    if e % ep_size:
+        ep_axes, ep_size = ("model",), msize
+    if e % ep_size:
+        return moe_apply_capacity(params, x, cfg)
+    e_local = e // ep_size
+    names = mesh.mesh_dim_names
+    x_pl = placements(PartitionSpec(bpart, "model", None), mesh)
+    w_pl = placements(PartitionSpec(ep_axes, None, None), mesh)
+    replicated = placements(PartitionSpec(), mesh)
+    # a weight's local gradient is a part of the whole over the axes where
+    # ranks see other tokens, and the same value over the others
+    summed = [Partial() if a in token_axes else Replicate() for a in names]
+    w_grad = [w if a in ep_axes else g for a, w, g in zip(names, w_pl, summed)]
+    dtype = x.dtype
+
+    def local(t: Tensor, pl, grad_pl=None) -> Tensor:
+        return _on_mesh(t, mesh).redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    router_w = local(params["router"], replicated, summed).to(dtype)
+    w_gate, w_up, w_down = (local(params[n], w_pl, w_grad).to(dtype)
+                            for n in ("w_gate", "w_up", "w_down"))
+    x_loc = local(x, x_pl)
+    group, where = _ep_group(mesh, ep_axes)
+
+    bl, sl, _ = x_loc.shape
+    t = bl * sl
+    x2 = x_loc.reshape(t, d)
+    probs = torch.softmax(hi(x2 @ router_w), dim=-1)  # (t, E), router replicated
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :k], top_e[:, :k]
+    top_w = (top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)).to(dtype)
+    cap = max(k, int(cfg.capacity_factor * t * k / e))
+
+    # local scatter into the (E, C, d) send buffer
+    flat_e = top_e.reshape(-1)  # (t*k,)
+    onehot = (flat_e[:, None] == torch.arange(e, device=x2.device)).long()
+    pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+    keep = pos < cap
+    e_idx = torch.where(keep, flat_e, e)
+    p_idx = torch.where(keep, pos, 0)
+    tok = torch.arange(t, device=x2.device).repeat_interleave(k)
+    send = torch.zeros((e + 1, cap, d), dtype=dtype, device=x2.device)
+    send = send.index_put((e_idx, p_idx), x2[tok])[:e]
+
+    # exchange: each rank keeps the slots of its own e_local experts
+    recv = _exchange(send.reshape(ep_size, e_local, cap, d), group, where)
+    xs = recv.transpose(0, 1).reshape(e_local, ep_size * cap, d)
+    g = torch.einsum("ecd,edf->ecf", xs, w_gate)
+    u = torch.einsum("ecd,edf->ecf", xs, w_up)
+    h = _silu_f32(g, dtype) * u
+    eo = torch.einsum("ecf,efd->ecd", h, w_down)  # (e_local, ep_size*cap, d)
+
+    # return path
+    back = eo.reshape(e_local, ep_size, cap, d).transpose(0, 1)
+    mine = _exchange(back.contiguous(), group, where).reshape(e, cap, d)
+    yk = mine[e_idx.clamp(0, e - 1), p_idx]
+    yk = torch.where(keep[:, None], yk, 0.0).reshape(t, k, d)
+    y = torch.einsum("tkd,tk->td", yk, top_w.to(yk.dtype)).reshape(bl, sl, d).to(dtype)
+
+    # load-balance aux (Switch), averaged over model and the batch axes:
+    # a sum of each rank's share, so that each rank's gradient is its share
+    me = probs.mean(dim=0)
+    ce = torch.zeros(e, dtype=probs.dtype, device=probs.device).scatter_add_(
+        0, top_e[:, 0], torch.ones(t, dtype=probs.dtype, device=probs.device)) / t
+    avg = {"model"} | set(batch_axes)
+    n_avg = math.prod(sizes[a] for a in avg)
+    aux = e * torch.sum(me * ce) * cfg.aux_loss_weight / n_avg
+    aux = DTensor.from_local(aux, mesh, [Partial() if a in avg else Replicate() for a in names],
+                             run_check=False).redistribute(mesh, replicated)
+    y = DTensor.from_local(y, mesh, x_pl, run_check=False)
+    if not isinstance(x, DTensor):  # plain in, plain out
+        y, aux = y.full_tensor(), aux.full_tensor()
+    if cfg.n_shared_experts:
+        y = y + _shared_ffn(params, x.reshape(b * s, d)).reshape(b, s, d)
+    return y, aux
+
+
 def moe_apply(
     params: Dict[str, Tensor],
     x: Tensor,
     cfg: MoEConfig,
 ) -> Tuple[Tensor, Tensor]:
-    if cfg.moe_impl in ("ep", "capacity"):
+    if cfg.moe_impl == "ep":
+        return moe_apply_ep(params, x, cfg)
+    if cfg.moe_impl == "capacity":
         return moe_apply_capacity(params, x, cfg)
     return moe_apply_ragged(params, x, cfg)
 

@@ -10,8 +10,9 @@ JAX package's ``repro/models/params.py`` does.  From that declaration:
     from the same distributions as the JAX package's ``_init_leaf`` (the
     same bits are not required: the draws come from a ``torch.Generator``).
 
-Each def's logical axis names (``ParamDef.logical``) are recorded only:
-the port shards nothing yet.
+Each def's logical axis names (``ParamDef.logical``) give
+:func:`logical_specs`, which :mod:`repro_torch.parallel.sharding` maps
+to a mesh layout.
 """
 
 from __future__ import annotations
@@ -156,12 +157,23 @@ class ParamTree(nn.Module):
                 out[key] = child.tree()
         return out
 
+    def logical_specs(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Dotted parameter name -> logical axis names, the keys of
+        ``named_parameters()`` (and of ``reference_plan``)."""
+        return logical_specs(self.defs)
+
     def init_(self, generator: torch.Generator) -> "ParamTree":
         """Initialize every parameter in place from ``generator`` (meta
         parameters hold no values and are left as they are)."""
         if not any(p.is_meta for p in self.parameters()):
             init_(self.defs, self.tree(), generator)
         return self
+
+
+def logical_specs(defs: PyTree) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Dotted parameter name -> its logical axis names (one per dim)."""
+    got = dict(leaves(defs))
+    return {name: tuple(got[path].logical) for path, name in dotted_names(defs)}
 
 
 def dotted_names(defs: PyTree) -> List[Tuple[str, str]]:

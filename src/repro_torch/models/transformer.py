@@ -65,6 +65,10 @@ class StackConfig:
     norm: str = "rmsnorm"  # 'rmsnorm' | 'layernorm'
     norm_eps: float = 1e-6
     remat: str = "none"  # 'none' | 'full': each block recomputed in the backward
+    # optional activation-layout constraint applied to the residual stream
+    # at every block boundary (the dry-run installs a sequence-parallel
+    # (batch, seq-over-model, none) constraint here)
+    act_constraint: Any = None
 
 
 def segments(layout: Sequence[BlockKind]) -> List[Tuple[Tuple[BlockKind, ...], int]]:
@@ -140,6 +144,8 @@ def block_apply(
 ) -> Tuple[Tensor, Optional[Dict[str, Any]], Tensor]:
     """Returns (x, new_cache, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.act_constraint is not None:
+        x = cfg.act_constraint(x)
     h = _norm(cfg, params["norm_mixer"], x)
     if kind.mixer == "attn":
         y, new_cache = attn_mod.attn_apply(params["attn"], h, positions, cfg.attn, cache)
@@ -158,6 +164,9 @@ def block_apply(
         y, moe_aux = moe_mod.moe_apply(params["moe"], h, cfg.moe)
         x = x + y
         aux = aux + moe_aux
+    if cfg.act_constraint is not None:
+        # the output too: it is what the backward keeps per layer
+        x = cfg.act_constraint(x)
     return x, new_cache, aux
 
 

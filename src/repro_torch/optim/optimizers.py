@@ -90,8 +90,8 @@ def adamw(
 
     def init(params: Tree) -> OptState:
         def zeros():
-            return {k: torch.zeros(p.shape, dtype=mdtype, device=p.device)
-                    for k, p in params.items()}
+            # zeros_like: a DTensor parameter's moments are laid out as it is
+            return {k: torch.zeros_like(p, dtype=mdtype) for k, p in params.items()}
 
         if state_dtype == "int8":
             def scales():
@@ -139,8 +139,7 @@ def lion(
     """Lion: sign-momentum; state is a single moment (half of Adam's)."""
 
     def init(params: Tree) -> OptState:
-        m = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for k, p in params.items()}
+        m = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         v = {k: torch.zeros((1,), dtype=torch.float32, device=p.device)  # unused
              for k, p in params.items()}
         return OptState(step=_step0(params), m=m, v=v)

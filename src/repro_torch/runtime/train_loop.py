@@ -1,7 +1,7 @@
 """Training runtime: TrainState, step builder, grad accumulation, hooks.
 
-The port of the JAX package's ``repro/runtime/train_loop.py``, on one
-device.  ``build_train_step`` returns ``train_step(state, tokens, labels)
+The port of the JAX package's ``repro/runtime/train_loop.py``.
+``build_train_step`` returns ``train_step(state, tokens, labels)
 -> (state, metrics)`` with:
 
   * gradient accumulation over ``grad_accum`` microbatches, summed in
@@ -18,6 +18,16 @@ device.  ``build_train_step`` returns ``train_step(state, tokens, labels)
 loss from ``params`` (name -> tensor); :func:`model_loss` gives that for
 a port model.  Hooks (straggler monitor, checkpointing) observe each
 step from the host — see :mod:`repro_torch.runtime.fault`.
+
+On a mesh (``mesh`` and ``rules`` given, the counterpart of the
+reference's ``in_shardings``) the state's parameters and moments are
+DTensors laid out by the rules (:func:`repro_torch.parallel.sharding.
+distribute_params`); each step takes the full global batch on every
+rank and keeps its shard (``Shard(0)`` over the data axes, replicated
+over ``model``), runs under the rules and mesh with plain tensors taken
+as replicated, and lets DTensor reduce the gradients over the data
+axes.  The clip norm reduces over the full tensors; the update is the
+same per-leaf code on DTensors.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from repro_torch.parallel.compression import (
     decompress,
     init_error_buffer,
 )
+from repro_torch.parallel.context import use_mesh, use_rules
+from repro_torch.parallel.sharding import distribute, fixup_specs
 
 Tensor = torch.Tensor
 Tree = Dict[str, Tensor]
@@ -93,18 +105,36 @@ def _copy_state(state: TrainState) -> TrainState:
                       copy(state.err_buffer))
 
 
+def _full(t: Tensor) -> Tensor:
+    """A metric as a plain tensor (a DTensor's full value)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def build_train_step(
     loss_fn: Callable[[Tree, Tensor, Tensor], Tuple[Tensor, Dict]],
     optimizer: Optimizer,
     cfg: TrainConfig = TrainConfig(),
     donate: bool = True,
+    mesh: Any = None,
+    rules: Any = None,
 ):
-    """loss_fn(params, tokens, labels) -> (loss, metrics dict)."""
+    """loss_fn(params, tokens, labels) -> (loss, metrics dict).  With
+    ``mesh`` (a ``DeviceMesh``) and ``rules``, the step of a state laid
+    out on that mesh."""
+    if (mesh is None) != (rules is None):
+        raise ValueError("a mesh step needs both mesh and rules")
+
+    def place(t: Tensor) -> Tensor:
+        """A global batch (the same on every rank) as this rank's shard."""
+        if mesh is None:
+            return t
+        spec = fixup_specs(rules.spec(("batch",) + (None,) * (t.dim() - 1)), t, mesh)
+        return distribute(t, spec, mesh)
 
     def grad_fn(params: Tree, tokens: Tensor, labels: Tensor):
         leaves = list(params.values())
         with torch.enable_grad():
-            loss, metrics = loss_fn(params, tokens, labels)
+            loss, metrics = loss_fn(params, place(tokens), place(labels))
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {k: g if g is not None else torch.zeros_like(p)
                  for (k, p), g in zip(params.items(), grads)}
@@ -119,8 +149,7 @@ def build_train_step(
             if b % cfg.grad_accum:
                 raise ValueError(f"batch {b} does not split into {cfg.grad_accum} microbatches")
             mb = b // cfg.grad_accum
-            g_sum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for k, p in params.items()}
+            g_sum = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
             loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i in range(cfg.grad_accum):
                 rows = slice(i * mb, (i + 1) * mb)
@@ -140,12 +169,21 @@ def build_train_step(
 
         grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm)
         new_params, new_opt = optimizer.update(grads, state.opt_state, params)
-        metrics = dict(metrics)
-        metrics["grad_norm"] = gnorm
-        metrics["loss"] = loss
+        metrics = {k: _full(v) for k, v in metrics.items()}
+        metrics["grad_norm"] = _full(gnorm)
+        metrics["loss"] = _full(loss)
         return TrainState(new_params, new_opt, new_err), metrics
 
-    return step
+    if mesh is None:
+        return step
+
+    def mesh_step(state: TrainState, tokens: Tensor, labels: Tensor):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with use_rules(rules), use_mesh(mesh), implicit_replication():
+            return step(state, tokens, labels)
+
+    return mesh_step
 
 
 def run(

@@ -1144,3 +1144,80 @@ def test_cuda_model_gradients_match_the_host(card):
     assert abs(float(ld.detach()) - float(lh.detach())) <= 1e-5 * abs(float(lh.detach()))
     for k, g in gh.items():
         assert float((gd[k].cpu() - g).abs().max()) <= 1e-4 * float(g.abs().max()) + 1e-9, k
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group (one card
+    takes one rank); the group is destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_train_step_matches_no_mesh(nccl_mesh, card):
+    """The launcher's layout of a float32 SMOKE model: one AdamW step on the
+    mesh equals the step with no mesh (the reference's tolerances)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import layout_params
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, constant
+    from repro_torch.runtime import TrainConfig, build_train_step, init_state, model_loss
+
+    cfg = dataclasses.replace(get_config("granite-8b", smoke=True), dtype=torch.float32)
+    model = build_model(cfg, device=card)
+    params = dict(model.named_parameters())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 33))).to(card)
+    opt, tc = adamw(constant(1e-2)), TrainConfig()
+
+    def loss(p, t, l):
+        return model_loss(model, p, t, l)
+
+    one, m1 = build_train_step(loss, opt, tc, donate=False)(init_state(params, opt, tc),
+                                                            toks[:, :-1], toks[:, 1:])
+    one = {k: v.detach().clone() for k, v in one.params.items()}
+    rules, _, dparams = layout_params(model, params, nccl_mesh)
+    two, m2 = build_train_step(loss, opt, tc, mesh=nccl_mesh, rules=rules)(
+        init_state(dparams, opt, tc), toks[:, :-1], toks[:, 1:])
+    assert abs(float(m1["loss"]) - float(m2["loss"])) < 1e-4
+    for k, v in one.items():
+        assert float((two.params[k].full_tensor() - v).abs().max()) < 1e-3, k
+
+
+@pytest.mark.gpu
+def test_cuda_ep_matches_capacity_and_moe_ref(nccl_mesh, card):
+    """moe_apply_ep on the one-rank mesh: the capacity path's output (the
+    same capacity, from the same token count) and moe_ref's, capacity large
+    enough to keep every slot; one backward through the exchange."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.parallel.context import use_mesh, use_rules
+    from repro_torch.parallel.sharding import make_rules
+
+    cfg = moe.MoEConfig(d_model=64, d_ff=128, n_experts=8, top_k=2, capacity_factor=8.0,
+                        moe_impl="ep")
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = {k: v.requires_grad_() for k, v in
+              init_params(moe.moe_defs(cfg), gen, dtype=torch.float32, device=card).items()}
+    x = torch.randn((2, 32, 64), generator=gen, device=card)
+    with use_mesh(nccl_mesh), use_rules(make_rules()):
+        y, _ = moe.moe_apply(params, x, cfg)
+        g = torch.autograd.grad(y.square().sum(), list(params.values()))
+    y_cap, _ = moe.moe_apply_capacity(params, x, cfg)
+    y_ref, _ = moe.moe_ref(params, x, cfg)
+    g_ref = torch.autograd.grad(y_ref.square().sum(), list(params.values()))
+    scale = float(y_ref.abs().max())
+    assert float((y - y_cap).abs().max()) <= 1e-5 * scale
+    assert float((y - y_ref).abs().max()) <= 1e-4 * scale
+    for a, b in zip(g, g_ref):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-9
