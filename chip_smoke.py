@@ -221,6 +221,29 @@ Phases:
    256 and 512 placeholder ranks, in a process of its own started first:
    chips, per-device bytes, FLOPs, wire bytes by collective, the bound
    and the seconds.  Any failure fails the script.
+11. The six examples of ``repro_torch.examples``, each in process on the
+   card through its ``main`` (run before the record), every launch count
+   set to 0 just before each and read just after, its printed report
+   kept in ``build/chip_smoke_examples/<name>.log`` and its wall time
+   printed beside the card's name and power limit: ``quickstart`` (gemm
+   v00 and v01 launched through ``ops.matmul`` and agreeing within 1e-3,
+   v01's modeled transfers at or below v00's), ``optimize_gemm`` (each
+   rung's kernel launched and held to its plain version, the transfers
+   per row of C at or below the last rung's from v00 to v02),
+   ``heatmap_gallery`` (a report bundle for each of its two iterations,
+   one entry per family's rung, every rung's kernel launched),
+   ``serve_lm`` (all 10 requests end with their 12 tokens; request 0,
+   greedy and the longest prompt of the first wave, decodes token for
+   token as a batch-1 ``prefill`` and ``decode_step``, as phase 7 checks
+   its request 0; every greedy request gives the tokens that the same
+   ``Server`` gives on the CPU on a copy of the model; then again, warm,
+   with the same greedy tokens), ``serve_long_context``
+   (the per-token ms of the SSM and the GQA model after each prefill,
+   printed with the card's name and power limit) and ``train_lm`` (``--steps
+   8`` cut at step 3, then at step 6, and once more at 3 on a (1, 1)
+   mesh: steps 3-5 after the restore give the losses of the run not yet
+   cut there, bit for bit, and the mesh run's losses are within 1e-4 of
+   the plain run's).  Any failure fails the script.
 9. Print one JSON line describing every kernel, each with the card's name
    and power limit under ``config``, then the result line.
 
@@ -429,6 +452,13 @@ for multi in (False, True):
     out["2x16x16" if multi else "16x16"] = res
 print(json.dumps(out))
 """
+
+# phase 11, the examples: train_lm's steps, the two steps at which it is cut
+# (steps 3-5 follow the restore in the first run and are not yet cut in the
+# second), and the loss tolerance of its run on a (1, 1) mesh (phase 10's)
+EXAMPLE_STEPS = 8
+EXAMPLE_CUTS = (3, 6)
+EXAMPLE_MESH_TOL = 1e-4
 
 # the story each family's diffs must tell (phase 3), by pair of iterations;
 # the histogram's and spmv's classes under the H100 geometry are ROADMAP
@@ -1513,17 +1543,9 @@ def drive_tuning_loop(cli, kreg, smi):
     from repro_torch.core.render import run_text
     from repro_torch.core.session import ProfileSession, heatmaps_equal
     from repro_torch.core.tuner import trajectories_from_session
-    from repro_torch.kernels import (
-        flash, gemm, gmm, gramschm, histogram, paged_attn, ragged_flash, spmv, ssd, ttm,
-    )
 
     card = torch.cuda.get_device_name(0)
-    wrappers = {
-        fn.__name__: fn
-        for module in (gemm, spmv, histogram, gramschm, ttm, flash, gmm, ssd,
-                       ragged_flash, paged_attn)
-        for fn in module.KERNELS.values()
-    }
+    wrappers = kreg.wrappers()
     root = ROOT / "build" / "chip_smoke_session" / "tune"
     shutil.rmtree(root, ignore_errors=True)
     cache = str(root / "cache")
@@ -1587,7 +1609,7 @@ def drive_tuning_loop(cli, kreg, smi):
         if "tuned 1 kernel(s): 1 improved" not in out:
             return f"tune gemm ({turn}) improved no kernel"
         for v in ("v00", "v01", "v02"):
-            if gemm.KERNELS[v].launches < 1:
+            if wrappers[f"gemm_{v}"].launches < 1:
                 return f"tune gemm ({turn}) did not launch gemm_{v}"
         its = checked_runs(sess, f"tune gemm ({turn})")
         if isinstance(its, str):
@@ -1746,20 +1768,13 @@ def drive_scale_out(cli, kreg, smi, load_iteration):
     from repro_torch.core.collector import ShardedCollector
     from repro_torch.core.session import ProfileSession, heatmaps_equal
     from repro_torch.core.tuner import trajectories_from_session
-    from repro_torch.kernels import (
-        _build, flash, gemm, gmm, gramschm, histogram, paged_attn, ragged_flash, spmv, ssd, ttm,
-    )
+    from repro_torch.kernels import _build
 
     cores = os.cpu_count() or 1
     workers = min(4, cores)
     on = f"on {smi}, host {cores} cores"
     print(f"scale-out: W = {workers} workers, {on}")
-    wrappers = {
-        fn.__name__: fn
-        for module in (gemm, spmv, histogram, gramschm, ttm, flash, gmm, ssd,
-                       ragged_flash, paged_attn)
-        for fn in module.KERNELS.values()
-    }
+    wrappers = kreg.wrappers()
     launches = {name: 0 for name in wrappers}
     root = ROOT / "build" / "chip_smoke_session" / "scale"
     shutil.rmtree(root, ignore_errors=True)
@@ -2789,6 +2804,152 @@ def drive_mesh(smi, dev=None):
             dry.wait()
 
 
+def drive_examples(smi, kreg):
+    """Phase 11: the six examples in process on the card; (launches by
+    kernel over the phase, wall seconds by example), or a failure message."""
+    import copy
+
+    import torch
+
+    from repro_torch.examples import (
+        heatmap_gallery, optimize_gemm, quickstart, serve_lm, serve_long_context, train_lm,
+    )
+
+    out_dir = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    launches, walls = {}, {}
+
+    def run(label, module, argv):
+        """``module.main(argv)`` with the counts set to 0 just before it;
+        its report goes to a log, its last lines and wall time here."""
+        kreg.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = module.main(argv)
+        walls[label] = time.perf_counter() - t0
+        counts = {k: n for k, n in kreg.launch_counts().items() if n}
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        (out_dir / f"{label}.log").write_text(buf.getvalue())
+        tail = buf.getvalue().rstrip().splitlines()[-3:]
+        print(f"example {label} ({' '.join(argv)}): wall {walls[label]:.3f} s on {smi}; "
+              f"launches {counts}")
+        for line in tail:
+            print(f"  | {line}")
+        return got, counts
+
+    # quickstart: v00 and v01 through ops.matmul, and the modeled fix
+    got, counts = run("quickstart", quickstart,
+                      ["--device", "cuda", "--out", str(out_dir / "quickstart")])
+    print(f"quickstart: transfers {got['transfers']}, max|v00 - v01| {got['max_abs_diff']:.3e} "
+          f"(tol 1e-3) on {got['device']}")
+    if not (counts.get("gemm_v00", 0) >= 1 and counts.get("gemm_v01", 0) >= 1):
+        return f"quickstart launched {counts}, not gemm_v00 and gemm_v01"
+    if not got["transfers"]["v01"] <= got["transfers"]["v00"]:
+        return f"quickstart: v01's transfers above v00's: {got['transfers']}"
+    if not got["max_abs_diff"] <= 1e-3 or not Path(got["report"]).is_file():
+        return f"quickstart: max|v00 - v01| {got['max_abs_diff']}, report {got['report']}"
+
+    # optimize_gemm: every rung launched and checked, the ladder's direction
+    got, counts = run("optimize_gemm", optimize_gemm, ["--device", "cuda"])
+    rungs = ("v00", "v01", "v02")
+    per_row = [got[r]["per_row"] for r in rungs]
+    print(f"optimize_gemm: transfers per C row {per_row}; kernel ms "
+          f"{[got[r]['run']['ms'] for r in rungs]} on {smi}; max|err| vs plain "
+          f"{[got[r]['run']['max_abs_err'] for r in rungs]}")
+    for r in rungs:
+        if counts.get(f"gemm_{r}", 0) < 1 or got[r]["run"]["ms"] is None:
+            return f"optimize_gemm: gemm_{r} was not launched on the card ({counts})"
+    if not per_row[0] >= per_row[1] >= per_row[2]:
+        return f"optimize_gemm: transfers per row do not fall v00 -> v01 -> v02: {per_row}"
+
+    # heatmap_gallery: a bundle per iteration, an entry per family's rung
+    got, counts = run("heatmap_gallery", heatmap_gallery,
+                      ["--device", "cuda", "--out", str(out_dir / "gallery")])
+    families = kreg.names()
+    want = {"baseline": [(n, kreg.get(n).variants[0].name) for n in families],
+            "optimized": [(n, kreg.get(n).variants[-1].name) for n in families]}
+    if got["rungs"] != want:
+        return f"heatmap_gallery: rungs {got['rungs']}, want {want}"
+    for label, index in got["bundles"].items():
+        entries = sorted(q.stem for q in Path(index).parent.glob("*.csv"))
+        if not Path(index).is_file() or entries != sorted(families):
+            return f"heatmap_gallery {label}: bundle {index} holds {entries}"
+    kernels = {kreg.get(n).variant(v).kernel.__name__ for rungs_ in want.values()
+               for n, v in rungs_ if kreg.get(n).variant(v).kernel is not None}
+    missing = sorted(k for k in kernels if counts.get(k, 0) < 1)
+    print(f"heatmap_gallery: {len(families)} families x 2 rungs, "
+          f"{len(got['runs'])} runs on the card, kernels launched {sorted(kernels)}")
+    if missing:
+        return f"heatmap_gallery: {missing} not launched"
+
+    # serve_lm: every request ends; request 0 as a direct decode, and every
+    # greedy request as the same Server gives it on the CPU on these weights
+    got, _ = run("serve_lm", serve_lm, ["--device", "cuda"])
+    reqs = got["requests"]
+    if not all(r.done and len(r.out_tokens) == serve_lm.MAX_TOKENS for r in reqs) \
+            or len(reqs) != serve_lm.N_REQUESTS:
+        return f"serve_lm: {[(r.rid, r.done, len(r.out_tokens)) for r in reqs]}"
+    greedy = [r for r in reqs if r.temperature == 0.0]
+    direct = direct_greedy(got["model"], greedy[0].prompt, serve_lm.MAX_TOKENS, 128,
+                           torch.float32)
+    on_cpu, _, _ = serve_lm.serve(copy.deepcopy(got["model"]).to("cpu"), 0)
+    cpu = {r.rid: r.out_tokens for r in on_cpu if r.temperature == 0.0}
+    differ = [r.rid for r in greedy if r.out_tokens != cpu[r.rid]]
+    print(f"serve_lm: {len(reqs)} requests done, {got['tokens_per_s']:.1f} tokens/s, "
+          f"{got['ticks']} ticks in {got['seconds']:.3f} s on {smi}; request 0 (greedy, the "
+          f"longest prompt of the first wave) against a batch-1 prefill + decode_step: "
+          f"{'equal' if greedy[0].out_tokens == direct else 'DIFFERENT'}; greedy requests "
+          f"{sorted(cpu)} against the same Server on the CPU on these weights: "
+          f"{'all equal' if not differ else f'{differ} DIFFERENT'}")
+    if greedy[0].out_tokens != direct:
+        return f"serve_lm: request 0 gave {greedy[0].out_tokens}, its direct decode {direct}"
+    if differ:
+        return (f"serve_lm: greedy requests {differ} gave "
+                f"{[r.out_tokens for r in greedy if r.rid in differ]} on the card, "
+                f"{[cpu[rid] for rid in differ]} on the CPU")
+    # again, warm: the first run pays the process's first launches of each op
+    again, _ = run("serve_lm_warm", serve_lm, ["--device", "cuda"])
+    if [r.out_tokens for r in again["requests"] if r.temperature == 0.0] != \
+            [r.out_tokens for r in greedy]:
+        return "serve_lm: a second run gave other greedy tokens"
+    print(f"serve_lm, warm: {again['tokens_per_s']:.1f} tokens/s, {again['ticks']} ticks in "
+          f"{again['seconds']:.3f} s on {smi}")
+    del got, again
+
+    # serve_long_context: per-token ms with the card's name and limit
+    got, _ = run("serve_long_context", serve_long_context, ["--device", "cuda"])
+    for plen, r in got["rows"].items():
+        print(f"serve_long_context: prefill {plen}: SSM {r['ssm_ms']:.4f} ms/token "
+              f"({r['ssm_mb']:.2f} MB of state), GQA {r['gqa_ms']:.4f} ms/token "
+              f"({r['gqa_mb']:.2f} MB of cache) on {got['device']}")
+    if got["device"] != smi or not all(r["ssm_ms"] > 0 and r["gqa_ms"] > 0
+                                       for r in got["rows"].values()):
+        return f"serve_long_context: {got}"
+
+    # train_lm: cut at two steps; the steps between equal the run not yet cut
+    base = ["--device", "cuda", "--steps", str(EXAMPLE_STEPS)]
+    runs = {}
+    for cut in EXAMPLE_CUTS:
+        runs[cut], _ = run(f"train_lm_cut{cut}", train_lm, base + ["--restart-at", str(cut)])
+    mesh, _ = run("train_lm_mesh", train_lm, base + [
+        "--restart-at", str(EXAMPLE_CUTS[0]), "--mesh", "1x1"])
+    a, b = EXAMPLE_CUTS
+    after, whole = runs[a]["losses"][a:b], runs[b]["losses"][a:b]
+    mesh_err = max(abs(x - y) for x, y in zip(mesh["losses"], runs[a]["losses"]))
+    print(f"train_lm: losses {runs[a]['losses']} (cut at {a}); steps {a}-{b - 1} after the "
+          f"restore {after}, the run cut at {b} {whole}: "
+          f"{'equal' if after == whole else 'DIFFERENT'}; on a (1, 1) mesh "
+          f"{mesh['losses']}, max|err| {mesh_err:.3e} (tol {EXAMPLE_MESH_TOL}); {smi}")
+    if after != whole:
+        return f"train_lm: after the restore {after}, uninterrupted {whole}"
+    if not mesh_err <= EXAMPLE_MESH_TOL or mesh["mesh"] != {"data": 1, "model": 1}:
+        return f"train_lm on a (1, 1) mesh: max|err| {mesh_err}, mesh {mesh['mesh']}"
+    return launches, walls
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3040,6 +3201,15 @@ def main() -> int:
         return fail(msg)
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 11: the six examples on the card ---------------------------------------
+    t0 = time.perf_counter()
+    examples = drive_examples(smi, kreg)
+    if isinstance(examples, str):
+        return fail(examples)
+    example_launches, example_walls = examples
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s; wall by example "
+          f"{json.dumps({k: round(v, 3) for k, v in example_walls.items()})} on {smi}")
+
     # -- phase 9: the record --------------------------------------------------
     kernels = []
     for v in gemm.KERNELS:
@@ -3087,6 +3257,7 @@ def main() -> int:
         row["config"] = dict(row.get("config", {}), card=smi)
         row["tune_launches"] = tune_launches.get(row["name"], 0)
         row["scale_out_launches"] = scale_launches.get(row["name"], 0)
+        row["examples_launches"] = example_launches.get(row["name"], 0)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(

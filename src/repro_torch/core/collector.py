@@ -749,6 +749,10 @@ def _unify_shard_groups(bufs: Sequence[TraceBuffer]) -> None:
             chunk.group = token
 
 
+#: Seconds to wait for each terminated worker of a killed pool to exit.
+KILL_JOIN_S = 5.0
+
+
 class ShardedCollector:
     """Partition a sampled grid and collect it on a process pool.
 
@@ -873,12 +877,27 @@ class ShardedCollector:
             pool, self._pool = self._pool, None
         if pool is None:
             return
-        for p in list(getattr(pool, "_processes", {}).values() or []):
+        procs = list(getattr(pool, "_processes", {}).values() or [])
+        for p in procs:
             try:
                 if p.is_alive():
                     p.terminate()
             except (OSError, ValueError, AttributeError):
                 pass  # already dead / already closed
+        for p in procs:
+            try:
+                p.join(KILL_JOIN_S)
+            except (OSError, ValueError, AttributeError):
+                pass
+        # A worker killed while it sent a result leaves half of it in the
+        # result pipe, and the pool's manager thread waits in ``recv`` for
+        # the rest.  The parent holds the pipe's write end too (it never
+        # writes there), so that wait would last until the interpreter's
+        # exit joins the thread, and block the exit.  With the workers gone
+        # and this end closed, the thread reads EOF and ends.
+        writer = getattr(getattr(pool, "_result_queue", None), "_writer", None)
+        if writer is not None:
+            writer.close()
         try:
             pool.shutdown(wait=False, cancel_futures=True)
         except (OSError, RuntimeError):

@@ -393,7 +393,8 @@ def op_sweep(cfg, batch: int, seq: int, backward: bool = False) -> Dict:
     alone: the dropless MoE, whose group sizes are data, counts the same
     for any split of its rows (:func:`repro_torch.models.moe.moe_apply_ragged`).
     Returns the JSON-ready ``layers.hlo`` manifest block, with the keys
-    the reference's has and ``"source": "torch-ops"``.
+    the reference's has and ``"source": "torch-ops"``; its ``heat`` is the
+    reference's level-3 block (:meth:`repro_torch.core.op_cost.OpCost.heat`).
     """
     import torch
 
@@ -418,7 +419,7 @@ def op_sweep(cfg, batch: int, seq: int, backward: bool = False) -> Dict:
     return {
         "backward": bool(backward),
         "source": "torch-ops",
-        "heat": {"collective_count": cost.collective_count},
+        "heat": cost.heat(),
         "cost": cost.as_dict(),
     }
 

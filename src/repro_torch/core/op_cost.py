@@ -22,6 +22,14 @@ pass dispatches instead:
     bytes as wire bytes and neither FLOPs nor HBM bytes: 0 on one device;
     ``by_collective`` splits them by op name, as the reference's
     ``hlo_cost`` splits its collectives.
+  * **the level-3 heat block** — each collective of the reference's five
+    kinds (``HLO_NAMES``) is also kept as a :class:`Collective` record: its
+    kind, its output's shape and dtype and its group's size, read from
+    the process group.  :meth:`OpCost.heat` gives from them the
+    reference's ``hlo_thermo.HloHeat.as_dict()``: the count, each one's
+    ring cost per device, that cost by kind, and the signatures (kind,
+    shape, group) seen more than once, the paper's "hot" pattern at the
+    fleet level.
 
 :func:`count` counts a single-device pass.  :func:`count_local` counts
 one rank's share of a pass over DTensors (the dry-run): it lets each
@@ -34,7 +42,7 @@ same formulas (``flop_registry``) that ``FlopCounterMode`` applies.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -48,6 +56,92 @@ _NOT_COLLECTIVES = ("wait", "_wrap_tensor_autograd")
 # aten ops that alias their input without being marked as views
 _ALIASES = (torch.ops.aten._unsafe_view, torch.ops.aten.alias, torch.ops.aten.lift_fresh,
             torch.ops.aten.detach)
+# c10d op -> the reference's HLO collective (hlo_thermo.COLLECTIVE_OPS): the
+# functional ops and the process-group ops they stand for.  A P2P exchange
+# is one collective-permute, as the reference's ppermute is one: its send
+# is recorded, and the recv that completes it on the other rank is not
+HLO_NAMES = {
+    "all_gather_into_tensor": "all-gather",
+    "allgather_": "all-gather",
+    "_allgather_base_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "allreduce_": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "alltoall_base_": "all-to-all",
+    "send": "collective-permute",
+}
+# torch dtype -> HLO's element type, for a signature's shape text
+_HLO_TYPES = {
+    torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16", torch.float64: "f64",
+    torch.int8: "s8", torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",
+    torch.uint8: "u8", torch.bool: "pred",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective as the heat block sees it (the reference's
+    ``hlo_thermo.CollectiveStats``): its kind, the shape text of its
+    output (HLO's ``f32[8,64]``; a tuple for several tensors), the output's
+    bytes and the size of its group."""
+
+    op: str
+    shape: str
+    out_bytes: int
+    group_size: int
+
+    @property
+    def wire_bytes_per_device(self) -> float:
+        """Ring cost on a group of g with output B bytes: all-reduce
+        2(g-1)/g B, a permute B, the others (g-1)/g B."""
+        g = max(1, self.group_size)
+        if self.op == "all-reduce":
+            return 2.0 * (g - 1) / g * self.out_bytes
+        if self.op == "collective-permute":
+            return float(self.out_bytes)
+        return (g - 1) / g * self.out_bytes
+
+
+def _shape_text(tensors) -> str:
+    parts = [f"{_HLO_TYPES.get(t.dtype, str(t.dtype).replace('torch.', ''))}"
+             f"[{','.join(map(str, t.shape))}]" for t in tensors]
+    return parts[0] if len(parts) == 1 else f"({', '.join(parts)})"
+
+
+def _group_size(func, args, kwargs) -> int:
+    """The size of the group a c10d op runs over: its ``group_size``
+    argument, or that of the group it names or is given."""
+    from torch.distributed import ProcessGroup
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    for i, arg in enumerate(func._schema.arguments):
+        value = kwargs.get(arg.name, args[i] if i < len(args) else None)
+        if arg.name == "group_size" and value is not None:
+            return int(value)
+        if arg.name == "group_name" and value is not None:
+            return _resolve_process_group(value).size()
+        if arg.name == "process_group" and value is not None:
+            if isinstance(value, torch.ScriptObject):  # the process-group ops' boxed group
+                value = ProcessGroup.unbox(value)
+            return value.size()
+    return 1
+
+
+def _collective(func, args, kwargs, inputs, outputs):
+    """The heat block's record of a c10d op, or None when it is none of
+    the reference's five kinds."""
+    op = HLO_NAMES.get(func._overloadpacket.__name__)
+    if op is None:
+        return None
+    # the output's shape, as the reference reads it; an op that returns
+    # no tensor (a send) moves its input
+    tensors = [t for t in outputs if isinstance(t, torch.Tensor)] or [
+        t for t in inputs if isinstance(t, torch.Tensor)]
+    return Collective(op=op, shape=_shape_text(tensors), out_bytes=_tensor_bytes(tensors),
+                      group_size=_group_size(func, args, kwargs))
 
 
 @dataclasses.dataclass
@@ -61,6 +155,7 @@ class OpCost:
     collective_count: int = 0
     ops: int = 0
     by_collective: Dict[str, float] = dataclasses.field(default_factory=dict)
+    collectives: List[Collective] = dataclasses.field(default_factory=list)
 
     @property
     def product_flops(self) -> float:
@@ -70,6 +165,24 @@ class OpCost:
     def as_dict(self) -> Dict[str, float]:
         return {"flops": self.flops, "product_flops": self.product_flops,
                 "bytes": self.bytes, "wire_bytes": self.wire_bytes}
+
+    def heat(self) -> Dict[str, object]:
+        """The level-3 heat block (``layers.hlo.heat``), the reference's
+        ``HloHeat.as_dict()`` over the collectives recorded: their count,
+        their ring cost per device in all and by kind, and each (kind,
+        shape, group) signature seen more than once with its count."""
+        by_op: Dict[str, float] = {}
+        seen: Dict[Tuple[str, str, int], int] = {}
+        for c in self.collectives:
+            by_op[c.op] = by_op.get(c.op, 0.0) + c.wire_bytes_per_device
+            sig = (c.op, c.shape, c.group_size)
+            seen[sig] = seen.get(sig, 0) + 1
+        return {
+            "collective_count": len(self.collectives),
+            "collective_bytes": sum(c.wire_bytes_per_device for c in self.collectives),
+            "bytes_by_op": by_op,
+            "redundant": [[f"{op} {shape}", n] for (op, shape, _g), n in seen.items() if n > 1],
+        }
 
 
 def _tensor_bytes(tensors) -> int:
@@ -111,6 +224,9 @@ class ByteCounter(TorchDispatchMode):
                 self.cost.wire_bytes += wire
                 name = func._overloadpacket.__name__
                 self.cost.by_collective[name] = self.cost.by_collective.get(name, 0.0) + wire
+                record = _collective(func, args, kwargs, inputs, outputs)
+                if record is not None:
+                    self.cost.collectives.append(record)
             return out
         self.cost.bytes += _tensor_bytes(inputs + outputs)
         if func._overloadpacket not in flop_registry:

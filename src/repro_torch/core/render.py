@@ -441,6 +441,7 @@ def _hlo_line(hlo: Mapping) -> str:
         f"{cost.get('bytes', 0):.3g} bytes, "
         f"{cost.get('wire_bytes', 0):.3g} wire bytes, "
         f"{heat.get('collective_count', 0)} collectives"
+        + (f", {len(heat['redundant'])} redundant" if heat.get("redundant") else "")
     )
 
 

@@ -49,7 +49,7 @@ import os
 import re
 import time
 from pathlib import Path
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -1088,6 +1088,53 @@ class ProfileSession:
             where="session",
             detail=f"{d.name}: {why}; quarantined to {target.name}",
         )
+
+    def profile(
+        self,
+        specs: Iterable[KernelSpec],
+        sampler: Optional[GridSampler] = None,
+        dynamic_contexts: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
+        names: Optional[Mapping[str, str]] = None,
+        variants: Optional[Mapping[str, str]] = None,
+        region_maps: Optional[Mapping[str, Mapping[str, str]]] = None,
+        label: Optional[str] = None,
+        note: str = "",
+        workers: Optional[int] = None,
+    ) -> Iteration:
+        """Profile every spec and persist the results as the next iteration.
+
+        ``names`` maps a spec's own name to the manifest name used for
+        cross-iteration alignment (so ``gemm_v01`` in iter1 can diff
+        against ``gemm_v00`` in iter0 under the shared name ``gemm``);
+        ``dynamic_contexts``, ``variants`` and ``region_maps`` are keyed
+        the same way, by ``KernelSpec.name``.  Returns the loaded
+        :class:`Iteration`.
+
+        The default sampler is the full grid: iteration diffs compare
+        absolute transfer totals, which only align when both sides cover
+        the whole problem.  ``workers`` overrides the session's worker
+        count for this call (:meth:`collector`).
+        """
+        sampler = sampler or GridSampler(None)
+        dynamic_contexts = dynamic_contexts or {}
+        names = names or {}
+        variants = variants or {}
+        region_maps = region_maps or {}
+        collector = self.collector(workers)
+        profiled = [
+            profile_kernel(
+                spec,
+                sampler,
+                dynamic_contexts.get(spec.name),
+                name=names.get(spec.name),
+                variant=variants.get(spec.name),
+                region_map=sorted(region_maps.get(spec.name, {}).items()),
+                collector=collector,
+                cache=self.cache,
+            )
+            for spec in specs
+        ]
+        return self.add_iteration(profiled, label=label, note=note)
 
     def add_iteration(
         self,

@@ -622,14 +622,25 @@ def build(ref: str) -> Tuple[KernelSpec, Optional[Dict[str, np.ndarray]]]:
     return spec, variant.dynamic_context()
 
 
+def wrappers() -> Dict[str, Callable[..., Outputs]]:
+    """Every kernel wrapper by its name: the registry's (the model families
+    launch the same wrappers), and ``spmv_ell``, which only ``ops.spmv``
+    reaches."""
+    return {fn.__name__: fn
+            for module in (gemm, spmv, histogram, gramschm, ttm, flash, gmm, ssd,
+                           ragged_flash, paged_attn)
+            for fn in module.KERNELS.values()}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches so far of every kernel wrapper, by its name."""
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
 def reset_launch_counts() -> None:
-    """Set the launch count of every kernel wrapper to 0: the registry's
-    (the model families launch the same wrappers), and ``spmv_ell``, which
-    only ``ops.spmv`` reaches."""
-    for module in (gemm, spmv, histogram, gramschm, ttm, flash, gmm, ssd,
-                   ragged_flash, paged_attn):
-        for fn in module.KERNELS.values():
-            fn.launches = 0
+    """Set the launch count of every kernel wrapper to 0."""
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 class KernelMismatch(RuntimeError):

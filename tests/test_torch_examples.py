@@ -1,0 +1,307 @@
+"""The port's six examples (``repro_torch.examples``), on the CPU.
+
+Part 1 imports no JAX and nothing of ``repro``: each example runs with
+``--device cpu`` at its reference size (``train_lm`` at fewer steps) and
+its returned record is checked; without ``--device cpu`` and with no card
+each one raises; no module of the port, and not ``chip_smoke.py``,
+imports ``jax`` or ``repro``.
+
+Part 2 holds the examples against the reference scripts
+(``examples/*.py``, run in process on the CPU): quickstart and
+optimize_gemm, given the reference's specs under the TPU tile, give its
+transfer totals and pattern classes bit for bit; serve_lm on the
+reference's parameters (``params_from_reference``) gives its greedy
+tokens; train_lm on them follows its loss curve within ``LOSS_RTOL``.
+"""
+
+import copy
+import importlib.util
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.examples import (
+    heatmap_gallery, optimize_gemm, quickstart, serve_lm, serve_long_context, train_lm,
+)
+from repro_torch.models.model import LM
+
+ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = {"quickstart": quickstart, "optimize_gemm": optimize_gemm,
+            "heatmap_gallery": heatmap_gallery, "serve_lm": serve_lm,
+            "serve_long_context": serve_long_context, "train_lm": train_lm}
+# relative tolerance of the port's training losses against the reference's
+# over the first steps: float32 sums in another order, through AdamW
+LOSS_RTOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# -- part 1: the port alone ---------------------------------------------------------------
+
+
+def test_quickstart_profiles_fixes_and_launches(tmp_path):
+    out = quickstart.main(["--device", "cpu", "--out", str(tmp_path / "qs")])
+    assert out["transfers"]["v01"] <= out["transfers"]["v00"]
+    assert out["transfers"] == {"v00": 168820736, "v01": 138543104}
+    assert "false-sharing@C" in out["patterns"]["v00"]
+    assert "false-sharing@C" not in out["patterns"]["v01"]
+    assert out["speedup_estimate"] > 1 and out["max_abs_diff"] == 0.0
+    assert Path(out["report"]).is_file() and (tmp_path / "qs" / "iter1").is_dir()
+
+
+def test_optimize_gemm_ladder_falls_round_by_round():
+    rounds = optimize_gemm.main(["--device", "cpu"])
+    per_row = [rounds[r]["per_row"] for r in ("v00", "v01", "v02")]
+    assert per_row[0] > per_row[1] > per_row[2]
+    assert [rounds[r]["c_rows"] for r in ("v00", "v01", "v02")] == [1024, 32, 1024]
+    for r in rounds.values():
+        assert r["run"]["device"] == "cpu" and r["run"]["max_abs_err"] == 0.0
+
+
+def test_heatmap_gallery_writes_one_entry_per_rung(tmp_path):
+    from repro_torch import kernels as kreg
+
+    out = heatmap_gallery.main(["--device", "cpu", "--out", str(tmp_path / "g")])
+    want = {"baseline": [(n, kreg.get(n).variants[0].name) for n in kreg.names()],
+            "optimized": [(n, kreg.get(n).variants[-1].name) for n in kreg.names()]}
+    assert out["rungs"] == want
+    for label, index in out["bundles"].items():
+        assert Path(index).is_file()
+        csvs = sorted(p.stem for p in Path(index).parent.glob("*.csv"))
+        assert csvs == sorted(n for n, _ in want[label])
+    assert (tmp_path / "g" / "gallery_diff.txt").read_text().strip() == out["summary"]
+    # every rung with a kernel ran it (its plain version, here)
+    assert {k for k, run in out["runs"].items() if run["device"] == "cpu"} == {
+        f"{n}:{v}" for label in want for n, v in want[label]
+        if kreg.get(n).variant(v).kernel is not None}
+
+
+def test_serve_lm_finishes_every_request():
+    out = serve_lm.main(["--device", "cpu"])
+    reqs = out["requests"]
+    assert [r.rid for r in reqs] == list(range(serve_lm.N_REQUESTS))
+    assert all(r.done and len(r.out_tokens) == serve_lm.MAX_TOKENS for r in reqs)
+    assert out["ticks"] > 0 and out["device"] == "cpu"
+
+
+def test_serve_lm_request_that_sets_the_length_decodes_as_alone():
+    """Request 0 has the longest prompt of the first wave (17 tokens), so
+    it decodes as a batch-1 prefill and decode steps would (the others
+    decode at the shared cache length, as in the reference)."""
+    out = serve_lm.main(["--device", "cpu"])
+    model, req = out["model"], out["requests"][0]
+    caches = model.init_caches(1, 128, dtype=torch.float32)
+    with torch.no_grad():
+        logits, caches = model.prefill(torch.from_numpy(req.prompt.astype(np.int64))[None],
+                                       caches)
+        toks = [int(logits[0, -1].argmax())]
+        while len(toks) < serve_lm.MAX_TOKENS:
+            logits, caches = model.decode_step(torch.tensor([[toks[-1]]]), caches)
+            toks.append(int(logits[0, -1].argmax()))
+    assert req.out_tokens == toks
+
+
+def test_serve_lm_serve_on_a_copy_of_the_model_gives_the_same_greedy_tokens():
+    out = serve_lm.main(["--device", "cpu"])
+    again, _, _ = serve_lm.serve(copy.deepcopy(out["model"]).to("cpu"), 0)
+    assert [r.out_tokens for r in again if r.temperature == 0.0] == \
+        [r.out_tokens for r in out["requests"] if r.temperature == 0.0]
+
+
+def test_serve_long_context_ssm_state_is_flat():
+    out = serve_long_context.main(["--device", "cpu"])
+    rows = out["rows"]
+    assert sorted(rows) == list(serve_long_context.PREFILLS)
+    assert len({r["ssm_mb"] for r in rows.values()}) == 1
+    assert all(r["ssm_mb"] < r["gqa_mb"] for r in rows.values())
+    assert all(r["ssm_ms"] > 0 and r["gqa_ms"] > 0 for r in rows.values())
+
+
+def test_train_lm_restart_equals_the_uninterrupted_run():
+    """Steps 3-5 follow the restore in one run and run uninterrupted in
+    the other: the same losses, bit for bit."""
+    cut = train_lm.main(["--device", "cpu", "--steps", "7", "--restart-at", "3"])
+    whole = train_lm.main(["--device", "cpu", "--steps", "7", "--restart-at", "6"])
+    assert cut["restart_at"] == 3 and whole["restart_at"] == 6
+    assert cut["losses"][:6] == whole["losses"][:6]
+    assert cut["losses"][-1] < cut["losses"][0]
+
+
+def test_train_lm_on_a_one_rank_mesh_matches_no_mesh():
+    plain = train_lm.main(["--device", "cpu", "--steps", "4"])
+    mesh = train_lm.main(["--device", "cpu", "--steps", "4", "--mesh", "1x1"])
+    assert mesh["mesh"] == {"data": 1, "model": 1} and plain["mesh"] is None
+    np.testing.assert_allclose(mesh["losses"], plain["losses"], rtol=1e-5)
+    assert not torch.distributed.is_initialized()
+
+
+def test_train_lm_takes_an_assigned_arch_s_smoke_config():
+    out = train_lm.main(["--device", "cpu", "--arch", "granite-8b", "--smoke", "--steps", "2"])
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    assert out["checkpoints"] == [1]
+
+
+@pytest.mark.parametrize("name", list(EXAMPLES))
+def test_without_a_card_each_example_raises(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EXAMPLES[name].main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EXAMPLES[name].main(["--device", "cuda"])
+
+
+# an import of jax or of repro (``repro\b`` does not match ``repro_torch``)
+_FOREIGN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b", re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
+                                       ROOT / "chip_smoke.py"]))
+def test_no_module_of_the_port_imports_jax_or_repro(path):
+    assert not _FOREIGN.findall((ROOT / path).read_text()), path
+
+
+# -- part 2: against the reference scripts -------------------------------------------------
+
+
+def reference_example(name):
+    """``examples/<name>.py`` of the JAX package, loaded as a module."""
+    pytest.importorskip("jax")
+    spec = importlib.util.spec_from_file_location(f"reference_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def classes(reports):
+    return sorted(f"{r.pattern}@{r.region}" for r in reports)
+
+
+def test_quickstart_under_the_tpu_tile_gives_the_reference_s_totals(tmp_path, monkeypatch):
+    from repro.core.session import load_iteration
+    from repro.kernels import gemm as ref_gemm
+    from torch_parity import to_port_spec
+
+    ref = reference_example("quickstart")
+    monkeypatch.setattr(ref, "SESS", str(tmp_path / "ref"))
+    ref.main()
+    want = {v: load_iteration(tmp_path / "ref" / f"iter{i}").kernel("gemm")
+            for i, v in enumerate(("v00", "v01"))}
+    monkeypatch.setattr(quickstart, "gemm_v00_spec",
+                        lambda m, n, k: to_port_spec(ref_gemm.gemm_v00_spec(m, n, k)))
+    monkeypatch.setattr(quickstart, "gemm_v01_spec",
+                        lambda m, n, k: to_port_spec(ref_gemm.gemm_v01_spec(m, n, k)))
+    got = quickstart.main(["--device", "cpu", "--out", str(tmp_path / "port")])
+    assert got["transfers"] == {v: pk.transactions for v, pk in want.items()}
+    assert got["patterns"] == {v: classes(pk.reports) for v, pk in want.items()}
+
+
+def test_optimize_gemm_under_the_tpu_tile_gives_the_reference_s_totals(monkeypatch):
+    from repro.core import api as ref_api
+    from repro.kernels import gemm as ref_gemm
+    from torch_parity import to_port_spec
+
+    ref = reference_example("optimize_gemm")
+    maps, per_row = [], []
+    heatmap, round_report = ref_api.heatmap, ref.round_report
+    monkeypatch.setattr(ref_api, "heatmap", lambda *a: maps.append(heatmap(*a)) or maps[-1])
+    monkeypatch.setattr(ref, "round_report",
+                        lambda *a: per_row.append(round_report(*a)) or per_row[-1])
+    ref.main()
+    for name in ("gemm_v00_spec", "gemm_v01_spec", "gemm_v02_spec"):
+        build = getattr(ref_gemm, name)
+        monkeypatch.setattr(optimize_gemm, name,
+                            lambda m, n, k, build=build: to_port_spec(build(m, n, k)))
+    got = optimize_gemm.main(["--device", "cpu"])
+    rungs = ("v00", "v01", "v02")
+    assert [got[r]["transfers"] for r in rungs] == [hm.sector_transactions() for hm in maps]
+    assert [got[r]["patterns"] for r in rungs] == [
+        classes(ref_api.detect_all(hm)) for hm in maps]
+    assert [got[r]["per_row"] for r in rungs] == per_row
+
+
+def test_serve_lm_gives_the_reference_s_greedy_tokens(monkeypatch):
+    import jax
+
+    from repro_torch.models.model import params_from_reference
+
+    ref = reference_example("serve_lm")
+    servers = []
+
+    class Recorded(ref.Server):
+        def __init__(self, model, params, *args, **kwargs):
+            super().__init__(model, params, *args, **kwargs)
+            self.params, self.requests = params, []
+            servers.append(self)
+
+        def submit(self, req):
+            self.requests.append(req)
+            super().submit(req)
+
+    monkeypatch.setattr(ref, "Server", Recorded)
+    ref.main()
+    srv = servers[0]
+    state = params_from_reference(serve_lm.CONFIG, jax.tree.map(np.asarray, srv.params))
+
+    def build(cfg, device=None, generator=None):
+        model = LM(cfg, device=device)
+        model.load_state_dict(state)
+        return model
+
+    monkeypatch.setattr(serve_lm, "build_model", build)
+    got = serve_lm.main(["--device", "cpu"])["requests"]
+    want = srv.requests
+    assert [len(r.prompt) for r in got] == [len(r.prompt) for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.prompt, w.prompt)
+        if w.temperature == 0.0:
+            assert g.out_tokens == list(map(int, w.out_tokens)), g.rid
+    assert sum(r.temperature == 0.0 for r in want) == 5
+
+
+def test_train_lm_follows_the_reference_s_loss_curve(monkeypatch):
+    import sys
+
+    import jax
+
+    from repro_torch.models.model import params_from_reference
+
+    ref = reference_example("train_lm")
+    first, losses = [], {}
+    init_state, run = ref.init_state, ref.run
+
+    def recorded_init(params, *a, **kw):
+        first.append(jax.tree.map(np.asarray, params))  # the step donates its state
+        return init_state(params, *a, **kw)
+
+    def recorded_run(step, state, pipe, n, hooks, start_step=0):
+        def record(i, st, metrics):
+            losses[i] = float(metrics["loss"])
+
+        return run(step, state, pipe, n, tuple(hooks) + (record,), start_step=start_step)
+
+    monkeypatch.setattr(ref, "init_state", recorded_init)
+    monkeypatch.setattr(ref, "run", recorded_run)
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", "--steps", "6", "--restart-at", "3"])
+    ref.main()
+    state = params_from_reference(train_lm.CONFIG, first[0])
+
+    def build(cfg, device=None, generator=None):
+        model = LM(cfg, device=device)
+        model.load_state_dict(state)
+        return model
+
+    monkeypatch.setattr(train_lm, "build_model", build)
+    got = train_lm.main(["--device", "cpu", "--steps", "6", "--restart-at", "3"])
+    want = [losses[i] for i in range(6)]
+    np.testing.assert_allclose(got["losses"], want, rtol=LOSS_RTOL)

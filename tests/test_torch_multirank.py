@@ -7,7 +7,8 @@ axes in both orders, ``constrain_logical``, a sharded AdamW step of the
 reference test's model (``tests/test_sharding_multidevice.py``: 2
 layers, d 64, 4 heads over 2 KV, d_ff 128, vocab 128, f32), expert
 parallelism with the experts over ("model",) and ("model", "data"), the
-GPipe pipeline over a (4,) stage mesh, and the training launcher.  The
+level-3 heat block of a 2-layer EP MoE model's forward, the GPipe
+pipeline over a (4,) stage mesh, and the training launcher.  The
 parent process computes the JAX references and the single-process
 launcher run.  Tolerances are the reference test's: loss 1e-4,
 parameters 1e-3, EP outputs 1e-4, the pipeline 1e-5.
@@ -39,6 +40,13 @@ SPAWN_TIMEOUT = 240  # s; the spawn takes ~40-50 s on 4 ranks of an 8-core x86 C
 TRAIN = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
              d_ff=128, vocab=128)
 MOE = dict(d_model=16, d_ff=32, n_experts=8, top_k=2, capacity_factor=8.0, moe_impl="ep")
+# the heat block's model: two EP MoE layers, each of two all-to-alls of one
+# (E, C, d) send buffer, on a batch that splits over "data" and a sequence
+# over "model"
+HEAT = dict(model_kwargs=dict(name="ep", family="moe", n_layers=2, d_model=32, n_heads=4,
+                              n_kv_heads=2, d_ff=64, vocab=128, n_experts=8, top_k=2,
+                              moe_impl="ep", capacity_factor=2.0),
+            batch=4, seq=16)
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +91,7 @@ def ranks(reference, tmp_path_factory):
     return torch_ranks.spawn(
         torch_ranks.multirank_checks, WORLD, tmp, SPAWN_TIMEOUT,
         train_case=reference["train_case"], ep_case=reference["ep_case"],
-        pipe_case=reference["pipe_case"], ckpt=str(tmp / "ckpt"))
+        pipe_case=reference["pipe_case"], heat_case=HEAT, ckpt=str(tmp / "ckpt"))
 
 
 @pytest.mark.parametrize("order", [("data", "model"), ("model", "data")])
@@ -130,6 +138,31 @@ def test_ep_matches_jax_moe_ref(ranks, reference, axes):
 def test_ep_backward_through_the_exchange_matches_moe_ref(ranks, axes):
     for res in ranks:
         assert res["ep"][axes]["grad_err"] < 1e-5
+
+
+def test_ep_heat_block_reports_the_all_to_alls_and_their_repeats(ranks):
+    """Each rank's heat block: 2 all-to-alls a layer, each of the (E, C, d)
+    buffer, (g - 1) / g of it on the wire over the model axis (g = 2), and
+    that one signature listed under ``redundant`` with its count."""
+    kw = HEAT["model_kwargs"]
+    e, k, d = kw["n_experts"], kw["top_k"], kw["d_model"]
+    g = 2  # the expert axis, ("model",): the batch splits over "data"
+    t = HEAT["batch"] // 2 * (HEAT["seq"] // g)  # a rank's tokens
+    cap = max(k, int(kw["capacity_factor"] * t * k / e))
+    b = e * cap * d * 4
+    n = 2 * kw["n_layers"]
+    for res in ranks:
+        heat, records = res["ep_heat"]["heat"], res["ep_heat"]["records"]
+        assert set(heat) == {"collective_count", "collective_bytes", "bytes_by_op", "redundant"}
+        a2a = [r for r in records if r["op"] == "all-to-all"]
+        assert len(a2a) == n
+        for r in a2a:
+            assert r == dict(op="all-to-all", shape=f"f32[{e},{cap},{d}]", out_bytes=b,
+                             group_size=g)
+        assert heat["bytes_by_op"]["all-to-all"] == n * (g - 1) / g * b
+        assert [f"all-to-all f32[{e},{cap},{d}]", n] in heat["redundant"]
+        assert heat["collective_count"] == len(records)
+        assert heat["collective_bytes"] == sum(heat["bytes_by_op"].values())
 
 
 def test_pipeline_matches_sequential(ranks):

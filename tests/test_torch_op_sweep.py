@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import hlo_thermo as ref_thermo
 from repro.core import model_profile as ref_mp
 from repro.core import roofline as ref_roofline
 from repro.models.registry import MODELS as REF_MODELS
@@ -160,6 +161,88 @@ def test_collectives_are_counted_with_their_wire_bytes():
         dist.destroy_process_group()
 
 
+# -- the level-3 heat block ------------------------------------------------------------------
+
+HEAT_KEYS = {"collective_count", "collective_bytes", "bytes_by_op", "redundant"}
+
+
+@pytest.mark.parametrize("name", list(REF_MODELS))
+def test_sweep_heat_block_equals_the_reference_s_on_one_device(name):
+    entry = REF_MODELS[name]
+    want = ref_mp.hlo_sweep(entry.config, entry.batch, entry.seq)["heat"]
+    port_entry = get_model(name)
+    got = op_sweep(port_entry.config, port_entry.batch, port_entry.seq)["heat"]
+    assert set(got) == set(want) == HEAT_KEYS
+    assert got == want
+    assert got == {"collective_count": 0, "collective_bytes": 0, "bytes_by_op": {},
+                   "redundant": []}
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 16])
+@pytest.mark.parametrize("op", ref_thermo.COLLECTIVE_OPS)
+def test_ring_cost_from_shapes_matches_the_reference(op, group):
+    out_bytes = 8 * 64 * 4  # f32[8,64]
+    got = op_cost.Collective(op, "f32[8,64]", out_bytes, group).wire_bytes_per_device
+    want = ref_thermo.CollectiveStats(op, "c", out_bytes, group).wire_bytes_per_device
+    assert got == want
+    assert set(op_cost.HLO_NAMES.values()) == set(ref_thermo.COLLECTIVE_OPS)
+
+
+def test_heat_block_equals_the_reference_walker_on_the_same_collectives():
+    """The same collectives as records and as HLO instructions (the
+    reference's shape text, without a layout): the same block, repeats
+    under ``redundant`` in the order first seen."""
+    seen = [("all-gather", (8, 64), 4), ("all-to-all", (16, 32), 2),
+            ("all-gather", (8, 64), 4), ("all-reduce", (1024,), 8),
+            ("collective-permute", (4, 4), 2), ("all-to-all", (16, 32), 2),
+            ("reduce-scatter", (2, 64), 4), ("all-gather", (8, 64), 2),
+            ("all-to-all", (16, 32), 2)]
+    lines, records = ["HloModule m", "ENTRY e {"], []
+    for i, (op, shape, g) in enumerate(seen):
+        text = f"f32[{','.join(map(str, shape))}]"
+        groups = ",".join(map(str, range(g)))
+        lines.append(f"  %c.{i} = {text} {op}(f32[2] %p), replica_groups={{{{{groups}}}}}")
+        records.append(op_cost.Collective(op, text, 4 * int(np.prod(shape)), g))
+    want = ref_thermo.analyze_hlo("\n".join(lines + ["}"])).as_dict()
+    got = op_cost.OpCost(collectives=records).heat()
+    assert got == want
+    assert got["redundant"] == [["all-gather f32[8,64]", 2], ["all-to-all f32[16,32]", 3]]
+
+
+def test_c10d_ops_are_recorded_by_the_reference_s_names(tmp_path):
+    """Each functional collective, and the process-group all-reduce, on a
+    one-rank group: recorded under the reference's name with its output's
+    shape and the group's size (ring cost 0 on one rank); a broadcast,
+    none of the five kinds, is counted as a collective but not recorded."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        name = dist.group.WORLD.group_name
+        fc = torch.ops._c10d_functional
+        x = torch.ones(4, 8)
+
+        def run():
+            for t in (fc.all_gather_into_tensor(x, 1, name), fc.reduce_scatter_tensor(x, "sum", 1, name),
+                      fc.all_reduce(x, "sum", name), fc.all_to_all_single(x, [4], [4], name)):
+                fc.wait_tensor(t)
+            dist.all_reduce(x)
+            dist.broadcast(x, 0)
+
+        _, cost = op_cost.count(run)
+    finally:
+        dist.destroy_process_group()
+    assert [(c.op, c.shape, c.out_bytes, c.group_size) for c in cost.collectives] == [
+        (op, "f32[4,8]", 128, 1)
+        for op in ("all-gather", "reduce-scatter", "all-reduce", "all-to-all", "all-reduce")]
+    assert cost.collective_count == 6
+    assert cost.heat() == {"collective_count": 5, "collective_bytes": 0.0,
+                           "bytes_by_op": {"all-gather": 0.0, "reduce-scatter": 0.0,
+                                           "all-reduce": 0.0, "all-to-all": 0.0},
+                           "redundant": [["all-reduce f32[4,8]", 2]]}
+
+
 # -- cuthermo model ------------------------------------------------------------------------
 
 
@@ -173,7 +256,8 @@ def test_model_prints_the_op_sweep_and_writes_the_block(tmp_path, capsys):
     hlo = layers["hlo"]
     assert hlo["source"] == "torch-ops" and hlo["backward"] is False
     assert set(hlo["cost"]) >= {"flops", "bytes", "wire_bytes"}
-    assert hlo["heat"]["collective_count"] == 0
+    assert hlo["heat"] == {"collective_count": 0, "collective_bytes": 0, "bytes_by_op": {},
+                           "redundant": []}
     assert _hlo_line(hlo) in out
 
 
@@ -213,6 +297,10 @@ def test_sweep_line_labels_its_source():
                                "0 collectives")
     assert _hlo_line(ref).startswith("HLO sweep (forward+backward): 1.5e+09 flops")
     assert _hlo_line(ref).endswith("2 collectives")
+    # repeated signatures are counted after the collectives, as the
+    # reference's report does
+    ref["heat"]["redundant"] = [["all-to-all f32[8,8,32]", 4]]
+    assert _hlo_line(ref).endswith("2 collectives, 1 redundant")
 
 
 # -- the roofline -----------------------------------------------------------------------------

@@ -9,6 +9,9 @@ A recovered collection is bit-identical to a clean one.  Pools run under
 a fault plan's watchdog (1.5 s) and are closed by their ``with`` blocks.
 """
 
+import os
+import struct
+
 import pytest
 
 from repro_torch.core import tuner as tuner_mod
@@ -101,6 +104,21 @@ def test_timeout_only_plan_and_clean_pool():
     with ShardedCollector(2, policy=ResiliencePolicy(shard_timeout_s=60.0)) as sc:
         hm2 = sc.analyze(spec, GridSampler(None))
     assert heatmaps_equal(clean, hm2) and hm2.faults == ()
+
+
+def test_killing_a_pool_ends_its_manager_thread_past_half_a_result():
+    """A worker killed while it sends a result leaves half a message in the
+    result pipe; the pool's manager thread must still end, or the
+    interpreter's exit blocks on it."""
+    sc = ShardedCollector(2)
+    pool = sc._ensure_pool()
+    assert list(pool.map(abs, [-1, -2])) == [1, 2]  # workers and manager up
+    manager = pool._executor_manager_thread
+    # a result header promising 1 MiB, then 8 bytes of it
+    os.write(pool._result_queue._writer.fileno(), struct.pack("!i", 1 << 20) + b"x" * 8)
+    sc._kill_pool()
+    manager.join(30)
+    assert not manager.is_alive()
 
 
 # -- tuner fault tolerance ---------------------------------------------------

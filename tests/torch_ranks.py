@@ -166,6 +166,25 @@ def _ep(mesh, moe_kwargs, params, x):
     return out
 
 
+def _ep_heat(mesh, model_kwargs, batch, seq):
+    """The op counter's level-3 heat block of one forward of an EP MoE
+    model on the mesh (plain parameters, replicated): the block, and each
+    collective's record."""
+    import dataclasses
+
+    from repro_torch.core import op_cost
+    from repro_torch.models.model import ModelConfig, build_model
+    from repro_torch.parallel.context import use_mesh, use_rules
+    from repro_torch.parallel.sharding import make_rules
+
+    cfg = ModelConfig(**model_kwargs, dtype=torch.float32)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=torch.Generator().manual_seed(1))
+    with use_mesh(mesh), use_rules(make_rules()), torch.no_grad():
+        _, cost = op_cost.count(lambda: model.apply(tokens))
+    return dict(heat=cost.heat(), records=[dataclasses.asdict(c) for c in cost.collectives])
+
+
 def _pipeline(n_stages, ws, mbs):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.pipeline import pipeline
@@ -194,7 +213,7 @@ def _launcher(ckpt):
     return dict(first=first, resumed=resumed)
 
 
-def multirank_checks(rank, world, *, train_case, ep_case, pipe_case, ckpt):
+def multirank_checks(rank, world, *, train_case, ep_case, pipe_case, heat_case, ckpt):
     from repro_torch.launch.mesh import make_mesh
 
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
@@ -202,6 +221,7 @@ def multirank_checks(rank, world, *, train_case, ep_case, pipe_case, ckpt):
     out = dict(placements=_placements(mesh), constrain=_constrain(mesh))
     out["train"] = _train_step(mesh, **train_case)
     out["ep"] = _ep(mesh, **ep_case)
+    out["ep_heat"] = _ep_heat(mesh, **heat_case)
     out["pipeline"] = _pipeline(world, **pipe_case)
     os.environ["WORLD_SIZE"] = str(world)
     out["launcher"] = _launcher(ckpt)
