@@ -121,7 +121,8 @@ Phases:
    (no fresh grid walk, heat maps bit-identical to the cold run's, the runs
    measured and checked again); ``tune --all`` (no workers) over gemm, spmv,
    histogram, gramschm, ttm, ragged_flash and paged_attn (one line per
-   family: transfers before -> after, the accepted moves); each tune
+   family: transfers before -> after, the accepted moves, which must be
+   ``TUNE_ALL_MOVES``'s); each tune
    command's run of a rung may be slower than phase 3's run of that rung
    alone by no more than 10 % and 0.1 ms; ``profile -k
    gemm:v01`` then ``-k gemm`` into one session, ``check iter1 --baseline
@@ -218,9 +219,12 @@ Phases:
    within 1e-4 of max|y| of ``moe_apply_capacity`` and of ``moe_ref`` on
    the positions kept; then each path's bfloat16 time and the NCCL
    kernels' device time.  (c) The dry-run of granite-3-2b x decode_32k on
-   256 and 512 placeholder ranks, in a process of its own started first:
+   256 and 512 placeholder ranks, in a process of its own started first,
+   and beside it, in another, granite-3-2b x train_4k at full depth on
+   512 (2 x 16 x 16; its step runs on the mesh's 32 x 16 flat view):
    chips, per-device bytes, FLOPs, wire bytes by collective, the bound
-   and the seconds.  Any failure fails the script.
+   and the seconds, with the card's name and power limit; each cell must
+   finish within ``DRYRUN_TIMEOUT``.  Any failure fails the script.
 11. The six examples of ``repro_torch.examples``, each in process on the
    card through its ``main`` (run before the record), every launch count
    set to 0 just before each and read just after, its printed report
@@ -438,18 +442,22 @@ MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-4, 1e-3
 # against moe_ref, which drops nothing); then bfloat16 timings
 MOE_TOKENS, EP_TOL, MOE_ITERS = 4096, 1e-4, 10
 # (c) the dry-run of the reference test's cell on 256 and 512 placeholder
-# ranks, in a process of its own on the card's host, alongside (a) and (b)
+# ranks, and of granite-3-2b x train_4k at full depth on 512 (ROADMAP queue
+# 3 item 11), each in a process of its own on the card's host, alongside (a)
+# and (b); each cell must finish within DRYRUN_TIMEOUT seconds
 DRYRUN_TIMEOUT = 300
 DRYRUN_SCRIPT = """
-import json, time
+import json, sys, time
 from repro_torch.launch import dryrun
+cells = {"decode": [("decode_32k", False), ("decode_32k", True)],
+         "train": [("train_4k", True)]}[sys.argv[1]]
 out = {}
-for multi in (False, True):
+for shape, multi in cells:
     dryrun.fake_world(512 if multi else 256)
     t0 = time.perf_counter()
-    res = dryrun.run_cell("granite-3-2b", "decode_32k", multi, verbose=False)
+    res = dryrun.run_cell("granite-3-2b", shape, multi, verbose=False)
     res["wall_s"] = time.perf_counter() - t0
-    out["2x16x16" if multi else "16x16"] = res
+    out[f"{shape} on {res['mesh']}"] = res
 print(json.dumps(out))
 """
 
@@ -462,32 +470,49 @@ EXAMPLE_MESH_TOL = 1e-4
 
 # the story each family's diffs must tell (phase 3), by pair of iterations;
 # the histogram's and spmv's classes under the H100 geometry are ROADMAP
-# queue 3 items 3 and 4
+# queue 3 items 3, 4 and 12 (hot read on word temperatures: the naive
+# histogram's cell_count and the gathered x are hot beside their false sharing)
 STORIES = {
     "gemm": {(0, 1): ["[fixed] false-sharing on C"]},
-    "spmv": {(0, 1): ["[fixed] misalignment on rowOffsets_shift1"]},
+    "spmv": {(0, 1): ["[fixed] misalignment on rowOffsets_shift1",
+                      "[persisting] hot-random on x"]},
     "histogram": {
         (0, 1): ["[fixed] false-sharing on cell_count",
                  "[INTRODUCED] false-sharing on partials"],
-        (0, 2): ["[fixed] false-sharing on cell_count"],
+        (0, 2): ["[fixed] false-sharing on cell_count", "[persisting] hot on cell_count"],
     },
     "gramschm": {(0, 1): ["[ improved] gramschm: transfers 41024 -> 34112",
                           "[fixed] strided on q"]},
     "ttm": {(0, 1): ["[fixed] scratch-abuse on Y_shr"]},
-    # dense -> gated: the same classes, far fewer transfers (ROADMAP queue 3)
+    # dense -> gated: the same classes, far fewer transfers (ROADMAP queue 3
+    # item 7; each bound word is warm in all its sequence's warps: hot)
     "ragged_flash": {
         (0, 1): ["[ improved] ragged_flash: transfers 68824 -> 13104",
-                 "[persisting] hot-random on starts"],
+                 "[persisting] hot on starts"],
         (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696"],
     },
     # the paged split blocks: the dense sweep reads Q from every split and each
-    # split's own table words; the gated one shares the live slots' words
+    # split's own table words (false sharing); both rungs share the table words
     "paged_attn": {
         (0, 1): ["[ improved] paged_attn: transfers 71244 -> 23464",
                  "[fixed] hot on Q", "[fixed] false-sharing on block_tables",
-                 "[INTRODUCED] hot on block_tables"],
+                 "[persisting] hot on block_tables"],
         (2, 3): ["[ improved] paged_attn: transfers 360960 -> 208960"],
     },
+}
+
+# the moves phase 4's ``tune --all`` accepts, by family (the host's model:
+# the same on any device); the decode families pin their bounds and tables
+# (ROADMAP queue 3 item 7), spmv pins its hot-random x after the zigzag rung
+# (items 4 and 12: 83734 -> 20937), gemm climbs the ladder (item 1)
+TUNE_ALL_MOVES = {
+    "gemm": ["ladder:v01", "ladder:v02"],
+    "spmv": ["ladder:zigzag", "pin(x)"],
+    "histogram": ["ladder:scratch"],
+    "gramschm": ["ladder:opt"],
+    "ttm": ["ladder:fused"],
+    "ragged_flash": ["ladder:decode-ragged", "pin(starts)", "pin(ends)"],
+    "paged_attn": ["ladder:decode-paged", "pin(context_lens)", "pin(block_tables)"],
 }
 
 
@@ -1646,6 +1671,9 @@ def drive_tuning_loop(cli, kreg, smi):
         moves = [s["candidate"].get("label") for s in traj["steps"] if s["accepted"]]
         print(f"tune --all {traj['kernel']}: transfers {traj['baseline']['transactions']} -> "
               f"{traj['best']['transactions']}, accepted {moves or 'nothing'}")
+        if moves != TUNE_ALL_MOVES[traj["kernel"]]:
+            return (f"tune --all {traj['kernel']} accepted {moves}, not "
+                    f"{TUNE_ALL_MOVES[traj['kernel']]}")
     print(f"tune --all wall time (in process): {wall:.2f} s")
 
     # -- the regression gate, and lint ------------------------------------------------
@@ -2768,8 +2796,9 @@ def drive_mesh(smi, dev=None):
 
     dev = dev or torch.device("cuda", 0)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    dry = subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT], stdout=subprocess.PIPE,
-                           stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    dries = [subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT, which],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=ROOT) for which in ("decode", "train")]
     try:
         (ROOT / "build").mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -2783,25 +2812,33 @@ def drive_mesh(smi, dev=None):
                 dist.destroy_process_group()
         if msg:
             return msg
-        out, err = dry.communicate(timeout=DRYRUN_TIMEOUT)
-        if dry.returncode != 0:
-            return f"dry-run exited {dry.returncode}: {err[-2000:]}"
-        cells = json.loads(out.strip().splitlines()[-1])
-        for mesh_name, r in cells.items():
-            print(f"dry-run granite-3-2b x decode_32k on {mesh_name} placeholder ranks (the "
-                  f"card's host): chips {r['chips']}, per-device bytes {r['per_device_bytes']} "
-                  f"(parameters {r['param_bytes_per_device']}), FLOPs {r['cost']['flops']:.4e} "
-                  f"({r['cost']['product_flops']:.4e} in products), bytes "
-                  f"{r['cost']['bytes']:.4e}, wire bytes {r['collectives']['by_op']}, bound "
-                  f"{r['bound']} ({r['roofline']['step_s'] * 1e3:.3f} ms), {r['wall_s']:.1f} s")
+        cells = {}
+        for dry in dries:
+            out, err = dry.communicate(timeout=DRYRUN_TIMEOUT)
+            if dry.returncode != 0:
+                return f"dry-run exited {dry.returncode}: {err[-2000:]}"
+            cells.update(json.loads(out.strip().splitlines()[-1]))
+        for cell, r in cells.items():
+            print(f"dry-run granite-3-2b x {cell} placeholder ranks (step on "
+                  f"{r['mesh_view']}; the card's host): chips {r['chips']}, per-device bytes "
+                  f"{r['per_device_bytes']} (parameters {r['param_bytes_per_device']}), FLOPs "
+                  f"{r['cost']['flops']:.4e} ({r['cost']['product_flops']:.4e} in products), "
+                  f"bytes {r['cost']['bytes']:.4e}, wire bytes {r['collectives']['by_op']}, "
+                  f"bound {r['bound']} ({r['roofline']['step_s'] * 1e3:.3f} ms), "
+                  f"wall_s {r['wall_s']:.1f}; {smi}")
             if not (r["ok"] and r["cost"]["flops"] > 0
                     and r["cost"]["product_flops"] * r["chips"] >= r["model_flops"]):
-                return f"dry-run on {mesh_name}: {r}"
+                return f"dry-run {cell}: {r}"
+            if r["wall_s"] >= DRYRUN_TIMEOUT:
+                return f"dry-run {cell} took {r['wall_s']:.1f} s, over {DRYRUN_TIMEOUT} s"
+        if "train_4k on 2x16x16" not in cells:
+            return f"dry-run: no train_4k cell on 2x16x16 ({sorted(cells)})"
         return None
     finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.wait()
+        for dry in dries:
+            if dry.poll() is None:
+                dry.kill()
+                dry.wait()
 
 
 def drive_examples(smi, kreg):

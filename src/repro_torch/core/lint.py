@@ -537,10 +537,10 @@ def _rule_redundant_fetch(
 ) -> Optional[LintFinding]:
     """Zero-coefficient grid axes re-fetch the identical block (hot).
 
-    Under ``H100Sector`` the same count of warps re-fetches each of the
-    block's sectors; :func:`lint_spec` keeps the finding only where no
-    false-sharing or strided finding says the sector's words are not all
-    warm in those warps (the hot detector's condition).
+    Under ``H100Sector`` the same count of warps re-fetches each word of
+    the block; :func:`lint_spec` keeps the finding beside a false-sharing
+    one (the hot detector reads sharing on words) and drops it where a
+    strided finding says most of each sector's words are cold.
     """
     if op.once:
         return None
@@ -948,10 +948,11 @@ def lint_spec(
                 if strided:
                     findings.append(strided)
             hot = _rule_redundant_fetch(op, model, grid, n_programs, name)
-            # under H100Sector hot means a sector whose words are all warm
-            # in the warps that fetch it; a falsely shared or word-sparse
-            # sector is not one, whoever re-fetches it
-            if hot and (_tpu(op) or not (overlap or strided)):
+            # under H100Sector hot means a sector whose warm words are each
+            # shared by the warps that re-fetch them (patterns.detect_hot):
+            # a falsely shared block re-fetched m times is hot beside its
+            # false sharing, and a word-sparse one is strided, not hot
+            if hot and (_tpu(op) or not strided):
                 findings.append(hot)
         gap = _rule_coverage_gap(op, walk, name)
         if gap:

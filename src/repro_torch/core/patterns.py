@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .heatmap import Heatmap, HeatRow, RegionHeatmap
+from .tiles import H100Sector
 
 HOT = "hot"
 HOT_RANDOM = "hot-random"
@@ -83,32 +84,75 @@ def _rows_of(rh: RegionHeatmap, mask: np.ndarray, limit: int = 8) -> Tuple[HeatR
 # individual detectors
 # --------------------------------------------------------------------------
 
+def _in_sectors(rh: RegionHeatmap) -> bool:
+    """Whether ``rh`` is walked in the H100's 32 B sectors.
+
+    There :func:`detect_hot`, :func:`detect_strided` and :func:`detect_all`
+    read the restated rules below.  Under ``TPUTile`` they keep the JAX
+    package's rules to the letter: its "word" is a 128-lane sublane row, so
+    a gather touches many of a tile's words and many tiles at once, and
+    its thresholds (shares of touched tiles, two warm words a tile, a
+    sector temperature) were set for that; engine parity holds the port's
+    classes to the reference's there.
+    """
+    return rh.region.geometry.kind == H100Sector.kind
+
+
+# under H100Sector, the share of a region's sector transfers that its
+# irregularly hot sectors must carry for hot-random (the reference's share
+# of touched tiles, n_rows // 8, read on transfers)
+HOT_RANDOM_SHARE = 1 / 8
+# under H100Sector, the share of a strided region's touches that must sit
+# at one word offset (detect_strided)
+STRIDED_CONCENTRATION = 0.5
+
+
 def detect_hot(
     rh: RegionHeatmap, kernel: str, min_temp: int = 4
 ) -> Optional[PatternReport]:
-    """Hot / random-hot sectors: heavily shared data (Fig. 6 e/f)."""
+    """Hot / random-hot sectors: heavily shared data (Fig. 6 e/f).
+
+    Under ``H100Sector`` the rule is restated for 8-word sectors:
+
+    * sharing is read on the words.  A sector's temperature also counts
+      warps that touch other words of it (false sharing), so a sector is
+      hot when its hottest word is shared by ``min_temp`` warps or more,
+      and uniform when half its words or more are warm and within 2x of
+      each other.  gemm v00's B (sector 256, every word 32 warps) is then
+      hot beside its false sharing, as the paper's Table I has it.
+    * hot-random counts transfers, not sectors.  A sparse gather touches
+      many more cold sectors than hot ones: the zipf-column SpMV's ``x``
+      at window 32 has 29 of 286 touched sectors at 4 warps or more, but
+      they carry 318 of its 627 sector transfers.  The class fires when
+      the irregularly hot sectors carry ``HOT_RANDOM_SHARE`` of them.
+    * one warm word is enough.  A gathered element is one word of its
+      sector; a strided walk also warms one word, and ``detect_all`` lets
+      strided take precedence there.
+    """
     if rh.region.space != "hbm" or rh.touched_sectors == 0:
         return None
     wt = rh.word_temps_matrix
     st = rh.sector_temps_array
     n_rows = rh.touched_sectors
     wps = wt.shape[1]
-    hot = st >= min_temp
+    sectors = _in_sectors(rh)
+    share = wt.max(axis=1) if sectors else st
+    hot = share >= min_temp
     if not hot.any():
         return None
     touched_cnt = (wt > 0).sum(axis=1)
     pos_min = np.where(wt > 0, wt, np.iinfo(np.int64).max).min(axis=1)
-    # "hot": word temps close to sector temp (everything shared by everyone)
+    # "hot": word temps close to the sharing temp (everything shared by everyone)
     uniform = (
         hot
         & (touched_cnt > 0)
-        & (2 * pos_min >= st)
+        & (2 * pos_min >= share)
         & (touched_cnt >= wps // 2)
     )
     random_ = hot & (touched_cnt > 0) & ~uniform
     # Strided regions also have high sector temps but only one warm word;
-    # hot requires multiple warm words per sector (handled by the split
-    # above: single-word rows land in random_ with low evidence).
+    # under TPUTile hot requires multiple warm words per sector (handled by
+    # the split above: single-word rows land in random_ with low evidence).
     n_uniform = int(uniform.sum())
     if n_uniform >= max(1, n_rows // 16):
         frac = n_uniform / n_rows
@@ -119,7 +163,8 @@ def detect_hot(
             kernel=kernel,
             severity=min(1.0, frac * temp / max(1, rh.n_programs)),
             evidence=(
-                f"{n_uniform}/{n_rows} sectors have sector temp >= {min_temp} "
+                f"{n_uniform}/{n_rows} sectors have "
+                f"{'word' if sectors else 'sector'} temp >= {min_temp} "
                 f"with uniformly warm words (mean sector temp {temp:.1f}, "
                 f"{rh.n_programs} sampled warps)",
                 "shared across many warps -> stage it once per thread block "
@@ -128,6 +173,26 @@ def detect_hot(
             ),
             rows=_rows_of(rh, uniform),
             details=(("mean_temp", temp), ("fraction", frac)),
+        )
+    if sectors:
+        carried = int(st[random_].sum()) / max(1, int(st.sum()))
+        if carried < HOT_RANDOM_SHARE:
+            return None
+        n_random = int(random_.sum())
+        temp = _mean(st[random_].tolist())
+        return PatternReport(
+            pattern=HOT_RANDOM,
+            region=rh.region.name,
+            kernel=kernel,
+            severity=min(1.0, 0.5 * carried),
+            evidence=(
+                f"{n_random}/{n_rows} sectors irregularly hot (a word shared "
+                f"by >= {min_temp} warps, mean sector temp {temp:.1f}) carry "
+                f"{100 * carried:.0f}% of the sector transfers; "
+                "data-dependent sharing",
+            ),
+            rows=_rows_of(rh, random_),
+            details=(("mean_temp", temp), ("transfer_share", carried)),
         )
     if int(random_.sum()) >= max(1, n_rows // 8):
         multiword = random_ & (touched_cnt >= 2)
@@ -359,7 +424,18 @@ def detect_misalignment(
 def detect_strided(
     rh: RegionHeatmap, kernel: str
 ) -> Optional[PatternReport]:
-    """Same word offset warm across many sectors, others cold (Fig. 6 d)."""
+    """Same word offset warm across many sectors, others cold (Fig. 6 d).
+
+    Under ``H100Sector`` the offset must really recur: the most common word
+    offset of the sparse sectors' touches must hold ``STRIDED_CONCENTRATION``
+    of them.  A column walk gives 1 (two adjacent columns, the most a
+    sparse sector holds, 1/2); a random gather gives about
+    1 / words_per_sector (the SpMV ``x`` at window 32: 42 of 291 touches,
+    0.14).  A gather's 8-word sectors are sparse by nature, so without the
+    gate every scattered gather would read as strided.  Under ``TPUTile``
+    a gather over a 1024-word tile is never sparse, and the reference's
+    rule stands ungated.
+    """
     if rh.region.space != "hbm" or rh.touched_sectors < 4:
         return None
     wps = rh.words_per_sector()
@@ -391,6 +467,8 @@ def detect_strided(
     except statistics.StatisticsError:
         mode_off = offsets[0]
     concentration = offsets.count(mode_off) / len(offsets)
+    if _in_sectors(rh) and concentration < STRIDED_CONCENTRATION:
+        return None
     waste = 1.0 - _mean((touched_cnt[sparse] / wps).tolist())
     tags = rh.tags_array[sparse].tolist()
     stride = statistics.mode([b - a for a, b in zip(tags, tags[1:])]) if len(tags) > 1 else 1
@@ -432,6 +510,13 @@ def detect_all(heatmap: Heatmap) -> List[PatternReport]:
     than (random-)hot — their heat signatures are supersets — so when one
     of them fires for a region, the hot-random report there is dropped
     (the paper distinguishes them by the sector-vs-word temperature gap).
+
+    Under ``H100Sector`` only strided drops it.  There hot is read on word
+    temperatures, so a falsely shared sector (cold words, hot sector) is
+    not hot, and a sector that is both shows two real costs: warps on
+    different words of it, and a word shared by many warps.  A strided
+    sector's one warm word is what a single-word hot-random row looks like,
+    and the recurring offset is the more specific diagnosis.
     """
     reports: List[PatternReport] = []
     for rh in heatmap.regions:
@@ -439,7 +524,9 @@ def detect_all(heatmap: Heatmap) -> List[PatternReport]:
             rep for det in DETECTORS if (rep := det(rh, heatmap.kernel))
         ]
         specific = {r.pattern for r in region_reports}
-        if FALSE_SHARING in specific or STRIDED in specific:
+        if STRIDED in specific or (
+            FALSE_SHARING in specific and not _in_sectors(rh)
+        ):
             region_reports = [
                 r for r in region_reports if r.pattern != HOT_RANDOM
             ]

@@ -52,7 +52,13 @@ import torch
 
 from repro_torch.configs import SHAPES, all_cells, get_config, skipped_cells
 from repro_torch.core import op_cost, roofline
-from repro_torch.launch.mesh import data_axes_of, make_production_mesh, n_chips
+from repro_torch.launch.mesh import (
+    POD_DATA,
+    data_axes_of,
+    flat_production_mesh,
+    make_production_mesh,
+    n_chips,
+)
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, cosine_warmup
 from repro_torch.parallel.context import constrain_logical, use_mesh, use_rules
@@ -62,9 +68,11 @@ from repro_torch.parallel.sharding import (
     distribute,
     fixup_specs,
     make_rules,
+    merge_spec_tree,
     mesh_shape,
-    spec_bytes,
+    spec_leaves,
     specs_from_logical,
+    splits_apart,
 )
 from repro_torch.runtime.train_loop import TrainConfig, build_train_step, init_state
 
@@ -143,10 +151,13 @@ def cell_rules(cfg, shape, mesh, sp: bool = True):
 
 
 def input_specs(arch_id: str, shape_name: str, opt_state_dtype: str = "f32",
-                smoke: bool = False) -> Dict[str, Any]:
+                smoke: bool = False, layers: Optional[int] = None) -> Dict[str, Any]:
     """Meta stand-ins for every input of the cell's step: the model (its
-    parameters on meta), tokens, labels, caches and frames."""
+    parameters on meta), tokens, labels, caches and frames.  ``layers``
+    cuts the depth (the widths stay the config's)."""
     cfg = get_config(arch_id, smoke=smoke)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = SHAPES[shape_name]
     if cfg.n_experts and shape.kind in ("train", "prefill") and not smoke:
         # explicit-all-to-all expert parallelism for the big token counts
@@ -190,11 +201,39 @@ def local_bytes(tree) -> int:
     return total
 
 
+_POD_DATA = ("pod", "data")
+
+
+def flat_view(mesh, rules, spec_trees):
+    """``(mesh, rules, spec_trees)`` moved to the multi-pod mesh's flat
+    view (:func:`repro_torch.launch.mesh.flat_production_mesh`) where
+    neither the rules nor any spec names ``pod`` or ``data`` other than as
+    the run ``("pod", "data")``; else as given.  On the view each rank
+    holds the block it holds on the 3-D mesh, and DTensor plans each op
+    over two mesh dims instead of three (a 2x16x16 train step at depth 1
+    took its strategy search 887 s on an 8-core CPU)."""
+    if "pod" not in mesh.mesh_dim_names or not can_flatten(rules, spec_trees):
+        return mesh, rules, spec_trees
+    return (flat_production_mesh(mesh.device_type), rules.merged(_POD_DATA, POD_DATA),
+            merge_spec_tree(spec_trees, _POD_DATA, POD_DATA))
+
+
+def can_flatten(rules, spec_trees) -> bool:
+    """Whether neither ``rules`` nor any spec of ``spec_trees`` names
+    ``pod`` or ``data`` other than as the run ``("pod", "data")``."""
+    parts = [p for sp in spec_leaves(spec_trees) for p in sp]
+    parts += [mesh_axes for _, mesh_axes in rules.table]
+    return not any(splits_apart(p, _POD_DATA) for p in parts)
+
+
 def build_cell(arch_id: str, shape_name: str, mesh, *, sp: bool = True,
-               opt_state_dtype: str = "f32", smoke: bool = False):
+               opt_state_dtype: str = "f32", smoke: bool = False,
+               layers: Optional[int] = None):
     """Returns (step fn, its DTensor arguments, model_flops, meta);
-    meta['_rules'] carries the Rules used (active while the step runs)."""
-    spec = input_specs(arch_id, shape_name, opt_state_dtype, smoke=smoke)
+    meta['_rules'] carries the Rules used (active while the step runs) and
+    meta['_mesh'] the mesh the arguments lie on (``mesh``, or its flat
+    view: :func:`flat_view`)."""
+    spec = input_specs(arch_id, shape_name, opt_state_dtype, smoke=smoke, layers=layers)
     cfg, model, shape = spec["config"], spec["model"], spec["shape"]
     chips = n_chips(mesh)
     rules, decided = cell_rules(cfg, shape, mesh, sp=sp)
@@ -202,34 +241,48 @@ def build_cell(arch_id: str, shape_name: str, mesh, *, sp: bool = True,
         decided["pure_dp"], decided["weight_stationary"], decided["expert_axes"])
     data_axes = decided["data_axes"]
 
-    # params: logical -> physical (+ divisibility fixup), as meta DTensors
+    # params (and the caches): logical -> physical (+ divisibility fixup)
     named = dict(model.named_parameters())
     pspecs = fixup_specs(specs_from_logical(model.logical_specs(), rules), named, mesh)
-    params = {k: distribute(p.detach(), pspecs[k], mesh).requires_grad_(p.requires_grad)
-              for k, p in named.items()}
-
-    # activation constraint (sequence-parallel residual stream)
-    if shape.kind == "train" and sp and hasattr(model, "stack_cfg"):
-        model.stack_cfg = dataclasses.replace(
-            model.stack_cfg,
-            act_constraint=functools.partial(constrain_logical,
-                                             logical_axes=("act_batch", "act_seq", None)),
-        )
-
-    bspec = data_axes if shape.global_batch % _axes_size(mesh, data_axes) == 0 else None
+    cspecs = ([] if shape.kind == "train" else
+              fixup_specs(cache_specs(spec["caches"], rules, mesh), spec["caches"], mesh))
+    bspec = PartitionSpec(
+        data_axes if shape.global_batch % _axes_size(mesh, data_axes) == 0 else None)
     meta: Dict[str, Any] = {
         "arch": arch_id, "shape": shape_name, "kind": shape.kind,
         "chips": chips, "mesh": "x".join(map(str, mesh.shape)),
         "pure_dp": pure_dp, "weight_stationary": weight_stationary,
         "expert_axes": list(expert_axes) if expert_axes else None,
-        "param_bytes_per_device": spec_bytes(named, pspecs, mesh),
-        "_rules": rules,
     }
+    if shape.kind != "decode":
+        # a decode step keeps the 3-D mesh and the counts recorded there: on
+        # the view one gather over pod_data replaces DTensor's two (pod, then
+        # data), whose local copies count 640 ops, 655,360 FLOPs and 2.6 MB
+        # more on granite-3-2b x decode_32k
+        mesh, rules, (pspecs, cspecs, bspec) = flat_view(mesh, rules,
+                                                         [pspecs, cspecs, bspec])
+    meta.update(mesh_view="x".join(map(str, mesh.shape)), _rules=rules, _mesh=mesh)
     total, active = cfg.param_counts()
     meta.update(total_params=total, active_params=active)
+    # as meta DTensors
+    params = {k: distribute(p.detach(), pspecs[k], mesh).requires_grad_(p.requires_grad)
+              for k, p in named.items()}
+    # the blocks the ranks hold, read off the DTensors on the mesh used
+    meta["param_bytes_per_device"] = local_bytes(params)
+
+    # activation constraint (sequence-parallel residual stream), and the
+    # sequence gathered before each block's products
+    if shape.kind == "train" and sp and hasattr(model, "stack_cfg"):
+        model.stack_cfg = dataclasses.replace(
+            model.stack_cfg,
+            act_constraint=functools.partial(constrain_logical,
+                                             logical_axes=("act_batch", "act_seq", None)),
+            act_gather=functools.partial(constrain_logical,
+                                         logical_axes=("act_batch", None, None)),
+        )
 
     def batch(t):
-        return distribute(t, PartitionSpec(bspec, *([None] * (t.dim() - 1))), mesh)
+        return distribute(t, PartitionSpec(bspec[0], *([None] * (t.dim() - 1))), mesh)
 
     from repro_torch.runtime import model_loss
 
@@ -253,7 +306,6 @@ def build_cell(arch_id: str, shape_name: str, mesh, *, sp: bool = True,
         return step, (state, spec["tokens"], spec["labels"]), model_flops, meta
 
     # serving paths: the caches laid out by the reference's cache policy
-    cspecs = fixup_specs(cache_specs(spec["caches"], rules, mesh), spec["caches"], mesh)
     caches = [{k: (distribute(v, cs[k], mesh) if isinstance(v, torch.Tensor) else v)
                for k, v in c.items()} for c, cs in zip(spec["caches"], cspecs)]
     tokens = batch(spec["tokens"])
@@ -305,20 +357,20 @@ def _peak_bytes(fn, args) -> float:
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool, *, sp: bool = True,
              opt_state_dtype: str = "f32", out_dir: Optional[str] = None,
-             verbose: bool = True) -> Dict[str, Any]:
+             verbose: bool = True, layers: Optional[int] = None) -> Dict[str, Any]:
     """One cell on the production mesh; needs the default process group
     to be a ``"fake"`` one of 256 (512 with ``multi_pod``) ranks (see
-    :func:`fake_world`)."""
+    :func:`fake_world`).  ``layers`` cuts the model's depth."""
     mesh = make_production_mesh(multi_pod=multi_pod)
     chips = n_chips(mesh)
     t0 = time.time()
     fn, args, model_flops, meta = build_cell(
-        arch_id, shape_name, mesh, sp=sp, opt_state_dtype=opt_state_dtype
+        arch_id, shape_name, mesh, sp=sp, opt_state_dtype=opt_state_dtype, layers=layers
     )
     t_build = time.time() - t0
     from torch.distributed.tensor.experimental import implicit_replication
 
-    rules = meta.pop("_rules")
+    rules, mesh = meta.pop("_rules"), meta.pop("_mesh")
     arg_bytes = local_bytes(args)
     t1 = time.time()
     with use_mesh(mesh), use_rules(rules), implicit_replication():

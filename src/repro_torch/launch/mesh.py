@@ -16,6 +16,10 @@ from typing import Tuple
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
 
+#: the one dim of the multi-pod mesh's flat view that carries ("pod",
+#: "data"), major to minor (the name ``DeviceMesh._flatten`` gives them)
+POD_DATA = "pod_data"
+
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type: str = "cuda"):
     """A ``DeviceMesh`` of ``shape`` with dims named ``axes``, over the
@@ -33,11 +37,26 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
     return make_mesh(shape, axes, device_type)
 
 
+def flat_production_mesh(device_type: str = "cpu"):
+    """The 2x16x16 mesh viewed as 32x16, ``(pod_data, model)``.
+
+    Rank ``pod * 256 + data * 16 + model`` sits at ``(pod * 16 + data,
+    model)``, so a dim split over ``("pod", "data")`` on the 3-D mesh is
+    one ``Shard`` of ``pod_data`` here and each rank holds the same block.
+    DTensor's strategy search costs far less over two mesh dims than over
+    three (``repro_torch.launch.dryrun`` takes this view where no spec
+    names one of the two axes without the other)."""
+    (pod, data, model), (_, _, model_axis) = PRODUCTION_SHAPES[True]
+    return make_mesh((pod * data, model), (POD_DATA, model_axis), device_type)
+
+
 def data_axes_of(mesh) -> Tuple[str, ...]:
     """The data axes of a ``DeviceMesh`` (or of a shim whose ``.shape``
     maps axis name to size)."""
     names = mesh.shape if isinstance(mesh.shape, dict) else mesh.mesh_dim_names
-    return ("pod", "data") if "pod" in names else ("data",)
+    if "pod" in names:
+        return ("pod", "data")
+    return (POD_DATA,) if POD_DATA in names else ("data",)
 
 
 def n_chips(mesh) -> int:

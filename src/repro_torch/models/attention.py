@@ -433,7 +433,10 @@ def cross_attn_apply(
     k = _proj(enc, params["wk"])
     v = _proj(enc, params["wv"])
     qpos = torch.arange(s, device=x.device)[None].expand(b, s)
-    out = flash_xla(q, k, v, qpos, None, False, None, cfg.chunk)
+    # on a mesh, per rank on whole heads as the self-attention does: DTensor
+    # would otherwise split the encoder's 1500 positions over the model
+    # axis in the backward, unevenly, and fail to flatten them
+    out = _per_rank_heads(flash_xla, q, k, v, qpos, None, False, None, cfg.chunk)
     return _out(out, params["wo"])
 
 

@@ -35,7 +35,9 @@ from .layers import cross_entropy, embed, embed_defs, hi, rmsnorm, rmsnorm_defs,
 from .mamba import SSMConfig
 from .moe import MoEConfig
 from .params import ParamDef, ParamTree
-from .transformer import BlockKind, StackConfig, block_apply, block_defs, segments, stack_apply, stack_caches
+from .transformer import (
+    BlockKind, StackConfig, block_apply, block_defs, gathered, segments, stack_apply, stack_caches,
+)
 
 Tensor = torch.Tensor
 
@@ -317,7 +319,7 @@ class LM(ParamTree):
         x, new_caches, aux = stack_apply(p["layers"], x, positions, self.stack_cfg, caches)
         if last_only:
             x = x[:, -1:]  # slice BEFORE the (B, S, vocab) unembed product
-        x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
+        x = gathered(self.stack_cfg, rmsnorm(p["final_norm"], x, cfg.norm_eps))
         if cfg.tie_embeddings:
             logits = unembed(p["embed"], x)
         else:
@@ -356,7 +358,7 @@ class LM(ParamTree):
         x = torch.cat([h, e], dim=-1) @ mtp["proj"].to(cfg.dtype)
         x, _, _ = block_apply(mtp["block"], x, self._positions(tokens), self.stack_cfg,
                               _mtp_kind(cfg))
-        x = rmsnorm(mtp["norm"], x, cfg.norm_eps)
+        x = gathered(self.stack_cfg, rmsnorm(mtp["norm"], x, cfg.norm_eps))
         mtp_logits = unembed(p["embed"], x)
         tgt = torch.nn.functional.pad(labels[:, 1:], (0, 1), value=-1)
         mask = (tgt >= 0).to(mtp_logits.dtype)

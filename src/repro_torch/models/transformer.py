@@ -69,6 +69,13 @@ class StackConfig:
     # at every block boundary (the dry-run installs a sequence-parallel
     # (batch, seq-over-model, none) constraint here)
     act_constraint: Any = None
+    # optional layout applied to a block's normed input before its mixer and
+    # dense FFN, and to the final norm's output before the unembedding: the
+    # dry-run gathers the sequence there (batch, none, none), the all-gather
+    # a sequence-parallel layout makes before its products.  A product of a
+    # (batch, seq, d) activation split over both leading dims would flatten
+    # them, which torch 2.11's DTensor refuses.
+    act_gather: Any = None
 
 
 def segments(layout: Sequence[BlockKind]) -> List[Tuple[Tuple[BlockKind, ...], int]]:
@@ -134,6 +141,17 @@ def block_defs(cfg: StackConfig, kind: BlockKind) -> Dict[str, Any]:
     return defs
 
 
+def gathered(cfg: StackConfig, h: Tensor) -> Tensor:
+    """``h`` laid out by ``cfg.act_gather`` (as it is without one)."""
+    return h if cfg.act_gather is None else cfg.act_gather(h)
+
+
+def _scattered(cfg: StackConfig, y: Tensor) -> Tensor:
+    """A gathered sublayer's output laid out as the residual stream before
+    the add, so that its gradient comes back in the gathered layout."""
+    return y if cfg.act_gather is None else cfg.act_constraint(y)
+
+
 def block_apply(
     params: Dict[str, Any],
     x: Tensor,
@@ -146,7 +164,7 @@ def block_apply(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.act_constraint is not None:
         x = cfg.act_constraint(x)
-    h = _norm(cfg, params["norm_mixer"], x)
+    h = gathered(cfg, _norm(cfg, params["norm_mixer"], x))
     if kind.mixer == "attn":
         y, new_cache = attn_mod.attn_apply(params["attn"], h, positions, cfg.attn, cache)
     elif kind.mixer == "mla":
@@ -154,11 +172,11 @@ def block_apply(
         y, new_cache = attn_mod.mla_apply(params["mla"], h, pos1d, cfg.mla, cache)
     else:
         y, new_cache = mamba_mod.mamba_apply(params["mamba"], h, cfg.ssm, cache)
-    x = x + y
+    x = x + _scattered(cfg, y)
     if kind.ffn == "mlp":
-        h = _norm(cfg, params["norm_ffn"], x)
+        h = gathered(cfg, _norm(cfg, params["norm_ffn"], x))
         mlp = gelu_mlp if cfg.mlp_kind == "gelu" else swiglu
-        x = x + mlp(params["mlp"], h)
+        x = x + _scattered(cfg, mlp(params["mlp"], h))
     elif kind.ffn == "moe":
         h = _norm(cfg, params["norm_ffn"], x)
         y, moe_aux = moe_mod.moe_apply(params["moe"], h, cfg.moe)

@@ -86,6 +86,12 @@ class Rules:
                 return axes
         return ()
 
+    def merged(self, axes: Tuple[str, ...], name: str) -> "Rules":
+        """The table with each run of ``axes`` named ``name`` (for a flat
+        view of the mesh; see :func:`merge_axes`)."""
+        return Rules(tuple((logical, axes_of(merge_axes(tuple(mesh_axes), axes, name)))
+                           for logical, mesh_axes in self.table))
+
     def spec(self, logical_axes: Sequence[Optional[str]]) -> PartitionSpec:
         parts = []
         used: set = set()
@@ -162,6 +168,41 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree, is_leaf: Callable = None
 def specs_from_logical(logical_tree: PyTree, rules: Rules) -> PyTree:
     """Map a tree of logical-axis tuples to a tree of PartitionSpecs."""
     return tree_map(rules.spec, logical_tree, is_leaf=_is_logical)
+
+
+def splits_apart(part: Any, axes: Tuple[str, ...]) -> bool:
+    """Whether a spec entry names some of ``axes`` other than as one run
+    of all of them, in order."""
+    named = axes_of(part)
+    hit = [a for a in named if a in axes]
+    if not hit:
+        return False
+    i = named.index(hit[0])
+    return named[i:i + len(axes)] != tuple(axes)
+
+
+def merge_axes(part: Any, axes: Tuple[str, ...], name: str) -> Any:
+    """A spec entry with its run of ``axes`` named ``name`` (the dim of a
+    flat view that carries them); see :func:`splits_apart`."""
+    named = axes_of(part)
+    if axes[0] not in named:
+        return part
+    i = named.index(axes[0])
+    merged = named[:i] + (name,) + named[i + len(axes):]
+    return merged[0] if len(merged) == 1 else merged
+
+
+def merge_spec_tree(spec_tree: PyTree, axes: Tuple[str, ...], name: str) -> PyTree:
+    """Every PartitionSpec of a tree with :func:`merge_axes` applied."""
+    return tree_map(lambda sp: PartitionSpec(*(merge_axes(p, axes, name) for p in sp)),
+                    spec_tree, is_leaf=lambda x: isinstance(x, PartitionSpec))
+
+
+def spec_leaves(spec_tree: PyTree) -> List[PartitionSpec]:
+    """The PartitionSpecs of a tree."""
+    out: List[PartitionSpec] = []
+    tree_map(out.append, spec_tree, is_leaf=lambda x: isinstance(x, PartitionSpec))
+    return out
 
 
 def fixup_specs(spec_tree: PyTree, shape_tree: PyTree, mesh: Any) -> PyTree:

@@ -304,11 +304,18 @@ def test_h100_regression_fails_and_improvement_trades_false_sharing_for_hot(
     back = check_iterations(v01, v00)
     assert not back.passed and back.kernels[0].verdict == "regressed"
     assert set(back.kernels[0].new_patterns) == {("B", "false-sharing"), ("C", "false-sharing")}
+    # v00's B is hot beside its false sharing (ROADMAP queue 3 item 1, the
+    # hot rule read on word temperatures), so v01 adds no new class; at
+    # 128^3 each B word goes from the 4 warps of its column to all 128 row
+    # warps, and the strict gate fails on that (at the registry's 1024^3 the
+    # rise is under the gate's +0.05: tests/test_torch_cli.py)
     forward = check_iterations(v00, v01)
     (kc,) = forward.kernels
     assert kc.verdict == "improved"
     assert set(kc.fixed_patterns) == {("B", "false-sharing"), ("C", "false-sharing")}
-    assert forward.failures == ("gemm: new pattern: hot on B",)
+    assert kc.new_patterns == ()
+    (failure,) = forward.failures
+    assert failure.startswith("gemm: worsened pattern: hot on B (severity 0.06 -> 0.25")
     t = CheckThresholds.from_specs(["allow-pattern=hot"])
     assert check_iterations(v00, v01, thresholds=t).passed
 
@@ -536,3 +543,21 @@ def test_cli_gate_on_the_h100_ladder(tmp_path, capsys):
     assert doc["schema_version"] == 1 and doc["kernels"][0]["verdict"] == "regressed"
     assert cli.main(["check", sess, "--anomaly"]) == 0
     capsys.readouterr()
+
+
+def test_cli_strict_gate_passes_down_the_h100_ladder(tmp_path, capsys):
+    """ROADMAP queue 3 item 1, closed: ``profile -k gemm`` then ``-k
+    gemm:v01`` at the registry's 1024^3, and the strict ``check iter1
+    --baseline iter0`` exits 0 with no ``allow-pattern``.  v00's B is hot
+    beside its false sharing (the hot rule reads sharing on words), so v01's
+    hot B is no new class, and its severity rises by under the gate's
+    +0.05."""
+    sess = str(tmp_path / "s")
+    for ref in ("gemm", "gemm:v01"):
+        assert cli.main(["profile", "-k", ref, "--device", "cpu", "--out", sess, "-q"]) == 0
+    capsys.readouterr()
+    rc = cli.main(["check", f"{sess}/iter1", "--baseline", f"{sess}/iter0", "--json", "-"])
+    doc = json.loads(capsys.readouterr().out)
+    assert rc == 0 and doc["passed"], doc
+    (kc,) = doc["kernels"]
+    assert kc["verdict"] == "improved"

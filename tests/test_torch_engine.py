@@ -174,9 +174,11 @@ def test_story_parity_under_h100(h100_ladder):
 def test_h100_pattern_classes_per_rung(h100_ladder):
     """Recorded divergence from the reference rungs: with a warp's lanes on
     one column of B, v00's B sectors are each read one word per warp
-    (false sharing), and A is the operand every warp re-reads (hot)."""
+    (false sharing) while each word is read by every warp of its column
+    (hot, read on word temperatures: the paper's Table I has B {hot,
+    false-sharing}), and A is the operand every warp re-reads (hot)."""
     assert _classes(h100_ladder["v00"]) == {
-        ("C", FALSE_SHARING), ("B", FALSE_SHARING), ("A", HOT)
+        ("C", FALSE_SHARING), ("B", FALSE_SHARING), ("B", HOT), ("A", HOT)
     }
     assert _classes(h100_ladder["v01"]) == {("A", HOT), ("B", HOT)}
     # v02's 64 x 128 tiles: at 256^3 each A sector is read by the 2 warps of

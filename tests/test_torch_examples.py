@@ -126,6 +126,17 @@ def test_serve_long_context_ssm_state_is_flat():
     assert all(r["ssm_ms"] > 0 and r["gqa_ms"] > 0 for r in rows.values())
 
 
+def test_serve_long_context_holds_both_caches_at_max_seq(capsys):
+    """Both caches are allocated at ``max_seq`` before the prefill: the GQA
+    cache holds 4 layers x K and V x 2048 positions x 4 heads x 16 x 4 B =
+    4 MiB at every prefill, and the printed claim says so."""
+    out = serve_long_context.main(["--device", "cpu"])
+    assert out["max_seq"] == 2048
+    assert {r["gqa_mb"] for r in out["rows"].values()} == {4.0}
+    text = capsys.readouterr().out
+    assert "allocated at max_seq = 2048" in text and "grows linearly" not in text
+
+
 def test_train_lm_restart_equals_the_uninterrupted_run():
     """Steps 3-5 follow the restore in one run and run uninterrupted in
     the other: the same losses, bit for bit."""
@@ -187,6 +198,20 @@ def classes(reports):
     return sorted(f"{r.pattern}@{r.region}" for r in reports)
 
 
+def config_for_reference(cfg):
+    """The reference's ``ModelConfig`` with the fields of a port one."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from repro.models import ModelConfig as RefModelConfig
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["dtype"] = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[cfg.dtype]
+    names = {f.name for f in dataclasses.fields(RefModelConfig)}
+    return RefModelConfig(**{k: v for k, v in fields.items() if k in names})
+
+
 def test_quickstart_under_the_tpu_tile_gives_the_reference_s_totals(tmp_path, monkeypatch):
     from repro.core.session import load_iteration
     from repro.kernels import gemm as ref_gemm
@@ -228,6 +253,64 @@ def test_optimize_gemm_under_the_tpu_tile_gives_the_reference_s_totals(monkeypat
     assert [got[r]["patterns"] for r in rungs] == [
         classes(ref_api.detect_all(hm)) for hm in maps]
     assert [got[r]["per_row"] for r in rungs] == per_row
+
+
+def test_heatmap_gallery_under_the_tpu_tile_gives_the_reference_s_totals(tmp_path, monkeypatch):
+    """The reference's specs under the TPU tile (``reference_rungs``) through
+    the port's gallery: every rung's transfers and classes in both
+    iterations, and the session diff's summary, are the reference
+    gallery's."""
+    import types
+
+    from repro import kernels as rk
+    from repro.core.session import load_iteration as ref_load_iteration
+    from repro_torch import kernels as kreg
+    from repro_torch.core.session import load_iteration
+    from torch_parity import reference_rungs
+
+    ref = reference_example("heatmap_gallery")
+    monkeypatch.setattr(ref, "OUT", str(tmp_path / "ref"))
+    ref.main()
+    monkeypatch.setattr(heatmap_gallery, "kreg", types.SimpleNamespace(
+        names=rk.names, get=reference_rungs, run_variant=kreg.run_variant))
+    got = heatmap_gallery.main(["--device", "cpu", "--out", str(tmp_path / "port")])
+    assert got["runs"] == {}  # the reference's rungs carry no kernel
+    for i in (0, 1):
+        want = ref_load_iteration(tmp_path / "ref" / "session" / f"iter{i}").kernels
+        have = load_iteration(tmp_path / "port" / "session" / f"iter{i}").kernels
+        assert [(k.name, k.variant, k.transactions, classes(k.reports)) for k in have] == \
+            [(k.name, k.variant, k.transactions, classes(k.reports)) for k in want]
+    assert (tmp_path / "port" / "gallery_diff.txt").read_text() == \
+        (tmp_path / "ref" / "gallery_diff.txt").read_text()
+
+
+def test_serve_long_context_cache_mib_is_the_reference_s(monkeypatch):
+    """``bench_decode``'s cache MiB at each prefill, both models, against the
+    reference's ``bench_decode`` (examples/serve_long_context.py:22-41) on
+    the same configs: both hold the caches allocated at max_seq.  The
+    reference also counts each attention layer's cache length, an int32
+    array; the port keeps it as a Python int."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import build_model as ref_build_model
+    from repro_torch.models import build_model
+
+    ref = reference_example("serve_long_context")
+    for cfg in (serve_long_context.SSM, serve_long_context.GQA):
+        ref_cfg = config_for_reference(cfg)
+        ref_model = ref_build_model(ref_cfg)
+        ref_params = ref_model.init(jax.random.key(0))
+        model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        lengths = sum(
+            leaf.size * leaf.dtype.itemsize
+            for path, leaf in jax.tree_util.tree_leaves_with_path(
+                ref_model.init_caches(1, serve_long_context.MAX_SEQ, dtype=jnp.float32))
+            if "length" in jax.tree_util.keystr(path))
+        for plen in serve_long_context.PREFILLS:
+            _, want = ref.bench_decode(ref_model, ref_params, plen, n_tokens=1)
+            _, got = serve_long_context.bench_decode(model, plen, n_tokens=1)
+            assert got * 2**20 + lengths == want * 2**20, (cfg.name, plen)
 
 
 def test_serve_lm_gives_the_reference_s_greedy_tokens(monkeypatch):

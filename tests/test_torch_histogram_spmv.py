@@ -21,6 +21,7 @@ import repro.kernels as rk
 from repro.core import analyze as ref_analyze
 from repro.core.diff import diff as ref_diff
 from repro.core.patterns import detect_all as ref_detect_all
+from repro.core.trace import GridSampler as RefSampler
 from repro.kernels import histogram as ref_hist
 from repro.kernels import ref as ref_oracles
 from repro.kernels import spmv as ref_spmv
@@ -28,7 +29,9 @@ from repro_torch import cli
 from repro_torch import kernels as kreg
 from repro_torch.core.collector import analyze
 from repro_torch.core.diff import diff
-from repro_torch.core.patterns import FALSE_SHARING, HOT, MISALIGNMENT, detect_all
+from repro_torch.core.patterns import (
+    FALSE_SHARING, HOT, HOT_RANDOM, MISALIGNMENT, STRIDED, detect_all,
+)
 from repro_torch.core.tiles import H100Sector
 from repro_torch.core.trace import GridSampler
 from repro_torch.kernels import histogram, ops, ref, spmv
@@ -438,11 +441,11 @@ def _ref_classes(ref_name):
 
 
 PORT_CLASSES = {
-    "histogram:naive": {("cell_count", FALSE_SHARING)},
+    "histogram:naive": {("cell_count", FALSE_SHARING), ("cell_count", HOT)},
     "histogram:partials": {("partials", FALSE_SHARING)},
     "histogram:scratch": {("cell_count", HOT)},
-    "spmv:csr": {("rowOffsets_shift1", MISALIGNMENT), ("x", FALSE_SHARING)},
-    "spmv:zigzag": {("x", FALSE_SHARING)},
+    "spmv:csr": {("rowOffsets_shift1", MISALIGNMENT), ("x", FALSE_SHARING), ("x", HOT_RANDOM)},
+    "spmv:zigzag": {("x", FALSE_SHARING), ("x", HOT_RANDOM)},
 }
 
 
@@ -455,16 +458,21 @@ def test_h100_pattern_classes_per_rung(ref_name):
     "ref_name, only_port, only_ref",
     [
         # a warp scatters 32 ids into 256 sectors: ~240 warps a sector, ~32 a
-        # word (false sharing); a TPU program's block is the whole histogram
-        ("histogram:naive", {("cell_count", FALSE_SHARING)}, {("cell_count", HOT)}),
+        # word (false sharing, and hot: the hot rule reads sharing on words);
+        # a TPU program's block is the whole histogram (hot)
+        ("histogram:naive", {("cell_count", FALSE_SHARING)}, set()),
         ("histogram:partials", set(), set()),
         # every one of the 16 blocks flushes every bin: no single final store
         ("histogram:scratch", {("cell_count", HOT)}, set()),
-        # 32 random gathers a warp: ~14 warps a sector, ~2 a word; a TPU
-        # program gathers 1024 over 36 tiles (hot), whose ragged edge
-        # tiles it counts as misaligned
-        ("spmv:csr", {("x", FALSE_SHARING)}, {("x", HOT), ("x", MISALIGNMENT)}),
-        ("spmv:zigzag", {("x", FALSE_SHARING)}, {("x", HOT), ("x", MISALIGNMENT)}),
+        # 32 random gathers a warp: ~14 warps a sector, ~2 a word (false
+        # sharing), and the words that 4 warps or more happen to share carry
+        # most of the transfers (hot-random beside the false sharing,
+        # ROADMAP queue 3 item 12); a TPU program gathers 1024 over 36 tiles
+        # (hot), whose ragged edge tiles it counts as misaligned
+        ("spmv:csr", {("x", FALSE_SHARING), ("x", HOT_RANDOM)},
+         {("x", HOT), ("x", MISALIGNMENT)}),
+        ("spmv:zigzag", {("x", FALSE_SHARING), ("x", HOT_RANDOM)},
+         {("x", HOT), ("x", MISALIGNMENT)}),
     ],
 )
 def test_pattern_divergences_from_reference_are_the_recorded_ones(ref_name, only_port, only_ref):
@@ -473,18 +481,65 @@ def test_pattern_divergences_from_reference_are_the_recorded_ones(ref_name, only
     assert (port - want, want - port) == (only_port, only_ref)
 
 
+def _spmv_columns(kind):
+    """The SpMV's column ids: ``zipf`` as the paper's Table I bench draws
+    them (benchmarks/bench_patterns.py:50-53), ``uniform`` as the
+    registry's context does."""
+    n, n_cols = kreg.SPMV_SHAPE
+    if kind == "zipf":
+        rng = np.random.default_rng(0)
+        zipf = rng.zipf(1.3, size=n).astype(np.int64) * 37 % n_cols
+        return np.minimum(zipf, n_cols - 1).astype(np.int32)
+    return np.random.default_rng(0).integers(0, n_cols, size=n).astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "columns, window, port_x, port_tx, ref_x",
+    [
+        # zipf columns are sparse multiples of 37: one warm word a sector,
+        # the low ids shared by many warps (29 of 286 sectors at window 32
+        # carry 318 of 627 transfers of x); their offsets do not recur
+        # (42 of 291 touches at the commonest, so not strided)
+        ("zipf", 32, {HOT_RANDOM}, 915, {HOT}),
+        ("zipf", None, {HOT_RANDOM}, 57894, {HOT}),
+        # 1024 uniform gathers over 4552 sectors of x share nothing: the
+        # hottest sector is read by 3 of the 32 warps; a TPU tile holds 1024
+        # columns, so each of the 36 is read by every program
+        ("uniform", 32, set(), 1307, {HOT, MISALIGNMENT}),
+        # the full grid: ~14 warps a sector, ~2 a word (item 4's false
+        # sharing), with the words shared by 4 warps or more hot-random
+        ("uniform", None, {FALSE_SHARING, HOT_RANDOM}, 83734, {HOT, MISALIGNMENT}),
+    ],
+    ids=["zipf-window32", "zipf-full", "uniform-window32", "uniform-full"],
+)
+def test_spmv_x_classes_by_columns_and_sampling(columns, window, port_x, port_tx, ref_x):
+    """ROADMAP queue 3 item 12: a random gather is not strided under
+    H100Sector, and is hot-random where its sharing carries the transfers."""
+    n, n_cols = kreg.SPMV_SHAPE
+    ctx = {"col_indices": _spmv_columns(columns)}
+    sampler = GridSampler((0,), window=window) if window else GridSampler(None)
+    hm = analyze(spmv.spmv_csr_spec(n, n_cols), sampler, ctx)
+    got = {r.pattern for r in detect_all(hm) if r.region == "x"}
+    assert got == port_x and STRIDED not in got
+    assert hm.sector_transactions() == port_tx
+    ref_sampler = RefSampler((0,), window=window) if window else RefSampler(None)
+    want = ref_analyze(ref_spmv.spmv_csr_spec(n, n_cols), sampler=ref_sampler,
+                       dynamic_context=ctx)
+    assert {r.pattern for r in ref_detect_all(want) if r.region == "x"} == ref_x
+
+
 @pytest.mark.parametrize(
     "family, before, after, tx, verdict, fixed, introduced, persisting, as_ref",
     [
         ("histogram", "naive", "partials", (69912, 69912), "regressed",
-         (("cell_count", FALSE_SHARING),), (("partials", FALSE_SHARING),), (),
-         ("introduced", "persisting")),
+         (("cell_count", FALSE_SHARING), ("cell_count", HOT)),
+         (("partials", FALSE_SHARING),), (), ("introduced", "persisting")),
         ("histogram", "naive", "scratch", (69912, 12288), "improved",
-         (("cell_count", FALSE_SHARING),), (("cell_count", HOT),), (),
-         ("persisting",)),
+         (("cell_count", FALSE_SHARING),), (), (("cell_count", HOT),),
+         ("introduced",)),
         ("spmv", "csr", "zigzag", (83734, 81686), "improved",
-         (("rowOffsets_shift1", MISALIGNMENT),), (), (("x", FALSE_SHARING),),
-         ("fixed", "introduced")),
+         (("rowOffsets_shift1", MISALIGNMENT),), (),
+         (("x", FALSE_SHARING), ("x", HOT_RANDOM)), ("fixed", "introduced")),
     ],
 )
 def test_story_parity_diff(
@@ -567,10 +622,11 @@ def test_run_variant_on_cpu_runs_the_plain_version(ref_name):
             {
                 (0, 1): ["[regressed] histogram: transfers 69912 -> 69912 (1.00x)",
                          "[fixed] false-sharing on cell_count",
+                         "[fixed] hot on cell_count",
                          "[INTRODUCED] false-sharing on partials"],
                 (0, 2): ["[ improved] histogram: transfers 69912 -> 12288 (5.69x)",
                          "[fixed] false-sharing on cell_count",
-                         "[INTRODUCED] hot on cell_count"],
+                         "[persisting] hot on cell_count"],
             },
         ),
         (
@@ -578,7 +634,8 @@ def test_run_variant_on_cpu_runs_the_plain_version(ref_name):
             {
                 (0, 1): ["[ improved] spmv: transfers 83734 -> 81686 (1.03x)",
                          "[fixed] misalignment on rowOffsets_shift1",
-                         "[persisting] false-sharing on x"],
+                         "[persisting] false-sharing on x",
+                         "[persisting] hot-random on x"],
             },
         ),
     ],

@@ -25,7 +25,7 @@ from repro_torch import cli
 from repro_torch import kernels as kreg
 from repro_torch.core.collector import analyze
 from repro_torch.core.diff import diff
-from repro_torch.core.patterns import FALSE_SHARING, HOT, HOT_RANDOM, detect_all
+from repro_torch.core.patterns import FALSE_SHARING, HOT, detect_all
 from repro_torch.core.session import heatmaps_equal, profile_kernel
 from repro_torch.core.trace import GridSampler
 from repro_torch.kernels import flash, ops, paged_attn, ragged_flash, ref
@@ -908,8 +908,8 @@ def _ref_heatmap(ref_name):
     return ref_analyze(spec, sampler=entry.sampler(), dynamic_context=ctx)
 
 
-_BOUNDS = {("starts", HOT_RANDOM), ("ends", HOT_RANDOM)}
-_LENS = {("block_tables", HOT), ("context_lens", HOT_RANDOM)}
+_BOUNDS = {("starts", HOT), ("ends", HOT)}
+_LENS = {("block_tables", HOT), ("context_lens", HOT)}
 
 
 @pytest.mark.parametrize(
@@ -917,7 +917,9 @@ _LENS = {("block_tables", HOT), ("context_lens", HOT_RANDOM)}
     [
         # the Pallas grid revisits Q and O at every KV step (hot); a CUDA block
         # stages Q once and stores O once.  Every warp of every block reads its
-        # sequence's bounds: all 32 warps on the one sector that holds them.
+        # sequence's bounds: each bound word is warm in all of its sequence's
+        # warps, evenly across the sector (hot: the hot rule reads sharing on
+        # words, ROADMAP queue 3 item 12).
         # A live range clamps K and V at a row, mid-(8, 128) TPU tile
         # (misaligned); a 128-float row is 16 whole sectors.
         ("ragged_flash:decode", _BOUNDS, {("Q", HOT), ("O", HOT)}),
@@ -931,12 +933,13 @@ _LENS = {("block_tables", HOT), ("context_lens", HOT_RANDOM)}
         # only their own slots' words of the sequence's one table sector
         # (false sharing), and Q is staged by all 4 splits (hot, as the
         # reference's); the gated rung's live splits read Q at most twice and
-        # share the live slots' words (hot).
-        ("paged_attn:decode", {("block_tables", FALSE_SHARING), ("context_lens", HOT_RANDOM)},
-         {("O", HOT), ("block_tables", HOT)}),
-        ("paged_attn:decode-paged", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
-        ("paged_attn:prefill", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
-        ("paged_attn:prefill-paged", {("context_lens", HOT_RANDOM)}, {("Q", HOT), ("O", HOT)}),
+        # share the live slots' words (hot).  Each table word the dense sweep
+        # reads is warm in 8 warps, so it is hot beside its false sharing.
+        ("paged_attn:decode", {("block_tables", FALSE_SHARING), ("context_lens", HOT)},
+         {("O", HOT)}),
+        ("paged_attn:decode-paged", {("context_lens", HOT)}, {("Q", HOT), ("O", HOT)}),
+        ("paged_attn:prefill", {("context_lens", HOT)}, {("Q", HOT), ("O", HOT)}),
+        ("paged_attn:prefill-paged", {("context_lens", HOT)}, {("Q", HOT), ("O", HOT)}),
     ],
 )
 def test_pattern_divergences_from_reference_are_the_recorded_ones(ref_name, only_port, only_ref):
@@ -944,7 +947,8 @@ def test_pattern_divergences_from_reference_are_the_recorded_ones(ref_name, only
     port, want = _classes(_port_heatmap(ref_name)), _ref_classes(ref_name)
     assert (port - want, want - port) == (only_port, only_ref)
     if ref_name == "paged_attn:decode":
-        assert port >= {("block_tables", FALSE_SHARING), ("context_lens", HOT_RANDOM)}
+        assert port >= {("block_tables", FALSE_SHARING), ("block_tables", HOT),
+                        ("context_lens", HOT)}
     else:
         assert port >= (_BOUNDS if ref_name.startswith("ragged") else _LENS)
 
@@ -956,7 +960,7 @@ def _ref_classes(ref_name):
 # the classes the port's gate fixes and introduces, where it moves any
 PORT_STORY = {
     ("paged_attn:decode", "paged_attn:decode-paged"): (
-        (("Q", HOT), ("block_tables", FALSE_SHARING)), (("block_tables", HOT),)),
+        (("Q", HOT), ("block_tables", FALSE_SHARING)), ()),
 }
 
 
@@ -964,9 +968,9 @@ PORT_STORY = {
 def test_story_parity_diff(pair):
     """Dense -> gated is an improvement in both packages; the gate changes
     no class in the port but on the paged decode pair, whose dense split
-    blocks read Q 4 times and each split's own table words, and whose live
-    splits share the live slots' words (the reference gains misalignment on
-    the ragged K and V, and moves no class on the paged pair)."""
+    blocks read Q 4 times and each split's own table words (the table words
+    are hot on both rungs); the reference gains misalignment on the ragged
+    K and V, and moves no class on the paged pair."""
     d = diff(_port_heatmap(pair[0]), _port_heatmap(pair[1]))
     want = ref_diff(_ref_heatmap(pair[0]), _ref_heatmap(pair[1]))
     assert (d.tx_before, d.tx_after) == PINNED_PORT[pair]
@@ -982,10 +986,10 @@ def test_story_parity_diff(pair):
     "family, lines",
     [
         ("ragged_flash", {(0, 1): ["[ improved] ragged_flash: transfers 68824 -> 13104 (5.25x)",
-                                   "[persisting] hot-random on starts"],
+                                   "[persisting] hot on starts"],
                           (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696 (2.63x)"]}),
         ("paged_attn", {(0, 1): ["[ improved] paged_attn: transfers 71244 -> 23464 (3.04x)",
-                                 "[INTRODUCED] hot on block_tables"],
+                                 "[persisting] hot on block_tables"],
                         (2, 3): ["[ improved] paged_attn: transfers 360960 -> 208960 (1.73x)"]}),
     ],
 )

@@ -28,8 +28,11 @@ from repro_torch.parallel.sharding import (
     fixup_specs,
     local_shape,
     make_rules,
+    merge_axes,
+    merge_spec_tree,
     spec_bytes,
     specs_from_logical,
+    splits_apart,
 )
 
 CELLS = [(a, s, multi) for a in ARCH_IDS for s in SHAPES for multi in (False, True)]
@@ -180,3 +183,49 @@ def test_logical_specs_name_every_parameter():
         for name, p in model.named_parameters():
             assert len(logical[name]) == p.dim(), name
     assert isinstance(make_rules(), Rules)
+
+
+# -- the multi-pod mesh's flat view (launch/dryrun.py:flat_view) -------------------
+
+
+@pytest.mark.parametrize("part, apart, merged", [
+    (None, False, None),
+    ("model", False, "model"),
+    (("pod", "data"), False, "pod_data"),
+    (("model", "pod", "data"), False, ("model", "pod_data")),
+    (("pod", "data", "model"), False, ("pod_data", "model")),
+    (("model", "data"), True, None),
+    ("pod", True, None),
+    (("data", "pod"), True, None),
+    (("pod", "model", "data"), True, None),
+])
+def test_splits_apart_and_merge_axes(part, apart, merged):
+    assert splits_apart(part, ("pod", "data")) is apart
+    if not apart:
+        assert merge_axes(part, ("pod", "data"), "pod_data") == merged
+
+
+def test_rules_and_spec_trees_merge_the_data_axes():
+    rules = make_rules(data_axes=("pod", "data"), fsdp_axes=("pod", "data"),
+                       expert_axes=("model", "pod", "data"))
+    flat = rules.merged(("pod", "data"), "pod_data")
+    assert flat.get("batch") == flat.get("embed") == ("pod_data",)
+    assert flat.get("expert") == ("model", "pod_data") and flat.get("mlp") == ("model",)
+    tree = {"w": P(("pod", "data"), "model"), "c": [P(None, ("model", "pod", "data"))]}
+    assert merge_spec_tree(tree, ("pod", "data"), "pod_data") == {
+        "w": P("pod_data", "model"), "c": [P(None, ("model", "pod_data"))]}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("shape_name", list(SHAPES))
+def test_multi_pod_cells_take_the_flat_view_unless_a_spec_splits_pod_from_data(arch, shape_name):
+    """Every multi-pod cell's layout names pod only beside data, so its step
+    can run on the (pod_data, model) view, but deepseek-v3's: its 256
+    experts split over ("model", "data") and repeat over the pods."""
+    rules, decided = dryrun.cell_rules(get_config(arch), SHAPES[shape_name], ref.FakeMesh(True))
+    trees = [ref.port_param_specs(arch, shape_name, True)]
+    if SHAPES[shape_name].kind != "train":
+        trees.append(ref.port_cache_specs(arch, shape_name, True))
+    assert dryrun.can_flatten(rules, trees) is (arch != "deepseek-v3-671b")
+    if arch == "deepseek-v3-671b":
+        assert decided["expert_axes"] == ("model", "data")

@@ -7,6 +7,7 @@ and ``build_rules``.  The meshes are shape shims (``FakeMesh``, as the
 reference's own tests use): nothing here starts a process group.
 """
 
+import dataclasses
 import functools
 import math
 import os
@@ -64,8 +65,12 @@ def ref_rules(arch: str, shape_name: str, multi: bool):
 
 
 @functools.cache
-def ref_model(arch: str):
-    return ref_build_model(ref_config(arch))
+def ref_model(arch: str, layers=None):
+    """The reference's model of ``arch`` (cut to ``layers`` deep)."""
+    cfg = ref_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return ref_build_model(cfg)
 
 
 @functools.cache
@@ -79,9 +84,9 @@ def _flat(tree, is_leaf=None):
             for path, leaf in flat}
 
 
-def ref_param_specs(arch: str, shape_name: str, multi: bool):
+def ref_param_specs(arch: str, shape_name: str, multi: bool, layers=None):
     """Reference leaf path -> (fixed-up spec, shape, itemsize)."""
-    model, mesh = ref_model(arch), FakeMesh(multi)
+    model, mesh = ref_model(arch, layers), FakeMesh(multi)
     rules = ref_rules(arch, shape_name, multi)
     abstract = model.abstract_params()
     specs = ref_sharding.fixup_specs(
@@ -110,11 +115,13 @@ def local_bytes(shape, spec, sizes, itemsize) -> int:
     return n * itemsize
 
 
-def ref_param_bytes(arch: str, shape_name: str, multi: bool) -> int:
-    """Per-device parameter bytes under the reference's specs."""
+def ref_param_bytes(arch: str, shape_name: str, multi: bool, layers=None) -> int:
+    """Per-device parameter bytes under the reference's specs (of the model
+    cut to ``layers`` deep)."""
     sizes = FakeMesh(multi).shape
     return sum(local_bytes(shape, spec, sizes, item)
-               for spec, shape, item in ref_param_specs(arch, shape_name, multi).values())
+               for spec, shape, item in ref_param_specs(arch, shape_name, multi,
+                                                        layers).values())
 
 
 def ref_cache_specs(arch: str, shape_name: str, multi: bool):
