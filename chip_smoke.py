@@ -220,11 +220,15 @@ Phases:
    the positions kept; then each path's bfloat16 time and the NCCL
    kernels' device time.  (c) The dry-run of granite-3-2b x decode_32k on
    256 and 512 placeholder ranks, in a process of its own started first,
-   and beside it, in another, granite-3-2b x train_4k at full depth on
-   512 (2 x 16 x 16; its step runs on the mesh's 32 x 16 flat view):
-   chips, per-device bytes, FLOPs, wire bytes by collective, the bound
-   and the seconds, with the card's name and power limit; each cell must
-   finish within ``DRYRUN_TIMEOUT``.  Any failure fails the script.
+   and beside it, each in another: granite-3-2b x train_4k and
+   deepseek-v3-671b x train_4k at full depth on 512 (2 x 16 x 16; the
+   first's step runs on the mesh's 32 x 16 flat view, the second's on the
+   3-D mesh, its experts split over ("model", "data")), and each family's
+   train step at the CPU test's cut depths (``DRYRUN_GROUPS``): chips,
+   per-device bytes, FLOPs, wire bytes by collective, the bound and the
+   seconds, with the card's name and power limit; each cell must finish
+   within ``DRYRUN_TIMEOUT``, and torch 2.11's DTensor raises on a view it
+   refuses.  Any failure fails the script.
 11. The six examples of ``repro_torch.examples``, each in process on the
    card through its ``main`` (run before the record), every launch count
    set to 0 just before each and read just after, its printed report
@@ -442,22 +446,38 @@ MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-4, 1e-3
 # against moe_ref, which drops nothing); then bfloat16 timings
 MOE_TOKENS, EP_TOL, MOE_ITERS = 4096, 1e-4, 10
 # (c) the dry-run of the reference test's cell on 256 and 512 placeholder
-# ranks, and of granite-3-2b x train_4k at full depth on 512 (ROADMAP queue
-# 3 item 11), each in a process of its own on the card's host, alongside (a)
-# and (b); each cell must finish within DRYRUN_TIMEOUT seconds
+# ranks, of granite-3-2b x train_4k and deepseek-v3-671b x train_4k at full
+# depth on 512 (ROADMAP queue 3 item 11), and of each family's train step
+# at the CPU test's cut depths (tests/test_torch_dryrun_families.py), each
+# group in a process of its own on the card's host, alongside (a) and (b).
+# Each cell must finish within DRYRUN_TIMEOUT seconds; torch 2.11, the
+# card's, raises on a view its DTensor refuses.  A group's cells: (arch,
+# shape, on 2 x 16 x 16, depth or None for the config's)
 DRYRUN_TIMEOUT = 300
+DRYRUN_GROUPS = {
+    "decode": [("granite-3-2b", "decode_32k", False, None),
+               ("granite-3-2b", "decode_32k", True, None)],
+    "train": [("granite-3-2b", "train_4k", True, None)],
+    "deepseek": [("deepseek-v3-671b", "train_4k", True, None)],
+    "moe": [("llama4-scout-17b-a16e", "train_4k", True, 1)],
+    "mamba": [("mamba2-2.7b", "train_4k", True, 1)],
+    "hybrid": [("jamba-v0.1-52b", "train_4k", True, 8)],
+    "mla_moe": [("deepseek-v3-671b", "train_4k", True, 4)],
+    "encdec": [("whisper-base", "train_4k", True, 1)],
+    "vl": [("qwen2-vl-72b", "train_4k", True, 1)],
+    "mla_prefill": [("deepseek-v3-671b", "prefill_32k", True, 4)],
+}
 DRYRUN_SCRIPT = """
 import json, sys, time
 from repro_torch.launch import dryrun
-cells = {"decode": [("decode_32k", False), ("decode_32k", True)],
-         "train": [("train_4k", True)]}[sys.argv[1]]
 out = {}
-for shape, multi in cells:
+for arch, shape, multi, layers in json.loads(sys.argv[1]):
     dryrun.fake_world(512 if multi else 256)
     t0 = time.perf_counter()
-    res = dryrun.run_cell("granite-3-2b", shape, multi, verbose=False)
+    res = dryrun.run_cell(arch, shape, multi, verbose=False, layers=layers)
     res["wall_s"] = time.perf_counter() - t0
-    out[f"{shape} on {res['mesh']}"] = res
+    res["layers"] = layers
+    out[f"{arch} x {shape} on {res['mesh']}" + (f" at depth {layers}" if layers else "")] = res
 print(json.dumps(out))
 """
 
@@ -2796,9 +2816,9 @@ def drive_mesh(smi, dev=None):
 
     dev = dev or torch.device("cuda", 0)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    dries = [subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT, which],
+    dries = [subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(cells)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env, cwd=ROOT) for which in ("decode", "train")]
+                              env=env, cwd=ROOT) for cells in DRYRUN_GROUPS.values()]
     try:
         (ROOT / "build").mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -2819,7 +2839,7 @@ def drive_mesh(smi, dev=None):
                 return f"dry-run exited {dry.returncode}: {err[-2000:]}"
             cells.update(json.loads(out.strip().splitlines()[-1]))
         for cell, r in cells.items():
-            print(f"dry-run granite-3-2b x {cell} placeholder ranks (step on "
+            print(f"dry-run {cell} placeholder ranks (step on "
                   f"{r['mesh_view']}; the card's host): chips {r['chips']}, per-device bytes "
                   f"{r['per_device_bytes']} (parameters {r['param_bytes_per_device']}), FLOPs "
                   f"{r['cost']['flops']:.4e} ({r['cost']['product_flops']:.4e} in products), "
@@ -2831,8 +2851,9 @@ def drive_mesh(smi, dev=None):
                 return f"dry-run {cell}: {r}"
             if r["wall_s"] >= DRYRUN_TIMEOUT:
                 return f"dry-run {cell} took {r['wall_s']:.1f} s, over {DRYRUN_TIMEOUT} s"
-        if "train_4k on 2x16x16" not in cells:
-            return f"dry-run: no train_4k cell on 2x16x16 ({sorted(cells)})"
+        for want in ("granite-3-2b x train_4k on 2x16x16", "deepseek-v3-671b x train_4k on 2x16x16"):
+            if want not in cells:
+                return f"dry-run: no {want} cell ({sorted(cells)})"
         return None
     finally:
         for dry in dries:

@@ -4,6 +4,7 @@ placeholder ranks, and record what one rank would execute and hold.
 Run:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --arch mamba2-2.7b --mesh both
 
 The port of the JAX package's ``repro/launch/dryrun.py``, which lowers
 and compiles each cell for 512 placeholder devices.  PyTorch has no
@@ -40,6 +41,7 @@ and cache sequence (decode).
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import json
@@ -236,7 +238,8 @@ def build_cell(arch_id: str, shape_name: str, mesh, *, sp: bool = True,
     spec = input_specs(arch_id, shape_name, opt_state_dtype, smoke=smoke, layers=layers)
     cfg, model, shape = spec["config"], spec["model"], spec["shape"]
     chips = n_chips(mesh)
-    rules, decided = cell_rules(cfg, shape, mesh, sp=sp)
+    # the sharding decisions of the config at its full depth, at any cut
+    rules, decided = cell_rules(get_config(arch_id, smoke=smoke), shape, mesh, sp=sp)
     pure_dp, weight_stationary, expert_axes = (
         decided["pure_dp"], decided["weight_stationary"], decided["expert_axes"])
     data_axes = decided["data_axes"]
@@ -270,9 +273,13 @@ def build_cell(arch_id: str, shape_name: str, mesh, *, sp: bool = True,
     # the blocks the ranks hold, read off the DTensors on the mesh used
     meta["param_bytes_per_device"] = local_bytes(params)
 
-    # activation constraint (sequence-parallel residual stream), and the
-    # sequence gathered before each block's products
-    if shape.kind == "train" and sp and hasattr(model, "stack_cfg"):
+    # activation constraint (the residual stream: sequence-parallel in a
+    # train step, whole in a prefill), and the sequence gathered before each
+    # block's products.  Left free, a prefill's stream takes whatever layout
+    # DTensor's choices give it, a sequence split over the model axis among
+    # them, which the next products would flatten into the batch.
+    if hasattr(model, "stack_cfg") and (shape.kind == "prefill"
+                                        or (shape.kind == "train" and sp)):
         model.stack_cfg = dataclasses.replace(
             model.stack_cfg,
             act_constraint=functools.partial(constrain_logical,
@@ -388,6 +395,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, *, sp: bool = True,
         "temp_size_in_bytes": None,  # no compiler's buffer assignment to read
         "peak_bytes": peak,
     }
+    wall = time.time() - t0
     terms = roofline.from_raw(f"{arch_id}/{shape_name}", chips, cost.flops, cost.bytes,
                               cost.wire_bytes, model_flops=model_flops)
     result = {
@@ -395,6 +403,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, *, sp: bool = True,
         "ok": True,
         "lower_s": round(t_build, 2),
         "compile_s": round(t_run, 2),
+        "wall_s": round(wall, 2),  # the cell's build, step and peak run
         "memory": mem,
         "per_device_bytes": arg_bytes + out_bytes - alias,
         "cost": {"flops": cost.flops, "bytes": cost.bytes,
@@ -403,6 +412,10 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, *, sp: bool = True,
         "collectives": {
             "total_wire_bytes_per_device": cost.wire_bytes,
             "by_op": dict(cost.by_collective),
+            # how many of each kind, output shape and group size: where two
+            # torch versions' counts part, which collectives make the difference
+            "by_shape": dict(collections.Counter(
+                f"{c.op} {c.shape} over {c.group_size}" for c in cost.collectives)),
         },
         "model_flops": model_flops,
         "roofline": terms.as_dict(),
@@ -443,19 +456,26 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--all", action="store_true",
+                    help="every cell of the grid (with --arch / --shape, those of the grid's "
+                         "cells that match)")
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
     ap.add_argument("--no-sp", action="store_true")
     ap.add_argument("--opt-state-dtype", default="f32", choices=["f32", "bf16", "int8"])
-    ap.add_argument("--out", default=None)
+    ap.add_argument("--out", default=None,
+                    help=f"where to write <mesh>/<arch>__<shape>.json (default {ARTIFACTS})")
     args = ap.parse_args(argv)
 
-    cells = all_cells() if args.all else [(args.arch, args.shape)]
+    if args.all:  # the grid, or its cells of --arch / --shape
+        cells = [(a, s) for a, s in all_cells()
+                 if args.arch in (None, a) and args.shape in (None, s)]
+    else:
+        cells = [(args.arch, args.shape)]
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     failures = []
     for multi in meshes:
         mesh_name = "multi_2x16x16" if multi else "single_16x16"
-        out_dir = args.out or os.path.join(ARTIFACTS, mesh_name)
+        out_dir = os.path.join(args.out or ARTIFACTS, mesh_name)
         fake_world(512 if multi else 256)
         for arch_id, shape_name in cells:
             if arch_id is None or shape_name is None:

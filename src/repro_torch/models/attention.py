@@ -30,9 +30,8 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from ..parallel.context import constrain_logical, split_dim
+from ..parallel.context import constrain_logical, keep_layout, pad, split_dim
 from .layers import apply_mrope, apply_rope, hi_dtype, rmsnorm, rmsnorm_defs
 from .params import ParamDef
 
@@ -488,12 +487,14 @@ def init_mla_cache(
 
 
 def _mla_qkv_latent(params, x, positions, cfg: MLAConfig):
-    """Shared front: q heads (nope + rope) and the (c_kv, k_rope) latents."""
-    q_lat = rmsnorm({"scale": params["q_norm"]}, x @ params["wq_a"].to(x.dtype))
+    """Shared front: q heads (nope + rope) and the (c_kv, k_rope) latents.
+    The down-projections' gradients come back laid out as their outputs
+    (:func:`keep_layout`), where DTensor would split their sequence."""
+    q_lat = rmsnorm({"scale": params["q_norm"]}, keep_layout(x @ params["wq_a"].to(x.dtype)))
     q = _proj(q_lat, params["wq_b"])
     q_nope = q[..., : cfg.qk_nope_head_dim]
     q_rope = apply_rope(q[..., cfg.qk_nope_head_dim :], positions, cfg.rope_theta)
-    kv = x @ params["wkv_a"].to(x.dtype)
+    kv = keep_layout(x @ params["wkv_a"].to(x.dtype))
     c_kv = rmsnorm({"scale": params["kv_norm"]}, kv[..., : cfg.kv_lora_rank])
     k_rope = apply_rope(kv[..., cfg.kv_lora_rank :][:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]
@@ -539,8 +540,12 @@ def mla_apply(
     r, p = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     # flash scales by 1/sqrt(R+P); MLA wants 1/sqrt(qk_head_dim)
     q_all = q_all * math.sqrt((r + p) / cfg.qk_head_dim)
-    vpad = F.pad(c_kv[:, :, None, :], (0, p))
-    out_lat = flash_xla(q_all, k_all, vpad, positions, kv_len, True, None, cfg.chunk)[..., :r]
+    vpad = pad(c_kv[:, :, None, :], (0, p))
+    # on a mesh per rank on whole heads, as the GQA path: DTensor would
+    # otherwise split the score products' contraction and all-reduce each
+    # chunk's f32 scores
+    out_lat = _per_rank_heads(flash_xla, q_all, k_all, vpad, positions, kv_len, True, None,
+                              cfg.chunk)[..., :r]
     return _out(_expand(out_lat, params["wv_b"]), params["wo"]), new_cache
 
 

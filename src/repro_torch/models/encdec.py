@@ -13,7 +13,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..parallel.context import constrain_logical
+from ..parallel.context import constrain_logical, keep_layout
 from .attention import AttnConfig, attn_apply, attn_defs, cross_attn_apply, init_cache
 from .layers import (
     cross_entropy,
@@ -99,8 +99,8 @@ class EncDec(ParamTree):
         def body(blk, x):
             y, _ = attn_apply(blk["attn"], layernorm(blk["norm1"], x, cfg.norm_eps), pos,
                               self.enc_attn)
-            x = x + y
-            x = x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps))
+            x = x + keep_layout(y)
+            x = x + keep_layout(gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps)))
             return constrain_logical(x, ("act_batch", None, None))
 
         run = remat_wrap(body, remat or cfg.remat, None)
@@ -119,7 +119,8 @@ class EncDec(ParamTree):
         p = self.tree()
         b, s = tokens.shape
         pos = (start + torch.arange(s, device=tokens.device))[None].expand(b, s)
-        x = embed(p["embed"], tokens).to(cfg.dtype) + p["dec_pos"][pos].to(cfg.dtype)
+        x = (embed(p["embed"], tokens).to(cfg.dtype)
+             + embed({"embedding": p["dec_pos"]}, pos).to(cfg.dtype))
         # the vocab-sharded embedding gather leaves x with no layout: constrain
         x = constrain_logical(x, ("act_batch", None, None))
         new_caches: Optional[List[Dict[str, Any]]] = [] if caches is not None else None
@@ -127,10 +128,13 @@ class EncDec(ParamTree):
         def body(blk, x, enc, cache):
             y, nc = attn_apply(blk["self_attn"], layernorm(blk["norm1"], x, cfg.norm_eps), pos,
                                self.dec_attn, cache)
-            x = x + y
-            x = x + cross_attn_apply(blk["cross_attn"], layernorm(blk["norm_x"], x, cfg.norm_eps),
-                                     enc, self.dec_attn)
-            x = x + gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps))
+            # each sublayer's gradient laid out as its output: DTensor would
+            # split it over the sequence in the backward, and the products
+            # flatten it into the batch
+            x = x + keep_layout(y)
+            x = x + keep_layout(cross_attn_apply(
+                blk["cross_attn"], layernorm(blk["norm_x"], x, cfg.norm_eps), enc, self.dec_attn))
+            x = x + keep_layout(gelu_mlp(blk["mlp"], layernorm(blk["norm2"], x, cfg.norm_eps)))
             return constrain_logical(x, ("act_batch", None, None)), nc
 
         run = remat_wrap(body, cfg.remat, caches)

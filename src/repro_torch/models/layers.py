@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.context import gather_rows
+from ..parallel.context import completed, gather_rows
 from .params import ParamDef
 
 Tensor = torch.Tensor
@@ -43,7 +43,7 @@ def rmsnorm_defs(dim: int) -> Dict[str, ParamDef]:
 def rmsnorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-6) -> Tensor:
     dtype = x.dtype
     xf = hi(x)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = completed(torch.mean(xf * xf, dim=-1, keepdim=True))
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].to(xf.dtype)).to(dtype)
 
@@ -58,8 +58,8 @@ def layernorm_defs(dim: int) -> Dict[str, ParamDef]:
 def layernorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-5) -> Tensor:
     dtype = x.dtype
     xf = hi(x)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    mu = completed(torch.mean(xf, dim=-1, keepdim=True))
+    var = completed(torch.mean((xf - mu) ** 2, dim=-1, keepdim=True))
     y = (xf - mu) * torch.rsqrt(var + eps)
     y = y * params["scale"].to(xf.dtype) + params["bias"].to(xf.dtype)
     return y.to(dtype)

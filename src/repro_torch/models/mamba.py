@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.context import constrain_logical, keep_layout, on_mesh, pad
 from .layers import hi, rmsnorm
 from .params import ParamDef
 
@@ -127,6 +128,27 @@ def ssd_ref(
     return (y_diag + y_off).reshape(b, s, h, p), final_state
 
 
+def _ssd_per_rank(x: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
+                  chunk: int) -> Tuple[Tensor, Tensor]:
+    """:func:`ssd_ref`; on a mesh (DTensor ``x``), each rank runs it on its
+    batch rows and heads, which the scan keeps apart.  Its products would
+    otherwise flatten the batch with heads split over the model axis, a
+    view torch 2.11's DTensor refuses."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return ssd_ref(x, a, bmat, cmat, chunk=chunk)
+    heads = ("act_batch", None, "heads", None)
+    x, bmat, cmat = (constrain_logical(t, heads) for t in (x, bmat, cmat))
+    a = constrain_logical(a, heads[:3])
+    y, state = ssd_ref(x.to_local(), a.to_local(), bmat.to_local(), cmat.to_local(), chunk=chunk)
+    mesh = x.device_mesh
+    # the final state (B, H, P, N) split as x's batch and heads
+    state_pl = [Shard({0: 0, 2: 1}[p.dim]) if p.is_shard() else p for p in x.placements]
+    return (DTensor.from_local(y, mesh, x.placements, run_check=False),
+            DTensor.from_local(state, mesh, state_pl, run_check=False))
+
+
 def ssd_decode_step(
     state: Tensor,  # (B, H, P, N) float
     x_t: Tensor,  # (B, H, P) — dt-scaled input
@@ -139,6 +161,23 @@ def ssd_decode_step(
     new_state = decay * state + x_t[..., :, None] * b_t[..., None, :]
     y = torch.einsum("bhpn,bhn->bhp", new_state, c_t)
     return y.to(x_t.dtype), new_state
+
+
+def _ssd_step_per_rank(state: Tensor, x_t: Tensor, a_t: Tensor, b_t: Tensor,
+                       c_t: Tensor) -> Tuple[Tensor, Tensor]:
+    """:func:`ssd_decode_step`; on a mesh (DTensor ``state``), each rank
+    steps its batch rows and heads, as the cache splits them: the state
+    product would otherwise flatten the batch with the split heads."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(state, DTensor):
+        return ssd_decode_step(state, x_t, a_t, b_t, c_t)
+    mesh = state.device_mesh
+    rows_heads = [p if p.is_shard() and p.dim < 2 else Replicate() for p in state.placements]
+    y, new_state = ssd_decode_step(*(on_mesh(t, mesh).redistribute(mesh, rows_heads).to_local()
+                                     for t in (state, x_t, a_t, b_t, c_t)))
+    return (DTensor.from_local(y, mesh, rows_heads, run_check=False),
+            DTensor.from_local(new_state, mesh, rows_heads, run_check=False))
 
 
 def ssd_naive_ref(
@@ -167,7 +206,7 @@ def ssd_naive_ref(
 def causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     """x: (B, S, C), w: (k, C), b: (C,).  Causal depthwise conv + silu."""
     k, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = pad(x, (0, 0, k - 1, 0))
     y = torch.zeros(x.shape, dtype=hi(x).dtype, device=x.device)
     for i in range(k):
         y = y + hi(xp[:, i : i + s]) * hi(w[i])
@@ -225,7 +264,8 @@ def mamba_apply(
     cache: Optional[Dict[str, Tensor]] = None,
 ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
     b, s, _ = x.shape
-    proj = x @ params["w_in"].to(x.dtype)
+    # its gradient, summed from the slices below, laid out as the product's
+    proj = keep_layout(x @ params["w_in"].to(x.dtype))
     z, xbc, dt_raw = _split_in(proj, cfg)
     dt = F.softplus(hi(dt_raw) + hi(params["dt_bias"]))  # (B,S,H)
     a_neg = -torch.exp(hi(params["A_log"]))  # (H,) negative
@@ -239,7 +279,7 @@ def mamba_apply(
         bh = _broadcast_groups(bm, cfg)[:, 0]
         ch = _broadcast_groups(cm, cfg)[:, 0]
         dt_t = dt[:, 0]  # (B,H)
-        y_t, ssm_state = ssd_decode_step(
+        y_t, ssm_state = _ssd_step_per_rank(
             cache["ssm"], hi(xh * dt_t[..., None]), a_neg[None] * dt_t, hi(bh), hi(ch)
         )
         y_t = y_t + d_skip[None, :, None] * xh
@@ -249,13 +289,12 @@ def mamba_apply(
         xbc_c = causal_conv(xbc, params["conv_w"], params["conv_b"])
         xs, bm, cm = _split_xbc(xbc_c, cfg)
         xh = xs.reshape(b, s, cfg.n_heads, cfg.head_dim)
-        y4, final_state = ssd_ref(
+        y4, final_state = _ssd_per_rank(
             hi(xh * dt[..., None]),
             a_neg[None, None] * dt,
             hi(_broadcast_groups(bm, cfg)),
             hi(_broadcast_groups(cm, cfg)),
             chunk=min(cfg.chunk, s),
-            initial_state=None,
         )
         y4 = y4 + d_skip[None, None, :, None] * xh
         y = y4.reshape(b, s, cfg.d_inner).to(x.dtype)

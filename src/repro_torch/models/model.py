@@ -28,7 +28,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel.context import constrain_logical
+from ..parallel.context import constrain_logical, pad
 from . import params as P
 from .attention import AttnConfig, MLAConfig
 from .layers import cross_entropy, embed, embed_defs, hi, rmsnorm, rmsnorm_defs, unembed
@@ -352,7 +352,7 @@ class LM(ParamTree):
         cfg = self.cfg
         p = self.tree()
         mtp = p["mtp"]
-        nxt = torch.nn.functional.pad(tokens[:, 1:], (0, 1))  # teacher-forced t+1
+        nxt = pad(tokens[:, 1:], (0, 1))  # teacher-forced t+1
         e = embed(p["embed"], nxt).to(cfg.dtype)
         h = embed(p["embed"], tokens).to(cfg.dtype)
         x = torch.cat([h, e], dim=-1) @ mtp["proj"].to(cfg.dtype)
@@ -360,7 +360,7 @@ class LM(ParamTree):
                               _mtp_kind(cfg))
         x = gathered(self.stack_cfg, rmsnorm(mtp["norm"], x, cfg.norm_eps))
         mtp_logits = unembed(p["embed"], x)
-        tgt = torch.nn.functional.pad(labels[:, 1:], (0, 1), value=-1)
+        tgt = pad(labels[:, 1:], (0, 1), value=-1)
         mask = (tgt >= 0).to(mtp_logits.dtype)
         return cross_entropy(mtp_logits, torch.clamp(tgt, min=0), mask)
 

@@ -24,12 +24,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel.context import constrain_logical
+from ..parallel.context import constrain_logical, on_mesh, whole_sums
 from .layers import hi
 from .params import ParamDef
 
@@ -110,6 +110,7 @@ def moe_apply_ragged(
     params: Dict[str, Tensor],
     x: Tensor,  # (B, S, d)
     cfg: MoEConfig,
+    shared_in: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Dropless sort-based MoE.  Returns (y, aux_loss)."""
     b, s, d = x.shape
@@ -138,10 +139,10 @@ def moe_apply_ragged(
     unsorted = torch.empty_like(ys)
     unsorted[order] = ys
     y = torch.einsum("tkd,tk->td", unsorted.reshape(t, cfg.top_k, d), top_w.to(ys.dtype))
-    y = y.to(x.dtype)
+    y = y.to(x.dtype).reshape(b, s, d)
     if cfg.n_shared_experts:
-        y = y + _shared_ffn(params, x2d)
-    return y.reshape(b, s, d), aux
+        y = y + _shared_out(params, x, shared_in)
+    return y, aux
 
 
 def capacity(cfg: MoEConfig, s: int) -> int:
@@ -153,6 +154,7 @@ def moe_apply_capacity(
     params: Dict[str, Tensor],
     x: Tensor,
     cfg: MoEConfig,
+    shared_in: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """GShard-style grouped capacity dispatch (drops overflow).  A group
     is one row of the batch; capacity is per (group, expert)."""
@@ -188,19 +190,53 @@ def moe_apply_capacity(
     eo = constrain_logical(eo, ("act_batch", "expert", None, None))
 
     # gather back per (group, token, slot), weight, sum over slots
-    yk = eo[gi, e_idx.clamp(0, e - 1), p_idx]  # (G, S*k, d)
+    yk = _take_slots(eo, e_idx.clamp(0, e - 1), p_idx)  # (G, S*k, d)
     yk = torch.where(keep[..., None], yk, 0.0).reshape(b, s, k, d)
     w = top_w.reshape(b, s, k)
     y = torch.einsum("gskd,gsk->gsd", yk, w.to(yk.dtype)).to(x.dtype)
     if cfg.n_shared_experts:
-        y = (y.reshape(b * s, d) + _shared_ffn(params, x2d)).reshape(b, s, d)
+        y = y + _shared_out(params, x, shared_in)
     return y, aux
+
+
+def _take_slots(eo: Tensor, e_idx: Tensor, p_idx: Tensor) -> Tensor:
+    """``eo[g, e_idx[g, j], p_idx[g, j]]`` for each group g: (G, S*k, d).  On
+    a mesh each rank takes its groups' slots from its groups' rows of
+    ``eo``, gathered over the experts: DTensor's rule for the index fails
+    where the groups split over two mesh dims (torch 2.11)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(eo, DTensor):
+        rows = ("act_batch", None)
+        eo = constrain_logical(eo, rows + (None, None))
+        e_idx, p_idx = (constrain_logical(on_mesh(t, eo.device_mesh), rows)
+                        for t in (e_idx, p_idx))
+        out = _take_slots(eo.to_local(), e_idx.to_local(), p_idx.to_local())
+        return DTensor.from_local(out, eo.device_mesh, e_idx.placements, run_check=False)
+    gi = torch.arange(eo.shape[0], device=eo.device)[:, None].expand_as(e_idx)
+    return eo[gi, e_idx, p_idx]
 
 
 def _shared_ffn(params, x2d: Tensor) -> Tensor:
     g = x2d @ params["shared_w_gate"].to(x2d.dtype)
     u = x2d @ params["shared_w_up"].to(x2d.dtype)
     return (_silu_f32(g, x2d.dtype) * u) @ params["shared_w_down"].to(x2d.dtype)
+
+
+def _shared_out(params, x: Tensor, shared_in: Optional[Tensor] = None) -> Tensor:
+    """The shared experts' output (B, S, d) for the input ``x``, computed on
+    ``shared_in`` where given: the same values laid out for the products
+    (the dry-run's train step gathers the sequence, which would otherwise
+    flatten into the batch split over the model axis), and laid out as
+    ``x``."""
+    b, s, d = x.shape
+    if shared_in is None:
+        return _shared_ffn(params, x.reshape(b * s, d)).reshape(b, s, d)
+    out = _shared_ffn(params, shared_in.reshape(b * s, d)).reshape(b, s, d)
+    if hasattr(x, "placements") and out.placements != whole_sums(x.placements):
+        # explicitly, so that the gradient comes back laid out as ``out``
+        out = out.redistribute(x.device_mesh, whole_sums(x.placements))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -237,15 +273,6 @@ def _ep_group(mesh, axes: Tuple[str, ...]):
     return _EP_GROUPS[key]
 
 
-def _on_mesh(t: Tensor, mesh) -> Tensor:
-    """``t`` as a DTensor on ``mesh`` (a plain tensor is replicated)."""
-    from torch.distributed.tensor import DTensor, Replicate
-
-    if isinstance(t, DTensor):
-        return t
-    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-
-
 def _exchange(buf: Tensor, group, where: List[int]) -> Tensor:
     """All-to-all of ``buf`` (ep_size, ...): block j goes to the member at
     expert-parallel index j, and block j of the result came from it."""
@@ -263,6 +290,7 @@ def moe_apply_ep(
     params: Dict[str, Tensor],
     x: Tensor,  # (B, S, d) — seq must divide the model axis
     cfg: MoEConfig,
+    shared_in: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Expert parallelism with explicit all-to-alls (the DeepSeek/GShard
     production pattern), the reference's ``shard_map`` as DTensor local
@@ -274,7 +302,8 @@ def moe_apply_ep(
     axes so each rank receives the slots of its own E/ep experts, runs
     the local expert FFN and exchanges back: two all-to-alls a layer,
     through the autograd-aware functional collective so gradients cross
-    them.  The shared experts are added after the exchange.  Falls back
+    them.  The output is laid out as ``x`` came in, and the shared
+    experts are added after the exchange.  Falls back
     to :func:`moe_apply_capacity` as the reference does: no mesh or
     rules, no ``model`` axis, or a sequence or expert count that does not
     divide."""
@@ -285,13 +314,13 @@ def moe_apply_ep(
 
     mesh, rules = active_mesh(), active_rules()
     if mesh is None or rules is None or "model" not in mesh.mesh_dim_names:
-        return moe_apply_capacity(params, x, cfg)
+        return moe_apply_capacity(params, x, cfg, shared_in)
     sizes = mesh_shape(mesh)
     msize = sizes["model"]
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     if s % msize:
-        return moe_apply_capacity(params, x, cfg)
+        return moe_apply_capacity(params, x, cfg, shared_in)
     batch_axes = tuple(rules.get("act_batch"))
     bsize = math.prod(sizes[a] for a in batch_axes)
     bpart = batch_axes if b % max(bsize, 1) == 0 and bsize > 1 else None
@@ -306,7 +335,7 @@ def moe_apply_ep(
     if e % ep_size:
         ep_axes, ep_size = ("model",), msize
     if e % ep_size:
-        return moe_apply_capacity(params, x, cfg)
+        return moe_apply_capacity(params, x, cfg, shared_in)
     e_local = e // ep_size
     names = mesh.mesh_dim_names
     x_pl = placements(PartitionSpec(bpart, "model", None), mesh)
@@ -319,7 +348,7 @@ def moe_apply_ep(
     dtype = x.dtype
 
     def local(t: Tensor, pl, grad_pl=None) -> Tensor:
-        return _on_mesh(t, mesh).redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+        return on_mesh(t, mesh).redistribute(mesh, pl).to_local(grad_placements=grad_pl)
 
     router_w = local(params["router"], replicated, summed).to(dtype)
     w_gate, w_up, w_down = (local(params[n], w_pl, w_grad).to(dtype)
@@ -375,8 +404,12 @@ def moe_apply_ep(
     y = DTensor.from_local(y, mesh, x_pl, run_check=False)
     if not isinstance(x, DTensor):  # plain in, plain out
         y, aux = y.full_tensor(), aux.full_tensor()
+    elif whole_sums(x.placements) != tuple(x_pl):
+        # out as x came in (a prefill's sequence is whole): the residual add
+        # would otherwise split the stream's sequence over the model axis
+        y = y.redistribute(mesh, whole_sums(x.placements))
     if cfg.n_shared_experts:
-        y = y + _shared_ffn(params, x.reshape(b * s, d)).reshape(b, s, d)
+        y = y + _shared_out(params, x, shared_in)
     return y, aux
 
 
@@ -384,12 +417,15 @@ def moe_apply(
     params: Dict[str, Tensor],
     x: Tensor,
     cfg: MoEConfig,
+    shared_in: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
+    """``shared_in``: the shared experts' input, where it is laid out apart
+    from ``x`` (:func:`_shared_out`)."""
     if cfg.moe_impl == "ep":
-        return moe_apply_ep(params, x, cfg)
+        return moe_apply_ep(params, x, cfg, shared_in)
     if cfg.moe_impl == "capacity":
-        return moe_apply_capacity(params, x, cfg)
-    return moe_apply_ragged(params, x, cfg)
+        return moe_apply_capacity(params, x, cfg, shared_in)
+    return moe_apply_ragged(params, x, cfg, shared_in)
 
 
 def moe_ref(params: Dict[str, Tensor], x: Tensor, cfg: MoEConfig) -> Tuple[Tensor, Tensor]:

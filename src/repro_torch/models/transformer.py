@@ -179,7 +179,9 @@ def block_apply(
         x = x + _scattered(cfg, mlp(params["mlp"], h))
     elif kind.ffn == "moe":
         h = _norm(cfg, params["norm_ffn"], x)
-        y, moe_aux = moe_mod.moe_apply(params["moe"], h, cfg.moe)
+        # the routed experts take h as it is (EP's exchange splits its tokens
+        # over the model axis), the shared experts' products the gathered h
+        y, moe_aux = moe_mod.moe_apply(params["moe"], h, cfg.moe, shared_in=gathered(cfg, h))
         x = x + y
         aux = aux + moe_aux
     if cfg.act_constraint is not None:

@@ -95,6 +95,109 @@ def split_dim(x: torch.Tensor, dim: int, sizes) -> torch.Tensor:
     return x.unflatten(dim, sizes)
 
 
+def on_mesh(t: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """``t`` as a DTensor on ``mesh`` (a plain tensor, the same on every
+    rank, is replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def whole_sums(placements) -> tuple:
+    """``placements`` with each partial sum replicated: the layout a value
+    laid out so takes once its sums are complete, and its gradient's."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if p.is_partial() else p for p in placements)
+
+
+class _KeepLayout(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out as the forward's
+    input was (a partial sum's gradient replicated)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, whole_sums(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def keep_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t``, whose gradient comes back laid out as ``t`` is (a plain tensor
+    as it is).  DTensor lays a gradient out as the ops that made it chose:
+    a sequence split over the model axis where the forward had none would
+    flatten into the batch in a product's backward, a view torch 2.11's
+    DTensor refuses."""
+    from torch.distributed.tensor import DTensor
+
+    return _KeepLayout.apply(t) if isinstance(t, DTensor) else t
+
+
+def _replicated_partials(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its partial placements completed (replicated)."""
+    want = whole_sums(t.placements)
+    return t if want == tuple(t.placements) else t.redistribute(t.device_mesh, want)
+
+
+class _Completed(torch.autograd.Function):
+    """Partial placements completed, the gradient's too: DTensor's own
+    redistribution would send the gradient back as the forward's partial
+    type, and refuses a sum's partial for a mean's."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _replicated_partials(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _replicated_partials(grad)
+
+
+def completed(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its partial sums over mesh dims completed, replicated over
+    them (a plain tensor as it is).  For a statistic reduced over a split
+    dim, such as a norm's mean square over features split over the model
+    axis: DTensor would otherwise complete it by a reduce-scatter over the
+    sequence, and the normed output's sequence would stay split."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor) or not any(p.is_partial() for p in t.placements):
+        return t
+    return _Completed.apply(t)
+
+
+def pad(x: torch.Tensor, widths, value: float = 0.0) -> torch.Tensor:
+    """``F.pad(x, widths, value=value)``.  A DTensor is padded per rank, its
+    padded dims gathered first where they are split: torch 2.11's DTensor
+    rule for the pad gives one placement whatever the mesh, and its
+    redistribution fails on a mesh of two dims."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return F.pad(x, widths, value=value)
+    padded = {x.ndim - 1 - i for i in range(len(widths) // 2)
+              if widths[2 * i] or widths[2 * i + 1]}
+    mesh = x.device_mesh
+    want = [Replicate() if (p.is_shard() and p.dim in padded) or (p.is_partial() and value)
+            else p for p in x.placements]
+    if want != list(x.placements):
+        x = x.redistribute(mesh, want)
+    shape = list(x.shape)
+    for i in range(len(widths) // 2):
+        shape[x.ndim - 1 - i] += widths[2 * i] + widths[2 * i + 1]
+    return DTensor.from_local(F.pad(x.to_local(), widths, value=value), mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` for a DTensor ``table`` (an embedding): each rank
     looks its own rows of ``idx`` up in the whole table, gathered, and the
@@ -105,8 +208,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     mesh = table.device_mesh
-    if not isinstance(idx, DTensor):
-        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    idx = on_mesh(idx, mesh)
     grad = [Partial() if p.is_shard() else Replicate() for p in idx.placements]
     whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grad)
     return DTensor.from_local(whole[idx.to_local()], mesh, idx.placements, run_check=False)

@@ -48,33 +48,14 @@ SCRIPT = textwrap.dedent("""
 
 
 TRAIN_SCRIPT = textwrap.dedent("""
-    import json, math, sys, time
-    import torch
-    from torch.distributed.tensor import DTensor
-    from repro_torch.core import op_cost
+    import json, sys, time
+    import torch_views
     from repro_torch.launch import dryrun
 
-    # views that merge a split dim into the dim before it: torch 2.11's
-    # DTensor refuses them ("Attempted to flatten multiple dimensions"),
-    # where torch 2.13 lays them out as _StridedShard
-    refused = []
-    count = op_cost.LocalCounter.__torch_dispatch__
-
-    def watched(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.aten.view.default and isinstance(args[0], DTensor):
-            shape, target, i = list(args[0].shape), list(args[1]), 0
-            split = {p.dim for p in args[0].placements if p.is_shard()}
-            for t in target:
-                first = i
-                while i < len(shape) and math.prod(shape[first:i + 1]) <= t and t != -1:
-                    i += 1
-                    if math.prod(shape[first:i]) == t:
-                        break
-                if any(d in split for d in range(first + 1, i)):
-                    refused.append((shape, target))
-        return count(self, func, types, args, kwargs)
-
-    op_cost.LocalCounter.__torch_dispatch__ = watched
+    # the ops torch 2.11's DTensor refuses, a view that merges a split dim
+    # into the dim before it among them (torch 2.13 lays it out as
+    # _StridedShard)
+    refused = torch_views.watch()
     dryrun.fake_world(512)
     t0 = time.perf_counter()
     res = dryrun.run_cell("granite-3-2b", "train_4k", True, verbose=False, layers=1,
@@ -182,7 +163,8 @@ def test_decode_cell_counts_are_the_recorded_ones(cells, multi):
 @pytest.fixture(scope="module")
 def train_cell(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dryrun_train")
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO, "src"), os.path.join(REPO, "tests")]))
     out = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT, str(tmp)], capture_output=True,
                          text=True, env=env, timeout=TIMEOUT)
     assert out.returncode == 0, out.stderr[-3000:]
