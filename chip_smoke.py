@@ -252,8 +252,23 @@ Phases:
    mesh: steps 3-5 after the restore give the losses of the run not yet
    cut there, bit for bit, and the mesh run's losses are within 1e-4 of
    the plain run's).  Any failure fails the script.
-9. Print one JSON line describing every kernel, each with the card's name
-   and power limit under ``config``, then the result line.
+12. The regression gate on the card (run before the record), as the
+   port's check-smoke CI job runs it on the CPU: in a temporary session,
+   ``profile --kernel gemm:v01 --kernel gramschm:opt --kernel
+   model.transformer-tiny.mlp:v02 --device cuda`` in process (each rung
+   launched and held to its plain version by ``run_variant``, as in phase
+   3), then ``check <iteration> --baseline artifacts/ci-baseline-torch
+   --json <file>`` must exit 0 with a ``cuthermo-check`` document of
+   schema version 1 that passed, every kernel's status ``pass``, and each
+   heat map of the card's run must equal the committed one
+   (``heatmaps_equal``); then ``profile --kernel gemm:v00 --device cuda``
+   and ``check ... --threshold missing=off`` must exit exactly 1 with a
+   "modeled transfers" failure.  The launches (gemm v00, v01, v02 and
+   GRAMSCHM opt) go into each kernel's record as ``gate_launches``; the
+   phase's time is printed beside the card's name and power limit.
+9. Print the script's time, then one JSON line describing every kernel,
+   each with the card's name and power limit under ``config``, then the
+   result line.  Every phase prints its time.
 
 The kernels redesigned for the card as a whole (GRAMSCHM opt, the ragged
 and paged decode, gemm v02, the SSD chunk, histogram opt2) also record, at
@@ -520,6 +535,14 @@ STORIES = {
         (2, 3): ["[ improved] paged_attn: transfers 360960 -> 208960"],
     },
 }
+
+# phase 12, the regression gate: the baseline rungs of
+# tools/make_ci_baseline_torch.py, the committed baseline they are gated
+# against, and the kernels they must launch (the model rung runs gemm v02
+# at transformer-tiny's widths)
+GATE_REFS = ("gemm:v01", "gramschm:opt", "model.transformer-tiny.mlp:v02")
+GATE_BASELINE = ROOT / "artifacts" / "ci-baseline-torch"
+GATE_MUST = ("gemm_v01", "gramschm_k3_opt", "gemm_v02")
 
 # the moves phase 4's ``tune --all`` accepts, by family (the host's model:
 # the same on any device); the decode families pin their bounds and tables
@@ -3008,12 +3031,99 @@ def drive_examples(smi, kreg):
     return launches, walls
 
 
+def drive_gate(cli, kreg, load_iteration, smi):
+    """Phase 12, the regression gate on the card: {kernel name: launches
+    made by the phase's commands}, or a failure message."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.session import heatmaps_equal
+
+    card = torch.cuda.get_device_name(0)
+    wrappers = kreg.wrappers()
+    launches = {}
+
+    def counted(argv, want_rc, must=()):
+        kreg.reset_launch_counts()
+        rc, _ = run_cli(cli, argv)
+        made = {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+        print(f"launches: {made}")
+        for name, count in made.items():
+            launches[name] = launches.get(name, 0) + count
+        if rc != want_rc:
+            return f"{' '.join(argv[:2])} exited {rc}, not {want_rc}"
+        missing = [name for name in must if made.get(name, 0) < 1]
+        if missing:
+            return f"{' '.join(argv)} did not launch {missing}"
+        return None
+
+    def ran_on_card(kernels):
+        for pk in kernels:
+            run = pk.run or {}
+            if run.get("device") != card or run.get("launches", 0) < 1 or not run.get("ms"):
+                return f"gate {pk.name}:{pk.variant}: no run on the card ({run})"
+            print(f"gate {pk.name}:{pk.variant}: modeled transfers {pk.transactions}, "
+                  f"max|err| vs plain {run['max_abs_err']:.3e}, median {run['ms']:.4f} ms "
+                  f"at {run['shapes']} on {smi}")
+        return None
+
+    def checked(doc_path, want_rc, it_dir, extra):
+        msg = counted(["check", str(it_dir), "--baseline", str(GATE_BASELINE),
+                       "--json", str(doc_path), *extra], want_rc)
+        return msg, (None if msg else json.loads(doc_path.read_text()))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        tmp = Path(tmp)
+        argv = ["profile"]
+        for ref in GATE_REFS:
+            argv += ["--kernel", ref]
+        msg = counted(argv + ["--device", "cuda", "--out", str(tmp / "cand"), "-q"], 0,
+                      GATE_MUST)
+        if msg:
+            return msg
+        cand = tmp / "cand" / "iter0"
+        fresh = load_iteration(cand).kernels
+        msg = ran_on_card(fresh)
+        if msg:
+            return msg
+        msg, doc = checked(tmp / "check-pass.json", 0, cand, [])
+        if msg:
+            return msg
+        status = {k["kernel"]: k["status"] for k in doc["kernels"]}
+        if (doc["format"], doc["schema_version"], doc["passed"]) != ("cuthermo-check", 1, True) \
+                or status != {ref.split(":")[0]: "pass" for ref in GATE_REFS}:
+            return (f"check against {GATE_BASELINE.name}: format {doc['format']}, schema "
+                    f"{doc['schema_version']}, passed {doc['passed']}, statuses {status}")
+        base = {pk.name: pk for pk in load_iteration(GATE_BASELINE).kernels}
+        for pk in fresh:
+            if not heatmaps_equal(pk.heatmap, base[pk.name].heatmap):
+                return f"gate {pk.name}: the card's heat map differs from the committed one"
+        print(f"gate: {sorted(status)} pass against {GATE_BASELINE.name}, heat maps "
+              f"equal to the committed ones")
+
+        msg = counted(["profile", "--kernel", "gemm:v00", "--device", "cuda",
+                       "--out", str(tmp / "detiled"), "-q"], 0, ("gemm_v00",))
+        msg = msg or ran_on_card(load_iteration(tmp / "detiled" / "iter0").kernels)
+        if msg:
+            return msg
+        msg, doc = checked(tmp / "check-fail.json", 1, tmp / "detiled" / "iter0",
+                           ["--threshold", "missing=off"])
+        if msg:
+            return msg
+        if doc["passed"] or not any("modeled transfers" in f for f in doc["failures"]):
+            return f"check of gemm:v00: passed {doc['passed']}, failures {doc['failures']}"
+        print(f"gate: gemm:v00 rejected with exit 1: {doc['failures'][0]}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: no CUDA device")
+    t_start = t_phase = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import cli
     from repro_torch import kernels as kreg
@@ -3041,6 +3151,9 @@ def main() -> int:
     hmma = check_tensor_cores(_build)
     if isinstance(hmma, str):
         return fail(hmma)
+
+    print(f"phase 1 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # -- phase 2: each kernel against its plain version ----------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3133,6 +3246,9 @@ def main() -> int:
     if isinstance(serving_rows, str):
         return fail(serving_rows)
 
+    print(f"phase 2 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # -- phase 3: the main path, profile -> diff -> report --------------------
     # family -> [(registry ref, kernel name or None, counting wrapper or None)]
     families = {
@@ -3223,20 +3339,28 @@ def main() -> int:
     if isinstance(model_launches, str):
         return fail(model_launches)
 
+    print(f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # -- phase 4: the closed tuning loop ----------------------------------------
     tune_launches = drive_tuning_loop(cli, kreg, smi)
     if isinstance(tune_launches, str):
         return fail(tune_launches)
+    print(f"phase 4 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # -- phase 5: sharded collection, fault recovery, resume --------------------
     scale_launches = drive_scale_out(cli, kreg, smi, load_iteration)
     if isinstance(scale_launches, str):
         return fail(scale_launches)
+    print(f"phase 5 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # -- phase 6: the model forward at full width --------------------------------
     msg = drive_model_forward(smi)
     if msg:
         return fail(msg)
+    print(f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
     # -- phase 7: serving Granite-8B whole -----------------------------------------
     t0 = time.perf_counter()
@@ -3267,6 +3391,13 @@ def main() -> int:
     example_launches, example_walls = examples
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s; wall by example "
           f"{json.dumps({k: round(v, 3) for k, v in example_walls.items()})} on {smi}")
+
+    # -- phase 12: the regression gate against the committed baseline ------------------
+    t0 = time.perf_counter()
+    gate_launches = drive_gate(cli, kreg, load_iteration, smi)
+    if isinstance(gate_launches, str):
+        return fail(gate_launches)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s on {smi}")
 
     # -- phase 9: the record --------------------------------------------------
     kernels = []
@@ -3316,6 +3447,8 @@ def main() -> int:
         row["tune_launches"] = tune_launches.get(row["name"], 0)
         row["scale_out_launches"] = scale_launches.get(row["name"], 0)
         row["examples_launches"] = example_launches.get(row["name"], 0)
+        row["gate_launches"] = gate_launches.get(row["name"], 0)
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s on {smi}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(

@@ -174,6 +174,10 @@ def embed_defs(vocab: int, d_model: int) -> Dict[str, ParamDef]:
     return {"embedding": ParamDef((vocab, d_model), ("vocab", "embed"), init="embed", scale=0.02)}
 
 
+def untied_unembed_defs(vocab: int, d_model: int) -> Dict[str, ParamDef]:
+    return {"w_out": ParamDef((d_model, vocab), ("embed", "vocab"), init="out_proj")}
+
+
 def embed(params: Dict[str, Tensor], tokens: Tensor) -> Tensor:
     table = params["embedding"]
     if hasattr(table, "placements"):  # a DTensor: see gather_rows

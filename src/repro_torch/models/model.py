@@ -31,7 +31,9 @@ import torch
 from ..parallel.context import constrain_logical, pad
 from . import params as P
 from .attention import AttnConfig, MLAConfig
-from .layers import cross_entropy, embed, embed_defs, hi, rmsnorm, rmsnorm_defs, unembed
+from .layers import (
+    cross_entropy, embed, embed_defs, hi, rmsnorm, rmsnorm_defs, unembed, untied_unembed_defs,
+)
 from .mamba import SSMConfig
 from .moe import MoEConfig
 from .params import ParamDef, ParamTree
@@ -254,9 +256,7 @@ def lm_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         "final_norm": rmsnorm_defs(cfg.d_model),
     }
     if not cfg.tie_embeddings:
-        defs["unembed"] = {
-            "w_out": ParamDef((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"), init="out_proj")
-        }
+        defs["unembed"] = untied_unembed_defs(cfg.padded_vocab, cfg.d_model)
     if cfg.mtp:
         defs["mtp"] = {
             "proj": ParamDef((2 * cfg.d_model, cfg.d_model), ("embed", None)),

@@ -126,6 +126,21 @@ def param_count(defs: PyTree) -> int:
     return sum(math.prod(d.shape) for _, d in leaves(defs))
 
 
+def param_bytes(defs: PyTree, dtype_bytes: int = 4) -> int:
+    return param_count(defs) * dtype_bytes
+
+
+def merge(*trees: Dict[str, Any]) -> Dict[str, Any]:
+    """Shallow-merge def dicts (disjoint keys)."""
+    out: Dict[str, Any] = {}
+    for t in trees:
+        for k, v in t.items():
+            if k in out:
+                raise KeyError(f"duplicate param key {k}")
+            out[k] = v
+    return out
+
+
 class ParamTree(nn.Module):
     """The parameters of a def tree as a module: each dict level a child
     module, each list an ``nn.ModuleList`` of them (one per layer), each
