@@ -13,7 +13,8 @@ Phases:
    instructions in each kernel function of the flash, gmm, gemm, the
    ragged and paged decode and the ssd libraries (``cuobjdump -sass``):
    every bfloat16 kernel must hold some, and gemm's naive rungs (v00,
-   v01) and the float32 ssd kernel none.
+   v01) and the float32 flash, gmm and ssd kernels none (they must be
+   there, on the CUDA cores).
 2. For each GEMM kernel (v00, v01, v02) at the registry's 1024^3 shape,
    in float32 and bfloat16 on inputs from a fixed numpy seed: launch on
    the card, compare with the plain PyTorch version (float32 max abs
@@ -60,8 +61,11 @@ Phases:
    bfloat16), the SSD chunk at Mamba2-2.7b's (80, 16, 256, 64, 128) in
    float32 and bfloat16 and at the full-width model run's (256, 1, 64,
    64, 16) in float32 (every SSD run against the plain version and a
-   float64 product, and called twice, which must give the same bits),
-   timed beside the plain version and the library yardstick
+   float64 product, and called twice, which must give the same bits;
+   float32 flash and gmm, redesigned for the CUDA cores, are called twice
+   at both of their shapes too, and record their device time by kernel
+   and the host's time to issue one call), timed beside the plain
+   version and the library yardstick
    (``F.scaled_dot_product_attention``; for gmm ``torch._grouped_mm`` on
    the padded groups, held to gmm's tolerance, with a refusal printed and
    recorded, and a dense ``torch.matmul`` of the same FLOPs beside it;
@@ -405,6 +409,8 @@ SERVING_TIMING_SHAPES = {
 # time of each device kernel and the host's time to issue one call
 REPEAT_CHECKED = ("gramschm_k3_opt", "ragged_decode_attention", "paged_decode_attention",
                   "gemm_v02", "ssd_chunk", "hist_opt2")
+# ... and in float32 only: the model path's routes on the CUDA cores
+REPEAT_CHECKED_F32 = ("flash_attention", "gmm")
 # the model path's SSD chunk in the full-width Jamba-v0.1-52B run (batch 2,
 # seq 64: 256 heads x batch, one chunk of 64)
 MODEL_PATH_SSD_SHAPE = (256, 1, 64, 64, 16)
@@ -524,7 +530,7 @@ STORIES = {
     "ragged_flash": {
         (0, 1): ["[ improved] ragged_flash: transfers 68824 -> 13104",
                  "[persisting] hot on starts"],
-        (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696"],
+        (2, 3): ["[ improved] ragged_flash: transfers 393472 -> 149440"],
     },
     # the paged split blocks: the dense sweep reads Q from every split and each
     # split's own table words (false sharing); both rungs share the table words
@@ -532,7 +538,7 @@ STORIES = {
         (0, 1): ["[ improved] paged_attn: transfers 71244 -> 23464",
                  "[fixed] hot on Q", "[fixed] false-sharing on block_tables",
                  "[persisting] hot on block_tables"],
-        (2, 3): ["[ improved] paged_attn: transfers 360960 -> 208960"],
+        (2, 3): ["[ improved] paged_attn: transfers 360704 -> 208704"],
     },
 }
 
@@ -1051,7 +1057,7 @@ def check_model_kernels(kreg, dev):
             if "dense" in case:
                 rec["dense_matmul_ms"] = kreg.cuda_time_ms(case["dense"], ITERS)
             line = f"{name} {which} {shape} {case['dtype']}: max|err| {errs}, err/tol {over}"
-            if name in REPEAT_CHECKED:
+            if name in REPEAT_CHECKED or (name in REPEAT_CHECKED_F32 and dtype == torch.float32):
                 again = fn(*args, **kwargs)
                 again = again if isinstance(again, tuple) else (again,)
                 torch.cuda.synchronize()
@@ -1101,8 +1107,10 @@ def check_tensor_cores(_build):
     """Phase 1: the ``HMMA`` count of each kernel function of the flash,
     gmm, gemm, the two decode and the ssd libraries, {library: {function:
     count}}, or a failure message if a bfloat16 kernel (``*_tc_kernel``)
-    holds none, or if gemm's naive rungs (v00, v01) or the float32 ssd
-    kernel (``ssd_chunk_kernel``) hold any."""
+    holds none, if gemm's naive rungs (v00, v01) hold any, or if a float32
+    kernel of flash, gmm or ssd (``flash_kernel``, ``gmm_kernel``,
+    ``ssd_chunk_kernel``) is missing or holds any."""
+    f32_of = {"flash": "flash_kernel", "gmm": "gmm_kernel", "ssd": "ssd_chunk_kernel"}
     counts = {}
     for name, tc in (("flash", "flash_tc_kernel"), ("gmm", "gmm_tc_kernel"),
                      ("gemm", "gemm_v02_tc_kernel"),
@@ -1118,9 +1126,9 @@ def check_tensor_cores(_build):
         naive = {fn: c for fn, c in per_fn.items() if "gemm_v00" in fn or "gemm_v01" in fn}
         if any(naive.values()):
             return f"gemm: a naive rung holds HMMA instructions ({naive})"
-        f32 = {fn: c for fn, c in per_fn.items() if "ssd_chunk_kernel" in fn}
-        if name == "ssd" and (not f32 or any(f32.values())):
-            return f"ssd: the float32 kernel functions are missing or hold HMMA ({f32})"
+        f32 = {fn: c for fn, c in per_fn.items() if name in f32_of and f32_of[name] in fn}
+        if name in f32_of and (not f32 or any(f32.values())):
+            return f"{name}: the float32 kernel functions are missing or hold HMMA ({f32})"
         counts[name] = per_fn
     return counts
 

@@ -1,7 +1,8 @@
 // Helpers that every kernel source of the package includes: the float
 // conversions of the two element types the wrappers pass (float32 and
 // bfloat16), the one rounding rule for a value kept in float at T's
-// precision, and the error-string export that kernels/_build.py:call reads
+// precision, the 4-byte cp.async that stages a float32 row off 16-byte
+// alignment, and the error-string export that kernels/_build.py:call reads
 // when a launch fails.  Each source is built into a library of its own, so
 // each carries one copy of the export.
 
@@ -32,6 +33,14 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
+}
+
+// 4 bytes from global to shared memory (dst a shared-window address, as
+// __cvta_generic_to_shared gives it); src_bytes 0 writes a zero and does
+// not read src
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
 }
 
 }  // namespace

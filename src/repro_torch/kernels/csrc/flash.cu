@@ -20,23 +20,42 @@
 // 3.35 TB/s: the arithmetic bounds both routes.
 //
 // float32: flash_kernel, on the CUDA cores (the tensor cores' float32 path,
-// TF32, keeps too few digits for the float32 tolerance).  One block of 256
-// threads (8 warps) per (64-query tile, bh).  The block stages its Q tile in
-// shared memory once, then walks the KV tiles of BKV rows (32, 64 or 128, a
-// template parameter): it stages K and V, forms the (64, BKV) score tile
-// S = scale * Q K^T in registers (a 4 x BKV/16 micro-tile per thread) and
-// parks it in shared memory, updates the running row max m and row sum l (4
-// threads per row, kept in their registers) and rescales the (64, D)
-// accumulator, which each thread keeps in registers as a 4 x D/16
-// micro-tile, before adding P V.  With causal masking the block stops at the
-// last KV tile that holds a key <= its last query row: the tiles above the
-// diagonal are never read.  Who reads what: warp w stages rows 8w .. 8w+7 of
-// the Q tile and rows w*BKV/8 .. (w+1)*BKV/8 - 1 of every K and V tile, and
-// stores rows 8w .. 8w+7 of the O tile (kernels/flash.py:flash_spec
-// describes exactly this).  Shared memory: (64 + 2 BKV) (D + 1) + 64 (BKV +
-// 1) + 128 floats, 116 KB at BKV = 64, D = 128, and 199 KB at BKV = 128:
-// above the 48 KB a block gets by default, so the launch opts in with
-// cudaFuncSetAttribute first.
+// TF32, keeps too few digits for the float32 tolerance).  One block of 128
+// threads (4 warps) per (64-query tile, bh), two blocks an SM; the query
+// tiles are launched last first (grid (bh, tiles), the heads of one tile
+// next to each other), so the longest causal walks start first.  D is
+// zero-filled up to DP = 64 or 128.  Warp w owns query rows 16w .. 16w+15
+// of the tile from the first product to the store, so a KV stage needs one
+// __syncthreads and the softmax none.  The block walks the KV tiles of bkv
+// rows (32, 64 or 128) as stages of 32 keys through a ring of two: the next
+// stage's cp.async copies are in flight while this stage's products run.
+// Per stage a warp forms its 16 x 32 scores S = Q K^T in registers (lane
+// (r, j) = (lane / 8, lane % 8) holds rows r + 4i and keys j + 8c for i, c
+// < 4), reading 16 bytes at a time: the Q and K tiles are row-major with a
+// padded row of DP + 4 floats, so the 4 rows and the 8 keys one load
+// instruction reads fill 32 different banks, and each lane does 64 FMAs per
+// 8 loads.  The 8 lanes of a row take its max with three __shfl_xor_syncs;
+// p = exp2(S log2e / sqrt(D) - m) (a masked key gives p = 0) goes to the
+// warp's own P^T buffer in shared memory [32 keys][16 rows + 4] with the
+// rows' rescale exp2(m_old - m_new), and each lane keeps its share of the
+// row sums.  P V then runs on lane (r, c) = (lane / 16, lane % 16): rows 8r
+// .. 8r+7, columns 4c + 64h (h < DP/64), 8 P values in two 16-byte loads
+// and 4 V values in one per 32 FMAs.  A warp skips a stage whose first key
+// lies above its last query row, and masks only the stages that cross its
+// diagonal or the end of the keys.  With causal masking the block stops at
+// the last bkv tile that holds a key <= its last query row: the tiles above
+// the diagonal are never read.  Who reads what (lane l of warp w copies
+// 16-byte chunks l, l + 32, ... of the warp's rows): warp w stages rows 16w
+// .. 16w+15 of the Q tile and rows 8w .. 8w+7 of every 32-row K and V
+// stage, and stores rows 16w .. 16w+15 of the O tile
+// (kernels/flash.py:flash_spec describes exactly this).  A row that is not
+// 16-byte aligned (D not a multiple of 4, or a base pointer off 16 bytes)
+// is staged with 4-byte copies and stored with 4-byte stores by the same
+// lanes.  Shared memory: (64 + 64) (DP + 4) + 64 DP + 4 (32 x 20 + 16)
+// floats, 108 KB at DP = 128; registers: at most 255 a thread, none
+// spilled.  What is left to the card's float32 peak: 128 threads a block
+// and two blocks an SM keep 8 warps in flight, and the products read 12 of
+// every 140 instructions from shared memory.
 //
 // bfloat16: flash_tc_kernel, both products on the tensor cores
 // (mma.sync m16n8k16, float32 accumulators; helpers in mma.cuh), laid out
@@ -82,195 +101,262 @@
 namespace {
 
 constexpr int kBQ = 64;                 // query rows per block
-constexpr int kThreads = 256;           // 8 warps
+constexpr int kThreads = 128;           // 4 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxD = 128;              // head dims up to 128
+constexpr int kRowsW = kBQ / kWarps;    // query rows a warp owns: 16
+constexpr int kKS = 32;                 // keys a ring stage
+constexpr int kStageRowsW = kKS / kWarps;  // K and V rows a warp stages: 8
+constexpr int kPLd = kRowsW + 4;        // padded key row of a warp's P^T
+constexpr int kPBuf = kKS * kPLd + kRowsW;  // a warp's P^T and row factors
 constexpr float kNegInf = -1e30f;       // the Pallas kernel's NEG_INF
 
-template <typename T, int BKV>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
-             int d, int causal, float scale) {
-  constexpr int kSJ = BKV / 16;  // score columns per thread
-  extern __shared__ float smem[];
-  const int ld = d + 1;  // padded row stride: conflict-free column reads
-  float* qs = smem;                    // [kBQ][ld]
-  float* ks = qs + kBQ * ld;           // [BKV][ld]
-  float* vs = ks + BKV * ld;           // [BKV][ld]
-  float* ps = vs + BKV * ld;           // [kBQ][BKV + 1]: S, then P
-  float* corr = ps + kBQ * (BKV + 1);  // [kBQ]: this tile's rescale per row
-  float* lsum = corr + kBQ;            // [kBQ]: final row sums
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int sq, int skv,
+             int d, int bkv, int causal, float scale_log2, int vec) {
+  constexpr int LD = DP + 4;   // padded row of the Q and K tiles
+  constexpr int C = DP / 4;    // 16-byte chunks a staged row
+  constexpr int NH = DP / 64;  // 4-column groups of O a lane, 64 apart
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [kBQ][LD]
+  float* ks = qs + kBQ * LD;        // [2][kKS][LD]
+  float* vs = ks + 2 * kKS * LD;    // [2][kKS][DP]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int q0 = blockIdx.x * kBQ;
-  const size_t qbase = (size_t)blockIdx.y * sq * d;
-  const size_t kbase = (size_t)blockIdx.y * skv * d;
+  float* pw = vs + 2 * kKS * DP + warp * kPBuf;  // P^T [kKS][kPLd], then kRowsW factors
+  float* fw = pw + kKS * kPLd;
+  const size_t head = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // last tiles first
+  const float* kg = k + head * skv * d;
+  const float* vg = v + head * skv * d;
+  const bool vec16 = vec != 0;
 
-  // Q tile: warp w stages rows 8w .. 8w+7, zero past the last query
-  for (int r = 0; r < kBQ / kWarps; ++r) {
-    const int row = warp * (kBQ / kWarps) + r;
-    const int gq = q0 + row;
-    for (int c = lane; c < d; c += 32) {
-      qs[row * ld + c] = gq < sq ? to_float(q[qbase + (size_t)gq * d + c]) : 0.f;
-    }
-  }
-
-  // products: rows r0 .. r0+3 of the tile, score columns c0 + 16j and
-  // output columns c0 + 16j; softmax: 4 threads (srow, spart) per row
-  const int r0 = 4 * (tid / 16);
-  const int c0 = tid % 16;
-  const int srow = tid / 4;
-  const int spart = tid % 4;
-  const int ncol = (d + 15) / 16;
-  float m_run = kNegInf;
-  float l_run = 0.f;
-  float acc[4][kMaxD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < kMaxD / 16; ++j) acc[i][j] = 0.f;
-  }
-
+  // the walk: the bkv tiles up to the diagonal, in stages of kKS rows
   const int last_q = min(q0 + kBQ, sq) - 1;
-  int n_tiles = (skv + BKV - 1) / BKV;
-  if (causal) n_tiles = min(n_tiles, last_q / BKV + 1);
+  int n_tiles = (skv + bkv - 1) / bkv;
+  if (causal) n_tiles = min(n_tiles, last_q / bkv + 1);
+  const int kv_end = min(skv, n_tiles * bkv);
+  const int n_stages = (kv_end + kKS - 1) / kKS;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();  // the previous tile's readers are done (and Q is staged)
-    for (int r = 0; r < BKV / kWarps; ++r) {
-      const int row = warp * (BKV / kWarps) + r;
-      const int gk = k0 + row;
-      for (int c = lane; c < d; c += 32) {
-        const bool in = gk < skv;
-        ks[row * ld + c] = in ? to_float(k[kbase + (size_t)gk * d + c]) : 0.f;
-        vs[row * ld + c] = in ? to_float(v[kbase + (size_t)gk * d + c]) : 0.f;
+  // rows r0 .. r0+nrows-1 of a tile (row r of src at src + r d; rows >= live
+  // and columns >= d zero) into dst, row stride ld: lane l copies chunks l,
+  // l + 32, ... of those rows
+  auto stage_rows = [&](float* dst, int ld, const float* src, int r0, int nrows, int live) {
+    if (vec16) {
+      for (int i = lane; i < nrows * C; i += 32) {
+        const int r = r0 + i / C;
+        const int c = 4 * (i % C);
+        const bool in = r < live && c < d;
+        cp_async16(smem_u32(dst + r * ld + c), in ? src + (size_t)r * d + c : src, in ? 16 : 0);
+      }
+    } else {
+      for (int i = lane; i < nrows * DP; i += 32) {
+        const int r = r0 + i / DP;
+        const int c = i % DP;
+        const bool in = r < live && c < d;
+        cp_async4(smem_u32(dst + r * ld + c), in ? src + (size_t)r * d + c : src, in ? 4 : 0);
       }
     }
-    __syncthreads();
+  };
+  auto stage_kv = [&](int buf, int st) {
+    const int k0 = st * kKS;
+    stage_rows(ks + buf * kKS * LD, LD, kg + (size_t)k0 * d, kStageRowsW * warp, kStageRowsW,
+               kv_end - k0);
+    stage_rows(vs + buf * kKS * DP, DP, vg + (size_t)k0 * d, kStageRowsW * warp, kStageRowsW,
+               kv_end - k0);
+  };
+  stage_rows(qs, LD, q + (head * sq + q0) * d, kRowsW * warp, kRowsW, sq - q0);
+  stage_kv(0, 0);
+  cp_async_commit();
 
-    // S = scale * Q K^T, masked
-    float s[4][kSJ];
+  const int row0 = q0 + kRowsW * warp;  // the warp's first query row
+  const int sr = lane / 8;              // S: rows sr + 4i, keys sk + 8c (i, c < 4)
+  const int sk = lane % 8;
+  const int pr = lane / 16;             // P V: rows 8pr .. 8pr+7, columns 4pc + 64h
+  const int pc = lane % 16;
+  const float* q_rows = qs + (kRowsW * warp + sr) * LD;
+  float m_run[4], l_run[4];             // running max (log2 units); this lane's share of the sums
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
+  }
+  float acc[8][NH][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.f;
+    }
+  }
+
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage st (and Q) has landed; every warp is done with st - 1
+    if (st + 1 < n_stages) stage_kv((st + 1) & 1, st + 1);
+    cp_async_commit();
+    const int kb = st * kKS;  // first key of the stage
+    if (causal && kb > row0 + kRowsW - 1) continue;  // all above the warp's rows
+    const float* kt = ks + (st & 1) * kKS * LD;
+    const float* vt = vs + (st & 1) * kKS * DP;
+
+    // S = Q K^T: rows sr + 4i, keys sk + 8c
+    float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < kSJ; ++j) s[i][j] = 0.f;
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
     }
-    for (int c = 0; c < d; ++c) {
-      float qv[4], kv[kSJ];
+#pragma unroll 4
+    for (int dd = 0; dd < DP; dd += 4) {
+      float4 qa[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(r0 + i) * ld + c];
+      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(q_rows + 4 * i * LD + dd);
 #pragma unroll
-      for (int j = 0; j < kSJ; ++j) kv[j] = ks[(c0 + 16 * j) * ld + c];
+      for (int c = 0; c < 4; ++c) kv[c] = *reinterpret_cast<const float4*>(kt + (sk + 8 * c) * LD + dd);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < kSJ; ++j) s[i][j] += qv[i] * kv[j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + r0 + i;
-#pragma unroll
-      for (int j = 0; j < kSJ; ++j) {
-        const int kpos = k0 + c0 + 16 * j;
-        const bool masked = kpos >= skv || (causal && kpos > qpos);
-        ps[(r0 + i) * (BKV + 1) + c0 + 16 * j] = masked ? kNegInf : s[i][j] * scale;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: the row's 4 threads are 4 neighbouring lanes
-    {
-      float* prow = ps + srow * (BKV + 1);
-      float mx = kNegInf;
-      for (int j = spart; j < BKV; j += 4) mx = fmaxf(mx, prow[j]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.f;
-      for (int j = spart; j < BKV; j += 4) {
-        const float p = expf(prow[j] - m_new);
-        sum += p;
-        prow[j] = round_to<T>(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float cr = expf(m_run - m_new);
-      l_run = l_run * cr + sum;
-      m_run = m_new;
-      if (spart == 0) corr[srow] = cr;
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float cr = corr[r0 + i];
-#pragma unroll
-      for (int j = 0; j < kMaxD / 16; ++j) acc[i][j] *= cr;
-    }
-    for (int kk = 0; kk < BKV; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(r0 + i) * (BKV + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < kMaxD / 16; ++j) {
-        const int c = c0 + 16 * j;
-        if (j < ncol && c < d) {
-          const float vv = vs[kk * ld + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] += pv[i] * vv;
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = fmaf(qa[i].x, kv[c].x, s[i][c]);
+          s[i][c] = fmaf(qa[i].y, kv[c].y, s[i][c]);
+          s[i][c] = fmaf(qa[i].z, kv[c].z, s[i][c]);
+          s[i][c] = fmaf(qa[i].w, kv[c].w, s[i][c]);
         }
       }
     }
+    // scale to log2 units; mask where the stage crosses the warp's diagonal
+    // or the end of the keys
+    const bool edge = kb + kKS > skv || (causal && kb + kKS - 1 > row0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = kb + sk + 8 * c;
+        const bool masked = edge && (key >= skv || (causal && key > row0 + sr + 4 * i));
+        s[i][c] = masked ? kNegInf : s[i][c] * scale_log2;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m_run[i], mx);
+      const float cr = exp2f(m_run[i] - mn);
+      m_run[i] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = s[i][c] == kNegInf ? 0.f : exp2f(s[i][c] - mn);
+        sum += p;
+        pw[(sk + 8 * c) * kPLd + sr + 4 * i] = p;
+      }
+      l_run[i] = l_run[i] * cr + sum;
+      if (sk == 0) fw[sr + 4 * i] = cr;
+    }
+    __syncwarp();
+
+    // acc = acc * cr + P V
+    float f[8];
+    *reinterpret_cast<float4*>(f) = *reinterpret_cast<const float4*>(fw + 8 * pr);
+    *reinterpret_cast<float4*>(f + 4) = *reinterpret_cast<const float4*>(fw + 8 * pr + 4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][h][e] *= f[i];
+      }
+    }
+#pragma unroll 8
+    for (int j = 0; j < kKS; ++j) {
+      float p[8];
+      *reinterpret_cast<float4*>(p) = *reinterpret_cast<const float4*>(pw + j * kPLd + 8 * pr);
+      *reinterpret_cast<float4*>(p + 4) =
+          *reinterpret_cast<const float4*>(pw + j * kPLd + 8 * pr + 4);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const float4 v4 = *reinterpret_cast<const float4*>(vt + j * DP + 64 * h + 4 * pc);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][h][0] = fmaf(p[i], v4.x, acc[i][h][0]);
+          acc[i][h][1] = fmaf(p[i], v4.y, acc[i][h][1]);
+          acc[i][h][2] = fmaf(p[i], v4.z, acc[i][h][2]);
+          acc[i][h][3] = fmaf(p[i], v4.w, acc[i][h][3]);
+        }
+      }
+    }
+    __syncwarp();  // the warp's P V reads are done before the next stage's P
   }
 
-  if (spart == 0) lsum[srow] = l_run;
-  __syncthreads();
+  // the row sums: the 8 lanes of a row add their shares, then reach the
+  // lanes that hold the row's O through the warp's buffer
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int gq = q0 + r0 + i;
-    if (gq >= sq) continue;
-    const float l = fmaxf(lsum[r0 + i], 1e-30f);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 4);
+    if (sk == 0) fw[sr + 4 * i] = l_run[i];
+  }
+  __syncwarp();
+  float ls[8];
+  *reinterpret_cast<float4*>(ls) = *reinterpret_cast<const float4*>(fw + 8 * pr);
+  *reinterpret_cast<float4*>(ls + 4) = *reinterpret_cast<const float4*>(fw + 8 * pr + 4);
 #pragma unroll
-    for (int j = 0; j < kMaxD / 16; ++j) {
-      const int c = c0 + 16 * j;
-      if (j < ncol && c < d) {
-        o[qbase + (size_t)gq * d + c] = from_float<T>(acc[i][j] / l);
+  for (int i = 0; i < 8; ++i) {
+    const int gq = row0 + 8 * pr + i;
+    if (gq >= sq) continue;
+    const float den = fmaxf(ls[i], 1e-30f);
+    float* orow = o + (head * sq + gq) * d;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const int c = 64 * h + 4 * pc;
+      if (c >= d) continue;
+      const float4 out = make_float4(acc[i][h][0] / den, acc[i][h][1] / den,
+                                     acc[i][h][2] / den, acc[i][h][3] / den);
+      if (vec16) {
+        *reinterpret_cast<float4*>(orow + c) = out;
+      } else {
+        orow[c] = out.x;
+        if (c + 1 < d) orow[c + 1] = out.y;
+        if (c + 2 < d) orow[c + 2] = out.z;
+        if (c + 3 < d) orow[c + 3] = out.w;
       }
     }
   }
 }
 
-template <typename T, int BKV>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int skv, int d, int causal, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(kBQ + 2 * BKV) * (d + 1) +
-                       (size_t)kBQ * (BKV + 1) + 2 * kBQ);
+           int sq, int skv, int d, int bkv, int causal, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * ((size_t)(kBQ + 2 * kKS) * (DP + 4) +
+                                           2 * kKS * DP + kWarps * kPBuf);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_kernel<T, BKV><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, d, causal,
-      1.0f / sqrtf(static_cast<float>(d)));
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const int vec = d % 4 == 0 && bits % 16 == 0;
+  constexpr float log2e = 1.4426950408889634f;
+  dim3 grid(bh, (sq + kBQ - 1) / kBQ);
+  flash_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, d, bkv, causal,
+      log2e / sqrtf(static_cast<float>(d)), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
              int sq, int skv, int d, int bkv, int causal, cudaStream_t s) {
-  if (bkv == 32) return launch<T, 32>(q, k, v, o, bh, sq, skv, d, causal, s);
-  if (bkv == 64) return launch<T, 64>(q, k, v, o, bh, sq, skv, d, causal, s);
-  if (bkv == 128) return launch<T, 128>(q, k, v, o, bh, sq, skv, d, causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (bkv != 32 && bkv != 64 && bkv != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 64) return launch<64>(q, k, v, o, bh, sq, skv, d, bkv, causal, s);
+  return launch<128>(q, k, v, o, bh, sq, skv, d, bkv, causal, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -538,7 +624,7 @@ int repro_flash(const void* q, const void* k, const void* v, void* o, int bh,
                 int sq, int skv, int d, int bkv, int causal, int dtype,
                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, bh, sq, skv, d, bkv, causal, s);
+  if (dtype == 0) return dispatch(q, k, v, o, bh, sq, skv, d, bkv, causal, s);
   return dispatch_tc(q, k, v, o, bh, sq, skv, d, bkv, causal, s);
 }
 

@@ -22,16 +22,37 @@
 // float32: gmm_kernel, on the CUDA cores (TF32 would keep too few digits for
 // the float32 tolerance).  The Pallas kernel prefetches the ids as scalars
 // so that the W BlockSpec's index map can pick the expert of each tile.
-// Here each block reads its own id: a block owns a BM x 64 tile of O, with
-// BM = 64 rows (8 warps) when bm is a multiple of 64 and BM = 32 (4 warps)
-// otherwise, so its rows lie in one bm-row tile and belong to one expert.
-// It walks K in steps of 16, staging the (BM, 16) tile of X and the (16, 64)
-// tile of W[e] in shared memory, and every thread updates a 4 x 4
-// micro-tile of O held in registers.  A 64-row block reads W[e] once for 64
-// rows, so wider expert tiles halve the weight traffic, as they do on the
-// TPU.  Who reads what: warp w stages rows 8w .. 8w+7 of every X tile and
-// columns 64/W*w .. 64/W*(w+1) - 1 (W warps) of every W tile, and stores
-// rows 8w .. 8w+7 of the O tile (kernels/gmm.py:gmm_spec).
+// Here each block reads its own id: a block owns a BM x BN tile of O, with
+// BM = 64 rows when bm is a multiple of 64 and BM = 32 otherwise, so its
+// rows lie in one bm-row tile and belong to one expert: a 64-row block
+// reads W[e] once for 64 rows, so wider expert tiles halve the weight
+// traffic, as they do on the TPU.  BN is 128 columns, or 64 where a grid of
+// 128-column blocks would have fewer blocks than the card's 132 SMs
+// (kernels/gmm.py:block_cols; the wrapper passes it).  A block has BM BN /
+// 1024 warps; warp w computes the 32 x 32 sub-tile at rows 32 (w / (BN /
+// 32)), columns 32 (w % (BN / 32)), and lane (r, c) = (lane / 8, lane % 8)
+// holds rows r + 4i (i < 8) and columns 4c .. 4c+3 of it in registers.  K
+// is walked in steps of 16 through a three-stage cp.async ring of (BM, 16)
+// X tiles, row-major with a padded row of 20 floats, and (16, BN) W tiles:
+// per 4 steps of K a lane reads 8 rows of X and 4 rows of W, 16 bytes each,
+// for 128 FMAs, and the 4 rows or 8 column chunks one load instruction
+// reads fill 32 different banks.  Raster: the blocks of a group of 8
+// consecutive row blocks sweep the column slices, the group's row blocks
+// of one slice next to each other, so the row blocks of one expert read
+// each W slice at about the same time and all but the first find it in L2
+// (W is read from memory about once), while the group's rows of X stay in
+// L2 across the slices.  Who reads what (lane l of warp w copies the
+// 16-byte chunks of the warp's part of each staged tile): warp w stages
+// rows BM/W*w .. BM/W*(w+1) - 1 of every X tile and columns BN/W*w ..
+// BN/W*(w+1) - 1 of every W tile (W warps), and stores its 32 x 32
+// sub-tile of O (kernels/gmm.py:gmm_spec describes exactly this).  Rows
+// that are not 16-byte aligned (K or N not a multiple of 4, or a base
+// pointer off 16 bytes) are staged with 4-byte copies and stored with
+// 4-byte stores by the same lanes; edges in K and N are zero-filled.  A
+// block whose id is out of [0, E) reads no weights and stores zeros.  What
+// is left to the card's float32 peak: the 12 shared loads per 128 FMAs
+// take issue slots, and at bm 32 a block's 32 rows bound the reuse of each
+// staged W row.
 //
 // bfloat16: gmm_tc_kernel, on the tensor cores (mma.sync m16n8k16, float32
 // accumulators; helpers in mma.cuh).  First gmm_plan_kernel cuts every run
@@ -73,99 +94,169 @@
 
 namespace {
 
-constexpr int kBN = 64;
-constexpr int kBK = 16;
+constexpr int kBK = 16;       // depth of a staged step
+constexpr int kStages = 3;    // the cp.async ring
+constexpr int kXLd = kBK + 4; // padded row of a staged X tile
+constexpr int kRaster = 8;    // row blocks a raster group
 
-template <typename T, int BM>
-__global__ void __launch_bounds__(BM * 4)
-gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           const int* __restrict__ ids, T* __restrict__ o, int k, int n,
-           int e, int bm) {
-  constexpr int kWarps = BM / 8;        // each warp: 8 rows of the tile
-  constexpr int kWCols = kBN / kWarps;  // W tile columns each warp stages
-  constexpr int kWRows = 32 / kWCols;   // W tile rows per staging step
-  __shared__ float xs[BM][kBK + 1];  // +1: no bank conflicts on column reads
-  __shared__ float ws[kBK][kBN];
+template <int BM, int BN>
+__global__ void __launch_bounds__(BM * BN / 32, 16384 / (BM * BN))
+gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+           const int* __restrict__ ids, float* __restrict__ o, int m, int k, int n,
+           int e, int bm, int vec_x, int vec_w, int vec_o) {
+  constexpr int kWN = BN / 32;            // warps across the block's columns
+  constexpr int kWarps = BM / 32 * kWN;   // each: 32 x 32 of O
+  constexpr int kXRows = BM / kWarps;     // X tile rows each warp stages
+  constexpr int kXPer = kXRows * 4 / 32;  // ... 16-byte chunks a lane
+  constexpr int kWCols = BN / kWarps;     // W tile columns each warp stages
+  constexpr int kWC = kWCols / 4;         // ... in 16-byte chunks
+  constexpr int kWRows = 32 / kWC;        // W tile rows a warp copies at once
+  __shared__ __align__(16) float xs[kStages][BM][kXLd];
+  __shared__ __align__(16) float ws[kStages][kBK][BN];
+
+  // raster: groups of kRaster row blocks, each group sweeping the column
+  // slices with its row blocks of one slice next to each other
+  const int row_blocks = m / BM;
+  const int col_blocks = (n + BN - 1) / BN;
+  const int first = blockIdx.x / (kRaster * col_blocks) * kRaster;
+  const int size = min(kRaster, row_blocks - first);
+  const int in_group = blockIdx.x - first * col_blocks;
+  const int row0 = (first + in_group % size) * BM;
+  const int col0 = in_group / size * BN;
+  const int expert = ids[row0 / bm];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * kBN;
-  const int expert = ids[row0 / bm];
-  // this thread's 4x4 micro-tile: rows 4*ty .., columns 4*tx ..
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+  const int wr = 32 * (warp / kWN);  // the warp's sub-tile of O
+  const int wc = 32 * (warp % kWN);
+  const int rg = lane / 8;           // rows wr + rg + 4i, columns wc + 4cg ..
+  const int cg = lane % 8;
 
-  float acc[4][4];
+  float acc[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
 
   if (expert >= 0 && expert < e) {
-    const T* we = w + (size_t)expert * k * n;
-    for (int k0 = 0; k0 < k; k0 += kBK) {
+    const float* xb = x + (size_t)row0 * k;
+    const float* wb = w + (size_t)expert * k * n;
+    const int nk = (k + kBK - 1) / kBK;
+    auto stage = [&](int slot, int kt) {
+      const int k0 = kt * kBK;
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int r = 8 * warp + 2 * s + lane / 16;
-        const int cc = lane % 16;
-        const int gc = k0 + cc;
-        xs[r][cc] = gc < k ? to_float(x[(size_t)(row0 + r) * k + gc]) : 0.f;
-      }
+      for (int s = 0; s < kXPer; ++s) {  // X: rows kXRows w + lane / 4 + 8s, chunk lane % 4
+        const int r = kXRows * warp + lane / 4 + 8 * s;
+        const int c = 4 * (lane % 4);
+        const float* src = xb + (size_t)r * k + k0 + c;
+        if (vec_x) {
+          const bool in = k0 + c < k;
+          cp_async16(smem_u32(&xs[slot][r][c]), in ? src : xb, in ? 16 : 0);
+        } else {
 #pragma unroll
-      for (int s = 0; s < kBK / kWRows; ++s) {
-        const int r = kWRows * s + lane / kWCols;
-        const int cc = kWCols * warp + lane % kWCols;
-        const int gr = k0 + r;
-        const int gc = col0 + cc;
-        ws[r][cc] = (gr < k && gc < n) ? to_float(we[(size_t)gr * n + gc]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = xs[4 * ty + i][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = ws[kk][4 * tx + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+          for (int j = 0; j < 4; ++j) {
+            const bool in = k0 + c + j < k;
+            cp_async4(smem_u32(&xs[slot][r][c + j]), in ? src + j : xb, in ? 4 : 0);
+          }
         }
       }
-      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < kBK / kWRows; ++s) {  // W: rows lane / kWC + kWRows s
+        const int r = lane / kWC + kWRows * s;
+        const int c = kWCols * warp + 4 * (lane % kWC);
+        const bool row_in = k0 + r < k;
+        const float* src = wb + (size_t)(k0 + r) * n + col0 + c;
+        if (vec_w) {
+          const bool in = row_in && col0 + c < n;
+          cp_async16(smem_u32(&ws[slot][r][c]), in ? src : wb, in ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bool in = row_in && col0 + c + j < n;
+            cp_async4(smem_u32(&ws[slot][r][c + j]), in ? src + j : wb, in ? 4 : 0);
+          }
+        }
+      }
+    };
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < nk) stage(st, st);
+      cp_async_commit();
     }
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kStages - 2>();  // step kt has landed
+      __syncthreads();               // ... for every thread; step kt - 1 is done
+      if (kt + kStages - 1 < nk) stage((kt + kStages - 1) % kStages, kt + kStages - 1);
+      cp_async_commit();
+      const int slot = kt % kStages;
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 4) {
+        float a[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 a4 = *reinterpret_cast<const float4*>(&xs[slot][wr + rg + 4 * i][kk]);
+          a[i][0] = a4.x;
+          a[i][1] = a4.y;
+          a[i][2] = a4.z;
+          a[i][3] = a4.w;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 b = *reinterpret_cast<const float4*>(&ws[slot][kk + q][wc + 4 * cg]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][0] = fmaf(a[i][q], b.x, acc[i][0]);
+            acc[i][1] = fmaf(a[i][q], b.y, acc[i][1]);
+            acc[i][2] = fmaf(a[i][q], b.z, acc[i][2]);
+            acc[i][3] = fmaf(a[i][q], b.w, acc[i][3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
   }
 
+  const int gc = col0 + wc + 4 * cg;
+  if (gc >= n) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t gr = row0 + 4 * ty + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = col0 + 4 * tx + j;
-      if (gc < n) o[gr * n + gc] = from_float<T>(acc[i][j]);
+  for (int i = 0; i < 8; ++i) {
+    float* dst = o + (size_t)(row0 + wr + rg + 4 * i) * n + gc;
+    if (vec_o) {
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+      dst[0] = acc[i][0];
+      if (gc + 1 < n) dst[1] = acc[i][1];
+      if (gc + 2 < n) dst[2] = acc[i][2];
+      if (gc + 3 < n) dst[3] = acc[i][3];
     }
   }
 }
 
-template <typename T, int BM>
+template <int BM, int BN>
 int launch(const void* x, const void* w, const void* ids, void* o, int m,
            int k, int n, int e, int bm, cudaStream_t stream) {
-  dim3 grid((n + kBN - 1) / kBN, m / BM);
-  gmm_kernel<T, BM><<<grid, BM * 4, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const int*>(ids), static_cast<T*>(o), k, n, e, bm);
+  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int blocks = m / BM * ((n + BN - 1) / BN);
+  gmm_kernel<BM, BN><<<blocks, BM * BN / 32, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const int*>(ids), static_cast<float*>(o), m, k, n, e, bm,
+      k % 4 == 0 && al(x), n % 4 == 0 && al(w), n % 4 == 0 && al(o));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// bn: 128, or 64 where the 128-column grid leaves SMs idle
+// (kernels/gmm.py:block_cols)
 int dispatch(const void* x, const void* w, const void* ids, void* o, int m,
-             int k, int n, int e, int bm, cudaStream_t s) {
-  if (bm % 64 == 0) return launch<T, 64>(x, w, ids, o, m, k, n, e, bm, s);
-  return launch<T, 32>(x, w, ids, o, m, k, n, e, bm, s);
+             int k, int n, int e, int bm, int bn, cudaStream_t s) {
+  if (bn != 64 && bn != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (bm % 64 == 0) {
+    if (bn == 128) return launch<64, 128>(x, w, ids, o, m, k, n, e, bm, s);
+    return launch<64, 64>(x, w, ids, o, m, k, n, e, bm, s);
+  }
+  if (bn == 128) return launch<32, 128>(x, w, ids, o, m, k, n, e, bm, s);
+  return launch<32, 64>(x, w, ids, o, m, k, n, e, bm, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -447,13 +538,15 @@ int launch_tc(const void* x, const void* w, const void* ids, void* plan, void* o
 // Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16; ids
 // are int32 on the device, one per bm-row tile.  plan is int32 scratch on
 // the device for the bfloat16 route, 1 + 2 (ceil(m / 128) + m / bm) ints
-// (kernels/gmm.py:plan_ints), and unused in float32.
+// (kernels/gmm.py:plan_ints), and unused in float32; bn is the float32
+// route's block width, 64 or 128 (kernels/gmm.py:block_cols), and unused in
+// bfloat16.
 extern "C" {
 
 int repro_gmm(const void* x, const void* w, const void* ids, void* plan, void* o,
-              int m, int k, int n, int e, int bm, int dtype, void* stream) {
+              int m, int k, int n, int e, int bm, int bn, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(x, w, ids, o, m, k, n, e, bm, s);
+  if (dtype == 0) return dispatch(x, w, ids, o, m, k, n, e, bm, bn, s);
   return launch_tc(x, w, ids, plan, o, m, k, n, e, bm, s);
 }
 

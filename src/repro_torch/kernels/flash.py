@@ -4,9 +4,11 @@
 (BH, Sq, D) and k, v (BH, Skv, D), with KV heads already broadcast to the
 query heads: one block per 64-query tile walks the KV tiles of ``bkv``
 rows (32, 64 or 128) with the online softmax, float32 sums and the output
-in q's type.  float32 runs on the CUDA cores (8 warps a block); bfloat16
-on the tensor cores (4 warps a block, ``mma.sync`` with K and V staged as
-bf16 in a two-stage ``cp.async`` ring).  The causal mask is aligned
+in q's type.  float32 runs on the CUDA cores (4 warps a block, 16 query
+rows a warp, register tiles fed by 16-byte shared loads, K and V in
+32-row stages through a two-stage ``cp.async`` ring); bfloat16 on the
+tensor cores (4 warps a block, ``mma.sync`` with K and V staged as bf16 in
+a two-stage ``cp.async`` ring).  The causal mask is aligned
 top-left, as the Pallas kernel's (``repro/kernels/flash.py``): query row
 i sees keys j <= i.  (The
 JAX package's oracle ``flash_ref`` aligns it bottom-right, ``j <= i + Skv -
@@ -38,15 +40,18 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: KV tile widths the kernel is built for.
 BKV_CHOICES = (32, 64, 128)
-#: Query rows per block, and warps per block of the float32 kernel (each
-#: stages 8 query rows) and of the bfloat16 one (each owns 16 query rows).
+#: Query rows per block, and warps per block of the float32 kernel and of
+#: the bfloat16 one (each warp of either owns 16 query rows).
 BQ = 64
-WARPS = 8
+WARPS = 4
 TC_WARPS = 4
+#: Keys a ring stage of the float32 kernel holds; each of its warps copies
+#: 8 rows of every K and V stage.
+KV_STAGE = 32
 MAX_D = 128
 #: The Pallas kernel's masked score (``-inf`` would give NaN rows).
 NEG_INF = -1e30
-_GRID_Y_MAX = 65535
+_GRID_Y_MAX = 65535  # bh of the bfloat16 grid, query tiles of the float32 one
 
 
 def _check_operands(q, k, v, bkv: int) -> None:
@@ -77,10 +82,10 @@ def _check_operands(q, k, v, bkv: int) -> None:
         raise ValueError("flash operands must be contiguous (row-major)")
     bh, sq, d = q.shape
     skv = k.shape[1]
-    if min(bh, sq, skv, d) < 1 or d > MAX_D or bh > _GRID_Y_MAX:
+    if min(bh, sq, skv, d) < 1 or d > MAX_D or max(bh, math.ceil(sq / BQ)) > _GRID_Y_MAX:
         raise ValueError(
             f"unsupported flash shape bh={bh} sq={sq} skv={skv} d={d} "
-            f"(d <= {MAX_D}, bh <= {_GRID_Y_MAX})"
+            f"(d <= {MAX_D}, bh and sq/{BQ} <= {_GRID_Y_MAX})"
         )
     if bkv not in BKV_CHOICES:
         raise ValueError(f"bkv must be one of {BKV_CHOICES}, got {bkv}")
@@ -160,11 +165,17 @@ def n_kv_tiles(qt: int, sq: int, skv: int, bkv: int, causal: bool) -> int:
     return n
 
 
-def kv_tile_rows(w: int, bkv: int) -> np.ndarray:
-    """Rows of a ``bkv``-row K or V tile that warp ``w`` of ``flash_kernel``
-    (the float32 route) stages: ``w*bkv/8 .. (w+1)*bkv/8 - 1``."""
-    rows_kv = bkv // WARPS
-    return np.arange(w * rows_kv, (w + 1) * rows_kv, dtype=np.int64)
+def kv_walk_end(qt: int, sq: int, skv: int, bkv: int, causal: bool) -> int:
+    """One past the last K and V row the block of query tile ``qt`` stages:
+    its ``n_kv_tiles`` tiles of ``bkv`` rows, cut at ``skv``."""
+    return min(skv, n_kv_tiles(qt, sq, skv, bkv, causal) * bkv)
+
+
+def stage_rows(w: int) -> np.ndarray:
+    """Rows of a 32-row K or V stage that warp ``w`` of ``flash_kernel``
+    (the float32 route) copies: ``8w .. 8w+7``."""
+    per = KV_STAGE // WARPS
+    return np.arange(w * per, (w + 1) * per, dtype=np.int64)
 
 
 def _row_elems(rows: np.ndarray, d: int) -> np.ndarray:
@@ -228,27 +239,34 @@ def cuda_core_spec(
     """Warp footprints of ``flash_kernel`` (``csrc/flash.cu``), the float32
     route on the CUDA cores.
 
-    Program ``(h, qt, w)`` is warp ``w`` (0..7) of the block of query tile
-    ``qt`` (64 rows) of head ``h``, over a grid ``(bh, ceil(sq/64), 8)``.
-    It stages query rows ``64qt + 8w .. +7`` (those below ``sq``), stages
-    rows ``w*bkv/8 .. (w+1)*bkv/8 - 1`` of every K and V tile its block
-    walks (below ``skv``; causal blocks stop at the diagonal), and stores
-    its 8 rows of O.  The footprints are exact index walks: a causal block
-    walks as many tiles as its diagonal allows, which no fixed block shape
-    describes.  Shared memory and registers are not modeled, as the
-    reference does not model the Pallas pipeline's VMEM buffers.
+    Program ``(h, qt, w)`` is warp ``w`` (0..3) of the block of query tile
+    ``qt`` (64 rows) of head ``h``, over a grid ``(bh, ceil(sq/64), 4)``
+    (the kernel launches the tiles last first, which moves no footprint).
+    Warp w owns query rows ``64qt + 16w .. +15``: it stages them (those
+    below ``sq``), and stores them as rows of O.  Its block walks the K and
+    V rows below ``kv_walk_end`` (``n_kv_tiles`` tiles of ``bkv`` rows,
+    causal blocks stopping at the diagonal) as stages of 32 rows, and the
+    warp copies rows ``8w .. 8w+7`` of every stage (``stage_rows``).  Every row
+    is read or stored whole, its ``d`` columns; the kernel's 16-byte
+    chunks and its 4-byte words off alignment touch the same elements.  The
+    footprints are exact index walks: a causal block walks as many tiles
+    as its diagonal allows, which no fixed block shape describes.  Shared
+    memory and registers are not modeled, as the reference does not model
+    the Pallas pipeline's VMEM buffers.
     """
 
     def q_rows(pid) -> np.ndarray:
         h, qt, w = pid
-        lo = qt * BQ + 8 * w
-        return h * sq + np.arange(lo, min(lo + 8, sq), dtype=np.int64)
+        per = BQ // WARPS
+        lo = qt * BQ + per * w
+        return h * sq + np.arange(lo, min(lo + per, sq), dtype=np.int64)
 
     def kv_rows(pid) -> np.ndarray:
         h, qt, w = pid
-        starts = np.arange(n_kv_tiles(qt, sq, skv, bkv, causal), dtype=np.int64)
-        rows = (starts[:, None] * bkv + kv_tile_rows(w, bkv)).reshape(-1)
-        return h * skv + rows[rows < skv]
+        end = kv_walk_end(qt, sq, skv, bkv, causal)
+        starts = np.arange(0, end, KV_STAGE, dtype=np.int64)
+        rows = (starts[:, None] + stage_rows(w)).reshape(-1)
+        return h * skv + rows[rows < end]
 
     def q_walk(pid, **_):
         return _row_elems(q_rows(pid), d)

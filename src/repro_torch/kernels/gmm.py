@@ -7,11 +7,14 @@ names the expert of each tile; ``csrc/gmm.cu`` then computes, for every
 ``bm``-row tile ``i``, ``O[i] = X[i] · W[tile_expert_ids[i]]`` with float32
 accumulation and O in x's type.  Each block reads its tiles' ids, where
 the Pallas kernel prefetches the ids as scalars for its W index map.
-float32 runs on the CUDA cores (one expert tile a block); bfloat16 on the
-tensor cores: a first kernel cuts each run of tiles with one expert into
-chunks of up to 128 rows (``expert_chunks``), then 128-column blocks of 4
-warps take one chunk each, ``mma.sync`` fed by a three-stage ``cp.async``
-ring.
+float32 runs on the CUDA cores (a block of 32 or 64 rows of one expert
+tile by 128 columns, or 64 where 128 would leave SMs idle, 32 x 32 of O a
+warp in register tiles fed by 16-byte shared loads, a three-stage
+``cp.async`` ring, and a raster that keeps one expert's row blocks next to
+each other on each W slice); bfloat16 on the tensor cores: a first kernel
+cuts each run of tiles with one expert into chunks of up to 128 rows
+(``expert_chunks``), then 128-column blocks of 4 warps take one chunk
+each, ``mma.sync`` fed by a three-stage ``cp.async`` ring.
 
 The wrapper ``gmm(x, w, tile_expert_ids, bm=128)`` checks its operands,
 launches on the current stream and counts its launches in
@@ -34,23 +37,35 @@ from repro_torch.core.collector import KernelSpec, OperandSpec
 
 from . import _build
 from .flash import BF16_STORAGE, chunk_elems, is_bf16, staged_chunks
+from .gemm import SMS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Rows of O per block (one expert's): 64 when bm allows, else 32.
 BLOCK_M = 32
+#: Columns of O per block of the float32 kernel (``block_cols``), and the
+#: rows and columns of its warps' sub-tiles.
+BLOCK_N = 128
+WARP_M = WARP_N = 32
 #: The bfloat16 kernel's block: rows and columns of O, depth of a staged
 #: step, and warps.
 TC_BM = 128
 TC_BN = 128
 TC_BK = 64
 TC_WARPS = 4
-_GRID_Y_MAX = 65535
+_GRID_MAX = 2**31 - 1  # blocks of a one-dimensional grid
 
 
 def block_rows(bm: int) -> int:
-    """Rows of O per block of the kernel for expert tiles of ``bm`` rows:
-    64 (8 warps) when ``bm`` is a multiple of 64, else 32 (4 warps)."""
+    """Rows of O per block of the float32 kernel for expert tiles of ``bm``
+    rows: 64 when ``bm`` is a multiple of 64, else 32."""
     return 64 if bm % 64 == 0 else BLOCK_M
+
+
+def block_cols(m: int, n: int, bm: int) -> int:
+    """Columns of O per block of the float32 kernel: 128 when the grid of
+    ``block_rows(bm)`` x 128 blocks has a block for each of the card's 132
+    SMs, else 64 (twice the blocks, each of half the warps)."""
+    return BLOCK_N if m // block_rows(bm) * math.ceil(n / BLOCK_N) >= SMS else BLOCK_N // 2
 
 
 def plan_groups(group_sizes: np.ndarray, bm: int) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -109,7 +124,7 @@ def _check_operands(x, w, ids, bm: int) -> None:
         raise ValueError(
             f"tile_expert_ids has {ids.shape[0]} entries for {m // bm} tiles"
         )
-    if min(m, k, n, e) < 1 or m // block_rows(bm) > _GRID_Y_MAX:
+    if min(m, k, n, e) < 1 or m // block_rows(bm) * math.ceil(n / (BLOCK_N // 2)) > _GRID_MAX:
         raise ValueError(f"unsupported gmm shape m={m} k={k} n={n} e={e}")
 
 
@@ -145,7 +160,7 @@ def tolerance(want: torch.Tensor, x: torch.Tensor, *_) -> float:
     return 1e-2 * float(want.float().abs().max())
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def plan_ints(m: int, bm: int) -> int:
@@ -172,7 +187,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_expert_ids: torch.Tensor,
             "gmm", "repro_gmm", _ARGTYPES,
             x.data_ptr(), w.data_ptr(), tile_expert_ids.data_ptr(),
             None if plan is None else plan.data_ptr(), o.data_ptr(),
-            m, k, n, e, bm, _DTYPES[x.dtype], stream,
+            m, k, n, e, bm, block_cols(m, n, bm), _DTYPES[x.dtype], stream,
         )
     gmm.launches += 1
     return o
@@ -219,36 +234,43 @@ def cuda_core_spec(
     route on the CUDA cores.
 
     The kernel's blocks own ``BM`` rows (``block_rows(bm)``: 64 when ``bm``
-    is a multiple of 64, else 32) and 64 columns of O, with ``W = BM/8``
-    warps.  Program ``(by, bx, w)`` is warp ``w`` of the block at rows
-    ``BM*by``, columns ``64bx``, over a grid ``(m/BM, ceil(n/64), W)``.
-    Across the K loop it reads X rows ``BM*by + 8w .. +7`` in full (block
-    ``(8, k)``), columns ``64bx + (64/W)w .. +64/W-1`` of its expert's
-    weights in full (block ``(1, k, 64/W)`` at the expert of bm-tile
-    ``BM*by // bm``), and stores its 8 rows of the block's O tile (block
-    ``(8, 64)``).
+    is a multiple of 64, else 32) and ``BN`` columns of O (``block_cols``:
+    128, or 64 on a grid too small for the card), with ``W = BM BN / 1024``
+    warps of 32 x 32.  Program ``(by, bx, w)`` is warp ``w`` of the block at
+    rows ``BM*by``, columns ``BN*bx``, over a grid ``(m/BM, ceil(n/BN),
+    W)`` (the kernel's raster launches them in another order, which moves
+    no footprint).  Across the K loop it stages X rows ``BM*by + (BM/W)w ..
+    +BM/W-1`` in full (block ``(BM/W, k)``) and columns ``BN*bx + (BN/W)w ..
+    +BN/W-1`` of its expert's weights in full (block ``(1, k, BN/W)`` at the
+    expert of bm-tile ``BM*by // bm``), and stores its 32 x 32 sub-tile of
+    O, rows ``32(w // (BN/32))``, columns ``32(w % (BN/32))`` of the block's
+    (block ``(32, 32)``).  The kernel's 16-byte chunks and its 4-byte words
+    off alignment touch the same elements.
     """
     ids = _tile_ids(m, bm, tile_expert_ids)
     if ids.size and (ids.min() < 0 or ids.max() >= e):
         raise ValueError(f"tile_expert_ids must lie in [0, {e})")
     rows = block_rows(bm)
-    warps = rows // 8
-    wcols = 64 // warps
+    cols = block_cols(m, n, bm)
+    wn = cols // WARP_N
+    warps = rows // WARP_M * wn
+    xrows, wcols = rows // warps, cols // warps
     expert = ids[np.arange(m // rows) * rows // bm]
     return KernelSpec(
         name="gmm",
-        grid=(m // rows, math.ceil(n / 64), warps),
+        grid=(m // rows, math.ceil(n / cols), warps),
         operands=(
             OperandSpec(
-                "X", (m, k), dtype, (8, k), lambda by, bx, w: (warps * by + w, 0)
+                "X", (m, k), dtype, (xrows, k), lambda by, bx, w: (warps * by + w, 0)
             ),
             OperandSpec(
                 "W", (e, k, n), dtype, (1, k, wcols),
                 lambda by, bx, w: (expert[by], 0, warps * bx + w),
             ),
             OperandSpec(
-                "O", (m, n), dtype, (8, 64),
-                lambda by, bx, w: (warps * by + w, bx), kind="store",
+                "O", (m, n), dtype, (WARP_M, WARP_N),
+                lambda by, bx, w: (rows // WARP_M * by + w // wn, wn * bx + w % wn),
+                kind="store",
             ),
         ),
     )

@@ -51,7 +51,7 @@ import torch
 from repro_torch.core.collector import KernelSpec, OperandSpec
 
 from . import _build
-from .flash import BQ, _row_elems, cuda_core_spec, kv_tile_rows
+from .flash import BQ, WARPS, _row_elems, cuda_core_spec
 from .ragged_flash import (
     _DTYPES,
     _INT32_MAX,
@@ -253,19 +253,27 @@ def _ctx(bi: int, context_lens, slots: int, page: int) -> int:
     return min(max(int(context_lens[bi]), 0), slots * page)
 
 
+def _page_rows(w: int, page: int) -> np.ndarray:
+    """Rows of a page that warp ``w`` of a prefill block stages: the page's
+    rows split over the block's warps (``flash.WARPS``), ``ceil(page/4)``
+    a warp."""
+    per = -(-page // WARPS)
+    return np.arange(w * per, min((w + 1) * per, page), dtype=np.int64)
+
+
 def _contiguous_walk(bi: int, w: int, n: int, page: int, s: int, d: int) -> np.ndarray:
     """Warp w's rows of the first n pages of sequence bi's contiguous cache,
-    pages as flash.cu's KV tiles (``flash.kv_tile_rows``)."""
-    pos = (np.arange(n, dtype=np.int64)[:, None] * page + kv_tile_rows(w, page)).reshape(-1)
+    pages as the prefill's KV tiles (``_page_rows``)."""
+    pos = (np.arange(n, dtype=np.int64)[:, None] * page + _page_rows(w, page)).reshape(-1)
     return _row_elems(bi * s + pos, d)
 
 
 def _page_walk(bi: int, w: int, n: int, ctx: int, block_tables, page: int,
                pages: int, d: int) -> np.ndarray:
     """Warp w's live rows of the physical pages of sequence bi's first n
-    slots, pages as flash.cu's KV tiles (a page id outside [0, pages) is
+    slots, pages as the prefill's KV tiles (a page id outside [0, pages) is
     skipped)."""
-    rows = kv_tile_rows(w, page)
+    rows = _page_rows(w, page)
     parts = [np.empty(0, np.int64)]
     for j in range(n):
         phys = int(block_tables[bi, j])
@@ -361,8 +369,9 @@ def paged_prefill_spec(
 ) -> KernelSpec:
     """BASELINE prefill (spec only): flash.cu's causal walk over the
     contiguous cache, pages as KV tiles.  Program ``(b, qt, w)`` is warp w of
-    the block of 64-query tile qt: its 8 query rows, rows ``w*ceil(page/8)
-    ..`` of every page up to the diagonal, every table entry, its 8 rows of O."""
+    the block of 64-query tile qt: its 16 query rows, rows
+    ``w*ceil(page/4) ..`` of every page up to the diagonal (``_page_rows``),
+    every table entry, its 16 rows of O."""
     s = slots * page
     base = cuda_core_spec(b, sq, s, d, bkv=page, causal=True, dtype=dtype)
     q, _, _, o = base.operands

@@ -432,7 +432,7 @@ def ragged_decode_ragged_spec(
 
 def _prefill_spec(name, b, sq, s, d, bkv, dtype, gated) -> KernelSpec:
     """``csrc/flash.cu``'s walk of a causal prefill over the (B, S, D) cache,
-    as its 8-warp kernel walks it (``cuda_core_spec``, whatever ``dtype``:
+    as its 4-warp kernel walks it (``cuda_core_spec``, whatever ``dtype``:
     program ``(b, qt, w)`` is warp w of the block of 64-query
     tile qt), with the bounds; with the gate, K and V only inside
     ``[starts[b], ends[b])``."""

@@ -285,6 +285,60 @@ def test_cuda_gmm_matches_plain_version(card, groups, k, n, bm, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bkv", [32, 128])
+@pytest.mark.parametrize("d", [8, 20, 33, 128])
+@pytest.mark.parametrize("sq, skv", [(1000, 1000), (130, 1000), (1000, 130)])
+def test_cuda_flash_f32_walks_the_ring_to_a_ragged_last_stage(card, sq, skv, d, bkv):
+    """The float32 route's 32-key stages through its two-stage ring: 1000
+    keys end in an 8-row stage; causal with Sq != Skv both ways; D 8 and
+    20 (zero-filled to 64), 33 (4-byte copies) and 128.  A second call
+    gives the same bits."""
+    q, k, v = (_randn(card, i, 2, s, d) for i, s in enumerate((sq, skv, skv)))
+    want = flash.flash_plain(q, k, v, True)
+    got = flash.flash_attention(q, k, v, causal=True, bkv=bkv)
+    again = flash.flash_attention(q, k, v, causal=True, bkv=bkv)
+    torch.cuda.synchronize()
+    _assert_within(got, want, flash.tolerance(want, q))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm", [32, 64, 128])
+@pytest.mark.parametrize("k, n", [(264, 1000), (4096, 300), (18, 130)])
+def test_cuda_gmm_f32_raster_groups_and_expert_boundaries(card, bm, k, n):
+    """Groups [257, 0, 31, 600, 700]: experts change inside a raster group
+    of 8 row blocks, the last group is ragged, K is not a multiple of the
+    16-deep step (and 18 is off 16 bytes: 4-byte copies), N leaves a ragged
+    last 128-column slice.  A second call gives the same bits."""
+    _, ids, m = gmm.plan_groups(np.asarray([257, 0, 31, 600, 700]), bm)
+    assert m // gmm.block_rows(bm) % 8
+    x, w = _randn(card, 0, m, k), _randn(card, 1, 5, k, n)
+    tile_ids = torch.from_numpy(ids).to(card)
+    want = gmm.gmm_plain(x, w, tile_ids, bm)
+    got = gmm.gmm(x, w, tile_ids, bm=bm)
+    again = gmm.gmm(x, w, tile_ids, bm=bm)
+    torch.cuda.synchronize()
+    _assert_within(got, want, gmm.tolerance(want, x))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm", [32, 64])
+def test_cuda_gmm_f32_ids_out_of_range_between_runs(card, bm):
+    """Tiles with ids 2, 9, 2, -1, ...: one expert in two runs, and two
+    tiles out of range, whose rows come out zero, in 32- and 64-row
+    blocks."""
+    ids = np.asarray([2, 9, 2, -1, 0, 0, 1, 1], np.int32)
+    x, w = _randn(card, 0, 8 * bm, 40), _randn(card, 1, 3, 40, 70)
+    tile_ids = torch.from_numpy(ids).to(card)
+    want = gmm.gmm_plain(x, w, tile_ids, bm)
+    got = gmm.gmm(x, w, tile_ids, bm=bm)
+    torch.cuda.synchronize()
+    _assert_within(got, want, gmm.tolerance(want, x))
+    assert not got[bm:2 * bm].any() and not got[3 * bm:4 * bm].any()
+
+
+@pytest.mark.gpu
 def test_cuda_flash_bf16_walks_many_ring_stages_and_a_ragged_last_tile(card):
     """1000 keys in tiles of 128: eight tiles through the two-stage ring,
     the last one 104 rows long."""
@@ -349,11 +403,14 @@ def test_cuda_gmm_bf16_ids_out_of_range_between_runs(card):
 @pytest.mark.gpu
 def test_cuda_flash_and_gmm_bf16_kernels_run_on_the_tensor_cores(card):
     """Every bf16 kernel function of the two libraries holds HMMA
-    instructions (cuobjdump -sass); the float32 ones hold none."""
-    for name, tc in (("flash", "flash_tc_kernel"), ("gmm", "gmm_tc_kernel")):
+    instructions (cuobjdump -sass); the float32 ones (``flash_kernel``,
+    ``gmm_kernel``, present) hold none."""
+    for name, tc, f32 in (("flash", "flash_tc_kernel", "flash_kernel"),
+                          ("gmm", "gmm_tc_kernel", "gmm_kernel")):
         counts = _build.sass_counts(name)
         tc_counts = {fn: c for fn, c in counts.items() if tc in fn}
         assert tc_counts and all(c > 0 for c in tc_counts.values()), counts
+        assert any(f32 in fn for fn in counts), counts
         assert all(c == 0 for fn, c in counts.items() if tc not in fn), counts
 
 

@@ -271,69 +271,95 @@ def _add(acc, name, key, idx):
 
 
 def _emulate_flash(bh, sq, skv, d, bkv, causal):
-    """Per-warp flat indices of Q, K, V and O for flash_kernel: blocks of
-    256 threads per (64-query tile, head)."""
+    """Per-warp flat indices of Q, K, V and O for flash_kernel, thread by
+    thread: blocks of 128 threads per (head, 64-query tile), D zero-filled
+    to DP = 64 or 128; lane l of warp w copies chunks l, l + 32, ... of its
+    rows (16 bytes, 4 floats, when D is a multiple of 4, else one float):
+    its 16 Q rows, rows 8w .. 8w+7 of every 32-row K and V stage up to the
+    walk's end; lane (pr, pc) = divmod(lane, 16) stores rows 16w + 8pr ..
+    +7, columns 4pc + 64h."""
+    dp = 64 if d <= 64 else 128
+    per = 4 if d % 4 == 0 else 1  # floats a copy
+    chunks = dp // per
     acc = {n: {} for n in "QKVO"}
+
+    def stage(key, name, lane, base_row, r0, nrows, live):
+        for i in range(lane, nrows * chunks, 32):
+            r, c = r0 + i // chunks, per * (i % chunks)
+            if r < live and c < d:
+                _add(acc, name, key, (base_row + r) * d + np.arange(c, c + per))
+
     for h in range(bh):
         for qt in range(math.ceil(sq / 64)):
             q0 = qt * 64
             tiles = math.ceil(skv / bkv)
             if causal:
                 tiles = min(tiles, (min(q0 + 64, sq) - 1) // bkv + 1)
-            for tid in range(256):
+            kv_end = min(skv, tiles * bkv)
+            for tid in range(128):
                 w, lane = divmod(tid, 32)
                 key = (h, qt, w)
                 for name in "QKVO":
                     _add(acc, name, key, [])
-                cols = np.arange(lane, d, 32)
-                for r in range(8):
-                    gq = q0 + 8 * w + r
-                    if gq < sq:
-                        _add(acc, "Q", key, (h * sq + gq) * d + cols)
-                for t in range(tiles):
-                    for r in range(bkv // 8):
-                        gk = t * bkv + w * (bkv // 8) + r
-                        if gk < skv:
-                            _add(acc, "K", key, (h * skv + gk) * d + cols)
-                            _add(acc, "V", key, (h * skv + gk) * d + cols)
-                r0, c0 = 4 * (tid // 16), tid % 16
-                for i in range(4):
-                    if q0 + r0 + i < sq:
-                        _add(acc, "O", key, (h * sq + q0 + r0 + i) * d + np.arange(c0, d, 16))
+                stage(key, "Q", lane, h * sq + q0, 16 * w, 16, sq - q0)
+                for k0 in range(0, kv_end, 32):
+                    for name in "KV":
+                        stage(key, name, lane, h * skv + k0, 8 * w, 8, kv_end - k0)
+                pr, pc = divmod(lane, 16)
+                for i in range(8):
+                    gq = q0 + 16 * w + 8 * pr + i
+                    for c in range(4 * pc, dp, 64):
+                        if gq < sq and c < d:
+                            _add(acc, "O", key, (h * sq + gq) * d + np.arange(c, min(c + 4, d)))
     return acc
 
 
 def _emulate_gmm(m, k, n, ids, bm):
-    """Per-warp flat indices of X, W and O for gmm_kernel: blocks of BM
-    rows (64 if bm allows, else 32) by 64 columns, 4*BM threads."""
+    """Per-warp flat indices of X, W and O for gmm_kernel, thread by thread:
+    a one-dimensional grid of blocks of BM rows (64 if bm allows, else 32)
+    by BN columns (128 when that grid has a block for each of 132 SMs, else
+    64), BM*BN/32 threads, rastered in groups of 8 row blocks that sweep
+    the column slices; per K step of 16, lane l of warp w (of W) copies X
+    rows (BM/W)w + l/4 + 8s, chunk l%4, and W rows l/wc + (32/wc)s, chunk
+    l%wc of its BN/W columns (16 bytes when K, N are multiples of 4, else 4
+    floats one by one); lane (rg, cg) = divmod(lane, 8) stores rows rg +
+    4i, columns 4cg .. of the warp's 32 x 32 sub-tile."""
     rows = 64 if bm % 64 == 0 else 32
-    warps = rows // 8
-    wcols = 64 // warps
+    cols = 128 if m // rows * math.ceil(n / 128) >= 132 else 64
+    wn = cols // 32
+    warps = rows // 32 * wn
+    xrows, wcols = rows // warps, cols // warps
+    wc = wcols // 4
+    row_blocks, col_blocks = m // rows, math.ceil(n / cols)
     acc = {n_: {} for n_ in ("X", "W", "O")}
-    for by in range(m // rows):
-        ex = ids[by * rows // bm]
-        for bx in range(math.ceil(n / 64)):
-            for tid in range(4 * rows):
-                w, lane = divmod(tid, 32)
-                key = (by, bx, w)
-                for name in acc:
-                    _add(acc, name, key, [])
-                for k0 in range(0, k, 16):
-                    for s in range(4):
-                        r, gc = 8 * w + 2 * s + lane // 16, k0 + lane % 16
-                        if gc < k:
-                            _add(acc, "X", key, [(by * rows + r) * k + gc])
-                    for s in range(16 // (32 // wcols)):
-                        gr = k0 + (32 // wcols) * s + lane // wcols
-                        gc = 64 * bx + wcols * w + lane % wcols
-                        if gr < k and gc < n:
-                            _add(acc, "W", key, [(ex * k + gr) * n + gc])
-                ty, tx = divmod(tid, 16)
-                for i in range(4):
-                    for j in range(4):
-                        gc = 64 * bx + 4 * tx + j
-                        if gc < n:
-                            _add(acc, "O", key, [(by * rows + 4 * ty + i) * n + gc])
+    launched = set()
+    for bid in range(row_blocks * col_blocks):
+        first = bid // (8 * col_blocks) * 8
+        size = min(8, row_blocks - first)
+        by, bx = first + (bid - first * col_blocks) % size, (bid - first * col_blocks) // size
+        assert (by, bx) not in launched  # the raster launches each block once
+        launched.add((by, bx))
+        row0, col0 = by * rows, bx * cols
+        ex = ids[row0 // bm]
+        for tid in range(32 * warps):
+            w, lane = divmod(tid, 32)
+            key = (by, bx, w)
+            for name in acc:
+                _add(acc, name, key, [])
+            for k0 in range(0, k, 16):
+                for s_ in range(xrows * 4 // 32):
+                    r, c = xrows * w + lane // 4 + 8 * s_, k0 + 4 * (lane % 4)
+                    _add(acc, "X", key, (row0 + r) * k + np.arange(c, min(c + 4, k)))
+                for s_ in range(16 // (32 // wc)):
+                    r = k0 + lane // wc + (32 // wc) * s_
+                    c = col0 + wcols * w + 4 * (lane % wc)
+                    if r < k:
+                        _add(acc, "W", key, (ex * k + r) * n + np.arange(c, min(c + 4, n)))
+            rg, cg = divmod(lane, 8)
+            gc = col0 + 32 * (w % wn) + 4 * cg
+            for i in range(8):
+                row = row0 + 32 * (w // wn) + rg + 4 * i
+                _add(acc, "O", key, row * n + np.arange(gc, min(gc + 4, n)))
     return acc
 
 
@@ -428,9 +454,14 @@ def _assert_spec_matches(spec, acc, shapes, itemsize=4):
 @pytest.mark.parametrize(
     "bh, sq, skv, d, bkv, causal",
     [(2, 64, 64, 32, 32, True), (1, 100, 130, 20, 64, True), (2, 70, 130, 64, 32, False),
-     (1, 40, 150, 16, 128, True), (1, 130, 130, 8, 64, True)],
+     (1, 40, 150, 16, 128, True), (1, 130, 130, 8, 64, True),
+     # the ring over ten stages with a ragged last one, D off 16 bytes (one
+     # float a copy); Sq != Skv at D = 128 (DP 128, two column groups a lane)
+     (1, 200, 300, 33, 128, True), (1, 130, 70, 128, 32, True)],
 )
 def test_flash_spec_matches_kernel_thread_mapping(bh, sq, skv, d, bkv, causal):
+    """Every case of the old mapping, and cases that reach the new ring's
+    last stage and the 4-byte copies."""
     acc = _emulate_flash(bh, sq, skv, d, bkv, causal)
     spec = flash.flash_spec(bh, sq, skv, d, bkv=bkv, causal=causal)
     _assert_spec_matches(
@@ -440,7 +471,14 @@ def test_flash_spec_matches_kernel_thread_mapping(bh, sq, skv, d, bkv, causal):
 
 @pytest.mark.parametrize(
     "groups, k, n, bm",
-    [([100, 28, 0, 130], 40, 70, 32), ([64, 64, 64, 64], 16, 64, 64), ([10, 300], 33, 130, 128)],
+    [([100, 28, 0, 130], 40, 70, 32), ([64, 64, 64, 64], 16, 64, 64), ([10, 300], 33, 130, 128),
+     # 26 row blocks: raster groups of 8, 8, 8 and a ragged 2, experts
+     # changing inside a group, a ragged last column slice
+     ([100, 28, 0, 130, 500], 20, 300, 32),
+     # bm 64 with K off 16 bytes (4-byte copies)
+     ([70, 200, 64], 18, 130, 64),
+     # 128-column blocks (at least 132 of them), bm 32 and 64
+     ([1100, 1000, 12], 8, 130, 32), ([1500, 1300], 12, 260, 64)],
 )
 def test_gmm_spec_matches_kernel_thread_mapping(groups, k, n, bm):
     _, ids, m = gmm.plan_groups(np.asarray(groups), bm)
@@ -490,9 +528,11 @@ def _ref_classes(ref_name):
 def test_model_family_pattern_divergences_are_the_recorded_ones():
     """Recorded in ROADMAP queue 3: the Pallas flash grid revisits its Q and
     O blocks at every KV step (hot Q, O), the CUDA block stages Q once and
-    stores O once; the CUDA gmm splits N over 64-column blocks, so X rows
-    are re-read by every column block and each W slice by every row block
-    of its expert (hot X, W), where a Pallas program takes all of N; a
+    stores O once (the float32 route's 32-key stages stage each K and V
+    row once a block, as its earlier whole tiles did, so its classes
+    stayed); the CUDA gmm splits N over 64- or 128-column blocks, so X
+    rows are re-read by every column block and each W slice by every row
+    block of its expert (hot X, W), where a Pallas program takes all of N; a
     chunk's 128 log-decays share an (8, 128) TPU tile with seven other
     chunks (false sharing on A), and are 16 whole sectors read by warp 0 of
     each of the cell's blocks (two row tiles and a state unit at the
@@ -520,9 +560,11 @@ def test_model_families_keep_the_reference_names_and_shapes():
     assert kreg.SSD_SHAPE == (4, 8, 128, 64, 64)
     np.testing.assert_array_equal(kreg._gmm_ids(), rk._gmm_ids())
     spec = kreg.build("gmm")[0]
-    # bm = 128 tiles run in 64-row blocks of 8 warps
-    assert spec.grid == (16, 8, 8)
-    assert kreg.build("flash")[0].grid == (4, 16, 8)
+    # bm = 128 tiles run in 64-row blocks; 64 blocks of 128 columns would
+    # leave SMs idle, so 128 of 64 columns, 4 warps of 32 x 32 each
+    assert spec.grid == (16, 8, 4)
+    # 4 warps of 16 query rows a block (8 of 8 until the float32 redesign)
+    assert kreg.build("flash")[0].grid == (4, 16, 4)
     # two row tiles of 128 and one state unit a cell, 8 warps a block
     assert kreg.build("ssd")[0].grid == (4, 8, 3, 8)
 
@@ -595,7 +637,10 @@ def test_every_model_kind_has_a_ladder_improvement_or_single_rung():
     """The ladder precondition of the reference, priced by the port's own
     traced transfers (the port has no lint yet).  attn is the recorded
     divergence: a CUDA block reads each K/V row once whatever its tile
-    width, so wide-kv moves no device traffic under the H100 geometry."""
+    width (the float32 route walks 32-key stages either way), so wide-kv
+    moves no device traffic under the H100 geometry; moe keeps its
+    direction, as a 64-row block of tile64 reads each W slice once for 64
+    rows."""
     for model_name, entry in MODELS.items():
         for kind in kernel_kinds(entry.config):
             fam = kreg.get(f"model.{model_name}.{kind}")

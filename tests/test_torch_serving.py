@@ -474,9 +474,11 @@ def test_engine_parity_on_reference_serving_specs(pair):
 
 PINNED_PORT = {
     ("ragged_flash:decode", "ragged_flash:decode-ragged"): (68824, 13104),
-    ("ragged_flash:prefill", "ragged_flash:prefill-ragged"): (393728, 149696),
+    # prefill: a 4-warp block of flash.cu's float32 route reads its
+    # sequence's bounds once a warp (a block of 8 warps read 256 more each)
+    ("ragged_flash:prefill", "ragged_flash:prefill-ragged"): (393472, 149440),
     ("paged_attn:decode", "paged_attn:decode-paged"): (71244, 23464),
-    ("paged_attn:prefill", "paged_attn:prefill-paged"): (360960, 208960),
+    ("paged_attn:prefill", "paged_attn:prefill-paged"): (360704, 208704),
 }
 
 
@@ -679,27 +681,29 @@ def _emulate_paged(b, h, d, pages, page, slots, tables, lens, dense, route="floa
 
 
 def _emulate_prefill(b, sq, s, d, kv_chunks):
-    """Per-warp flat indices of a flash.cu-shaped prefill: blocks of 256
-    threads per (64-query tile, sequence).  ``kv_chunks(bi, qt)`` lists the
-    (first flat row, n rows, staged rows) of each KV chunk the block walks;
-    warp w stages its rows ``w*ceil(n/8) ..`` of each, when staged."""
+    """Per-warp flat indices of a flash.cu-shaped prefill (its float32
+    route): blocks of 128 threads per (64-query tile, sequence), warp w
+    staging and storing query rows ``16w .. 16w+15``.  ``kv_chunks(bi,
+    qt)`` lists the (first flat row, n rows, staged rows) of each KV chunk
+    the block walks; warp w stages its rows ``w*ceil(n/4) ..`` of each,
+    when staged."""
     acc = {n: {} for n in ("Q", "K", "V", "O")}
     for bi in range(b):
         for qt in range(math.ceil(sq / 64)):
             chunks = kv_chunks(bi, qt)
-            for tid in range(256):
+            for tid in range(128):
                 w, lane = divmod(tid, 32)
                 key = (bi, qt, w)
                 for name in acc:
                     _add(acc, name, key, [])
                 cols = np.arange(lane, d, 32)
-                for r in range(8):
-                    gq = qt * 64 + 8 * w + r
+                for r in range(16):
+                    gq = qt * 64 + 16 * w + r
                     if gq < sq:
                         _add(acc, "Q", key, (bi * sq + gq) * d + cols)
                         _add(acc, "O", key, (bi * sq + gq) * d + cols)
                 for row0, n, staged in chunks:
-                    rpw = -(-n // 8)
+                    rpw = -(-n // 4)
                     for r in range(w * rpw, min((w + 1) * rpw, n)):
                         if staged(r):
                             _add(acc, "K", key, (row0 + r) * d + cols)
@@ -833,8 +837,9 @@ def test_paged_decode_dense_spec_matches_kernel_thread_mapping(b, h, d, pages, p
 @pytest.mark.parametrize("b, sq, s, d, bkv, starts, ends",
                          [(4, 512, 512, 128, 128, None, None), (2, 100, 130, 32, 64, [10, 0], [90, 5])])
 def test_ragged_prefill_specs_are_flash_walks(b, sq, s, d, bkv, starts, ends, gated):
-    """The spec-only prefill rungs: flash.cu's causal walk (as flash_spec),
-    and with the gate only the rows inside [starts[b], ends[b])."""
+    """The spec-only prefill rungs: flash.cu's causal walk (as flash_spec:
+    32-row stages up to the walk's end), and with the gate only the rows
+    inside [starts[b], ends[b])."""
     if starts is None:
         ctx = ragged_flash.ragged_context(b, s)
     else:
@@ -842,8 +847,9 @@ def test_ragged_prefill_specs_are_flash_walks(b, sq, s, d, bkv, starts, ends, ga
 
     def chunks(bi, qt):
         lo, hi = (max(int(ctx["starts"][bi]), 0), min(int(ctx["ends"][bi]), s)) if gated else (0, s)
-        return [(bi * s + t * bkv, bkv, lambda r, k0=t * bkv: lo <= k0 + r < hi)
-                for t in range(flash.n_kv_tiles(qt, sq, s, bkv, True))]
+        end = flash.kv_walk_end(qt, sq, s, bkv, True)
+        return [(bi * s + k0, 32, lambda r, k0=k0: lo <= k0 + r < min(hi, end))
+                for k0 in range(0, end, 32)]
 
     acc = _emulate_prefill(b, sq, s, d, chunks)
     acc["starts"] = {key: [np.asarray([key[0]])] for key in acc["Q"]}
@@ -987,10 +993,10 @@ def test_story_parity_diff(pair):
     [
         ("ragged_flash", {(0, 1): ["[ improved] ragged_flash: transfers 68824 -> 13104 (5.25x)",
                                    "[persisting] hot on starts"],
-                          (2, 3): ["[ improved] ragged_flash: transfers 393728 -> 149696 (2.63x)"]}),
+                          (2, 3): ["[ improved] ragged_flash: transfers 393472 -> 149440 (2.63x)"]}),
         ("paged_attn", {(0, 1): ["[ improved] paged_attn: transfers 71244 -> 23464 (3.04x)",
                                  "[persisting] hot on block_tables"],
-                        (2, 3): ["[ improved] paged_attn: transfers 360960 -> 208960 (1.73x)"]}),
+                        (2, 3): ["[ improved] paged_attn: transfers 360704 -> 208704 (1.73x)"]}),
     ],
 )
 def test_cli_profile_then_diff_then_report(family, lines, tmp_path, capsys):

@@ -238,10 +238,14 @@ def test_float32_specs_still_describe_the_cuda_core_kernels(dtype):
     """The profile path launches float32, so its rungs keep their specs."""
     a = flash.flash_spec(1, 100, 130, 20, bkv=32, causal=True, dtype=dtype)
     b = flash.cuda_core_spec(1, 100, 130, 20, bkv=32, causal=True, dtype=dtype)
-    assert a.grid == b.grid == (1, 2, 8)
+    # 4 warps a block, each owning 16 query rows
+    assert a.grid == b.grid == (1, 2, 4)
     ids, m, e = _planned([100, 28, 0, 130], 32)
     g = gmm.gmm_spec(m, 40, 70, e, ids, bm=32, dtype=dtype)
-    assert g.grid == gmm.cuda_core_spec(m, 40, 70, e, ids, bm=32).grid == (m // 32, 2, 4)
+    # ten 32-row blocks leave SMs idle at 128 columns: 64-column blocks of
+    # two 32 x 32 warps
+    assert gmm.block_cols(m, 70, 32) == 64
+    assert g.grid == gmm.cuda_core_spec(m, 40, 70, e, ids, bm=32).grid == (m // 32, 2, 2)
     assert _classes(a)[0] == _classes(b)[0]
 
 
