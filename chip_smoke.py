@@ -47,10 +47,15 @@ Phases:
    yardstick ``torch.linalg.vecdot``), at the registry's size and at a
    timing size larger than L2 (the histograms against ``np.bincount`` at
    both sizes); and every histogram kernel must drop ids outside [0,
-   n_bins).  opt2, called twice, must give the same bits.  ``spmv_ell``
-   also records, at both sizes, its device time by kernel
-   (``torch.profiler``) and the host's time to issue one call, beside
-   ``torch.linalg.vecdot``'s.
+   n_bins).  opt2 and ``spmv_ell``, called twice, must give the same
+   bits.  ``spmv_ell`` also records, at both sizes, its device time by
+   kernel (``torch.profiler``) and the host's time to issue one call,
+   beside ``torch.linalg.vecdot``'s, and its scalar path
+   (``SPMV_SCALAR_CASES``: bases off 16-byte alignment, K % 4 != 0) is held
+   to the plain version and the float64 product on the card and called
+   twice.  Every kernel records the host's time to issue one call at the
+   registry's shape beside its library call's, printed together at the end
+   of the phase.
    Then the model path's kernels: flash attention, the grouped matmul
    and the SSD chunk, each at the registry's shape (against the plain
    version and a float64 host product; flash and gmm in float32 and
@@ -408,7 +413,7 @@ SERVING_TIMING_SHAPES = {
 # inputs must give the same bits, and their timing shapes record the device
 # time of each device kernel and the host's time to issue one call
 REPEAT_CHECKED = ("gramschm_k3_opt", "ragged_decode_attention", "paged_decode_attention",
-                  "gemm_v02", "ssd_chunk", "hist_opt2")
+                  "gemm_v02", "ssd_chunk", "hist_opt2", "spmv_ell")
 # ... and in float32 only: the model path's routes on the CUDA cores
 REPEAT_CHECKED_F32 = ("flash_attention", "gmm")
 # the model path's SSD chunk in the full-width Jamba-v0.1-52B run (batch 2,
@@ -419,6 +424,13 @@ SPMV_WIDTH = 16  # ELL width at the registry's 65,536 rows
 # spmv_ell also records, at both of its shapes, its device time by kernel
 # and the host's time to issue one call, beside torch.linalg.vecdot's
 SPLIT_TIMED = ("spmv_ell",)
+# spmv_ell's scalar path: (rows, ELL width, element offsets of the vals and
+# xg views from their buffers' 16-byte-aligned starts); a base off 16-byte
+# alignment, and K % 4 != 0 with K > 128
+SPMV_SCALAR_CASES = ((65536, 16, (1, 3)), (65536, 130, (0, 0)))
+# the host's time to issue one call at the registry's shape, and its library
+# call's, of every kernel: {label: {"host_ms", "library_host_ms"}}
+REGISTRY_HOST = {}
 # phase 7, serving: Granite-8B from its published config
 # (src/repro_torch/configs/archs.py:granite_8b, [arXiv:2405.04324]), whole,
 # in bfloat16; the reference's entry point and traffic, then longer prompts
@@ -739,6 +751,50 @@ def device_kernels_ms(fn, iters: int = 10):
     return rule2_times.device_kernels_ms(fn, iters)
 
 
+def registry_host(label, fn, library=None):
+    """{"host_ms", "library_host_ms"}: the host's time to issue one ``fn()``
+    and one ``library()`` (None where there is none), kept under ``label``
+    in ``REGISTRY_HOST`` for phase 2's summary line."""
+    rec = dict(host_ms=host_ms(fn), library_host_ms=host_ms(library) if library else None)
+    REGISTRY_HOST[label] = rec
+    return rec
+
+
+def check_spmv_scalar_path(dev):
+    """spmv_ell's scalar path on the card (``SPMV_SCALAR_CASES``): within
+    1e-5 of max|y| of the plain version and of the float64 product, the
+    same bits on a second call.  {case: record}, or a failure message."""
+    import torch
+
+    from repro_torch import kernels as kreg
+    from repro_torch.kernels import spmv
+
+    out = {}
+    for r, k, offsets in SPMV_SCALAR_CASES:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        vals, xg = (torch.randn(off + r * k, device=dev, generator=gen)[off:].view(r, k)
+                    for off in offsets)
+        label = f"{r}x{k} at offsets {offsets}"
+        want = spmv.spmv_ell_plain(vals, xg)
+        exact = (vals.double() * xg.double()).sum(1)
+        got = spmv.spmv_ell(vals, xg)
+        again = spmv.spmv_ell(vals, xg)
+        torch.cuda.synchronize()
+        tol = 1e-5 * float(want.abs().max())
+        err = float((got - want).abs().max())
+        err64 = float((got.double() - exact).abs().max())
+        if not (err <= tol and err64 <= tol):
+            return f"spmv_ell scalar path {label}: max|err| {err}, vs float64 {err64} > {tol}"
+        if not torch.equal(got, again):
+            return f"spmv_ell scalar path {label}: a second call gave other bits"
+        rec = dict(max_abs_err=err, max_abs_err_vs_float64=err64,
+                   ms=kreg.cuda_time_ms(lambda: spmv.spmv_ell(vals, xg), ITERS))
+        print(f"spmv_ell scalar path {label}: max|err| {err:.3e}, vs float64 {err64:.3e} "
+              f"(tol {tol:.3e}), a second call gives the same bits, median {rec['ms']:.4f} ms")
+        out[label] = rec
+    return out
+
+
 def check_cases(kreg, dev):
     """Phase 2 for the case-study kernels: {kernel name: record}, or a
     failure message."""
@@ -808,10 +864,13 @@ def check_cases(kreg, dev):
                     return f"{name} {shape}: max|err| {err} > {tol}"
                 if exact is not None and not rec["max_abs_err_vs_float64"] <= tol:
                     return f"{name} {shape}: vs float64 {rec['max_abs_err_vs_float64']} > {tol}"
+                if which == "registry":
+                    rec.update(registry_host(name, lambda: fn(*args, **kwargs), case["library"]))
                 if (name in REPEAT_CHECKED and which == "large") or name in SPLIT_TIMED:
                     rec["device_kernels_ms"] = device_kernels_ms(lambda: fn(*args, **kwargs))
-                    rec["host_ms"] = host_ms(lambda: fn(*args, **kwargs))
-                    rec["library_host_ms"] = host_ms(case["library"])
+                    if which != "registry":
+                        rec["host_ms"] = host_ms(lambda: fn(*args, **kwargs))
+                        rec["library_host_ms"] = host_ms(case["library"])
                     line = (f"{name} {which} {shape}: device time by kernel (torch.profiler) "
                             f"{rec['device_kernels_ms']}; host time to issue a call "
                             f"{rec['host_ms']:.4f} ms, the library's {rec['library_host_ms']:.4f} ms")
@@ -1056,6 +1115,9 @@ def check_model_kernels(kreg, dev):
             )
             if "dense" in case:
                 rec["dense_matmul_ms"] = kreg.cuda_time_ms(case["dense"], ITERS)
+            if which.startswith("registry"):
+                rec.update(registry_host(f"{name} {case['dtype']}", lambda: fn(*args, **kwargs),
+                                         case["library"] if library_ms is not None else None))
             line = f"{name} {which} {shape} {case['dtype']}: max|err| {errs}, err/tol {over}"
             if name in REPEAT_CHECKED or (name in REPEAT_CHECKED_F32 and dtype == torch.float32):
                 again = fn(*args, **kwargs)
@@ -1065,7 +1127,8 @@ def check_model_kernels(kreg, dev):
                     return f"{name} {shape} {case['dtype']}: a second call gave other bits"
                 del again
                 rec["device_kernels_ms"] = device_kernels_ms(lambda: fn(*args, **kwargs))
-                rec["host_ms"] = host_ms(lambda: fn(*args, **kwargs))
+                if "host_ms" not in rec:
+                    rec["host_ms"] = host_ms(lambda: fn(*args, **kwargs))
                 line += (f", a second call gives the same bits; device time by kernel "
                          f"(torch.profiler) {rec['device_kernels_ms']}; host time to issue "
                          f"a call {rec['host_ms']:.4f} ms")
@@ -1445,6 +1508,9 @@ def check_serving_kernels(kreg, dev):
                 if not (over <= 1 and over64 <= 1):
                     return f"{name} {which} {mode} {dname}: err/tol {over}, vs float64 {over64} > 1"
                 key = which + ("_dense" if dense else "")
+                if which == "registry":
+                    rec.update(registry_host(f"{name} {mode}", lambda: fn(*case["args"], **case["kwargs"]),
+                                             case["library"]))
                 if name in REPEAT_CHECKED and which != "registry":
                     rec["device_kernels_ms"] = device_kernels_ms(
                         lambda: fn(*case["args"], **case["kwargs"]))
@@ -3205,14 +3271,14 @@ def main() -> int:
                 bound_by=bby, library_ms=library_ms,
                 max_abs_err_vs_float64=err_exact,
             )
+            rows[(v, dname)].update(registry_host(
+                f"gemm_{v} {dname}", lambda: fn(a, b), lambda: torch.matmul(a, b)))
             if f"gemm_{v}" in REPEAT_CHECKED:
                 if not torch.equal(fn(a, b), got):
                     return fail(f"gemm_{v} {dname}: a second call gave other bits")
                 rec = rows[(v, dname)]
                 rec["block_rows"] = gemm.block_rows(m, n, dtype)
                 rec["device_kernels_ms"] = device_kernels_ms(lambda: fn(a, b))
-                rec["host_ms"] = host_ms(lambda: fn(a, b))
-                rec["library_host_ms"] = host_ms(lambda: torch.matmul(a, b))
                 rec["other_tile"] = other_tile(kreg, a, b, got)
                 if isinstance(rec["other_tile"], str):
                     return fail(rec["other_tile"])
@@ -3244,6 +3310,10 @@ def main() -> int:
     cases = check_cases(kreg, dev)
     if isinstance(cases, str):
         return fail(cases)
+    scalar = check_spmv_scalar_path(dev)
+    if isinstance(scalar, str):
+        return fail(scalar)
+    cases["spmv_ell"]["scalar_path"] = scalar
     msg = check_out_of_range(dev)
     if msg:
         return fail(msg)
@@ -3253,6 +3323,8 @@ def main() -> int:
     serving_rows = check_serving_kernels(kreg, dev)
     if isinstance(serving_rows, str):
         return fail(serving_rows)
+    print(f"host time to issue one call at the registry's shape, ms, beside the library "
+          f"call's (none: no library call) on {smi}: {json.dumps(REGISTRY_HOST)}")
 
     print(f"phase 2 took {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()

@@ -7,6 +7,12 @@ checkout (``build/`` is git-ignored).  The library's file name carries a
 hash of its source, the headers and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  A failed build raises: there
 is no fallback.  Nothing is built at import time.
+
+Every wrapper launches through ``launch``: each entry point is bound
+(library loaded, ``argtypes`` and ``restype`` set) on its first call, and
+later calls go straight to the bound function on the tensor's current
+stream, so a call's host cost is the wrapper's checks, its allocations and
+the ctypes call itself.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -28,8 +36,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# (source stem, symbol) -> the entry point with its argtypes and restype set
+_BOUND: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -135,19 +145,45 @@ def sass_counts(name: str, opcode: str = "HMMA") -> Dict[str, int]:
     return counts
 
 
+def _bind(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+    """Load ``csrc/<name>.cu``'s library and set the argument and result
+    types of its entry point ``symbol``, once; later calls find the bound
+    function in ``_BOUND`` without the lock."""
+    with _LOCK:
+        fn = _BOUND.get((name, symbol))
+        if fn is None:
+            fn = getattr(load(name), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+            _BOUND[(name, symbol)] = fn
+        return fn
+
+
 def call(name: str, symbol: str, argtypes: Sequence, *args) -> None:
-    """Call the C entry point ``symbol`` of ``csrc/<name>.cu``.
+    """Call the C entry point ``symbol`` of ``csrc/<name>.cu``, bound to
+    ``argtypes`` on its first call.
 
     Every entry point returns ``cudaGetLastError()`` right after its
     launch, so a launch the device refuses raises ``RuntimeError`` here.
     """
-    lib = load(name)
-    fn = getattr(lib, symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn = _BOUND.get((name, symbol))
+    if fn is None:
+        fn = _bind(name, symbol, argtypes)
     err = fn(*args)
     if err != 0:
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{symbol} launch failed: cuda error {err}: {msg}")
+        text = _bind(name, "repro_cuda_error_string", [ctypes.c_int], ctypes.c_char_p)
+        raise RuntimeError(f"{symbol} launch failed: cuda error {err}: {text(err).decode()}")
+
+
+def launch(name: str, symbol: str, argtypes: Sequence, on: torch.Tensor, *args) -> None:
+    """``call`` the entry point ``symbol`` with ``args`` and, last, the raw
+    current stream of the CUDA device that holds ``on``; the device is made
+    current for the call only when it is not already.  ``argtypes`` names
+    the stream too (``ctypes.c_void_p``, last).  Every kernel wrapper
+    launches through here."""
+    index = on.get_device()
+    if index == torch._C._cuda_getDevice():
+        call(name, symbol, argtypes, *args, torch._C._cuda_getCurrentRawStream(index))
+        return
+    with torch.cuda.device(index):
+        call(name, symbol, argtypes, *args, torch._C._cuda_getCurrentRawStream(index))

@@ -73,7 +73,7 @@ def _check_operands(q, k, v, bkv: int) -> None:
             f"flash takes float32 or bfloat16 operands of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if not (q.device == k.device == v.device) or q.device.type not in ("cpu", "cuda"):
+    if not (q.device == k.device == v.device) or not (q.is_cuda or q.is_cpu):
         raise ValueError(
             f"operands must share one cpu or cuda device, got {q.device}, "
             f"{k.device}, {v.device}"
@@ -129,18 +129,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, bkv: int = 64) -> torch.Tensor:
     """O = softmax(Q Kᵀ / sqrt(D)) V with the CUDA kernel (``csrc/flash.cu``)."""
     _check_operands(q, k, v, bkv)
-    if q.device.type == "cpu":
+    if not q.is_cuda:
         return flash_plain(q, k, v, causal)
     bh, sq, d = q.shape
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _build.call(
-            "flash", "repro_flash", _ARGTYPES,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            bh, sq, k.shape[1], d, bkv, int(bool(causal)), _DTYPES[q.dtype],
-            stream,
-        )
+    _build.launch(
+        "flash", "repro_flash", _ARGTYPES, q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        bh, sq, k.shape[1], d, bkv, int(bool(causal)), _DTYPES[q.dtype],
+    )
     flash_attention.launches += 1
     return o
 

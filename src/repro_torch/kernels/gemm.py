@@ -84,7 +84,7 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(
             f"inner dims differ: A is {tuple(a.shape)}, B is {tuple(b.shape)}"
         )
-    if a.device != b.device or a.device.type not in ("cpu", "cuda"):
+    if a.device != b.device or not (a.is_cuda or a.is_cpu):
         raise ValueError(
             f"operands must share one cpu or cuda device, got {a.device} "
             f"and {b.device}"
@@ -117,20 +117,18 @@ def _launch(symbol: str, a: torch.Tensor, b: torch.Tensor, *bm: int) -> torch.Te
     m, k = a.shape
     n = b.shape[1]
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        _build.call(
-            "gemm", symbol, _V02_ARGTYPES if bm else _ARGTYPES,
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-            _DTYPES[a.dtype], *bm, stream,
-        )
+    _build.launch(
+        "gemm", symbol, _V02_ARGTYPES if bm else _ARGTYPES, a,
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+        _DTYPES[a.dtype], *bm,
+    )
     return c
 
 
 def gemm_v00(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A·B with the naive kernel (lanes on rows); see ``csrc/gemm.cu``."""
     _check_operands(a, b)
-    if a.device.type == "cpu":
+    if not a.is_cuda:
         return gemm_plain(a, b)
     c = _launch("repro_gemm_v00", a, b)
     gemm_v00.launches += 1
@@ -140,7 +138,7 @@ def gemm_v00(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def gemm_v01(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A·B with the coalesced kernel (lanes on columns)."""
     _check_operands(a, b)
-    if a.device.type == "cpu":
+    if not a.is_cuda:
         return gemm_plain(a, b)
     c = _launch("repro_gemm_v01", a, b)
     gemm_v01.launches += 1
@@ -151,7 +149,7 @@ def gemm_v02(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A·B with the tiled kernel: BM x 128 block tiles, bfloat16 on the
     tensor cores, float32 on the CUDA cores with 8 x 8 register tiles."""
     _check_operands(a, b)
-    if a.device.type == "cpu":
+    if not a.is_cuda:
         return gemm_plain(a, b)
     c = _launch("repro_gemm_v02", a, b, block_rows(a.shape[0], b.shape[1], a.dtype))
     gemm_v02.launches += 1

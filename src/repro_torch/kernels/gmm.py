@@ -105,7 +105,7 @@ def _check_operands(x, w, ids, bm: int) -> None:
         )
     if ids.dtype != torch.int32:
         raise TypeError(f"tile_expert_ids must be int32, got {ids.dtype}")
-    if not (x.device == w.device == ids.device) or x.device.type not in ("cpu", "cuda"):
+    if not (x.device == w.device == ids.device) or not (x.is_cuda or x.is_cpu):
         raise ValueError(
             f"operands must share one cpu or cuda device, got {x.device}, "
             f"{w.device}, {ids.device}"
@@ -173,7 +173,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_expert_ids: torch.Tensor,
         bm: int = 128) -> torch.Tensor:
     """O[tile i] = X[tile i] · W[tile_expert_ids[i]] with ``csrc/gmm.cu``."""
     _check_operands(x, w, tile_expert_ids, bm)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return gmm_plain(x, w, tile_expert_ids, bm)
     m, k = x.shape
     e, _, n = w.shape
@@ -181,14 +181,12 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_expert_ids: torch.Tensor,
     plan = None
     if x.dtype == torch.bfloat16:
         plan = torch.empty(plan_ints(m, bm), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.call(
-            "gmm", "repro_gmm", _ARGTYPES,
-            x.data_ptr(), w.data_ptr(), tile_expert_ids.data_ptr(),
-            None if plan is None else plan.data_ptr(), o.data_ptr(),
-            m, k, n, e, bm, block_cols(m, n, bm), _DTYPES[x.dtype], stream,
-        )
+    _build.launch(
+        "gmm", "repro_gmm", _ARGTYPES, x,
+        x.data_ptr(), w.data_ptr(), tile_expert_ids.data_ptr(),
+        None if plan is None else plan.data_ptr(), o.data_ptr(),
+        m, k, n, e, bm, block_cols(m, n, bm), _DTYPES[x.dtype],
+    )
     gmm.launches += 1
     return o
 

@@ -75,7 +75,7 @@ def _check_operands(q: torch.Tensor, a: torch.Tensor, k, transposed: bool) -> in
             f"{name} {tuple(q.shape)} does not match a {tuple(a.shape)}: "
             f"both need NI = {a.shape[0]} rows of q"
         )
-    if q.device != a.device or q.device.type not in ("cpu", "cuda"):
+    if q.device != a.device or not (q.is_cuda or q.is_cpu):
         raise ValueError(
             f"operands must share one cpu or cuda device, got {q.device} "
             f"and {a.device}"
@@ -112,20 +112,18 @@ _ARGTYPES = {
 def _launch(symbol: str, q: torch.Tensor, a: torch.Tensor, *ints: int,
             scratch: tuple = ()) -> torch.Tensor:
     r = torch.empty((a.shape[1],), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        _build.call(
-            "gramschm", symbol, _ARGTYPES[symbol],
-            q.data_ptr(), a.data_ptr(), *(t.data_ptr() for t in scratch),
-            r.data_ptr(), *ints, stream,
-        )
+    _build.launch(
+        "gramschm", symbol, _ARGTYPES[symbol], a,
+        q.data_ptr(), a.data_ptr(), *(t.data_ptr() for t in scratch),
+        r.data_ptr(), *ints,
+    )
     return r
 
 
 def gramschm_k3_naive(q: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
     """r[j] = Σᵢ q[i,k]·a[i,j] reading q's column k (strided); q is (NI, NK)."""
     k = _check_operands(q, a, k, transposed=False)
-    if a.device.type == "cpu":
+    if not a.is_cuda:
         return gramschm_k3_plain(q, a, k)
     ni, nk = q.shape
     r = _launch("repro_gramschm_k3_naive", q, a, ni, a.shape[1], nk, k)
@@ -137,7 +135,7 @@ def gramschm_k3_opt(qt: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
     """The same r reading row k of ``qt`` = q transposed, (NK, NI), split
     over i-slices: two device kernels, one launch on the count."""
     k = _check_operands(qt, a, k, transposed=True)
-    if a.device.type == "cpu":
+    if not a.is_cuda:
         return gramschm_k3_opt_plain(qt, a, k)
     ni, nj = a.shape
     _, slices, rpw = opt_split(ni, nj)

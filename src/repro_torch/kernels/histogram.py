@@ -64,7 +64,7 @@ def _check_operands(cells: torch.Tensor, n_bins) -> int:
         raise ValueError(f"histogram needs 1-D cells, got {tuple(cells.shape)}")
     if cells.dtype != torch.int32:
         raise TypeError(f"histogram takes int32 cell ids, got {cells.dtype}")
-    if cells.device.type not in ("cpu", "cuda"):
+    if not (cells.is_cuda or cells.is_cpu):
         raise ValueError(f"cells must lie on a cpu or cuda device, got {cells.device}")
     if not cells.is_contiguous():
         raise ValueError("histogram cells must be contiguous")
@@ -86,18 +86,16 @@ _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def _launch(symbol: str, cells: torch.Tensor, out: torch.Tensor, n_bins: int) -> None:
-    with torch.cuda.device(cells.device):
-        stream = torch.cuda.current_stream(cells.device).cuda_stream
-        _build.call(
-            "histogram", symbol, _ARGTYPES,
-            cells.data_ptr(), out.data_ptr(), cells.shape[0], n_bins, stream,
-        )
+    _build.launch(
+        "histogram", symbol, _ARGTYPES, cells,
+        cells.data_ptr(), out.data_ptr(), cells.shape[0], n_bins,
+    )
 
 
 def hist_naive(cells: torch.Tensor, n_bins: int) -> torch.Tensor:
     """Counts with every thread adding into one global histogram."""
     n_bins = _check_operands(cells, n_bins)
-    if cells.device.type == "cpu":
+    if not cells.is_cuda:
         return hist_plain(cells, n_bins)
     out = torch.zeros((n_bins,), dtype=torch.float32, device=cells.device)
     _launch("repro_hist_naive", cells, out, n_bins)
@@ -108,7 +106,7 @@ def hist_naive(cells: torch.Tensor, n_bins: int) -> torch.Tensor:
 def hist_opt(cells: torch.Tensor, n_bins: int) -> torch.Tensor:
     """Counts from a private partial row per block, summed afterwards."""
     n_bins = _check_operands(cells, n_bins)
-    if cells.device.type == "cpu":
+    if not cells.is_cuda:
         return hist_plain(cells, n_bins)
     n_blocks = math.ceil(cells.shape[0] / BLOCK)
     partials = torch.zeros(
@@ -128,7 +126,7 @@ def hist_opt2(cells: torch.Tensor, n_bins: int) -> torch.Tensor:
             f"hist_opt2 takes n_bins <= {MAX_OPT2_BINS} (n_bins floats of "
             f"shared memory per block), got n_bins = {n_bins}"
         )
-    if cells.device.type == "cpu":
+    if not cells.is_cuda:
         return hist_plain(cells, n_bins)
     out = torch.zeros((n_bins,), dtype=torch.float32, device=cells.device)
     _launch("repro_hist_opt2", cells, out, n_bins)

@@ -118,7 +118,7 @@ def _check_operands(q, k_pages, v_pages, block_tables, context_lens) -> None:
             f"paged decode takes float32 or bfloat16 operands of one dtype, got "
             f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}"
         )
-    if not (q.device == k_pages.device == v_pages.device) or q.device.type not in ("cpu", "cuda"):
+    if not (q.device == k_pages.device == v_pages.device) or not (q.is_cuda or q.is_cpu):
         raise ValueError(
             f"operands must share one cpu or cuda device, got {q.device}, "
             f"{k_pages.device}, {v_pages.device}"
@@ -209,7 +209,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     ``context_lens[b]``, with the CUDA kernels (``csrc/paged_decode.cu``):
     the split kernel and the combine, one launch on the count."""
     _check_operands(q, k_pages, v_pages, block_tables, context_lens)
-    if q.device.type == "cpu":
+    if not q.is_cuda:
         return paged_decode_plain(q, k_pages, v_pages, block_tables, context_lens, dense)
     b, h, d = q.shape
     n_pages, page = k_pages.shape[1:3]
@@ -217,15 +217,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     s = slots * page
     o = torch.empty_like(q)
     ws = torch.empty((b, n_splits(s, page), h * (d + 2)), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _build.call(
-            "paged_decode", "repro_paged_decode", _ARGTYPES,
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), context_lens.data_ptr(), ws.data_ptr(), o.data_ptr(),
-            b, h, d, n_pages, page, slots, split_len(s, page), int(bool(dense)),
-            _DTYPES[q.dtype], stream,
-        )
+    _build.launch(
+        "paged_decode", "repro_paged_decode", _ARGTYPES, q,
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), ws.data_ptr(), o.data_ptr(),
+        b, h, d, n_pages, page, slots, split_len(s, page), int(bool(dense)),
+        _DTYPES[q.dtype],
+    )
     paged_decode_attention.launches += 1
     return o
 

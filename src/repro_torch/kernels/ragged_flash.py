@@ -114,7 +114,7 @@ def _check_operands(q, k, v, starts, ends, bkv: int) -> None:
             f"ragged decode takes float32 or bfloat16 operands of one dtype, "
             f"got {q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if not (q.device == k.device == v.device) or q.device.type not in ("cpu", "cuda"):
+    if not (q.device == k.device == v.device) or not (q.is_cuda or q.is_cpu):
         raise ValueError(
             f"operands must share one cpu or cuda device, got {q.device}, {k.device}, {v.device}"
         )
@@ -200,21 +200,19 @@ def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with the CUDA kernels (``csrc/ragged_decode.cu``): the split kernel and
     the combine, one launch on the count."""
     _check_operands(q, k, v, starts, ends, bkv)
-    if q.device.type == "cpu":
+    if not q.is_cuda:
         return ragged_decode_plain(q, k, v, starts, ends, bkv, dense)
     b, h, d = q.shape
     s = k.shape[1]
     length = split_len(s, bkv)
     o = torch.empty_like(q)
     ws = torch.empty((b, n_splits(s, bkv), h * (d + 2)), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _build.call(
-            "ragged_decode", "repro_ragged_decode", _ARGTYPES,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
-            ends.data_ptr(), ws.data_ptr(), o.data_ptr(), b, h, s, d, length,
-            int(bool(dense)), _DTYPES[q.dtype], stream,
-        )
+    _build.launch(
+        "ragged_decode", "repro_ragged_decode", _ARGTYPES, q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
+        ends.data_ptr(), ws.data_ptr(), o.data_ptr(), b, h, s, d, length,
+        int(bool(dense)), _DTYPES[q.dtype],
+    )
     ragged_decode_attention.launches += 1
     return o
 

@@ -3,8 +3,10 @@
 One CUDA kernel in ``csrc/spmv.cu`` computes the ELL product
 ``y[r] = Σₖ vals[r,k]·xg[r,k]`` with x gathered at the column indices
 beforehand (in PyTorch, outside the kernel, as XLA gathers it outside the
-Pallas kernel): one warp per row, its lanes striding over K, a shuffle
-reduction.  Its wrapper ``spmv_ell(vals, xg)`` checks its operands,
+Pallas kernel): ``lanes_per_row(K)`` lanes a row reading float4s, several
+row groups a warp in flight, a grid that strides over the rows, an
+xor-shuffle sum (a scalar path where K % 4 != 0 or a base is off 16-byte
+alignment).  Its wrapper ``spmv_ell(vals, xg)`` checks its operands,
 launches on the current stream and counts its launches in a plain integer
 attribute.  A wrapper given CPU tensors computes the plain version
 (``spmv_ell_plain``) instead; given CUDA tensors it launches the kernel or
@@ -29,34 +31,51 @@ from . import _build
 
 _INT_MAX = 2**31 - 1
 _WARP = 32
+# csrc/spmv.cu's kThreads and kRowGroups: threads a block, and row groups a
+# warp loads before its first FMA
+THREADS = 256
+ROW_GROUPS = 4
+
+
+def lanes_per_row(k: int) -> int:
+    """Lanes of a warp that share one ELL row of width ``k``: the smallest
+    power of two >= ceil(k / 4), at most 32, so that each lane reads at
+    least one float4 (K = 16: 4 lanes, 8 rows a warp; K = 32: 8 and 4)."""
+    return min(1 << (max(-(-k // 4), 1) - 1).bit_length(), _WARP)
+
+
+def rows_per_block(lanes: int) -> int:
+    """Rows one block of ``csrc/spmv.cu`` covers in one grid step."""
+    return THREADS // _WARP * ROW_GROUPS * (_WARP // lanes)
 
 
 def _check_operands(vals: torch.Tensor, xg: torch.Tensor) -> None:
     """Raise on anything the kernel does not take."""
     if not isinstance(vals, torch.Tensor) or not isinstance(xg, torch.Tensor):
         raise TypeError("spmv operands vals and xg must be torch tensors")
-    if vals.dim() != 2 or xg.dim() != 2:
+    shape = vals.shape
+    if len(shape) != 2 or xg.dim() != 2:
         raise ValueError(
-            f"spmv needs 2-D vals and xg, got {tuple(vals.shape)} and "
+            f"spmv needs 2-D vals and xg, got {tuple(shape)} and "
             f"{tuple(xg.shape)}"
         )
     if vals.dtype != torch.float32 or xg.dtype != torch.float32:
         raise TypeError(
             f"spmv takes float32 operands, got {vals.dtype} and {xg.dtype}"
         )
-    if vals.shape != xg.shape:
+    if shape != xg.shape:
         raise ValueError(
-            f"vals {tuple(vals.shape)} and xg {tuple(xg.shape)} must have one "
+            f"vals {tuple(shape)} and xg {tuple(xg.shape)} must have one "
             "(R, K) shape"
         )
-    if vals.device != xg.device or vals.device.type not in ("cpu", "cuda"):
+    if xg.device != vals.device or not (vals.is_cuda or vals.is_cpu):
         raise ValueError(
             f"operands must share one cpu or cuda device, got {vals.device} "
             f"and {xg.device}"
         )
     if not (vals.is_contiguous() and xg.is_contiguous()):
         raise ValueError("spmv operands must be contiguous (row-major)")
-    r, k = vals.shape
+    r, k = shape
     if min(r, k) < 1 or max(r, k) > _INT_MAX:
         raise ValueError(f"unsupported spmv shape r={r} k={k}")
 
@@ -66,22 +85,21 @@ def spmv_ell_plain(vals: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
     return (vals.float() * xg.float()).sum(1)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def spmv_ell(vals: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
-    """y[r] = Σₖ vals[r,k]·xg[r,k]: one warp per row; see ``csrc/spmv.cu``."""
+    """y[r] = Σₖ vals[r,k]·xg[r,k]: ``lanes_per_row(K)`` lanes a row; see
+    ``csrc/spmv.cu``."""
     _check_operands(vals, xg)
-    if vals.device.type == "cpu":
+    if not vals.is_cuda:
         return spmv_ell_plain(vals, xg)
     r, k = vals.shape
-    y = torch.empty((r,), dtype=torch.float32, device=vals.device)
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        _build.call(
-            "spmv", "repro_spmv_ell", _ARGTYPES,
-            vals.data_ptr(), xg.data_ptr(), y.data_ptr(), r, k, stream,
-        )
+    y = vals.new_empty((r,))
+    _build.launch(
+        "spmv", "repro_spmv_ell", _ARGTYPES, vals,
+        vals.data_ptr(), xg.data_ptr(), y.data_ptr(), r, k, lanes_per_row(k),
+    )
     spmv_ell.launches += 1
     return y
 

@@ -146,9 +146,7 @@ def _check_operands(x, a, bmat, cmat) -> None:
             f"ssd takes float32 or bfloat16 operands of one dtype, got "
             f"{x.dtype}, {a.dtype}, {bmat.dtype}, {cmat.dtype}"
         )
-    if not (x.device == a.device == bmat.device == cmat.device) or x.device.type not in (
-        "cpu", "cuda",
-    ):
+    if not (x.device == a.device == bmat.device == cmat.device) or not (x.is_cuda or x.is_cpu):
         raise ValueError("ssd operands must share one cpu or cuda device")
     if not all(t.is_contiguous() for t in (x, a, bmat, cmat)):
         raise ValueError("ssd operands must be contiguous (row-major)")
@@ -211,19 +209,17 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
               cmat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, s) of every (batch*head, chunk) cell with ``csrc/ssd.cu``."""
     _check_operands(x, a, bmat, cmat)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return ssd_plain(x, a, bmat, cmat)
     bh, c, l, p = x.shape
     n = bmat.shape[-1]
     y = torch.empty((bh, c, l, p), dtype=torch.float32, device=x.device)
     s = torch.empty((bh, c, p, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.call(
-            "ssd", "repro_ssd_chunk", _ARGTYPES,
-            x.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-            y.data_ptr(), s.data_ptr(), bh, c, l, p, n, _DTYPES[x.dtype], stream,
-        )
+    _build.launch(
+        "ssd", "repro_ssd_chunk", _ARGTYPES, x,
+        x.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+        y.data_ptr(), s.data_ptr(), bh, c, l, p, n, _DTYPES[x.dtype],
+    )
     ssd_chunk.launches += 1
     return y, s
 

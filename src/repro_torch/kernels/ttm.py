@@ -55,7 +55,7 @@ def _check_operands(vals: torch.Tensor, urows: torch.Tensor) -> None:
             f"urows {tuple(urows.shape)} does not match vals "
             f"{tuple(vals.shape)}: urows must be (F, NF, R)"
         )
-    if vals.device != urows.device or vals.device.type not in ("cpu", "cuda"):
+    if vals.device != urows.device or not (vals.is_cuda or vals.is_cpu):
         raise ValueError(
             f"operands must share one cpu or cuda device, got {vals.device} "
             f"and {urows.device}"
@@ -78,12 +78,10 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 def _launch(symbol: str, vals: torch.Tensor, urows: torch.Tensor) -> torch.Tensor:
     f, nf, r = urows.shape
     y = torch.empty((f, r), dtype=torch.float32, device=vals.device)
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        _build.call(
-            "ttm", symbol, _ARGTYPES,
-            vals.data_ptr(), urows.data_ptr(), y.data_ptr(), f, nf, r, stream,
-        )
+    _build.launch(
+        "ttm", symbol, _ARGTYPES, vals,
+        vals.data_ptr(), urows.data_ptr(), y.data_ptr(), f, nf, r,
+    )
     return y
 
 
@@ -96,7 +94,7 @@ def ttm_scratch(vals: torch.Tensor, urows: torch.Tensor) -> torch.Tensor:
             f"ttm_scratch takes R <= {MAX_SCRATCH_R} (8 x R floats of shared "
             f"memory per block), got R = {r}"
         )
-    if vals.device.type == "cpu":
+    if not vals.is_cuda:
         return ttm_plain(vals, urows)
     y = _launch("repro_ttm_scratch", vals, urows)
     ttm_scratch.launches += 1
@@ -106,7 +104,7 @@ def ttm_scratch(vals: torch.Tensor, urows: torch.Tensor) -> torch.Tensor:
 def ttm_fused(vals: torch.Tensor, urows: torch.Tensor) -> torch.Tensor:
     """Y accumulated in registers (the paper's fix)."""
     _check_operands(vals, urows)
-    if vals.device.type == "cpu":
+    if not vals.is_cuda:
         return ttm_plain(vals, urows)
     y = _launch("repro_ttm_fused", vals, urows)
     ttm_fused.launches += 1

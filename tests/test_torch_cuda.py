@@ -211,6 +211,82 @@ def test_cuda_spmv_matches_plain_version(card, r, k):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
+    "r, k, offsets",
+    [(1000, 16, (1, 1)), (1000, 32, (0, 3)), (257, 130, (0, 0)), (4097, 517, (2, 1)),
+     (65536, 16, (0, 0)), (1048576, 32, (0, 0))],
+)
+def test_cuda_spmv_paths_match_plain_and_float64_and_repeat_bits(card, r, k, offsets):
+    """Misaligned contiguous views (``buf[off:].view(r, k)``) and K % 4 != 0
+    take the scalar path, the registry's and the timing widths the float4
+    one; each within 1e-5 of max|y| of the plain version and of float64,
+    and a second call gives the same bits."""
+    vals, xg = (_randn(card, i, off + r * k)[off:].view(r, k) for i, off in enumerate(offsets))
+    want = spmv.spmv_ell_plain(vals, xg)
+    exact = (vals.double() * xg.double()).sum(1)
+    before = spmv.spmv_ell.launches
+    got = ops.spmv(vals, xg)
+    again = ops.spmv(vals, xg)
+    torch.cuda.synchronize()
+    assert spmv.spmv_ell.launches == before + 2
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert float((got.double() - exact).abs().max()) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_cuda_spmv_rows_per_block_and_refused_lanes(card):
+    import ctypes
+
+    lib = _build.load("spmv")
+    lib.repro_spmv_ell_rows_per_block.restype = ctypes.c_longlong
+    for lanes in (1, 2, 4, 8, 16, 32):
+        assert lib.repro_spmv_ell_rows_per_block(lanes) == spmv.rows_per_block(lanes)
+    vals = _randn(card, 0, 64, 16)
+    y = torch.empty(64, device=card)
+    with pytest.raises(RuntimeError, match="repro_spmv_ell launch failed: cuda error"):
+        _build.launch("spmv", "repro_spmv_ell", spmv._ARGTYPES, vals,
+                      vals.data_ptr(), vals.data_ptr(), y.data_ptr(), 64, 16, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "ref",
+    ["gemm:v02", "gramschm:opt", "ttm:fused", "histogram:scratch", "flash", "gmm", "ssd",
+     "ragged_flash:decode-ragged", "paged_attn:decode-paged", "spmv_ell"],
+)
+def test_cuda_wrappers_launch_once_on_the_current_stream(card, ref):
+    """One kernel of each wrapper module, called on a side stream whose
+    inputs are copied there after a sleep: a launch on any other stream
+    would read them before they are written."""
+    if ref == "spmv_ell":
+        args, kwargs = (_randn(card, 0, 4096, 16), _randn(card, 1, 4096, 16)), {}
+        kernel, plain, atol = spmv.spmv_ell, spmv.spmv_ell_plain, None
+    else:
+        variant = kreg.resolve(ref)[1]
+        args = variant.inputs(card, torch.Generator(device=card).manual_seed(0))
+        kwargs = dict(variant.kwargs)
+        kernel, plain, atol = variant.kernel, variant.plain, variant.atol
+    want = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(card)
+    before = kernel.launches
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        copies = tuple(t.clone() for t in args)
+        got = kernel(*copies, **kwargs)
+    side.synchronize()
+    assert kernel.launches == before + 1
+    for g, w in zip(*(o if isinstance(o, tuple) else (o,) for o in (got, want))):
+        if atol is None:
+            tol = 1e-5 * float(w.abs().max())
+        else:
+            tol = atol(w, *args) if callable(atol) else atol
+        _assert_within(g, w, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
     "ref",
     ["gemm:v00", "gemm:v01", "gemm:v02", "gramschm:naive", "gramschm:opt",
      "ttm:scratch", "ttm:fused", "histogram:naive", "histogram:partials",
@@ -1025,6 +1101,7 @@ def test_cuda_kernel_failure_under_workers_and_faults_is_not_recovered(card, tmp
         raise _build.KernelBuildError("injected build failure")
 
     monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "_BOUND", {})  # entry points are bound once: bind anew
     with pytest.raises(_build.KernelBuildError):
         cli.main([*argv, "--out", str(tmp_path / "b")])
 
