@@ -21,7 +21,13 @@ Phases:
    error <= 1e-3; bfloat16 within 1e-2 of max|C|) and with the float64
    product on the host (within 1e-2 of max|C|), and time the kernel,
    the plain version and ``torch.matmul`` (the library yardstick, which
-   the port never calls) as medians of CUDA-event-timed runs.  v02
+   the port never calls) as medians of CUDA-event-timed runs (``ITERS``;
+   the plain versions, yardsticks of up to 0.1 s a call, ``PLAIN_ITERS``),
+   the kernel and the yardstick also on the card alone
+   (``kernels.device_time_ms``: the queue held behind a sleep, so the
+   host's issue is not in it).
+   Every share of the bound in this phase is the bound over the card's
+   time, with the event median printed beside it.  v02
    (bfloat16 on the tensor cores) is also run at its timing shape,
    Jamba-v0.1-52B's MLP up-projection (M 4096, K 4096, N 14336), in
    float32 and bfloat16: against the plain version (float32 within 1e-6
@@ -90,6 +96,11 @@ Phases:
    splits and live splits under ``config`` (computed from the shapes, not
    measured), and a second call on the same inputs must give the same
    bits.
+   Last, both timers on every registry variant that launches a kernel
+   and on ``spmv_ell`` at the registry's shapes: the card's time
+   (``DEVICE_REPEATS`` runs, their median and spread) must be no more
+   than the event median, and within ``DEVICE_TOL`` plus
+   ``DEVICE_SLACK_MS`` of ``torch.profiler``'s sum of the call's kernels.
 3. For each family (gemm, spmv, histogram, gramschm, ttm, ragged_flash,
    paged_attn): set every launch count to 0 and drive the port's main
    path in process, through the CLI entry point: ``profile`` each rung
@@ -132,8 +143,9 @@ Phases:
    histogram, gramschm, ttm, ragged_flash and paged_attn (one line per
    family: transfers before -> after, the accepted moves, which must be
    ``TUNE_ALL_MOVES``'s); each tune
-   command's run of a rung may be slower than phase 3's run of that rung
-   alone by no more than 10 % and 0.1 ms; ``profile -k
+   command's run of a rung may be slower on the card (``device_ms``) than
+   phase 3's run of that rung alone by no more than ``ALONE_TOL`` and
+   ``ALONE_SLACK_MS``; ``profile -k
    gemm:v01`` then ``-k gemm`` into one session, ``check iter1 --baseline
    iter0 --json -`` (exit exactly 1, ``"schema_version": 1``) and ``check
    SESSION --anomaly``; ``lint --all`` and ``kernels --lint`` (exit 0).
@@ -285,8 +297,8 @@ their timing shapes (gemm v02 at 1024^3 too, the SSD chunk at all five of
 its shapes), the device time of each of their device kernels
 (``torch.profiler``; for opt2 the memset of its ``torch.zeros`` output
 too) and the host's time to issue one call of the kernel and (where there
-is one) of its library yardstick: the timer counts both the host's
-dispatch and the card's time of a call.
+is one) of its library yardstick: the event median counts both the host's
+issue and the card's time of a call, ``device_ms`` the card's alone.
 
 There is no fallback: without a CUDA device, or outside a checkout of
 the repository, the script fails and prints no result.
@@ -309,15 +321,29 @@ ROOT = Path(__file__).resolve().parent
 
 # host turnarounds phase 4 measures and phase 5 sets its sharded ones beside
 TURNAROUND = {}
-# (family, rung) -> ms of phase 3's run of that rung, profiled alone: no
-# tune command's run of the same rung may be slower by more than ALONE_TOL
+# (family, rung) -> the card's ms a call (the run's ``device_ms``) of phase
+# 3's run of that rung, profiled alone: no tune command's run of the same
+# rung may be slower on the card by more than ALONE_TOL
 ALONE_MS = {}
-# a tune run may be slower than the rung alone by this share, plus
-# ALONE_SLACK_MS: the event window of a ~0.05 ms call holds the host's
-# dispatch, which moved by up to 0.045 ms either way between two runs of
-# one rung with nothing else running; a run timed while other threads walk
-# in Python reads 0.4-3.5 ms slow
-ALONE_TOL, ALONE_SLACK_MS = 0.10, 0.10
+# a tune run's device time may exceed the rung's alone by this share, plus
+# ALONE_SLACK_MS.  kernels.device_time_ms holds the queue behind a sleep, so
+# the host's issue, which moved the event median by up to 0.045 ms alone and
+# 0.4-3.5 ms beside threads that walk in Python, is not in it: on an NVIDIA
+# H100 80GB HBM3 at 700 W, DEVICE_REPEATS runs of each registry call moved
+# by at most 0.00018 ms (ttm:fused, 6.5 %), and beside a thread spinning in
+# Python by -3.4 to +4.8 % (spmv_ell, 0.00018 ms; rule2_times.py --only
+# timers)
+ALONE_TOL, ALONE_SLACK_MS = 0.05, 0.0005
+# kernels.device_time_ms against torch.profiler's sum of a call's kernels
+# (phase 2, every registry variant): within DEVICE_TOL of the sum plus
+# DEVICE_SLACK_MS for each of the call's kernels.  The profiler times each
+# kernel from its start to its end; back to back, the card also spends
+# 0.8-1.5 us dispatching each (the same card: an empty kernel takes 2.0 us
+# a call; the registry's calls 0.78-1.46 us over the profiler's sum with
+# one kernel, 1.94-2.17 with two, 3.20 with three; rule2_times.py --only
+# timers)
+DEVICE_TOL, DEVICE_SLACK_MS = 0.05, 0.0015
+DEVICE_REPEATS = 3  # device_time_ms runs a registry variant, for its spread
 
 SHAPE = (1024, 1024, 1024)  # (m, n, k): the registry's gemm shape
 # gemm v02's timing shape: Jamba-v0.1-52B's MLP up-projection at batch 1,
@@ -325,6 +351,10 @@ SHAPE = (1024, 1024, 1024)  # (m, n, k): the registry's gemm shape
 # 14336), where the card's time is far above the host's dispatch
 GEMM_TIMING_SHAPE = (4096, 14336, 4096)  # (m, n, k)
 ITERS = 30  # CUDA-event-timed runs per median
+# CUDA-event-timed runs of a plain version, a yardstick of 0.05-101 ms a
+# call (the paged decode's at Granite-20B's widths 76-101 ms: 30 runs of
+# the serving rows' plain versions took ~15 s of phase 2)
+PLAIN_ITERS = 5
 
 # Published peaks of an H100 SXM at its 700 W limit (NVIDIA data sheet,
 # dense): device memory rate, and the peak rate for each input type.
@@ -760,6 +790,83 @@ def registry_host(label, fn, library=None):
     return rec
 
 
+def times(kreg, fn):
+    """{"ms", "device_ms"} of one ``fn()`` over ``ITERS`` calls: the median
+    of CUDA-event pairs as a caller waits (host issue included) and the
+    card's time (``kernels.device_time_ms``)."""
+    return dict(ms=kreg.cuda_time_ms(fn, ITERS), device_ms=kreg.device_time_ms(fn, ITERS))
+
+
+def library_times(kreg, fn):
+    """``times`` of a library yardstick.  A call that waits for the card
+    itself (``torch.bincount`` reads max(ids) on the host) cannot be queued
+    behind a sleep, so the card's time of it is not measured
+    (``device_ms`` None, ``kernels.device_time_ms`` raised QueueDrained);
+    ``kernels_ms``, torch.profiler's sum of its kernels, stands beside it."""
+    rec = dict(ms=kreg.cuda_time_ms(fn, ITERS))
+    try:
+        rec["device_ms"] = kreg.device_time_ms(fn, ITERS)
+    except kreg.QueueDrained:
+        rec.update(device_ms=None, kernels_ms=sum(device_kernels_ms(fn).values()))
+    return rec
+
+
+def library_fields(lib_t):
+    """A library yardstick's ``library_times`` under its record's keys."""
+    return {f"library_{k}": v for k, v in lib_t.items()}
+
+
+def card_ms(rec):
+    """A record's two times, the card's first."""
+    if rec["device_ms"] is None:
+        return (f"not measured on the card, the call waits for the card (torch.profiler's "
+                f"kernels {rec['kernels_ms']:.4f} ms; event median {rec['ms']:.4f} ms)")
+    return f"{rec['device_ms']:.4f} ms a call on the card (event median {rec['ms']:.4f} ms)"
+
+
+def of_bound(bms, bby, rec):
+    """The bound and the share of it that ``rec``'s call reaches on the
+    card, with both times beside it."""
+    return f"bound {bms:.5f} ms ({bby}), {bms / rec['device_ms']:.1%} of bound; {card_ms(rec)}"
+
+
+def check_registry_times(kreg, dev):
+    """Phase 2, the two timers on every registry variant that launches a
+    kernel and on ``spmv_ell`` at the registry's shapes
+    (``kernels/rule2_times.py:registry_calls``): the event median, the
+    card's time ``DEVICE_REPEATS`` times (their median and spread) and
+    ``torch.profiler``'s sum of one call's kernels.  The card's time must
+    be no more than the event median, and within ``DEVICE_TOL`` of the
+    profiler's sum plus ``DEVICE_SLACK_MS`` for each kernel of the call.
+    {ref: record}, or a failure message."""
+    import statistics
+
+    from repro_torch.kernels import rule2_times, spmv
+
+    out = {}
+    for ref, call in rule2_times.registry_calls(kreg, spmv, dev).items():
+        ms = kreg.cuda_time_ms(call, ITERS)
+        runs = [kreg.device_time_ms(call, ITERS) for _ in range(DEVICE_REPEATS)]
+        device_ms = statistics.median(runs)
+        # a profile that recorded no kernel at all measured nothing: once more
+        kernels = device_kernels_ms(call) or device_kernels_ms(call)
+        summed = sum(kernels.values())
+        limit = DEVICE_TOL * summed + DEVICE_SLACK_MS * len(kernels)
+        rec = dict(kernel=call.func.__name__, ms=ms, device_ms=device_ms, device_runs=runs,
+                   profiler_ms=summed, device_kernels_ms=kernels)
+        out[ref] = rec
+        print(f"{ref} at the registry's shape: {device_ms:.4f} ms a call on the card "
+              f"(runs {', '.join(f'{r:.5f}' for r in runs)}), torch.profiler's "
+              f"{len(kernels)} kernels {summed:.4f} ms (limit {limit:.4f} ms apart), event "
+              f"median {ms:.4f} ms")
+        if not device_ms <= ms:
+            return f"{ref}: {device_ms:.4f} ms on the card, more than its event median {ms:.4f} ms"
+        if not (kernels and abs(device_ms - summed) <= limit):
+            return (f"{ref}: {device_ms:.4f} ms on the card, but torch.profiler's kernels "
+                    f"{kernels}")
+    return out
+
+
 def check_spmv_scalar_path(dev):
     """spmv_ell's scalar path on the card (``SPMV_SCALAR_CASES``): within
     1e-5 of max|y| of the plain version and of the float64 product, the
@@ -788,9 +895,9 @@ def check_spmv_scalar_path(dev):
         if not torch.equal(got, again):
             return f"spmv_ell scalar path {label}: a second call gave other bits"
         rec = dict(max_abs_err=err, max_abs_err_vs_float64=err64,
-                   ms=kreg.cuda_time_ms(lambda: spmv.spmv_ell(vals, xg), ITERS))
+                   **times(kreg, lambda: spmv.spmv_ell(vals, xg)))
         print(f"spmv_ell scalar path {label}: max|err| {err:.3e}, vs float64 {err64:.3e} "
-              f"(tol {tol:.3e}), a second call gives the same bits, median {rec['ms']:.4f} ms")
+              f"(tol {tol:.3e}), a second call gives the same bits, {card_ms(rec)}")
         out[label] = rec
     return out
 
@@ -821,8 +928,8 @@ def check_cases(kreg, dev):
             err_lib = float((library.float() - want).abs().max())
             if not err_lib <= tol:
                 return f"{family} {shape}: library call off by {err_lib} > {tol}"
-            plain_ms = kreg.cuda_time_ms(case["plain"], ITERS)
-            library_ms = kreg.cuda_time_ms(case["library"], ITERS)
+            plain_ms = kreg.cuda_time_ms(case["plain"], PLAIN_ITERS)
+            lib_t = library_times(kreg, case["library"])
             bms, bby = bound_of(case["bytes"], case["flops"])
             for name, (fn, args, kwargs) in case["kernels"].items():
                 before = launch_count(name)
@@ -843,9 +950,9 @@ def check_cases(kreg, dev):
                     print(f"{name} {which} {shape}: a second call gives the same bits")
                 rec = dict(
                     shape=list(shape), max_abs_err=err,
-                    ms=kreg.cuda_time_ms(lambda: fn(*args, **kwargs), ITERS),
+                    **times(kreg, lambda: fn(*args, **kwargs)),
                     plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                    library_ms=library_ms,
+                    **library_fields(lib_t),
                 )
                 line = (
                     f"{name} {which} {shape}: max|err| {err:.3e} (tol {tol:.3e})"
@@ -856,9 +963,8 @@ def check_cases(kreg, dev):
                     )
                     line += f", vs float64 {rec['max_abs_err_vs_float64']:.3e}"
                 print(
-                    f"{line}, median {rec['ms']:.4f} ms over {ITERS}, plain "
-                    f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-                    f"{bms:.5f} ms ({bby}), {bms / rec['ms']:.1%} of bound"
+                    f"{line}, plain {plain_ms:.4f} ms, library {card_ms(lib_t)}, "
+                    f"{of_bound(bms, bby, rec)}"
                 )
                 if not err <= tol:
                     return f"{name} {shape}: max|err| {err} > {tol}"
@@ -1070,7 +1176,7 @@ def check_model_kernels(kreg, dev):
             want = case["plain"]()
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
-            plain_ms = kreg.cuda_time_ms(case["plain"], ITERS)
+            plain_ms = kreg.cuda_time_ms(case["plain"], PLAIN_ITERS)
             bms, bby = bound_of(case["bytes"], case["ops"], case["dtype"])
             before = fn.launches
             got = fn(*args, **kwargs)
@@ -1093,6 +1199,7 @@ def check_model_kernels(kreg, dev):
             # (recorded, not required); an op that refuses a type or shape
             # is a yardstick missing, not a failure of the port
             library_ms = lib_over = refusal = None
+            lib_t = dict(ms=None, device_ms=None)
             if case["library"]:
                 try:
                     lib_out = case["library"]()
@@ -1103,14 +1210,15 @@ def check_model_kernels(kreg, dev):
                           f"refused: {refusal}")
                 else:
                     lib_over = float(((lib_out.float() - want[0].float()).abs() / tols[0]).max())
-                    library_ms = kreg.cuda_time_ms(case["library"], ITERS)
+                    lib_t = library_times(kreg, case["library"])
+                    library_ms = lib_t["ms"]
                     del lib_out
             rec = dict(
                 shape=list(shape), dtype=case["dtype"], max_abs_err=max(errs),
                 max_err_over_tol=max(over),
-                ms=kreg.cuda_time_ms(lambda: fn(*args, **kwargs), ITERS),
+                **times(kreg, lambda: fn(*args, **kwargs)),
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                library_ms=library_ms, library=case["library_label"],
+                **library_fields(lib_t), library=case["library_label"],
                 library_err_over_tol=lib_over, library_refused=refusal,
             )
             if "dense" in case:
@@ -1145,16 +1253,12 @@ def check_model_kernels(kreg, dev):
                 if not all(o <= 1 for o in over64):
                     return f"{name} {shape} {case['dtype']}: vs float64 err/tol {over64} > 1"
             if library_ms is not None:
-                lib = f"{library_ms:.4f} ms ({case['library_label']}, err/tol {lib_over:.3f})"
+                lib = f"{card_ms(lib_t)} ({case['library_label']}, err/tol {lib_over:.3f})"
             else:
                 lib = f"none (refused: {refusal})" if refusal else "none"
             if "dense_matmul_ms" in rec:
                 lib += f", dense torch.matmul of the same FLOPs {rec['dense_matmul_ms']:.4f} ms"
-            print(
-                f"{line}, median {rec['ms']:.4f} ms over {ITERS}, plain "
-                f"{plain_ms:.4f} ms, library {lib}, bound {bms:.4f} ms ({bby}), "
-                f"{bms / rec['ms']:.1%} of bound"
-            )
+            print(f"{line}, plain {plain_ms:.4f} ms, library {lib}, {of_bound(bms, bby, rec)}")
             if not all(o <= 1 for o in over):
                 return f"{name} {shape} {case['dtype']}: err/tol {over} > 1"
             if which == "registry":
@@ -1219,8 +1323,7 @@ def other_tile(kreg, a, b, got):
     torch.cuda.synchronize()
     if not torch.equal(out, got):
         return f"gemm_v02 {tuple(a.shape)} on {bm}-row tiles: other bits than the rule's tiles"
-    return dict(block_rows=bm, ms=kreg.cuda_time_ms(call, ITERS),
-                device_ms=sum(device_kernels_ms(call).values()))
+    return dict(block_rows=bm, **times(kreg, call))
 
 
 def check_gemm_large(kreg, dev):
@@ -1264,13 +1367,14 @@ def check_gemm_large(kreg, dev):
         lib_err = float((torch.matmul(a, b).float() - want.float()).abs().max())
         del exact
         bms, bby = bound(m, n, k, dname, a.element_size())
+        lib_t = library_times(kreg, lambda: torch.matmul(a, b))
         rec = dict(
             shape=[m, n, k], max_abs_err=err, max_abs_err_vs_float64=err_exact,
             library_err=lib_err,
-            ms=kreg.cuda_time_ms(lambda: gemm.gemm_v02(a, b), ITERS),
-            plain_ms=kreg.cuda_time_ms(lambda: gemm.gemm_plain(a, b), ITERS),
+            **times(kreg, lambda: gemm.gemm_v02(a, b)),
+            plain_ms=kreg.cuda_time_ms(lambda: gemm.gemm_plain(a, b), PLAIN_ITERS),
             bound_ms=bms, bound_by=bby,
-            library_ms=kreg.cuda_time_ms(lambda: torch.matmul(a, b), ITERS),
+            **library_fields(lib_t),
             block_rows=gemm.block_rows(m, n, dtype),
             device_kernels_ms=device_kernels_ms(lambda: gemm.gemm_v02(a, b)),
             host_ms=host_ms(lambda: gemm.gemm_v02(a, b)),
@@ -1282,10 +1386,10 @@ def check_gemm_large(kreg, dev):
         print(
             f"gemm_v02 {dname} {m}x{n}x{k} (tiles of {rec['block_rows']} x 128): max|err| "
             f"{err:.3e} (tol {tol:.3e}), vs float64 {err_exact:.3e} (tol {tol_exact:.3e}), "
-            f"torch.matmul vs plain {lib_err:.3e}, a second call gives the same bits, median "
-            f"{rec['ms']:.4f} ms over {ITERS}, plain {rec['plain_ms']:.4f} ms, torch.matmul "
-            f"{rec['library_ms']:.4f} ms, bound {bms:.4f} ms ({bby}), {bms / rec['ms']:.1%} of "
-            f"bound; device time by kernel (torch.profiler) {rec['device_kernels_ms']}; host "
+            f"torch.matmul vs plain {lib_err:.3e}, a second call gives the same bits, plain "
+            f"{rec['plain_ms']:.4f} ms, torch.matmul {card_ms(lib_t)}, "
+            f"{of_bound(bms, bby, rec)}; device "
+            f"time by kernel (torch.profiler) {rec['device_kernels_ms']}; host "
             f"time to issue a call {rec['host_ms']:.4f} ms, torch.matmul's "
             f"{rec['library_host_ms']:.4f} ms; the other tile height: {rec['other_tile']}"
         )
@@ -1486,12 +1590,14 @@ def check_serving_kernels(kreg, dev):
                 over64 = float((np.abs(got.double().cpu().numpy() - exact) / tol_np).max())
                 lib_over = float(((library.float() - want.float()).abs() / tol).max())
                 bms, bby = bound_of(case["bytes"], case["ops"], dname)
+                lib_t = library_times(kreg, case["library"])
                 rec = dict(
                     shape=list(shape), dtype=dname, dense=dense, max_abs_err=float(diff.max()),
                     max_err_over_tol=over, max_err_over_tol_vs_float64=over64,
-                    ms=kreg.cuda_time_ms(lambda: fn(*case["args"], **case["kwargs"]), ITERS),
-                    plain_ms=kreg.cuda_time_ms(case["plain"], ITERS), bound_ms=bms, bound_by=bby,
-                    library_ms=kreg.cuda_time_ms(case["library"], ITERS),
+                    **times(kreg, lambda: fn(*case["args"], **case["kwargs"])),
+                    plain_ms=kreg.cuda_time_ms(case["plain"], PLAIN_ITERS), bound_ms=bms,
+                    bound_by=bby,
+                    **library_fields(lib_t),
                     library=case["library_label"], library_err_over_tol=lib_over,
                 )
                 if "config" in case:
@@ -1500,10 +1606,9 @@ def check_serving_kernels(kreg, dev):
                 split = "".join(f", {key} {val}" for key, val in case.get("config", {}).items())
                 print(
                     f"{name} {which} {mode} {shape} {dname}{split}: max|err| {rec['max_abs_err']:.3e}, "
-                    f"err/tol {over:.3f}, vs float64 err/tol {over64:.3f}, median "
-                    f"{rec['ms']:.4f} ms over {ITERS}, plain {rec['plain_ms']:.4f} ms, library "
-                    f"{rec['library_ms']:.4f} ms ({case['library_label']}, err/tol "
-                    f"{lib_over:.3f}), bound {bms:.4f} ms ({bby}), {bms / rec['ms']:.1%} of bound"
+                    f"err/tol {over:.3f}, vs float64 err/tol {over64:.3f}, plain "
+                    f"{rec['plain_ms']:.4f} ms, library {card_ms(lib_t)} ({case['library_label']}, "
+                    f"err/tol {lib_over:.3f}), {of_bound(bms, bby, rec)}"
                 )
                 if not (over <= 1 and over64 <= 1):
                     return f"{name} {which} {mode} {dname}: err/tol {over}, vs float64 {over64} > 1"
@@ -1633,7 +1738,7 @@ def drive_model_path(cli, kreg, load_iteration, smi):
     for pk in it.kernels:
         if pk.run and "shared_with" not in pk.run:
             print(f"full width {pk.name}: {pk.run['shapes']} max|err| "
-                  f"{pk.run['max_abs_err']:.3e}, median {pk.run['ms']:.4f} ms")
+                  f"{pk.run['max_abs_err']:.3e}, {card_ms(pk.run)}")
     rc, out = run_cli(cli, ["report", str(root / "jamba" / "iter0")])
     report = (root / "jamba" / "iter0" / "report" / "report.md").read_text()
     if rc != 0 or "## per-layer attribution — moe-tiny" not in report:
@@ -1655,7 +1760,7 @@ def drive_model_path(cli, kreg, load_iteration, smi):
         for i, rung in enumerate((a, b)):
             pk = load_iteration(sess / f"iter{i}").kernels[0]
             print(f"{family}:{rung} modeled transfers {pk.transactions}, "
-                  f"measured {pk.run['ms']:.4f} ms at {pk.run['shapes'][0]}")
+                  f"measured {card_ms(pk.run)} at {pk.run['shapes'][0]}")
     _, msg = run_counted(
         ["profile", "-k", "flash", "-k", "gmm", "-k", "ssd", "--out", str(root / "families"), "-q"],
         ("flash_attention", "gmm", "ssd_chunk"),
@@ -1664,16 +1769,16 @@ def drive_model_path(cli, kreg, load_iteration, smi):
 
 
 def against_alone(label, name, rung, run):
-    """None when a tune command's run of ``name:rung`` is no slower than
-    phase 3's run of that rung alone (by more than ALONE_TOL and
-    ALONE_SLACK_MS), else a failure message: a rung timed while other work
-    held the host would read slow."""
+    """None when a tune command's run of ``name:rung`` is no slower on the
+    card than phase 3's run of that rung alone (by more than ALONE_TOL and
+    ALONE_SLACK_MS), else a failure message: a timer that let the host's
+    work into the card's time would read slow beside other work."""
     alone = ALONE_MS.get((name, rung))
     if alone is None:
         return f"{label} {name}:{rung}: phase 3 has no time of the rung alone"
-    if run["ms"] - alone > ALONE_TOL * alone + ALONE_SLACK_MS:
-        return (f"{label} {name}:{rung}: {run['ms']:.4f} ms, but {alone:.4f} ms "
-                f"alone in phase 3")
+    if run["device_ms"] - alone > ALONE_TOL * alone + ALONE_SLACK_MS:
+        return (f"{label} {name}:{rung}: {run['device_ms']:.4f} ms on the card, but "
+                f"{alone:.4f} ms alone in phase 3")
     return None
 
 
@@ -1726,7 +1831,7 @@ def drive_tuning_loop(cli, kreg, smi):
                     return f"{label} {it.path.name}: a run on a rung with no kernel"
                 continue
             run = pk.run or {}
-            if run.get("device") != card or not run.get("ms"):
+            if run.get("device") != card or not run.get("device_ms"):
                 return f"{label} {it.path.name}: no run on the card ({run})"
             # run_variant held every element to the variant's tolerance (a
             # miss is exit 1); a plain number is checked again here
@@ -1737,7 +1842,7 @@ def drive_tuning_loop(cli, kreg, smi):
             if msg:
                 return msg
             print(f"{label} {it.path.name} {pk.name}:{variant.name}: {run_text(run)} "
-                  f"(alone in phase 3: {ALONE_MS[(pk.name, variant.name)]:.4f} ms)")
+                  f"(alone in phase 3: {ALONE_MS[(pk.name, variant.name)]:.4f} ms on the card)")
         return its
 
     # -- tune gemm, cold then warm ------------------------------------------------
@@ -3011,11 +3116,12 @@ def drive_examples(smi, kreg):
     got, counts = run("optimize_gemm", optimize_gemm, ["--device", "cuda"])
     rungs = ("v00", "v01", "v02")
     per_row = [got[r]["per_row"] for r in rungs]
-    print(f"optimize_gemm: transfers per C row {per_row}; kernel ms "
+    print(f"optimize_gemm: transfers per C row {per_row}; kernel ms a call on the card "
+          f"{[got[r]['run']['device_ms'] for r in rungs]}, event medians "
           f"{[got[r]['run']['ms'] for r in rungs]} on {smi}; max|err| vs plain "
           f"{[got[r]['run']['max_abs_err'] for r in rungs]}")
     for r in rungs:
-        if counts.get(f"gemm_{r}", 0) < 1 or got[r]["run"]["ms"] is None:
+        if counts.get(f"gemm_{r}", 0) < 1 or got[r]["run"]["device_ms"] is None:
             return f"optimize_gemm: gemm_{r} was not launched on the card ({counts})"
     if not per_row[0] >= per_row[1] >= per_row[2]:
         return f"optimize_gemm: transfers per row do not fall v00 -> v01 -> v02: {per_row}"
@@ -3135,10 +3241,10 @@ def drive_gate(cli, kreg, load_iteration, smi):
     def ran_on_card(kernels):
         for pk in kernels:
             run = pk.run or {}
-            if run.get("device") != card or run.get("launches", 0) < 1 or not run.get("ms"):
+            if run.get("device") != card or run.get("launches", 0) < 1 or not run.get("device_ms"):
                 return f"gate {pk.name}:{pk.variant}: no run on the card ({run})"
             print(f"gate {pk.name}:{pk.variant}: modeled transfers {pk.transactions}, "
-                  f"max|err| vs plain {run['max_abs_err']:.3e}, median {run['ms']:.4f} ms "
+                  f"max|err| vs plain {run['max_abs_err']:.3e}, {card_ms(run)} "
                   f"at {run['shapes']} on {smi}")
         return None
 
@@ -3253,8 +3359,8 @@ def main() -> int:
         # kernel and a plain version that agree are also right
         exact = a.double().cpu().numpy() @ b.double().cpu().numpy()
         tol_exact = 1e-2 * scale
-        plain_ms = kreg.cuda_time_ms(lambda: gemm.gemm_plain(a, b), ITERS)
-        library_ms = kreg.cuda_time_ms(lambda: torch.matmul(a, b), ITERS)
+        plain_ms = kreg.cuda_time_ms(lambda: gemm.gemm_plain(a, b), PLAIN_ITERS)
+        lib_t = library_times(kreg, lambda: torch.matmul(a, b))
         bms, bby = bound(m, n, k, dname, a.element_size())
         for v, fn in gemm.KERNELS.items():
             got = fn(a, b)
@@ -3265,10 +3371,9 @@ def main() -> int:
                 return fail(f"gemm_{v} {dname}: non-finite output")
             err = float((got.float() - want.float()).abs().max())
             err_exact = float(np.abs(got.double().cpu().numpy() - exact).max())
-            ms = kreg.cuda_time_ms(lambda: fn(a, b), ITERS)
             rows[(v, dname)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=bby, library_ms=library_ms,
+                max_abs_err=err, **times(kreg, lambda: fn(a, b)), plain_ms=plain_ms,
+                bound_ms=bms, bound_by=bby, **library_fields(lib_t),
                 max_abs_err_vs_float64=err_exact,
             )
             rows[(v, dname)].update(registry_host(
@@ -3291,10 +3396,8 @@ def main() -> int:
             print(
                 f"gemm_{v} {dname} {m}x{n}x{k}: max|err| {err:.3e} "
                 f"(tol {tol:.3e}), vs float64 {err_exact:.3e} (tol "
-                f"{tol_exact:.3e}), launches so far {fn.launches}, "
-                f"median {ms:.4f} ms over {ITERS}, plain {plain_ms:.4f} ms, "
-                f"torch.matmul {library_ms:.4f} ms, bound {bms:.4f} ms "
-                f"({bby}), {bms / ms:.1%} of bound"
+                f"{tol_exact:.3e}), launches so far {fn.launches}, plain {plain_ms:.4f} ms, "
+                f"torch.matmul {card_ms(lib_t)}, {of_bound(bms, bby, rows[(v, dname)])}"
             )
             if not err <= tol:
                 return fail(f"gemm_{v} {dname}: max|err| {err} > {tol}")
@@ -3323,6 +3426,9 @@ def main() -> int:
     serving_rows = check_serving_kernels(kreg, dev)
     if isinstance(serving_rows, str):
         return fail(serving_rows)
+    registry_times = check_registry_times(kreg, dev)
+    if isinstance(registry_times, str):
+        return fail(registry_times)
     print(f"host time to issue one call at the registry's shape, ms, beside the library "
           f"call's (none: no library call) on {smi}: {json.dumps(REGISTRY_HOST)}")
 
@@ -3379,9 +3485,9 @@ def main() -> int:
             pk = load_iteration(sess / f"iter{i}").kernels[0]
             classes = sorted(f"{r.pattern}@{r.region}" for r in pk.reports)
             if pk.run:
-                ALONE_MS[(pk.name, pk.variant)] = pk.run["ms"]
+                ALONE_MS[(pk.name, pk.variant)] = pk.run["device_ms"]
             measured = (
-                f"measured {pk.run['ms']:.4f} ms on {pk.run['device']}"
+                f"measured {card_ms(pk.run)} on {pk.run['device']}"
                 if pk.run else "spec only"
             )
             print(f"{kref} modeled transfers {pk.transactions}, patterns {classes}, {measured}")
@@ -3528,6 +3634,8 @@ def main() -> int:
         row["scale_out_launches"] = scale_launches.get(row["name"], 0)
         row["examples_launches"] = example_launches.get(row["name"], 0)
         row["gate_launches"] = gate_launches.get(row["name"], 0)
+        row["registry_times"] = {ref: t for ref, t in registry_times.items()
+                                 if t["kernel"] == row["name"]}
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s on {smi}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -409,7 +409,8 @@ def _faults_section_markdown(faults: Sequence[Mapping]) -> List[str]:
 
 
 def run_text(run: Optional[Mapping]) -> str:
-    """One-line summary of a profile's measured kernel launch ('' if none)."""
+    """One-line summary of a profile's measured kernel launch ('' if none):
+    the card's time of a call first, then the time with host issue."""
     if not run:
         return ""
     shared = (
@@ -421,9 +422,14 @@ def run_text(run: Optional[Mapping]) -> str:
             f"ran the plain version on {run.get('device')} "
             f"(no kernel launched, not timed){shared}"
         )
+    device_ms = run.get("device_ms")
+    on_card = (
+        f"{float(device_ms):.4f} ms a call on the card" if device_ms is not None
+        else "time on the card not measured"
+    )
     return (
-        f"launched {run.get('launches')}x on {run.get('device')}: "
-        f"median {float(run['ms']):.3f} ms, max |err| vs plain "
+        f"launched {run.get('launches')}x on {run.get('device')}: {on_card} "
+        f"({float(run['ms']):.4f} ms with host issue), max |err| vs plain "
         f"{float(run.get('max_abs_err', 0.0)):.2e}{shared}"
     )
 

@@ -208,7 +208,10 @@ class ProfiledKernel:
     # (e.g. q -> qT); persisted so later diffs align automatically
     region_map: Tuple[Tuple[str, str], ...] = ()
     # the profile's measured launch of the kernel itself, when it made
-    # one: {"device": name, "launches": n, "ms": median ms per launch}
+    # one: {"device": name, "launches": n, "ms": median ms of a call as a
+    # caller waits for it (host issue included), "device_ms": ms the card
+    # spends on a call (absent from manifests written before it was
+    # recorded: not measured)}
     run: Optional[Mapping] = None
     # collection-cache provenance: True when the heat map came from a
     # CollectionCache hit instead of a fresh grid walk; ``cache_key`` is

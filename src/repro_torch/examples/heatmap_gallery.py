@@ -24,7 +24,7 @@ import shutil
 from pathlib import Path
 
 from repro_torch import kernels as kreg
-from repro_torch.core.render import ReportEntry, write_report_bundle
+from repro_torch.core.render import ReportEntry, run_text, write_report_bundle
 from repro_torch.core.session import ProfileSession, profile_kernel
 from repro_torch.examples import add_common_args, device_of
 
@@ -33,6 +33,8 @@ OUT = Path(__file__).resolve().parents[3] / "artifacts" / "heatmaps_torch"
 
 def _profile(entry, variant, dev, seed):
     run = None if variant.kernel is None else kreg.run_variant(variant, dev, seed=seed)
+    if run is not None:
+        print(f"{entry.name}:{variant.name}: {run_text(run)}")
     return profile_kernel(
         variant.spec(),
         entry.sampler(),

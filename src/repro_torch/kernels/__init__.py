@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
+import time
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -648,10 +649,15 @@ class KernelMismatch(RuntimeError):
 
 
 def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` in ms over ``iters`` timed calls.
+    """Median time of one ``fn()`` as a caller waits for it, in ms, over
+    ``iters`` timed calls: host issue included, not device time.
 
     Each call is bracketed by its own pair of CUDA events on the current
-    stream, so the figure is device time, not enqueue time.
+    stream.  A card that has finished the call before records the start
+    event as soon as the host issues it, then waits for the wrapper's
+    Python, allocations and launch, so a call whose kernels are shorter
+    than its host issue is timed at the rate the host issues it.
+    :func:`device_time_ms` gives the card's own time.
     """
     for _ in range(warmup):
         fn()
@@ -667,6 +673,111 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> 
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+#: The shortest sleep :func:`device_time_ms` holds the queue with, in ms,
+#: when no warm-up call gave the host's issue time to size it by.
+SLEEP_MIN_MS = 2.0
+_SLEEP_CALIBRATION_CYCLES = 1_000_000
+_CYCLES_PER_MS: Dict[int, float] = {}
+
+
+class QueueDrained(RuntimeError):
+    """The card ran out of queued work while :func:`device_time_ms` timed
+    it, so its span would hold the host's issue."""
+
+
+def held_call_ms(span_ms: float, iters: int, sleeping: bool) -> float:
+    """The card's mean time of one of ``iters`` calls queued behind a sleep,
+    in ms, or :class:`QueueDrained`.
+
+    ``span_ms`` runs from the event recorded right after the sleep to the
+    one recorded after the last call; ``sleeping`` is True when the first
+    event was still pending once the host had issued the last call and its
+    event.  Then every call was queued before the card began the first, so
+    the card ran them back to back and the span holds the card's work
+    alone: no wait for the host.  Otherwise the card may have waited
+    inside the span, and the figure is refused.
+    """
+    if iters < 1 or not span_ms > 0:
+        raise ValueError(f"a span of {span_ms} ms over {iters} calls")
+    if not sleeping:
+        raise QueueDrained(
+            f"the sleep ended before the host had issued all {iters} calls: "
+            f"the card may have waited for the host inside the {span_ms:.4f} ms span"
+        )
+    return span_ms / iters
+
+
+def _cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` in one ms on the current
+    device, measured once per process with an event pair around a sleep."""
+    dev = torch.cuda.current_device()
+    if dev not in _CYCLES_PER_MS:
+        torch.cuda._sleep(1000)  # loads the sleep kernel
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(_SLEEP_CALIBRATION_CYCLES)
+        stop.record()
+        stop.synchronize()
+        _CYCLES_PER_MS[dev] = _SLEEP_CALIBRATION_CYCLES / start.elapsed_time(stop)
+    return _CYCLES_PER_MS[dev]
+
+
+def device_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> float:
+    """Time the card spends on one ``fn()``, in ms: the mean over ``iters``
+    calls run back to back, whatever the host's issue costs.
+
+    After the warm-up the current stream sleeps on the card
+    (``torch.cuda._sleep``) while the host issues the ``iters`` calls, so
+    they run back to back once it ends; one event right after the sleep
+    and one after the last call bracket them all (a call of two kernels or
+    a memset counts whole, with the card's own gap between kernels).  An
+    event pair around each call would add its events' time on the card,
+    about 3 us a record, to every call.  The sleep lasts three times the
+    host's issue of the last warm-up call for each of the ``iters`` calls,
+    at least ``SLEEP_MIN_MS``.  :func:`held_call_ms` refuses a batch whose
+    sleep ended before the host had issued it; the calls are then timed
+    once more behind twice the sleep and four times the host's issue of
+    that batch, and if that sleep ends too soon as well
+    :class:`QueueDrained` is raised.  There is no fallback to
+    :func:`cuda_time_ms`.
+    """
+    issue_ms = 0.0
+    for _ in range(warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+    sleep_ms = max(SLEEP_MIN_MS, 3 * iters * issue_ms)
+    span_ms, sleeping, issued_ms = _held_calls(fn, iters, sleep_ms)
+    try:
+        return held_call_ms(span_ms, iters, sleeping)
+    except QueueDrained:
+        sleep_ms = max(2 * sleep_ms, 4 * issued_ms)
+    span_ms, sleeping, _ = _held_calls(fn, iters, sleep_ms)
+    return held_call_ms(span_ms, iters, sleeping)
+
+
+def _held_calls(fn: Callable[[], object], iters: int, sleep_ms: float):
+    """Issue ``iters`` calls of ``fn()`` behind a sleep of ``sleep_ms`` on
+    the card: ``(span_ms, sleeping)`` as :func:`held_call_ms` takes them,
+    and the host's time in ms to issue the sleep and the calls."""
+    cycles = int(sleep_ms * _cycles_per_ms())
+    held = torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    held.record()
+    for _ in range(iters):
+        fn()
+    done.record()
+    sleeping = not held.query()
+    issued_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return held.elapsed_time(done), sleeping, issued_ms
+
+
 def run_variant(
     variant: KernelVariant,
     device: "str | torch.device" = "cuda",
@@ -676,11 +787,15 @@ def run_variant(
     """Launch ``variant``'s kernel on seeded inputs and check it.
 
     On a CUDA device the kernel runs once against its plain version
-    (float32 products without TF32), then ``iters`` more times under CUDA
-    events; the record carries the device name, the launches made, the
-    median time and the largest absolute error over all outputs, and the
-    variant's non-tensor arguments under ``kwargs`` when it has any.  On the CPU the
-    wrapper takes the plain version, so nothing is launched or timed.
+    (float32 products without TF32), then is timed twice over ``iters``
+    calls: ``ms`` is the median time of a call as a caller waits for it,
+    host issue included (:func:`cuda_time_ms`, after two warm-up calls),
+    and ``device_ms`` the time the card spends on a call
+    (:func:`device_time_ms`).  The record carries the device name, the
+    launches made, both times and the largest absolute error over all
+    outputs, and the variant's non-tensor arguments under ``kwargs`` when
+    it has any.  On the CPU the wrapper takes the plain version, so nothing
+    is launched or timed and both times are None.
     Raises :class:`KernelMismatch` when an element's error exceeds
     ``variant.atol`` (each output held to its own tolerance).
     """
@@ -720,14 +835,17 @@ def run_variant(
         "dtype": str(args[0].dtype).replace("torch.", ""),
         "max_abs_err": err,
         "ms": None,
+        "device_ms": None,
     }
     if kwargs:
         run["kwargs"] = kwargs
     if on_card:
+        def call():
+            return variant.kernel(*args, **kwargs)
+
         with torch.cuda.device(device):
-            run["ms"] = cuda_time_ms(
-                lambda: variant.kernel(*args, **kwargs), iters=iters
-            )
+            run["ms"] = cuda_time_ms(call, iters=iters)
+            run["device_ms"] = device_time_ms(call, iters=iters, warmup=0)
     run["launches"] = getattr(variant.kernel, "launches", 0) - before
     return run
 
@@ -745,16 +863,19 @@ __all__ = [
     "RegistryEntry",
     "build",
     "cuda_time_ms",
+    "device_time_ms",
     "flash",
     "gemm",
     "get",
     "gmm",
     "gramschm",
+    "held_call_ms",
     "histogram",
     "names",
     "ops",
     "PAGED_SHAPE",
     "paged_attn",
+    "QueueDrained",
     "RAGGED_BKV",
     "RAGGED_SHAPE",
     "ragged_flash",

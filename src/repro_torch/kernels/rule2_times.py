@@ -23,19 +23,23 @@ its library call
 ``torch._grouped_mm``), and for ``spmv_ell`` at the registry's 65,536 x 16
 and the timing shape 1,048,576 x 32 beside ``torch.linalg.vecdot``, it
 prints one JSON line: the median time of a call over 30 CUDA-event-timed
-calls (the timer of ``chip_smoke.py``, ``kernels.cuda_time_ms``: a call's
-host dispatch counts), the device time of each device kernel of one call
-(``torch.profiler``) and the host's time to issue one call with an empty
-queue.  ``host`` gives, for every registry variant that launches a kernel
-and for ``spmv_ell``, at the registry's shapes, the host's time to issue one
+calls (``kernels.cuda_time_ms``: a call's host issue counts; the card's
+time of a call is ``kernels.device_time_ms``), the device time of each
+device kernel of one call (``torch.profiler``) and the host's time to
+issue one call with an empty queue.  ``host`` gives, for every registry
+variant that launches a kernel and for ``spmv_ell``, at the registry's
+shapes, the host's time to issue one
 call (a median over 200 calls), the event median and the device time by
 kernel; with ``--against SRC`` two fresh processes, one of this tree and
 one of that checkout, time the same calls in turn, ten rounds, so that the
 two trees' host issue is compared on one host at one time.  ``parts``
 splits the host's time of one ``spmv_ell`` call at the registry's shape by
-part, beside the steps the launch path replaced.  ``--only`` takes a
-comma-separated subset of ``ssd``, ``hist``, ``flash``, ``gmm``, ``spmv``,
-``host`` and ``parts``.  This file imports only torch, numpy and
+part, beside the steps the launch path replaced.  ``timers`` (only when
+named, and only for a tree that has ``kernels.device_time_ms``) reads the
+registry's calls with both timers' designs, the profiler, a short sleep
+and a thread spinning in Python beside them (``timer_check``).  ``--only``
+takes a comma-separated subset of ``ssd``, ``hist``, ``flash``, ``gmm``,
+``spmv``, ``host``, ``parts`` and ``timers``.  This file imports only torch, numpy and
 ``repro_torch``, and defines its own helpers, so that it times an older
 tree's wrappers as they are.
 """
@@ -65,6 +69,7 @@ GMM_SHAPES = {"": (4096, 4096, 14336, 16, 32), "_registry": (1024, 512, 512, 8, 
 # (rows, ELL width): the registry's, then the timing shape
 SPMV_SHAPES = {"_registry": (65536, 16), "": (1048576, 32)}
 PARTS = ("ssd", "hist", "flash", "gmm", "spmv", "host", "parts")
+TIMERS = "timers"  # not in the default: needs a tree with kernels.device_time_ms
 ITERS = 30
 HOST_ITERS = 200  # calls of the host-issue medians of ``host``
 HOST_ROUNDS = 10  # turns of each tree with ``--against``
@@ -85,7 +90,15 @@ def host_ms(fn, iters: int = 20) -> float:
 
 def device_kernels_ms(fn, iters: int = 10) -> dict:
     """{device kernel: ms a call} of ``fn()`` from ``torch.profiler`` (CUPTI)
-    over ``iters`` calls: which of a wrapper's kernels takes the time."""
+    over ``iters`` calls: which of a wrapper's kernels takes the time.
+
+    Each kernel's figure is the mean of the launches the profiler recorded,
+    times its launches a call: the profiler can miss a launch near the start
+    of its window (one of ten gemm v01 launches on an H100), which a
+    division by ``iters`` would take for a faster kernel.  This is the
+    breakdown by kernel.  The figure to quote for a call is
+    ``kernels.device_time_ms``, the card's time of one call, which the
+    profiler's sum here cross-checks."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -102,7 +115,8 @@ def device_kernels_ms(fn, iters: int = 10) -> dict:
         if total > 0:
             key = evt.key.replace("(anonymous namespace)::", "").removeprefix("void ")
             name = re.split(r"[<(]", key)[0]
-            out[name] = out.get(name, 0.0) + total / 1e3 / iters
+            per_call = max(1, round(evt.count / iters))
+            out[name] = out.get(name, 0.0) + total / 1e3 / evt.count * per_call
     return out
 
 
@@ -241,10 +255,72 @@ def host_parts(spmv, dev) -> dict:
     return {name: host_ms(step, HOST_ITERS) for name, step in steps.items()}
 
 
+def _paired(kreg, fn, iters: int, sleep_ms: float):
+    """``iters`` calls of ``fn()``, each between its own event pair, behind
+    a sleep of ``sleep_ms`` on the card: (the median pair in ms, the card's
+    time a call outside the pairs from the sleep's end to the last stop,
+    the calls issued after the card had finished the one before)."""
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    held = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(sleep_ms * kreg._cycles_per_ms()))
+    held.record()
+    before, late = held, 0
+    for start, stop in pairs:
+        start.record()
+        fn()
+        stop.record()
+        late += before.query()
+        before = stop
+    torch.cuda.synchronize()
+    marks = [(held.elapsed_time(a), held.elapsed_time(b)) for a, b in pairs]
+    inside = [b - a for a, b in marks]
+    return statistics.median(inside), (marks[-1][1] - sum(inside)) / iters, late
+
+
+def timer_check(kreg, spmv, dev) -> dict:
+    """How the timers read ``registry_calls`` on this card, ``ITERS`` calls
+    each: ``held_ms`` (``kernels.device_time_ms``: the batch bracketed by two
+    events behind a sleep), ``pairs_ms`` and ``between_ms`` (an event pair
+    around each call behind a 50 ms sleep: the median pair, and the card's
+    time a call outside the pairs; ``pairs_late`` calls issued after the
+    card had finished the one before), ``profiler_ms`` (``torch.profiler``'s
+    kernel sum), ``short_late`` and ``short_between_ms`` (the pairs behind a
+    2 ms sleep), and ``spin_ms`` (``held_ms`` beside a thread spinning in
+    Python); ``empty_held_ms``: an empty kernel's ``held_ms``."""
+    import threading
+
+    out = {"empty_held_ms": kreg.device_time_ms(lambda: torch.cuda._sleep(0), ITERS)}
+    calls = registry_calls(kreg, spmv, dev)
+    for ref, call in calls.items():
+        pairs_ms, between_ms, pairs_late = _paired(kreg, call, ITERS, 50.0)
+        _, short_between_ms, short_late = _paired(kreg, call, ITERS, 2.0)
+        out[ref] = dict(held_ms=kreg.device_time_ms(call, ITERS), pairs_ms=pairs_ms,
+                        between_ms=between_ms, pairs_late=pairs_late,
+                        profiler_ms=sum(device_kernels_ms(call).values()),
+                        short_late=short_late, short_between_ms=short_between_ms)
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            pass
+
+    spinner = threading.Thread(target=spin)
+    spinner.start()
+    try:
+        for ref, call in calls.items():
+            out[ref]["spin_ms"] = kreg.device_time_ms(call, ITERS)
+    finally:
+        stop.set()
+        spinner.join()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", default=",".join(PARTS),
-                        help=f"comma-separated subset of {', '.join(PARTS)}")
+                        help=f"comma-separated subset of {', '.join(PARTS + (TIMERS,))}")
     parser.add_argument("--against", metavar="SRC",
                         help="another checkout's src: time its wrappers' host issue in turn "
                              "with this tree's (part host)")
@@ -313,6 +389,8 @@ def main(argv=None) -> int:
         out["host"] = host_by_wrapper(kreg, spmv, dev, opts.against)
     if "parts" in parts:
         out["spmv_ell_host_parts"] = host_parts(spmv, dev)
+    if TIMERS in parts:
+        out[TIMERS] = timer_check(kreg, spmv, dev)
     print(json.dumps(out))
     return 0
 

@@ -11,11 +11,11 @@ version.  Run from the repository root on a CUDA device::
     PYTHONPATH=src python -m repro_torch.kernels.split_sweep
 
 Each length gets two times: ``ms``, the median of CUDA-event-timed calls
-(``kernels.cuda_time_ms``, which counts a call's host dispatch), and
-``device_ms``, the time of the call's two device kernels from
-``torch.profiler``.  It prints one line a (dtype, length) and, last, one
-JSON object ``{"card": ..., "sweep": [{"dtype", "split_len", "splits",
-"ms", "device_ms"}, ...]}``.
+(``kernels.cuda_time_ms``, which counts a call's host issue), and
+``device_ms``, the time the card spends on a call, its two device kernels
+together (``kernels.device_time_ms``).  It prints one line a (dtype,
+length) and, last, one JSON object ``{"card": ..., "sweep": [{"dtype",
+"split_len", "splits", "ms", "device_ms"}, ...]}``.
 """
 
 from __future__ import annotations
@@ -44,22 +44,6 @@ def _card() -> str:
         return out[0] if out else "unknown"
     except (OSError, subprocess.SubprocessError):
         return "unknown"
-
-
-def _device_ms(fn, iters: int = ITERS) -> float:
-    """Device time of one ``fn()`` in ms: every kernel's, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for evt in prof.key_averages():
-        total += getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-    return total / 1e3 / iters
 
 
 def main() -> int:
@@ -93,7 +77,7 @@ def main() -> int:
                 call = lambda: ragged_flash.ragged_decode_attention(*args)  # noqa: E731
                 row = dict(dtype=str(dtype).replace("torch.", ""), split_len=length,
                            splits=ragged_flash.n_splits(s), ms=kreg.cuda_time_ms(call, ITERS),
-                           device_ms=_device_ms(call), err_over_tol=over,
+                           device_ms=kreg.device_time_ms(call, ITERS), err_over_tol=over,
                            rule=length == rule(s))
                 rows.append(row)
                 print(f"{row['dtype']} L {length} ({row['splits']} splits"

@@ -397,7 +397,7 @@ def test_run_variant_on_cpu_runs_the_plain_version(ref_name):
     )
     want = {
         "device": "cpu", "shapes": shapes, "dtype": "float32",
-        "max_abs_err": 0.0, "ms": None, "launches": 0,
+        "max_abs_err": 0.0, "ms": None, "device_ms": None, "launches": 0,
     }
     if family == "gramschm":
         want["kwargs"] = {"k": 3}

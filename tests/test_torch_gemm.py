@@ -132,6 +132,7 @@ def test_run_variant_on_cpu_runs_the_plain_version():
         "dtype": "float32",
         "max_abs_err": 0.0,
         "ms": None,
+        "device_ms": None,
         "launches": 0,
     }
 

@@ -607,7 +607,7 @@ def test_run_variant_on_cpu_runs_the_plain_version(ref_name):
     run = kreg.run_variant(kreg.resolve(ref_name)[1], device="cpu")
     assert run == {
         "device": "cpu", "shapes": [[65536]], "dtype": "int32", "max_abs_err": 0.0,
-        "ms": None, "kwargs": {"n_bins": 2048}, "launches": 0,
+        "ms": None, "device_ms": None, "kwargs": {"n_bins": 2048}, "launches": 0,
     }
 
 

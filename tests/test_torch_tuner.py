@@ -558,7 +558,7 @@ def test_cli_tune_without_a_card_is_exit_2(tmp_path, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_h100_spmv_trajectory_stops_at_zigzag_with_no_pin_for_false_sharing():
+def test_h100_spmv_trajectory_takes_zigzag_then_pin_x():
     """ROADMAP queue 3 item 4: under ``H100Sector`` the advisor maps false
     sharing on the gathered x to ``retile`` (no sector meaning), as the
     reference maps it, and offers no ``pin`` for it.  The x words that 4
