@@ -14,7 +14,7 @@ Phases:
    ragged and paged decode and the ssd libraries (``cuobjdump -sass``):
    every bfloat16 kernel must hold some, and gemm's naive rungs (v00,
    v01) and the float32 flash, gmm and ssd kernels none (they must be
-   there, on the CUDA cores).
+   there, on the CUDA cores); the six libraries are read at once.
 2. For each GEMM kernel (v00, v01, v02) at the registry's 1024^3 shape,
    in float32 and bfloat16 on inputs from a fixed numpy seed: launch on
    the card, compare with the plain PyTorch version (float32 max abs
@@ -145,36 +145,44 @@ Phases:
    ``TUNE_ALL_MOVES``'s); each tune
    command's run of a rung may be slower on the card (``device_ms``) than
    phase 3's run of that rung alone by no more than ``ALONE_TOL`` and
-   ``ALONE_SLACK_MS``; ``profile -k
-   gemm:v01`` then ``-k gemm`` into one session, ``check iter1 --baseline
-   iter0 --json -`` (exit exactly 1, ``"schema_version": 1``) and ``check
-   SESSION --anomaly``; ``lint --all`` and ``kernels --lint`` (exit 0).
+   ``ALONE_SLACK_MS``; on phase 3's gemm session (``profile -k gemm:v00``
+   then ``-k gemm:v01``, the same commands in this process), ``check iter0
+   --baseline iter1 --json -`` (exit exactly 1, ``"schema_version": 1``)
+   and ``check SESSION --anomaly``.  ``lint --all`` and ``kernels --lint``
+   (exit 0), static checks that need neither the card nor a quiet host,
+   run in a process of their own beside phase 8 (``start_lint``).
    The cold and warm ``tune gemm`` wall times (in process: the host's
    turnaround of the command) are printed beside the card's name and
    power limit.
 5. Sharded collection and fault tolerance on the card's host, through the
    CLI entry point, every launch count set to 0 just before each command
-   and read just after, with W = min(4, os.cpu_count()) workers: ``profile
-   -k gemm:v00`` at the registry's 1024^3 float32, serially and with
-   ``--workers W``, into one session (``diff`` prints ``unchanged``, the
-   heat maps are bit-identical, the walk times and the shard count are
-   printed), then the same walk split in process into the serial walk and
-   flush, a fresh pool's start, the walk on the started pool and the
-   parent's flush, with the grid size from which W workers would pay;
-   ``profile -k gemm:v01 --sampler full`` serially, with
-   ``--workers 2``, and with ``--workers 2 --inject-faults seed=7`` (exit
-   0, ``recovered faults:`` names pool-rebuild, shard-resplit,
-   shard-timeout and worker-crash, the heat map equals the serial one, the
-   manifest has its ``faults`` block; the recovery's overhead against the
-   clean sharded walk is printed); ``tune gemm --budget 3 --workers W`` on
-   a fresh cache (its trajectory equals phase 4's step for step, its cold
-   turnaround is printed beside phase 4's serial one, and each rung's time
-   is held to phase 3's as in phase 4); and phase 3's
-   full-width Jamba-v0.1-52B ``model`` run with ``--workers 2``, preempted
-   by a SIGTERM the process sends itself after the first kernel (exit 3,
-   journal kept), then ``--resume`` with the same flags (exit 0, journal
-   removed, heat maps bit-identical to phase 3's).  Every pool the CLI
-   closes is probed first: no worker may hold a CUDA context, have loaded
+   and read just after, with W = min(4, os.cpu_count()) workers.  The
+   phase keeps one clean pool for each worker count, started once and
+   shared by its sharded commands (each session asks for it instead of
+   starting its own); a run with injected faults starts its own, as a
+   user's would.  First the walk of gemm:v00 (the registry's 1024^3, its
+   sampler) split in process into the serial walk and flush, the W-worker
+   pool's start, the walk on the started pool and the parent's flush, with
+   the grid size from which W workers would pay (``shard_split``); then
+   ``tune gemm --budget 3 --workers W`` on a fresh cache, on that pool (its
+   trajectory equals phase 4's step for step, its turnaround is printed on
+   the started pool and with the pool's start, beside phase 4's serial
+   one, and each rung's time is held to phase 3's as in phase 4).  Its
+   baseline is the W-worker walk of gemm:v00: held to phase 3's serial
+   ``profile -k gemm:v00`` (the same command in this process; ``diff``
+   prints ``unchanged``, the heat maps are bit-identical, the walk times
+   and the shard count are printed).  Then ``profile -k gemm:v01 --sampler
+   full`` serially, with ``--workers 2`` (the 2-worker pool's start
+   counts), and with ``--workers 2 --inject-faults seed=7`` (exit 0,
+   ``recovered faults:`` names pool-rebuild, shard-resplit, shard-timeout
+   and worker-crash, the heat map equals the serial one, the manifest has
+   its ``faults`` block; the recovery's overhead against the clean sharded
+   walk is printed, each with its pool's start); and phase 3's full-width
+   Jamba-v0.1-52B ``model`` run with ``--workers 2`` on the 2-worker pool,
+   preempted by a SIGTERM the process sends itself after the first kernel
+   (exit 3, journal kept), then ``--resume`` with the same flags (exit 0,
+   journal removed, heat maps bit-identical to phase 3's).  Every pool is
+   probed before it closes: no worker may hold a CUDA context, have loaded
    a kernel library or launched a kernel, and no library under ``build/``
    may be rebuilt.  Each number is printed beside the card's name and
    power limit and the host's core count.
@@ -227,7 +235,11 @@ Phases:
    SIGTERM during step 6 writes the preemption checkpoint (and
    ``Preempted`` stops the run), the checkpoint's parameters restored on
    the card must hash equal to the saved, and ``--resume`` must start at
-   step 6.  Each phase prints its time.
+   step 6.  Beside this phase, which the card bounds, phase 4's lint
+   commands (their process first times a fresh interpreter's import of
+   the collector, then of torch, for phase 5) and phase 10's longest
+   dry-run groups (``EARLY_DRYRUNS``) run in processes of their own on the
+   host's other cores.  Each phase prints its time.
 10. The mesh path on the card (run before the record): a one-rank NCCL
    group and a (1, 1) ("data", "model") mesh from ``launch.mesh``.  (a)
    Granite-8B's widths at depth 4, laid out by the training launcher's
@@ -241,7 +253,8 @@ Phases:
    the positions kept; then each path's bfloat16 time and the NCCL
    kernels' device time.  (c) The dry-run of granite-3-2b x decode_32k on
    256 and 512 placeholder ranks, in a process of its own started first,
-   and beside it, each in another: granite-3-2b x train_4k and
+   and beside it, each in another (those of ``EARLY_DRYRUNS`` started
+   before phase 8): granite-3-2b x train_4k and
    deepseek-v3-671b x train_4k at full depth on 512 (2 x 16 x 16; the
    first's step runs on the mesh's 32 x 16 flat view, the second's on the
    3-D mesh, its experts split over ("model", "data")), and each family's
@@ -288,8 +301,9 @@ Phases:
    GRAMSCHM opt) go into each kernel's record as ``gate_launches``; the
    phase's time is printed beside the card's name and power limit.
 9. Print the script's time, then one JSON line describing every kernel,
-   each with the card's name and power limit under ``config``, then the
-   result line.  Every phase prints its time.
+   each with the card's name and power limit under ``config``, then one
+   line of every phase's time and the total (``phase times: {"1": ...,
+   "total": ...}``), then the result line.  Every phase prints its time.
 
 The kernels redesigned for the card as a whole (GRAMSCHM opt, the ragged
 and paged decode, gemm v02, the SSD chunk, histogram opt2) also record, at
@@ -321,6 +335,9 @@ ROOT = Path(__file__).resolve().parent
 
 # host turnarounds phase 4 measures and phase 5 sets its sharded ones beside
 TURNAROUND = {}
+# phase -> its seconds, and the script's under "total": the summary line
+# printed just before the result line
+PHASE_TIMES = {}
 # (family, rung) -> the card's ms a call (the run's ``device_ms``) of phase
 # 3's run of that rung, profiled alone: no tune command's run of the same
 # rung may be slower on the card by more than ALONE_TOL
@@ -530,6 +547,10 @@ DRYRUN_GROUPS = {
     "vl": [("qwen2-vl-72b", "train_4k", True, 1)],
     "mla_prefill": [("deepseek-v3-671b", "prefill_32k", True, 4)],
 }
+# the groups started before phase 8, the two longest (deepseek-v3 and
+# granite-3-2b x train_4k on 512 ranks: 75-103 s and 45-57 s, each on one
+# core, where phase 10's mesh steps take 35-45 s)
+EARLY_DRYRUNS = ("deepseek", "train")
 DRYRUN_SCRIPT = """
 import json, sys, time
 from repro_torch.launch import dryrun
@@ -605,6 +626,16 @@ TUNE_ALL_MOVES = {
     "ragged_flash": ["ladder:decode-ragged", "pin(starts)", "pin(ends)"],
     "paged_attn": ["ladder:decode-paged", "pin(context_lens)", "pin(block_tables)"],
 }
+
+
+def phase_took(phase: str, t0: float, tail: str = "") -> float:
+    """Print phase ``phase``'s time since ``t0`` (``phase N took X s`` and
+    ``tail``), keep it in ``PHASE_TIMES`` for the summary line, and return
+    the clock's reading, the next phase's start."""
+    now = time.perf_counter()
+    PHASE_TIMES[phase] = round(now - t0, 1)
+    print(f"phase {phase} took {now - t0:.1f} s{tail}")
+    return now
 
 
 def fail(msg: str) -> int:
@@ -1277,14 +1308,18 @@ def check_tensor_cores(_build):
     holds none, if gemm's naive rungs (v00, v01) hold any, or if a float32
     kernel of flash, gmm or ssd (``flash_kernel``, ``gmm_kernel``,
     ``ssd_chunk_kernel``) is missing or holds any."""
+    from concurrent.futures import ThreadPoolExecutor
+
     f32_of = {"flash": "flash_kernel", "gmm": "gmm_kernel", "ssd": "ssd_chunk_kernel"}
+    tc_of = {"flash": "flash_tc_kernel", "gmm": "gmm_tc_kernel", "gemm": "gemm_v02_tc_kernel",
+             "ragged_decode": "ragged_split_tc_kernel",
+             "paged_decode": "paged_split_tc_kernel", "ssd": "ssd_tc_kernel"}
+    # one cuobjdump a library, all at once
+    with ThreadPoolExecutor(len(tc_of)) as pool:
+        read = dict(zip(tc_of, pool.map(lambda name: _build.sass_counts(name, "HMMA"), tc_of)))
     counts = {}
-    for name, tc in (("flash", "flash_tc_kernel"), ("gmm", "gmm_tc_kernel"),
-                     ("gemm", "gemm_v02_tc_kernel"),
-                     ("ragged_decode", "ragged_split_tc_kernel"),
-                     ("paged_decode", "paged_split_tc_kernel"),
-                     ("ssd", "ssd_tc_kernel")):
-        per_fn = _build.sass_counts(name, "HMMA")
+    for name, tc in tc_of.items():
+        per_fn = read[name]
         tc_fns = {fn: c for fn, c in per_fn.items() if tc in fn}
         print(f"{name}: HMMA per kernel function (cuobjdump -sass): "
               + ", ".join(f"{fn.split('_cu_')[-1][:64]}: {c}" for fn, c in per_fn.items()))
@@ -1768,6 +1803,24 @@ def drive_model_path(cli, kreg, load_iteration, smi):
     return msg or launches
 
 
+def loaded(its):
+    """A stand-in for a session whose iterations ``its`` are loaded
+    already: ``trajectories_from_session`` reads only ``iterations()``."""
+    import types
+
+    return types.SimpleNamespace(iterations=lambda: its)
+
+
+def trajectory_steps(its):
+    """(baseline transfers, best transfers, [(candidate, accepted)]) of the
+    one tuning run in the loaded iterations ``its``."""
+    from repro_torch.core.tuner import trajectories_from_session
+
+    (traj,) = trajectories_from_session(loaded(its))
+    return (traj["baseline"]["transactions"], traj["best"]["transactions"],
+            [(s["candidate"]["label"], s["accepted"]) for s in traj["steps"]])
+
+
 def against_alone(label, name, rung, run):
     """None when a tune command's run of ``name:rung`` is no slower on the
     card than phase 3's run of that rung alone (by more than ALONE_TOL and
@@ -1877,7 +1930,7 @@ def drive_tuning_loop(cli, kreg, smi):
             return "tune gemm (warm): heat maps differ from the cold run's"
     print(f"tune gemm wall time (in process, host turnaround): cold {walls['cold']:.2f} s, "
           f"warm {walls['warm']:.2f} s, on {smi}")
-    TURNAROUND.update(tune_gemm_cold=walls["cold"], tune_gemm_session=root / "gemm-cold")
+    TURNAROUND.update(tune_gemm_cold=walls["cold"], tune_gemm_steps=trajectory_steps(cold))
 
     # -- tune --all, no workers --------------------------------------------------------
     families = ["gemm", "spmv", "histogram", "gramschm", "ttm", "ragged_flash", "paged_attn"]
@@ -1889,7 +1942,7 @@ def drive_tuning_loop(cli, kreg, smi):
     its = checked_runs(sess, "tune --all")
     if isinstance(its, str):
         return its
-    for traj in trajectories_from_session(ProfileSession(sess, create=False)):
+    for traj in trajectories_from_session(loaded(its)):
         moves = [s["candidate"].get("label") for s in traj["steps"] if s["accepted"]]
         print(f"tune --all {traj['kernel']}: transfers {traj['baseline']['transactions']} -> "
               f"{traj['best']['transactions']}, accepted {moves or 'nothing'}")
@@ -1899,12 +1952,10 @@ def drive_tuning_loop(cli, kreg, smi):
     print(f"tune --all wall time (in process): {wall:.2f} s")
 
     # -- the regression gate, and lint ------------------------------------------------
-    sess = root / "check"
-    for ref in ("gemm:v01", "gemm"):
-        _, _, msg = counted(["profile", "-k", ref, "--out", str(sess), "-q"])
-        if msg:
-            return msg
-    out, _, msg = counted(["check", str(sess / "iter1"), "--baseline", str(sess / "iter0"),
+    # on phase 3's gemm session: gemm:v00 (iter0) against gemm:v01 (iter1),
+    # each profiled by the same command in this process
+    sess = ROOT / "build" / "chip_smoke_session" / "gemm"
+    out, _, msg = counted(["check", str(sess / "iter0"), "--baseline", str(sess / "iter1"),
                            "--json", "-"], want_rc=1)
     if msg:
         return msg
@@ -1914,11 +1965,57 @@ def drive_tuning_loop(cli, kreg, smi):
     rc, _ = run_cli(cli, ["check", str(sess), "--anomaly"])
     if rc not in (0, 1):
         return f"check --anomaly exited {rc}"
-    for argv in (["lint", "--all", "-q"], ["kernels", "--lint"]):
-        rc, _ = run_cli(cli, argv)
-        if rc != 0:
-            return f"{' '.join(argv)} exited {rc}"
     return launches
+
+
+# phase 4's static checks, run in a process of their own beside phase 8,
+# which first times its own imports, a fresh interpreter's (phase 5's
+# shard split: what a pool's worker pays before it walks): the seconds
+# and each command's exit code on the last line; the output goes to LINT_LOG
+LINT_SCRIPT = """
+import time
+t0 = time.perf_counter()
+import repro_torch.core.collector
+t1 = time.perf_counter()
+import torch
+t2 = time.perf_counter()
+import json
+from repro_torch import cli
+rcs = {}
+for argv in (["lint", "--all", "-q"], ["kernels", "--lint"]):
+    rcs[" ".join(argv)] = cli.main(argv)
+print(json.dumps({"import_collector_s": t1 - t0, "import_torch_s": t2 - t1, "rcs": rcs}))
+"""
+LINT_LOG = ROOT / "build" / "chip_smoke_lint.log"
+LINT_TIMEOUT = 300
+
+
+def start_lint():
+    """The loop's static checks, ``lint --all -q`` and ``kernels --lint``,
+    through the CLI entry point in a process of their own on the host (no
+    kernel runs: they read specs and replay walks), after timing its own
+    imports; ``read_lint`` reads them."""
+    LINT_LOG.parent.mkdir(exist_ok=True)
+    with open(LINT_LOG, "w") as log:
+        return subprocess.Popen([sys.executable, "-c", LINT_SCRIPT], stdout=log,
+                                stderr=subprocess.STDOUT, cwd=ROOT,
+                                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+def read_lint(proc, where, smi):
+    """Wait for ``start_lint``'s process and print what it printed; None
+    when both commands exited 0, else a failure message."""
+    proc.wait(timeout=LINT_TIMEOUT)
+    out = LINT_LOG.read_text()
+    print(out.rstrip())
+    rec = json.loads(out.strip().splitlines()[-1]) if proc.returncode == 0 else {}
+    rcs = rec.get("rcs")
+    print(f"lint --all and kernels --lint, {where}: exit codes {rcs}")
+    if not rcs or any(rc != 0 for rc in rcs.values()):
+        return f"lint --all / kernels --lint: process exit {proc.returncode}, commands {rcs}"
+    print(f"fresh import ({where}): collector {rec['import_collector_s']:.2f} s, then torch "
+          f"{rec['import_torch_s']:.2f} s, on {smi}, host {os.cpu_count()} cores")
+    return None
 
 
 def run_cli(cli, argv, with_err=False):
@@ -1955,22 +2052,25 @@ def sigterm_after(n, fn):
     return wrapped
 
 
-def shard_split(kreg, workers, on):
+def shard_split(kreg, sc, on):
     """Where a sharded walk of gemm:v00 (the registry's 1024^3, its sampler)
     goes on this host, on the host's clock: the serial walk and its flush;
-    a fresh pool's start (spawn, and the registry import, torch's among
-    it), the walk on the started pool and the parent's flush of its
-    chunks; and a fresh interpreter's import of the collector, then of
-    torch.  The walk and flush grow with the grid and the start does not,
+    the start of ``sc``'s pool (spawn, and the registry import, torch's
+    among it), the walk on the started pool and the parent's flush of its
+    chunks (a fresh interpreter's import of the collector, then of torch,
+    is timed beside phase 8: ``start_lint``).  The walk and flush grow with
+    the grid and the start does not,
     so W workers pay from ``break_even`` times this walk's grid points.
-    Prints the numbers and returns them."""
-    from repro_torch.core.collector import ShardedCollector, collect
+    ``sc`` must not be started yet; it stays up for the phase's later
+    sharded commands.  Prints the numbers and returns them."""
+    from repro_torch.core.collector import collect
     from repro_torch.core.heatmap import Analyzer
     from repro_torch.core.trace import sampled_grid_size
 
     entry, _ = kreg.resolve("gemm:v00")
     spec, ctx = kreg.build("gemm:v00")
     sampler = entry.sampler()
+    workers = sc.workers
 
     def flush_s(bufs):
         t0 = time.perf_counter()
@@ -1984,19 +2084,12 @@ def shard_split(kreg, workers, on):
     buf, _ = collect(spec, sampler, ctx)
     row = dict(points=sampled_grid_size(spec.grid, sampler), workers=workers,
                serial_walk_s=time.perf_counter() - t0, serial_flush_s=flush_s([buf]))
-    with ShardedCollector(workers) as sc:
-        row["pool_start_s"] = sc.warmup()
-        t0 = time.perf_counter()
-        bufs, infos = sc.collect(spec, sampler, ctx)
-        row["walk_s"] = time.perf_counter() - t0
-        row["slowest_shard_s"] = max(i.wall_s for i in infos)
+    row["pool_start_s"] = sc.warmup()
+    t0 = time.perf_counter()
+    bufs, infos = sc.collect(spec, sampler, ctx)
+    row["walk_s"] = time.perf_counter() - t0
+    row["slowest_shard_s"] = max(i.wall_s for i in infos)
     row["flush_s"] = flush_s(bufs)
-    code = ("import time; t0 = time.perf_counter(); import repro_torch.core.collector; "
-            "t1 = time.perf_counter(); import torch; "
-            "print(t1 - t0, time.perf_counter() - t1)")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         check=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    row["import_collector_s"], row["import_torch_s"] = map(float, out.stdout.split())
     gain = row["serial_walk_s"] + row["serial_flush_s"] - row["walk_s"] - row["flush_s"]
     row["break_even"] = row["pool_start_s"] / gain if gain > 0 else None
     pays = (f"{row['break_even']:.1f}x this grid ({row['break_even'] * row['points']:.0f} "
@@ -2005,8 +2098,7 @@ def shard_split(kreg, workers, on):
           f"{row['serial_walk_s']:.3f} s + flush {row['serial_flush_s']:.3f} s; {workers} "
           f"workers: pool start {row['pool_start_s']:.3f} s, walk {row['walk_s']:.3f} s "
           f"(slowest shard {row['slowest_shard_s']:.3f} s), flush {row['flush_s']:.3f} s; "
-          f"fresh import: collector {row['import_collector_s']:.2f} s, then torch "
-          f"{row['import_torch_s']:.2f} s; {workers} workers pay from {pays}, {on}")
+          f"{workers} workers pay from {pays}, {on}")
     return row
 
 
@@ -2017,7 +2109,6 @@ def drive_scale_out(cli, kreg, smi, load_iteration):
     from repro_torch.core import model_profile
     from repro_torch.core.collector import ShardedCollector
     from repro_torch.core.session import ProfileSession, heatmaps_equal
-    from repro_torch.core.tuner import trajectories_from_session
     from repro_torch.kernels import _build
 
     cores = os.cpu_count() or 1
@@ -2030,7 +2121,7 @@ def drive_scale_out(cli, kreg, smi, load_iteration):
     shutil.rmtree(root, ignore_errors=True)
     libs = {p: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")}
 
-    # probe every pool the CLI closes: its workers walked, nothing more
+    # probe every pool before it closes: its workers walked, nothing more
     states = []
     close = ShardedCollector.close
 
@@ -2038,6 +2129,23 @@ def drive_scale_out(cli, kreg, smi, load_iteration):
         if self._pool is not None:
             states.extend(self.worker_states())
         close(self)
+
+    # one clean pool for each worker count, shared by the phase's sharded
+    # commands: a session asks for it instead of starting its own, and it
+    # is probed and closed at the phase's end.  The W-worker pool is
+    # started (and timed) by shard_split; the 2-worker one by the first
+    # command that walks on it.  A session with injected faults starts
+    # its own pool, as a user's would.
+    shared = {workers: ShardedCollector(workers)}
+    session_collector = ProfileSession.collector
+
+    def shared_collector(self, n=None):
+        n = self.workers if n is None else max(1, int(n))
+        if n <= 1 or self.fault_plan is not None:
+            return session_collector(self, n)
+        if n not in shared:
+            shared[n] = ShardedCollector(n)
+        return shared[n]
 
     def counted(argv, want_rc=0):
         kreg.reset_launch_counts()
@@ -2057,28 +2165,53 @@ def drive_scale_out(cli, kreg, smi, load_iteration):
         return pk, pk.wall_s
 
     ShardedCollector.close = probing_close
+    ProfileSession.collector = shared_collector
     try:
-        # -- gemm v00 at 1024^3: serial, then W workers, into one session ---------
-        sess = root / "gemm-v00"
-        _, _, _, msg = counted(["profile", "-k", "gemm:v00", "--out", str(sess), "-q"])
+        # -- gemm v00 at 1024^3: the walk split, on the W-worker pool it starts ----
+        split = shard_split(kreg, shared[workers], on)
+
+        # -- tune gemm with W workers on a fresh cache, on the started pool --------
+        # its baseline is the sharded walk of gemm:v00 (the registry's sampler),
+        # held to phase 3's serial walk of the same command in this process
+        sess = root / "tune-gemm"
+        out, _, wall, msg = counted(["tune", "gemm", "--budget", "3", "--workers", str(workers),
+                                     "--cache", str(root / "cache"), "--out", str(sess)])
         if msg:
             return msg
-        out, _, wall, msg = counted(["profile", "-k", "gemm:v00", "--workers", str(workers),
-                                     "--out", str(sess)])
-        if msg:
-            return msg
-        if f"collected in {workers} shards" not in out:
-            return f"profile --workers {workers} did not collect in {workers} shards"
-        (serial, t_serial), (sharded, t_sharded) = walk_s(sess, 0), walk_s(sess, 1)
-        if not heatmaps_equal(serial.heatmap, sharded.heatmap) or len(sharded.shards) != workers:
+        its = ProfileSession(sess, create=False).iterations()
+        for it in its:
+            pk = it.kernels[0]
+            if pk.run is not None:
+                cand = (it.tuning or {}).get("candidate") or {}
+                msg = against_alone(f"tune gemm --workers {workers}", pk.name,
+                                    cand.get("variant") or pk.variant, pk.run)
+                if msg:
+                    return msg
+
+        got, want = trajectory_steps(its), TURNAROUND["tune_gemm_steps"]
+        if got != want or got[:2] != (168820736, 3276800):
+            return f"tune gemm --workers {workers}: trajectory {got}, phase 4's {want}"
+        print(f"tune gemm trajectory {got}: equal to phase 4's")
+        print(f"tune gemm cold turnaround: serial {TURNAROUND['tune_gemm_cold']:.2f} s (phase 4), "
+              f"{workers} workers {wall:.2f} s on the started pool, "
+              f"{wall + split['pool_start_s']:.2f} s with its start, {on}")
+        serial_dir = ROOT / "build" / "chip_smoke_session" / "gemm" / "iter0"
+        serial, sharded = load_iteration(serial_dir).kernels[0], its[0].kernels[0]
+        if (serial.variant, sharded.variant, (its[0].tuning or {}).get("role")) != (
+                "v00", "v00", "baseline"):
+            return (f"the serial and sharded walks are of {serial.variant} and "
+                    f"{sharded.variant}, not gemm:v00")
+        if len(sharded.shards) != workers:
+            return f"tune gemm --workers {workers}: its baseline walked in {len(sharded.shards)} shards"
+        if not heatmaps_equal(serial.heatmap, sharded.heatmap):
             return "gemm:v00: the sharded heat map differs from the serial one"
-        rc, diff_out = run_cli(cli, ["diff", str(sess / "iter0"), str(sess / "iter1")])
+        rc, diff_out = run_cli(cli, ["diff", str(serial_dir), str(its[0].path)])
         if rc != 0 or "[unchanged] gemm" not in diff_out:
             return "diff of the serial and sharded gemm:v00 is not 'unchanged'"
-        print(f"gemm:v00 1024^3 walk: serial {t_serial:.3f} s, {len(sharded.shards)} shards on "
-              f"{workers} workers {t_sharded:.3f} s (pool start included; the command "
-              f"{wall:.2f} s), {on}")
-        shard_split(kreg, workers, on)
+        print(f"gemm:v00 1024^3 walk: serial {serial.wall_s:.3f} s (phase 3), "
+              f"{len(sharded.shards)} shards on {workers} workers {sharded.wall_s:.3f} s on the "
+              f"started pool (tune's baseline), {sharded.wall_s + split['pool_start_s']:.3f} s "
+              f"with its start, {on}")
 
         # -- gemm v01 full grid: serial, clean sharded, injected faults -----------
         sess = root / "faults"
@@ -2104,34 +2237,8 @@ def drive_scale_out(cli, kreg, smi, load_iteration):
             return "the injected run's manifest lacks its faults block"
         print(f"gemm:v01 1024^3 walk: serial {t_serial:.3f} s, 2 workers {t_clean:.3f} s, "
               f"2 workers with seed=7 faults {t_faulty:.3f} s (fault_recovery overhead "
-              f"{100 * (t_faulty - t_clean) / t_clean:.1f} %), {on}")
-
-        # -- tune gemm with W workers on a fresh cache ------------------------------
-        sess = root / "tune-gemm"
-        out, _, wall, msg = counted(["tune", "gemm", "--budget", "3", "--workers", str(workers),
-                                     "--cache", str(root / "cache"), "--out", str(sess)])
-        if msg:
-            return msg
-
-        def steps(path):
-            (traj,) = trajectories_from_session(ProfileSession(path, create=False))
-            return (traj["baseline"]["transactions"], traj["best"]["transactions"],
-                    [(s["candidate"]["label"], s["accepted"]) for s in traj["steps"]])
-
-        for it in ProfileSession(sess, create=False).iterations():
-            pk = it.kernels[0]
-            if pk.run is not None:
-                cand = (it.tuning or {}).get("candidate") or {}
-                msg = against_alone(f"tune gemm --workers {workers}", pk.name,
-                                    cand.get("variant") or pk.variant, pk.run)
-                if msg:
-                    return msg
-        got, want = steps(sess), steps(TURNAROUND["tune_gemm_session"])
-        if got != want or got[:2] != (168820736, 3276800):
-            return f"tune gemm --workers {workers}: trajectory {got}, phase 4's {want}"
-        print(f"tune gemm trajectory {got}: equal to phase 4's")
-        print(f"tune gemm cold turnaround: serial {TURNAROUND['tune_gemm_cold']:.2f} s (phase 4), "
-              f"{workers} workers {wall:.2f} s, {on}")
+              f"{100 * (t_faulty - t_clean) / t_clean:.1f} %; each pool's start "
+              f"included), {on}")
 
         # -- the full-width model run, preempted then resumed -----------------------
         out_dir = root / "jamba"
@@ -2167,10 +2274,16 @@ def drive_scale_out(cli, kreg, smi, load_iteration):
               f"{len(partial.kernels)} kernel, resumed to {len(got.kernels)} kernels, "
               f"heat maps equal to phase 3's")
     finally:
-        ShardedCollector.close = close
+        ProfileSession.collector = session_collector
+        try:
+            for sc in shared.values():
+                probing_close(sc)
+        finally:
+            ShardedCollector.close = close
 
     bad = [s for s in states if s["cuda_initialized"] or s["libraries"] or s["launches"]]
-    print(f"pool workers probed: {len(states)}, with a CUDA context, a library or a launch: {bad}")
+    print(f"pool workers probed: {len(states)}, with a CUDA context, a library or a "
+          f"launch: {bad}")
     if not states or bad:
         return f"pool workers touched the card: {bad or 'none probed'}"
     if {p: p.stat().st_mtime_ns for p in _build.BUILD_DIR.glob("*.so")} != libs:
@@ -3005,10 +3118,29 @@ def mesh_ep(mesh, smi, dev, moe_cfg=None, tokens=None):
     return None
 
 
-def drive_mesh(smi, dev=None):
+def start_dryruns(groups):
+    """Start each of ``DRYRUN_GROUPS``'s ``groups`` in a process of its own
+    on the host; {group: process}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return {g: subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT,
+                                 json.dumps(DRYRUN_GROUPS[g])],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=env, cwd=ROOT) for g in groups}
+
+
+def stop(procs):
+    """Kill and reap every process of ``procs`` still running."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def drive_mesh(smi, dev=None, early=None):
     """Phase 10: the mesh path on one card — (a) the sharded training step,
-    (b) EP against capacity, (c) the dry-run in a process of its own; None,
-    or a failure message."""
+    (b) EP against capacity, (c) the dry-run, each group in a process of
+    its own (``early``: {group: process} already started); None, or a
+    failure message."""
     import tempfile
 
     import torch
@@ -3017,10 +3149,9 @@ def drive_mesh(smi, dev=None):
     from repro_torch.launch.mesh import make_mesh
 
     dev = dev or torch.device("cuda", 0)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    dries = [subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(cells)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env, cwd=ROOT) for cells in DRYRUN_GROUPS.values()]
+    early = early or {}
+    dries = [*early.values(),
+             *start_dryruns([g for g in DRYRUN_GROUPS if g not in early]).values()]
     try:
         (ROOT / "build").mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -3058,10 +3189,7 @@ def drive_mesh(smi, dev=None):
                 return f"dry-run: no {want} cell ({sorted(cells)})"
         return None
     finally:
-        for dry in dries:
-            if dry.poll() is None:
-                dry.kill()
-                dry.wait()
+        stop(dries)
 
 
 def drive_examples(smi, kreg):
@@ -3297,6 +3425,110 @@ def drive_gate(cli, kreg, load_iteration, smi):
     return launches
 
 
+def drive_main_path(cli, kreg, load_iteration, smi, dev):
+    """Phase 3, the main path: (launches by kernel of the families' runs,
+    of Granite-20B's decode step, of the bfloat16 step at Jamba's widths,
+    of the full-width model run), or a failure message.  Phases 4-5 read
+    what it leaves: its sessions under ``build/chip_smoke_session`` and
+    each rung's time alone (``ALONE_MS``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (
+        gemm, gramschm, histogram, ops, paged_attn, ragged_flash, ref, spmv, ttm,
+    )
+
+    # family -> [(registry ref, kernel name or None, counting wrapper or None)]
+    families = {
+        "gemm": [(f"gemm:{v}", f"gemm_{v}", fn) for v, fn in gemm.KERNELS.items()],
+        "spmv": [(f"spmv:{v}", None, None) for v in kreg.get("spmv").variant_names()],
+        "histogram": [
+            (f"histogram:{v}", fn.__name__, fn) for v, fn in histogram.KERNELS.items()
+        ],
+        "gramschm": [
+            (f"gramschm:{v}", f"gramschm_k3_{v}", fn)
+            for v, fn in gramschm.KERNELS.items()
+        ],
+        "ttm": [(f"ttm:{v}", f"ttm_{v}", fn) for v, fn in ttm.KERNELS.items()],
+    }
+    # the serving families: the decode rungs launch, the prefill rungs are spec only
+    for family, fn in (("ragged_flash", ragged_flash.ragged_decode_attention),
+                       ("paged_attn", paged_attn.paged_decode_attention)):
+        families[family] = [
+            (f"{family}:{v}", fn.__name__, fn) if v.startswith("decode") else (f"{family}:{v}", None, None)
+            for v in kreg.get(family).variant_names()
+        ]
+    launches = {}
+    for family, members in families.items():
+        sess = ROOT / "build" / "chip_smoke_session" / family
+        shutil.rmtree(sess, ignore_errors=True)
+        kreg.reset_launch_counts()
+        for kref, _, _ in members:
+            rc, _ = run_cli(cli, ["profile", "-k", kref, "--out", str(sess), "-q"])
+            if rc != 0:
+                return f"profile {kref} exited {rc}"
+        counts = {name: fn.launches for _, name, fn in members if fn is not None}
+        for (a, b), lines in STORIES[family].items():
+            rc, out = run_cli(cli, ["diff", str(sess / f"iter{a}"), str(sess / f"iter{b}")])
+            if rc != 0:
+                return f"diff {family} iter{a} iter{b} exited {rc}"
+            for line in lines:
+                if line not in out:
+                    return f"diff {family} iter{a} iter{b} does not show {line!r}"
+        rc, _ = run_cli(cli, ["report", str(sess / f"iter{len(members) - 1}")])
+        if rc != 0:
+            return f"report {family} exited {rc}"
+        print(f"main-path launches ({family}): {counts}")
+        for name, count in counts.items():
+            if count < 1:
+                return f"{name} was not launched by the main path"
+        launches.update(counts)
+        for i, (kref, _, _) in enumerate(members):
+            pk = load_iteration(sess / f"iter{i}").kernels[0]
+            classes = sorted(f"{r.pattern}@{r.region}" for r in pk.reports)
+            if pk.run:
+                ALONE_MS[(pk.name, pk.variant)] = pk.run["device_ms"]
+            measured = (
+                f"measured {card_ms(pk.run)} on {pk.run['device']}"
+                if pk.run else "spec only"
+            )
+            print(f"{kref} modeled transfers {pk.transactions}, patterns {classes}, {measured}")
+
+    # spmv_ell's entry point is ops.spmv (the spmv family is spec-only)
+    vals, xg, csr = spmv_inputs(
+        kreg.SPMV_SHAPE[0], SPMV_WIDTH, dev, np.random.default_rng(2)
+    )
+    kreg.reset_launch_counts()
+    y = ops.spmv(vals, xg)
+    torch.cuda.synchronize()
+    launches["spmv_ell"] = spmv.spmv_ell.launches
+    print(f"main-path launches (ops.spmv): {{'spmv_ell': {launches['spmv_ell']}}}")
+    if launches["spmv_ell"] < 1:
+        return "spmv_ell was not launched by ops.spmv"
+    want = ref.spmv_ref(vals, xg)
+    tol = 1e-5 * float(want.abs().max())
+    if tuple(y.shape) != (vals.shape[0],) or not bool(torch.isfinite(y).all()):
+        return f"ops.spmv: output {tuple(y.shape)} is not finite of {vals.shape[0]} rows"
+    err = float((y - want).abs().max())
+    err_exact = float(np.abs(y.double().cpu().numpy() - ref.spmv_csr_ref(*csr)).max())
+    print(f"ops.spmv {tuple(vals.shape)}: max|err| {err:.3e}, vs float64 CSR {err_exact:.3e} (tol {tol:.3e})")
+    if not (err <= tol and err_exact <= tol):
+        return f"ops.spmv: max|err| {err}, vs float64 {err_exact} > {tol}"
+
+    step_launches = drive_serving_step(dev)
+    if isinstance(step_launches, str):
+        return step_launches
+
+    tc_launches = drive_tensor_core_step(dev)
+    if isinstance(tc_launches, str):
+        return tc_launches
+
+    model_launches = drive_model_path(cli, kreg, load_iteration, smi)
+    if isinstance(model_launches, str):
+        return model_launches
+    return launches, step_launches, tc_launches, model_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3308,9 +3540,7 @@ def main() -> int:
     from repro_torch import cli
     from repro_torch import kernels as kreg
     from repro_torch.core.session import load_iteration
-    from repro_torch.kernels import (
-        _build, gemm, gramschm, histogram, ops, paged_attn, ragged_flash, ref, spmv, ttm,
-    )
+    from repro_torch.kernels import _build, gemm
 
     # -- phase 1: the card, and the build ----------------------------------
     smi = subprocess.run(
@@ -3332,8 +3562,7 @@ def main() -> int:
     if isinstance(hmma, str):
         return fail(hmma)
 
-    print(f"phase 1 took {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
+    t_phase = phase_took("1", t_phase)
 
     # -- phase 2: each kernel against its plain version ----------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3432,158 +3661,74 @@ def main() -> int:
     print(f"host time to issue one call at the registry's shape, ms, beside the library "
           f"call's (none: no library call) on {smi}: {json.dumps(REGISTRY_HOST)}")
 
-    print(f"phase 2 took {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
+    t_phase = phase_took("2", t_phase)
 
     # -- phase 3: the main path, profile -> diff -> report --------------------
-    # family -> [(registry ref, kernel name or None, counting wrapper or None)]
-    families = {
-        "gemm": [(f"gemm:{v}", f"gemm_{v}", fn) for v, fn in gemm.KERNELS.items()],
-        "spmv": [(f"spmv:{v}", None, None) for v in kreg.get("spmv").variant_names()],
-        "histogram": [
-            (f"histogram:{v}", fn.__name__, fn) for v, fn in histogram.KERNELS.items()
-        ],
-        "gramschm": [
-            (f"gramschm:{v}", f"gramschm_k3_{v}", fn)
-            for v, fn in gramschm.KERNELS.items()
-        ],
-        "ttm": [(f"ttm:{v}", f"ttm_{v}", fn) for v, fn in ttm.KERNELS.items()],
-    }
-    # the serving families: the decode rungs launch, the prefill rungs are spec only
-    for family, fn in (("ragged_flash", ragged_flash.ragged_decode_attention),
-                       ("paged_attn", paged_attn.paged_decode_attention)):
-        families[family] = [
-            (f"{family}:{v}", fn.__name__, fn) if v.startswith("decode") else (f"{family}:{v}", None, None)
-            for v in kreg.get(family).variant_names()
-        ]
-    launches = {}
-    for family, members in families.items():
-        sess = ROOT / "build" / "chip_smoke_session" / family
-        shutil.rmtree(sess, ignore_errors=True)
-        kreg.reset_launch_counts()
-        for kref, _, _ in members:
-            rc, _ = run_cli(cli, ["profile", "-k", kref, "--out", str(sess), "-q"])
-            if rc != 0:
-                return fail(f"profile {kref} exited {rc}")
-        counts = {name: fn.launches for _, name, fn in members if fn is not None}
-        for (a, b), lines in STORIES[family].items():
-            rc, out = run_cli(cli, ["diff", str(sess / f"iter{a}"), str(sess / f"iter{b}")])
-            if rc != 0:
-                return fail(f"diff {family} iter{a} iter{b} exited {rc}")
-            for line in lines:
-                if line not in out:
-                    return fail(f"diff {family} iter{a} iter{b} does not show {line!r}")
-        rc, _ = run_cli(cli, ["report", str(sess / f"iter{len(members) - 1}")])
-        if rc != 0:
-            return fail(f"report {family} exited {rc}")
-        print(f"main-path launches ({family}): {counts}")
-        for name, count in counts.items():
-            if count < 1:
-                return fail(f"{name} was not launched by the main path")
-        launches.update(counts)
-        for i, (kref, _, _) in enumerate(members):
-            pk = load_iteration(sess / f"iter{i}").kernels[0]
-            classes = sorted(f"{r.pattern}@{r.region}" for r in pk.reports)
-            if pk.run:
-                ALONE_MS[(pk.name, pk.variant)] = pk.run["device_ms"]
-            measured = (
-                f"measured {card_ms(pk.run)} on {pk.run['device']}"
-                if pk.run else "spec only"
-            )
-            print(f"{kref} modeled transfers {pk.transactions}, patterns {classes}, {measured}")
+    main_path = drive_main_path(cli, kreg, load_iteration, smi, dev)
+    if isinstance(main_path, str):
+        return fail(main_path)
+    launches, step_launches, tc_launches, model_launches = main_path
 
-    # spmv_ell's entry point is ops.spmv (the spmv family is spec-only)
-    vals, xg, csr = spmv_inputs(
-        kreg.SPMV_SHAPE[0], SPMV_WIDTH, dev, np.random.default_rng(2)
-    )
-    kreg.reset_launch_counts()
-    y = ops.spmv(vals, xg)
-    torch.cuda.synchronize()
-    launches["spmv_ell"] = spmv.spmv_ell.launches
-    print(f"main-path launches (ops.spmv): {{'spmv_ell': {launches['spmv_ell']}}}")
-    if launches["spmv_ell"] < 1:
-        return fail("spmv_ell was not launched by ops.spmv")
-    want = ref.spmv_ref(vals, xg)
-    tol = 1e-5 * float(want.abs().max())
-    if tuple(y.shape) != (vals.shape[0],) or not bool(torch.isfinite(y).all()):
-        return fail(f"ops.spmv: output {tuple(y.shape)} is not finite of {vals.shape[0]} rows")
-    err = float((y - want).abs().max())
-    err_exact = float(np.abs(y.double().cpu().numpy() - ref.spmv_csr_ref(*csr)).max())
-    print(f"ops.spmv {tuple(vals.shape)}: max|err| {err:.3e}, vs float64 CSR {err_exact:.3e} (tol {tol:.3e})")
-    if not (err <= tol and err_exact <= tol):
-        return fail(f"ops.spmv: max|err| {err}, vs float64 {err_exact} > {tol}")
-
-    step_launches = drive_serving_step(dev)
-    if isinstance(step_launches, str):
-        return fail(step_launches)
-
-    tc_launches = drive_tensor_core_step(dev)
-    if isinstance(tc_launches, str):
-        return fail(tc_launches)
-
-    model_launches = drive_model_path(cli, kreg, load_iteration, smi)
-    if isinstance(model_launches, str):
-        return fail(model_launches)
-
-    print(f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
+    t_phase = phase_took("3", t_phase)
 
     # -- phase 4: the closed tuning loop ----------------------------------------
     tune_launches = drive_tuning_loop(cli, kreg, smi)
     if isinstance(tune_launches, str):
         return fail(tune_launches)
-    print(f"phase 4 took {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
+    t_phase = phase_took("4", t_phase)
 
     # -- phase 5: sharded collection, fault recovery, resume --------------------
     scale_launches = drive_scale_out(cli, kreg, smi, load_iteration)
     if isinstance(scale_launches, str):
         return fail(scale_launches)
-    print(f"phase 5 took {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
+    t_phase = phase_took("5", t_phase)
 
     # -- phase 6: the model forward at full width --------------------------------
     msg = drive_model_forward(smi)
     if msg:
         return fail(msg)
-    print(f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = phase_took("6", t_phase)
 
     # -- phase 7: serving Granite-8B whole -----------------------------------------
-    t0 = time.perf_counter()
     msg = drive_serving(smi)
     if msg:
         return fail(msg)
-    print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+    t_phase = phase_took("7", t_phase)
 
     # -- phase 8: training at Granite-8B's widths -------------------------------------
-    t0 = time.perf_counter()
-    msg = drive_training(smi)
-    if msg:
-        return fail(msg)
-    print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    # phase 4's static checks, which need neither the card nor a quiet host,
+    # and the dry-run's longest groups start here, each on one of the host's
+    # cores, beside phase 8's steps, which the card bounds; phase 10 reads
+    # the dry-runs
+    lint = start_lint()
+    early = start_dryruns(EARLY_DRYRUNS)
+    try:
+        msg = drive_training(smi) or read_lint(lint, "beside phase 8's steps", smi)
+        if msg:
+            return fail(msg)
+        t_phase = phase_took("8", t_phase)
 
-    # -- phase 10: the mesh path on one card ------------------------------------------
-    t0 = time.perf_counter()
-    msg = drive_mesh(smi)
-    if msg:
-        return fail(msg)
-    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+        # -- phase 10: the mesh path on one card --------------------------------------
+        msg = drive_mesh(smi, early=early)
+        if msg:
+            return fail(msg)
+        t_phase = phase_took("10", t_phase)
+    finally:
+        stop([*early.values(), lint])
 
     # -- phase 11: the six examples on the card ---------------------------------------
-    t0 = time.perf_counter()
     examples = drive_examples(smi, kreg)
     if isinstance(examples, str):
         return fail(examples)
     example_launches, example_walls = examples
-    print(f"phase 11 took {time.perf_counter() - t0:.1f} s; wall by example "
-          f"{json.dumps({k: round(v, 3) for k, v in example_walls.items()})} on {smi}")
+    walls = json.dumps({k: round(v, 3) for k, v in example_walls.items()})
+    t_phase = phase_took("11", t_phase, f"; wall by example {walls} on {smi}")
 
     # -- phase 12: the regression gate against the committed baseline ------------------
-    t0 = time.perf_counter()
     gate_launches = drive_gate(cli, kreg, load_iteration, smi)
     if isinstance(gate_launches, str):
         return fail(gate_launches)
-    print(f"phase 12 took {time.perf_counter() - t0:.1f} s on {smi}")
+    phase_took("12", t_phase, f" on {smi}")
 
     # -- phase 9: the record --------------------------------------------------
     kernels = []
@@ -3636,9 +3781,11 @@ def main() -> int:
         row["gate_launches"] = gate_launches.get(row["name"], 0)
         row["registry_times"] = {ref: t for ref, t in registry_times.items()
                                  if t["kernel"] == row["name"]}
-    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s on {smi}")
+    PHASE_TIMES["total"] = round(time.perf_counter() - t_start, 1)
+    print(f"chip_smoke.py took {PHASE_TIMES['total']:.1f} s on {smi}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
+    print(f"phase times: {json.dumps(PHASE_TIMES)}")
     print(
         json.dumps(
             {
