@@ -216,13 +216,13 @@ Phases:
    admissions and the prefill time of each, the card's busy time and idle
    share over decode ticks 10-19 (``torch.profiler``, the ops with the
    most device time by input shape), the peak memory, and each tick's
-   bound (``core/roofline.py``: the weights read once plus the live
-   slots' K/V up to the shared length) with the share reached; every
+   bound (``core/roofline.py``: the weights read once plus each live
+   slot's K/V up to its own length) with the share reached; every
    request must end with its 64 tokens.  Then the whole model in float32:
-   request 0, the longest prompt of the first wave, must decode token for
-   token as a batch-1 ``prefill`` and ``decode_step``; how many of the
-   other seven agree with their own direct decode is printed (they decode
-   at the shared cache length, as in the reference).
+   16 requests over the 8 slots (prompts of 2-11 tokens, 8-16 tokens
+   each, so that slots are refilled while others decode, some after a
+   longer request), every one of which must decode token for token as a
+   batch-1 ``prefill`` and ``decode_step`` of its own.
 8. Training on the card: Granite-8B's widths at depth 16 of 36 (bf16
    parameters and gradients, float32 AdamW moments), batch 4 x 4096,
    ``remat="full"``, AdamW warmed up over 2000 steps to 3e-3, clipped at
@@ -274,12 +274,11 @@ Phases:
    per row of C at or below the last rung's from v00 to v02),
    ``heatmap_gallery`` (a report bundle for each of its two iterations,
    one entry per family's rung, every rung's kernel launched),
-   ``serve_lm`` (all 10 requests end with their 12 tokens; request 0,
-   greedy and the longest prompt of the first wave, decodes token for
-   token as a batch-1 ``prefill`` and ``decode_step``, as phase 7 checks
-   its request 0; every greedy request gives the tokens that the same
-   ``Server`` gives on the CPU on a copy of the model; then again, warm,
-   with the same greedy tokens), ``serve_long_context``
+   ``serve_lm`` (all 10 requests end with their 12 tokens; every greedy
+   request decodes token for token as a batch-1 ``prefill`` and
+   ``decode_step`` of its own, as phase 7 checks its requests, and gives
+   the tokens that the same ``Server`` gives on the CPU on a copy of the
+   model; then again, warm, with the same greedy tokens), ``serve_long_context``
    (the per-token ms of the SSM and the GQA model after each prefill,
    printed with the card's name and power limit) and ``train_lm`` (``--steps
    8`` cut at step 3, then at step 6, and once more at 3 on a (1, 1)
@@ -486,10 +485,12 @@ SERVE_ARGV = ["--arch", "granite-8b", "--slots", "8", "--max-seq", "2048",
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_MAX_TOKENS, SERVE_MAX_SEQ = 8, 16, 64, 2048
 LONG_PROMPT = (256, 1024)  # prompt lengths of the library-level run, inclusive
 SERVE_PROFILED = (10, 20)  # decode ticks under torch.profiler (no admission)
-# the f32 check: request 0, the longest prompt of the first wave, against a
-# direct batch-1 decode; the other requests share its cache length
+# the f32 check: every request against a direct batch-1 decode of its own;
+# twice as many requests as slots, with max_tokens drawn from a range, so
+# that slots are refilled while others decode
 CHECK_PROMPTS = (11, 2, 10)  # request 0's length, then the others' range
-CHECK_REQUESTS, CHECK_TOKENS, CHECK_MAX_SEQ = 8, 16, 64
+CHECK_TOKENS = (8, 16)  # max_tokens of each request, inclusive
+CHECK_REQUESTS, CHECK_MAX_SEQ = 16, 64
 # phase 8, training: Granite-8B's widths at depth 16 of 36, bfloat16
 # parameters and gradients, float32 AdamW moments (44.3 GB; 36 layers would
 # need 96.6 GB), the train_4k length.  The first steps of a long run,
@@ -2578,23 +2579,23 @@ def serve_timer(server_cls):
     """Time a ``Server``'s work from outside while in use, by wrapping the
     class's ``step`` and ``_prefill_slot``: each admission's prefill, and
     each decode tick (a step less its admissions) with the slots live in it
-    and the shared cache length it wrote, on the host's clock (both end in
-    a read of the sampled tokens, which waits for the card).  The ticks
+    and the sum of their cache lengths after it (the K/V tokens the tick
+    must read), on the host's clock (both end in a read of the sampled
+    tokens, which waits for the card).  The ticks
     ``SERVE_PROFILED`` run under ``torch.profiler``: their busy time on the
     card against their wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models.model import caches_length
-
     step, prefill = server_cls.step, server_cls._prefill_slot
     rec = dict(prefill_ms=[], ticks=[], busy_ms=None, window_ms=0.0, top=[])
-    prof = []
+    prof, admitted = [], []
 
     def timed_prefill(srv, slot, req):
         t0 = time.perf_counter()
         prefill(srv, slot, req)
         rec["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+        admitted.append(req)
 
     def timed_step(srv):
         idx = len(rec["ticks"])
@@ -2604,13 +2605,14 @@ def serve_timer(server_cls):
                                 record_shapes=True))
             prof[0].__enter__()
         n_adm, before = len(rec["prefill_ms"]), srv.steps
-        live = min(srv.cfg.batch_slots,
-                   sum(r is not None for r in srv.active) + len(srv.queue))
+        live = [r for r in srv.active if r is not None]
         t0 = time.perf_counter()
         step(srv)
         ms = (time.perf_counter() - t0) * 1e3 - sum(rec["prefill_ms"][n_adm:])
         if srv.steps > before:
-            rec["ticks"].append(dict(ms=ms, live=live, length=caches_length(srv.caches)))
+            live += admitted[n_adm:]  # a slot's length: its prompt and every token but the last
+            rec["ticks"].append(dict(ms=ms, live=len(live), kv_tokens=sum(
+                len(r.prompt) + len(r.out_tokens) - 1 for r in live)))
             if SERVE_PROFILED[0] <= idx < SERVE_PROFILED[1]:
                 rec["window_ms"] += ms + sum(rec["prefill_ms"][n_adm:])
         if prof and rec["busy_ms"] is None and len(rec["ticks"]) == SERVE_PROFILED[1]:
@@ -2644,7 +2646,7 @@ def report_serving(label, rec, wall_s, reqs, cfg, param_bytes, smi):
     kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * 2  # K and V, bf16
     bounds = []
     for t in ticks:
-        need = param_bytes + t["live"] * t["length"] * kv_token
+        need = param_bytes + t["kv_tokens"] * kv_token
         terms = roofline.from_raw(label, 1, cfg.model_flops_decode(t["live"]), need, 0.0)
         bounds.append(terms.step_s * 1e3)
     bounds = np.array(bounds)
@@ -2657,7 +2659,7 @@ def report_serving(label, rec, wall_s, reqs, cfg, param_bytes, smi):
           f"{len(pre)} admissions, prefill median {float(np.median(pre)):.3f} ms, max "
           f"{float(pre.max()):.3f} ms per admission; on {smi}")
     print(f"{label}: decode tick bound (core/roofline.py: the {param_bytes / 1e9:.2f} GB of "
-          f"weights read once plus the live slots' K/V up to the shared length, over 3.35 "
+          f"weights read once plus each live slot's K/V up to its own length, over 3.35 "
           f"TB/s) median {float(np.median(bounds)):.3f} ms (min {float(bounds.min()):.3f}, max "
           f"{float(bounds.max()):.3f}); share of the bound reached: median "
           f"{float(np.median(share)):.3f}, least {float(share.min()):.3f}")
@@ -2753,7 +2755,7 @@ def drive_serving(smi, cfg=None, dev=None):
     if msg:
         return msg
 
-    # -- float32: the first request against a direct decode ------------------------------
+    # -- float32: every request against a direct decode of its own ---------------------
     torch.cuda.reset_peak_memory_stats()
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     model = LM(cfg32, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
@@ -2761,26 +2763,41 @@ def drive_serving(smi, cfg=None, dev=None):
     lengths = [CHECK_PROMPTS[0]] + [int(rng.integers(CHECK_PROMPTS[1], CHECK_PROMPTS[2] + 1))
                                     for _ in range(CHECK_REQUESTS - 1)]
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
-                    max_tokens=CHECK_TOKENS) for i, n in enumerate(lengths)]
+                    max_tokens=int(rng.integers(CHECK_TOKENS[0], CHECK_TOKENS[1] + 1)))
+            for i, n in enumerate(lengths)]
     srv = Server(model, ServeConfig(batch_slots=SERVE_SLOTS, max_seq=CHECK_MAX_SEQ),
                  dtype=torch.float32)
     for r in reqs:
         srv.submit(r)
-    srv.run_until_done()
-    direct = [direct_greedy(model, r.prompt, CHECK_TOKENS, CHECK_MAX_SEQ, torch.float32)
+    held, seen = [[] for _ in range(SERVE_SLOTS)], set()  # each slot's requests in turn
+    while srv.queue or any(r is not None for r in srv.active):
+        srv.step()
+        for slot, r in enumerate(srv.active):
+            if r is not None and r.rid not in seen:
+                seen.add(r.rid)
+                held[slot].append(r)
+    # admitted into a slot whose last request ended longer than its prompt
+    after_longer = [b.rid for line in held for a, b in zip(line, line[1:])
+                    if len(a.prompt) + a.max_tokens - 1 > len(b.prompt)]
+    direct = [direct_greedy(model, r.prompt, r.max_tokens, CHECK_MAX_SEQ, torch.float32)
               for r in reqs]
-    agree = [r.rid for r, d in zip(reqs, direct) if r.out_tokens == d]
+    differ = [r.rid for r, d in zip(reqs, direct) if r.out_tokens != d]
     print(f"float32 (whole, {cfg.n_layers} of {cfg.n_layers} layers, {total * 4 / 1e9:.2f} GB; peak "
-          f"{torch.cuda.max_memory_allocated()} B): request 0 (prompt {lengths[0]}, the longest "
-          f"of the first wave) against a batch-1 prefill + decode_step: "
-          f"{'equal' if 0 in agree else 'DIFFERENT'} over {CHECK_TOKENS} tokens; the other "
-          f"{CHECK_REQUESTS - 1} (prompts {lengths[1:]}, decoded at the shared length): "
-          f"{len(agree) - (0 in agree)} equal to their direct decode (recorded, not gated)")
+          f"{torch.cuda.max_memory_allocated()} B): {CHECK_REQUESTS} requests over "
+          f"{SERVE_SLOTS} slots in {srv.steps} ticks (prompts {lengths}, max_tokens "
+          f"{[r.max_tokens for r in reqs]}; each slot's requests "
+          f"{[[r.rid for r in line] for line in held]}; admitted after a longer request: "
+          f"{after_longer}) against a batch-1 prefill + decode_step each: "
+          f"{'all equal' if not differ else f'{differ} DIFFERENT'}")
     del model, srv
     torch.cuda.empty_cache()
-    if 0 not in agree:
-        return (f"serving float32: request 0 gave {reqs[0].out_tokens}, the direct decode "
-                f"{direct[0]}")
+    if differ:
+        return (f"serving float32: requests {differ} gave "
+                f"{[r.out_tokens for r in reqs if r.rid in differ]}, their direct decodes "
+                f"{[d for r, d in zip(reqs, direct) if r.rid in differ]}")
+    if not after_longer or sum(map(len, held)) != CHECK_REQUESTS:
+        return (f"serving float32: no slot was refilled after a longer request, or a "
+                f"request was never seen in a slot: {[[r.rid for r in line] for line in held]}")
     return None
 
 
@@ -3274,27 +3291,29 @@ def drive_examples(smi, kreg):
     if missing:
         return f"heatmap_gallery: {missing} not launched"
 
-    # serve_lm: every request ends; request 0 as a direct decode, and every
-    # greedy request as the same Server gives it on the CPU on these weights
+    # serve_lm: every request ends; every greedy request as a direct decode of
+    # its own, and as the same Server gives it on the CPU on these weights
     got, _ = run("serve_lm", serve_lm, ["--device", "cuda"])
     reqs = got["requests"]
     if not all(r.done and len(r.out_tokens) == serve_lm.MAX_TOKENS for r in reqs) \
             or len(reqs) != serve_lm.N_REQUESTS:
         return f"serve_lm: {[(r.rid, r.done, len(r.out_tokens)) for r in reqs]}"
     greedy = [r for r in reqs if r.temperature == 0.0]
-    direct = direct_greedy(got["model"], greedy[0].prompt, serve_lm.MAX_TOKENS, 128,
-                           torch.float32)
+    direct = {r.rid: direct_greedy(got["model"], r.prompt, serve_lm.MAX_TOKENS, 128,
+                                   torch.float32) for r in greedy}
+    alone = [r.rid for r in greedy if r.out_tokens != direct[r.rid]]
     on_cpu, _, _ = serve_lm.serve(copy.deepcopy(got["model"]).to("cpu"), 0)
     cpu = {r.rid: r.out_tokens for r in on_cpu if r.temperature == 0.0}
     differ = [r.rid for r in greedy if r.out_tokens != cpu[r.rid]]
     print(f"serve_lm: {len(reqs)} requests done, {got['tokens_per_s']:.1f} tokens/s, "
-          f"{got['ticks']} ticks in {got['seconds']:.3f} s on {smi}; request 0 (greedy, the "
-          f"longest prompt of the first wave) against a batch-1 prefill + decode_step: "
-          f"{'equal' if greedy[0].out_tokens == direct else 'DIFFERENT'}; greedy requests "
-          f"{sorted(cpu)} against the same Server on the CPU on these weights: "
-          f"{'all equal' if not differ else f'{differ} DIFFERENT'}")
-    if greedy[0].out_tokens != direct:
-        return f"serve_lm: request 0 gave {greedy[0].out_tokens}, its direct decode {direct}"
+          f"{got['ticks']} ticks in {got['seconds']:.3f} s on {smi}; greedy requests "
+          f"{sorted(direct)} against a batch-1 prefill + decode_step each: "
+          f"{'all equal' if not alone else f'{alone} DIFFERENT'}; against the same Server on "
+          f"the CPU on these weights: {'all equal' if not differ else f'{differ} DIFFERENT'}")
+    if alone:
+        return (f"serve_lm: greedy requests {alone} gave "
+                f"{[r.out_tokens for r in greedy if r.rid in alone]}, their direct decodes "
+                f"{[direct[rid] for rid in alone]}")
     if differ:
         return (f"serve_lm: greedy requests {differ} gave "
                 f"{[r.out_tokens for r in greedy if r.rid in differ]} on the card, "

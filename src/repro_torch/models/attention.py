@@ -14,10 +14,18 @@ half-precision operands, as the reference's
 each chunk's probabilities from the saved logsumexp, so nothing of size
 Sq x Skv is kept for it.
 
-KV caches are dicts of buffers plus a Python-int ``length``; writes are
-functional (:func:`update_seq_buffer` returns a new buffer), as the
-reference's are.  There is no ring buffer: a sliding window masks the
-full buffer, as in the reference.
+KV caches are dicts of buffers plus a ``length``; writes are functional
+(:func:`update_seq_buffer` returns a new buffer), as the reference's are.
+The ``length`` is a Python int that every row shares (the model forward,
+training, the dry-run), or a (B,) int64 tensor on the cache's device
+whose row b is row b's own length (the serving ``Server``, whose slots
+hold requests of different lengths): a one-token write then puts row b's
+K/V at ``length[b]``, and row b's key mask and RoPE position follow its
+own length.  A model step on such caches goes through :func:`row_step`,
+which builds the write mask and the next lengths once for every layer,
+so the layers keep sharing one length tensor.  The tensor form writes one
+token at a time and stays off the dry-run's DTensor path.  There is no
+ring buffer: a sliding window masks the full buffer, as in the reference.
 
 MLA (DeepSeek-V2/V3 multi-head latent attention) caches the latent plus
 the rope key only; decode uses the absorbed formulation.
@@ -291,10 +299,18 @@ def flash_xla(
     return _FlashXLA.apply(q, k, v, q_positions, kv_length, causal, window, chunk)
 
 
+def _length_mask(length: Any) -> Any:
+    """A cache length laid out against (B, H, Sq, Skv) scores: an int as it
+    is, a per-row (B,) tensor as (B, 1, 1, 1)."""
+    if isinstance(length, Tensor) and length.ndim == 1:
+        return length.view(-1, 1, 1, 1)
+    return length
+
+
 def attention_ref(
     q: Tensor, k: Tensor, v: Tensor,
     q_positions: Tensor,
-    kv_length: Any = None,
+    kv_length: Any = None,  # an int, or (B,) per-row lengths
     causal: bool = True,
     window: Optional[int] = None,
 ) -> Tensor:
@@ -313,7 +329,7 @@ def attention_ref(
     if window is not None:
         mask = mask & (kpos > qpos - window)
     if kv_length is not None:
-        mask = mask & (kpos < kv_length)
+        mask = mask & (kpos < _length_mask(kv_length))
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     out = matmul_acc(p.to(v.dtype), v.permute(0, 2, 1, 3))  # (B, H, Sq, D)
     return out.permute(0, 2, 1, 3).to(q.dtype)
@@ -357,13 +373,44 @@ def update_seq_buffer(buf: Tensor, new: Tensor, idx: Any) -> Tensor:
     return out
 
 
+def row_step(caches: Any, lengths: Tensor) -> Any:
+    """The caches of a one-token step at per-row ``lengths`` ((B,) int64):
+    each layer's dict also holds the step's write mask ``hit`` ((B, S):
+    row b's position ``lengths[b]``, none past the buffer) and the lengths
+    after it, ``next``, both built once for every layer, so that the
+    layers' new caches share one length tensor."""
+    cap = next(c[k].shape[1] for c in caches for k in ("k", "c_kv") if k in c)
+    step = {"hit": torch.arange(cap, device=lengths.device)[None, :] == lengths[:, None],
+            "next": lengths + 1}
+    return [dict(c, **step) if "length" in c else c for c in caches]
+
+
+def _append(cache: Dict[str, Any], key: str, new: Tensor) -> Tensor:
+    """``cache[key]`` with ``new`` written at the cache's length.  In a
+    :func:`row_step`, one token a row by the reference's one-hot select
+    along the sequence: no read back to the host, and nothing written in
+    a row whose length is past the buffer."""
+    buf = cache[key]
+    if "hit" not in cache:
+        return update_seq_buffer(buf, new, cache["length"])
+    if new.shape[1] != 1:
+        raise ValueError(f"per-row cache lengths write one token a step, not {new.shape[1]}")
+    hit = cache["hit"]
+    return torch.where(hit.view(*hit.shape, *([1] * (buf.ndim - 2))), new.to(buf.dtype), buf)
+
+
+def _advanced(cache: Dict[str, Any], s: int) -> Any:
+    """The cache's length after a write of ``s`` tokens."""
+    return cache["next"] if "next" in cache else cache["length"] + s
+
+
 def cache_update(cache: Dict[str, Any], k_new: Tensor, v_new: Tensor) -> Dict[str, Any]:
-    """Append (B, s, KV, D) at the current length (decode: s == 1)."""
-    idx = cache["length"]
+    """Append (B, s, KV, D) at the current length (decode: s == 1), or
+    one token a row at each row's own length."""
     return {
-        "k": update_seq_buffer(cache["k"], k_new, idx),
-        "v": update_seq_buffer(cache["v"], v_new, idx),
-        "length": idx + k_new.shape[1],
+        "k": _append(cache, "k", k_new),
+        "v": _append(cache, "v", v_new),
+        "length": _advanced(cache, k_new.shape[1]),
     }
 
 
@@ -525,10 +572,9 @@ def mla_apply(
     new_cache = None
     kv_len = None
     if cache is not None:
-        idx = cache["length"]
-        c_all = update_seq_buffer(cache["c_kv"], c_kv, idx)
-        r_all = update_seq_buffer(cache["k_rope"], k_rope, idx)
-        new_cache = {"c_kv": c_all, "k_rope": r_all, "length": idx + x.shape[1]}
+        c_all = _append(cache, "c_kv", c_kv)
+        r_all = _append(cache, "k_rope", k_rope)
+        new_cache = {"c_kv": c_all, "k_rope": r_all, "length": _advanced(cache, x.shape[1])}
         if x.shape[1] == 1:
             y = _mla_absorbed_decode(params, q_nope, q_rope, new_cache, cfg, x.dtype)
             return _out(y, params["wo"]), new_cache
@@ -562,6 +608,6 @@ def _mla_absorbed_decode(params, q_nope, q_rope, cache, cfg: MLAConfig, dtype):
     s_rope = matmul_acc(q_rope.reshape(b, s * h, -1), k_rope.transpose(1, 2))
     sc = ((s_nope + s_rope) * scale).reshape(b, s, h, -1).permute(0, 2, 1, 3)
     tpos = torch.arange(c_kv.shape[1], device=c_kv.device)[None, None, None, :]
-    pr = torch.softmax(torch.where(tpos < cache["length"], sc, NEG_INF), dim=-1)
+    pr = torch.softmax(torch.where(tpos < _length_mask(cache["length"]), sc, NEG_INF), dim=-1)
     lat = matmul_acc(pr.to(dtype).permute(0, 2, 1, 3).reshape(b, s * h, -1), c_kv)
     return _expand(lat.reshape(b, s, h, -1).to(dtype), params["wv_b"])

@@ -14,7 +14,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..parallel.context import constrain_logical, keep_layout
-from .attention import AttnConfig, attn_apply, attn_defs, cross_attn_apply, init_cache
+from .attention import (
+    AttnConfig, attn_apply, attn_defs, cross_attn_apply, init_cache, row_step,
+)
 from .layers import (
     cross_entropy,
     embed,
@@ -26,7 +28,7 @@ from .layers import (
     sinusoidal_positions,
     unembed,
 )
-from .model import ModelConfig, _default_generator, caches_length
+from .model import ModelConfig, _default_generator, caches_length, row_positions
 from .params import ParamDef, ParamTree
 from .transformer import remat_wrap
 
@@ -113,12 +115,12 @@ class EncDec(ParamTree):
         tokens: Tensor,  # (B, S)
         enc: Tensor,  # (B, S_enc, d)
         caches: Optional[List[Dict[str, Any]]] = None,
-        start: int = 0,
+        start: Any = 0,  # an int, or (B,) per-row cache lengths
     ) -> Tuple[Tensor, Optional[List[Dict[str, Any]]]]:
         cfg = self.cfg
         p = self.tree()
         b, s = tokens.shape
-        pos = (start + torch.arange(s, device=tokens.device))[None].expand(b, s)
+        pos = row_positions(start, b, s, tokens.device)
         x = (embed(p["embed"], tokens).to(cfg.dtype)
              + embed({"embedding": p["dec_pos"]}, pos).to(cfg.dtype))
         # the vocab-sharded embedding gather leaves x with no layout: constrain
@@ -164,6 +166,8 @@ class EncDec(ParamTree):
             )
         enc = self.encode(embeddings, remat="none" if caches is not None else None)
         start = caches_length(caches) if caches is not None else 0
+        if isinstance(start, torch.Tensor):
+            caches = row_step(caches, start)
         logits, new_caches = self.decode(tokens, enc, caches, start)
         return logits, new_caches, torch.zeros((), dtype=torch.float32, device=tokens.device)
 

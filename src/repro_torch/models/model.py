@@ -30,7 +30,7 @@ import torch
 
 from ..parallel.context import constrain_logical, pad
 from . import params as P
-from .attention import AttnConfig, MLAConfig
+from .attention import AttnConfig, MLAConfig, row_step
 from .layers import (
     cross_entropy, embed, embed_defs, hi, rmsnorm, rmsnorm_defs, unembed, untied_unembed_defs,
 )
@@ -288,9 +288,9 @@ class LM(ParamTree):
     def device(self) -> torch.device:
         return self.embed.embedding.device
 
-    def _positions(self, tokens: Tensor, start: int = 0) -> Tensor:
+    def _positions(self, tokens: Tensor, start: Any = 0) -> Tensor:
         b, s = tokens.shape
-        pos = (start + torch.arange(s, device=tokens.device))[None, :].expand(b, s)
+        pos = row_positions(start, b, s, tokens.device)
         if self.cfg.mrope_sections is not None:
             pos = pos[..., None].expand(b, s, 3)  # text: t == h == w
         return pos
@@ -306,9 +306,11 @@ class LM(ParamTree):
         """Returns (logits (B, S, padded_vocab) float32, new_caches, aux_loss)."""
         cfg = self.cfg
         p = self.tree()
+        start = caches_length(caches) if caches is not None else 0
         if positions is None:
-            start = caches_length(caches) if caches is not None else 0
             positions = self._positions(tokens, start)
+        if isinstance(start, Tensor):
+            caches = row_step(caches, start)
         x = embed(p["embed"], tokens).to(cfg.dtype)
         if embeddings is not None:
             x = x + embeddings.to(cfg.dtype)
@@ -381,13 +383,23 @@ class LM(ParamTree):
         return logits, new_caches
 
 
-def caches_length(caches: Any) -> int:
+def caches_length(caches: Any) -> Any:
     """Current sequence length of a cache tree (0 for pure-SSM caches);
-    the layers' lengths are all equal."""
+    the layers' lengths are all equal.  An int, or the (B,) tensor of
+    per-row lengths that a ``Server``'s layers share."""
     for path, leaf in P.leaves(caches):
         if path.rsplit("/", 1)[-1] == "length":
-            return int(leaf)
+            return leaf if isinstance(leaf, Tensor) and leaf.ndim == 1 else int(leaf)
     return 0
+
+
+def row_positions(start: Any, b: int, s: int, device: Any) -> Tensor:
+    """(B, S) positions from ``start``: an int that every row shares, or a
+    (B,) tensor of per-row starts."""
+    steps = torch.arange(s, device=device)
+    if isinstance(start, Tensor) and start.ndim == 1:
+        return start[:, None] + steps[None, :]
+    return (start + steps)[None, :].expand(b, s)
 
 
 def build_model(cfg: ModelConfig, device: Any = None,

@@ -6,23 +6,35 @@ each request's cache slot; ``decode_step`` advances every slot one
 token; finished slots (EOS or max_tokens) are freed and refilled from
 the queue — continuous batching at slot granularity.
 
-As in the reference:
+Every request decodes as it would alone: its tokens are those of a
+batch-1 ``prefill`` then ``decode_step`` on a fresh cache (with dense or
+ragged mixtures of experts; under capacity dispatch a decode token's
+route depends on the batch, as GShard's does, and only the first token,
+sampled at admission, is the request's alone).  To that end:
 
-  * a request is admitted by a prefill of the whole batch, the prompt in
-    its slot and zeros in the others, whose slot is then spliced into
-    the live caches (:func:`_splice_slot`).  In a mixture of experts with
-    capacity dispatch the zero rows compete for capacity, so a slot's
-    routing depends on ``batch_slots``;
-  * the slots share one cache ``length``, the largest of theirs.  A slot
-    whose prompt is shorter than the live length decodes at that length's
-    positions and attends over the zero K/V lines below it, so only the
-    request that set the length decodes as it would alone.
+  * a request is admitted by a prefill of its prompt alone, on a batch-1
+    cache of ``max_seq``, whose line is then spliced into the slot
+    (:func:`_splice_slot`), its length with it;
+  * each slot has its own cache length: one (slots,) int64 tensor on the
+    model's device that every layer's ``length`` shares, so a slot writes
+    its K/V at its own length and takes its RoPE position and key mask
+    from it (each decode tick builds the write mask and the next lengths
+    once for all layers: ``models.attention.row_step``);
+  * a request whose prompt plus ``max_tokens`` exceeds ``max_seq`` is
+    refused at admission with a ``ValueError``, so no live slot reaches
+    the end of its line.  A free slot's length goes on growing with the
+    ticks, and its writes past ``max_seq`` write nothing.
 
-The caches are the port model's: a list of per-layer dicts, batch first,
-with a Python-int ``length``.  A decode tick reads one thing back to the
-host, the sampled tokens; the tokens fed to the next tick stay on the
-device.  Greedy sampling is exact; for ``temperature > 0`` tokens are
-drawn from a ``torch.Generator`` seeded with ``ServeConfig.seed``.
+The JAX package's ``Server`` prefills the whole batch with zeros in the
+other slots and keeps one shared length, the largest, so that only the
+request that set it decodes as it would alone, where its docstrings
+promise independent slots; this one keeps that promise.
+
+The caches are the port model's: a list of per-layer dicts, batch first.
+A decode tick reads one thing back to the host, the sampled tokens; the
+tokens fed to the next tick stay on the device.  Greedy sampling is
+exact; for ``temperature > 0`` tokens are drawn from a
+``torch.Generator`` seeded with ``ServeConfig.seed``.
 """
 
 from __future__ import annotations
@@ -32,6 +44,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..models.model import caches_length
 
 Tensor = torch.Tensor
 Caches = List[Dict[str, Any]]
@@ -67,8 +81,13 @@ class Server:
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * cfg.batch_slots
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        # per-slot caches: one cache tree of batch = slots
+        # per-slot caches: one cache tree of batch = slots, and one length
+        # a slot that every layer shares
         self.caches = model.init_caches(cfg.batch_slots, cfg.max_seq, dtype=dtype)
+        lengths = torch.zeros(cfg.batch_slots, dtype=torch.int64, device=self.device)
+        for layer in self.caches:
+            if "length" in layer:
+                layer["length"] = lengths
         self.slot_tokens = torch.zeros((cfg.batch_slots, 1), dtype=torch.int64,
                                        device=self.device)
         self.steps = 0
@@ -89,16 +108,17 @@ class Server:
 
     @torch.no_grad()
     def _prefill_slot(self, slot: int, req: Request) -> None:
+        """Prefill ``req`` alone and splice it into ``slot``."""
         plen = len(req.prompt)
-        if plen >= self.cfg.max_seq:
-            raise ValueError("prompt longer than max_seq")
-        b = self.cfg.batch_slots
-        toks = torch.zeros((b, plen), dtype=torch.int64)
-        toks[slot] = torch.from_numpy(np.asarray(req.prompt, dtype=np.int64))
-        fresh = self.model.init_caches(b, self.cfg.max_seq, dtype=self.dtype)
+        if plen + req.max_tokens > self.cfg.max_seq:
+            raise ValueError(
+                f"request {req.rid}: a prompt of {plen} tokens plus max_tokens "
+                f"{req.max_tokens} is {plen + req.max_tokens}, past max_seq {self.cfg.max_seq}")
+        toks = torch.from_numpy(np.asarray(req.prompt, dtype=np.int64))[None]
+        fresh = self.model.init_caches(1, self.cfg.max_seq, dtype=self.dtype)
         logits, filled = self.model.prefill(toks.to(self.device), fresh, last_only=True)
         self.caches = _splice_slot(self.caches, filled, slot)
-        nxt = self._sample(logits[slot : slot + 1, -1], [req])
+        nxt = self._sample(logits[:, -1], [req])
         self.slot_tokens[slot] = nxt[0]
         req.out_tokens.append(int(nxt[0]))
 
@@ -141,22 +161,21 @@ class Server:
             self.step()
 
 
-# the batch-first cache tensors a slot owns a line of; every other key
-# (``length``) is shared
+# the batch-first cache tensors a slot owns a line of; its length is row
+# ``slot`` of the ``length`` that the layers share
 _SLOT_LEAVES = ("k", "v", "c_kv", "k_rope", "conv", "ssm")
 
 
 def _splice_slot(live: Caches, fresh: Caches, slot: int) -> Caches:
-    """Copy slot ``slot``'s batch line from ``fresh`` into ``live`` (in
-    place) and return it.  ``length`` adopts the larger of the two: slots
-    shorter than it hold zero K/V lines past their own fill that only
-    their own decode steps overwrite."""
+    """Copy the batch-1 caches ``fresh`` into slot ``slot`` of ``live`` (in
+    place) and return it: each cache line whole, and the slot's length."""
     for mine, theirs in zip(live, fresh):
         for key, value in mine.items():
             if key in _SLOT_LEAVES:
-                value[slot] = theirs[key][slot]
-            elif key == "length":
-                mine[key] = max(value, theirs[key])
-            else:
+                value[slot] = theirs[key][0]
+            elif key != "length":
                 raise KeyError(f"cache leaf {key!r} has no splice rule")
+    lengths = caches_length(live)
+    if isinstance(lengths, Tensor):  # pure-SSM caches have none
+        lengths[slot] = caches_length(fresh)
     return live

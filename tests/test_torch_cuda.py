@@ -1200,25 +1200,28 @@ def _greedy(model, prompt, n, max_seq):
 
 @pytest.mark.gpu
 def test_cuda_server_matches_direct_decode(card):
-    """Granite-8B's widths at depth 2 in float32: the request that sets the
-    shared cache length decodes as a batch-1 prefill and decode_step, with
-    every cache tensor on the card."""
+    """Granite-8B's widths at depth 2 in float32: every request, the first,
+    the shorter one beside it and the ones admitted into refilled slots,
+    decodes as a batch-1 prefill and decode_step, with every cache tensor
+    and the per-slot lengths on the card."""
     from repro_torch.models import build_model
     from repro_torch.runtime import Request, ServeConfig, Server
 
     cfg = _granite_cut(2, torch.float32)
     model = build_model(cfg, device=card, generator=torch.Generator(device=card).manual_seed(0))
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (9, 4, 6)]
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (9, 4, 6, 3)]
     srv = Server(model, ServeConfig(batch_slots=2, max_seq=48), dtype=torch.float32)
-    reqs = [Request(rid=i, prompt=p, max_tokens=6) for i, p in enumerate(prompts)]
+    reqs = [Request(rid=i, prompt=p, max_tokens=k) for i, (p, k) in
+            enumerate(zip(prompts, (6, 9, 6, 7)))]
     for r in reqs:
         srv.submit(r)
     srv.run_until_done()
-    assert reqs[0].out_tokens == _greedy(model, prompts[0], 6, 48)
-    assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
+    for r in reqs:
+        assert r.done and r.out_tokens == _greedy(model, r.prompt, r.max_tokens, 48), r.rid
     for layer in srv.caches:
-        assert all(v.device == card for k, v in layer.items() if k != "length")
+        assert all(v.device == card for v in layer.values())
+        assert layer["length"].dtype == torch.int64
 
 
 @pytest.mark.gpu

@@ -10,8 +10,9 @@ Part 2 holds the examples against the reference scripts
 (``examples/*.py``, run in process on the CPU): quickstart and
 optimize_gemm, given the reference's specs under the TPU tile, give its
 transfer totals and pattern classes bit for bit; serve_lm on the
-reference's parameters (``params_from_reference``) gives its greedy
-tokens; train_lm on them follows its loss curve within ``LOSS_RTOL``.
+reference's parameters (``params_from_reference``) gives each greedy
+request the tokens of the reference's model decoding it alone; train_lm
+on them follows its loss curve within ``LOSS_RTOL``.
 """
 
 import copy
@@ -94,20 +95,23 @@ def test_serve_lm_finishes_every_request():
 
 
 def test_serve_lm_request_that_sets_the_length_decodes_as_alone():
-    """Request 0 has the longest prompt of the first wave (17 tokens), so
-    it decodes as a batch-1 prefill and decode steps would (the others
-    decode at the shared cache length, as in the reference)."""
+    """Every greedy request, request 0 (the longest prompt of the first
+    wave) and the ones beside it or admitted into refilled slots, decodes
+    as a batch-1 prefill and decode steps would."""
     out = serve_lm.main(["--device", "cpu"])
-    model, req = out["model"], out["requests"][0]
-    caches = model.init_caches(1, 128, dtype=torch.float32)
-    with torch.no_grad():
-        logits, caches = model.prefill(torch.from_numpy(req.prompt.astype(np.int64))[None],
-                                       caches)
-        toks = [int(logits[0, -1].argmax())]
-        while len(toks) < serve_lm.MAX_TOKENS:
-            logits, caches = model.decode_step(torch.tensor([[toks[-1]]]), caches)
-            toks.append(int(logits[0, -1].argmax()))
-    assert req.out_tokens == toks
+    model = out["model"]
+    greedy = [r for r in out["requests"] if r.temperature == 0.0]
+    assert [r.rid for r in greedy] == [0, 2, 4, 6, 8]
+    for req in greedy:
+        caches = model.init_caches(1, 128, dtype=torch.float32)
+        with torch.no_grad():
+            logits, caches = model.prefill(torch.from_numpy(req.prompt.astype(np.int64))[None],
+                                           caches)
+            toks = [int(logits[0, -1].argmax())]
+            while len(toks) < serve_lm.MAX_TOKENS:
+                logits, caches = model.decode_step(torch.tensor([[toks[-1]]]), caches)
+                toks.append(int(logits[0, -1].argmax()))
+        assert req.out_tokens == toks, req.rid
 
 
 def test_serve_lm_serve_on_a_copy_of_the_model_gives_the_same_greedy_tokens():
@@ -313,8 +317,18 @@ def test_serve_long_context_cache_mib_is_the_reference_s(monkeypatch):
             assert got * 2**20 + lengths == want * 2**20, (cfg.name, plen)
 
 
+# the greedy requests of the reference's serve_lm whose tokens from its
+# ``Server`` differ from its model's decode of them alone: a recorded fact of
+# the reference, whose slots share one cache length
+REFERENCE_SERVE_LM_DIFFERS = [2, 8]
+
+
 def test_serve_lm_gives_the_reference_s_greedy_tokens(monkeypatch):
+    """serve_lm on the reference's parameters gets the reference's prompts,
+    and every greedy request gets the tokens of the reference's model
+    decoding it alone (a batch-1 prefill then ``decode_step``)."""
     import jax
+    import jax.numpy as jnp
 
     from repro_torch.models.model import params_from_reference
 
@@ -345,10 +359,22 @@ def test_serve_lm_gives_the_reference_s_greedy_tokens(monkeypatch):
     got = serve_lm.main(["--device", "cpu"])["requests"]
     want = srv.requests
     assert [len(r.prompt) for r in got] == [len(r.prompt) for r in want]
+    decode = jax.jit(srv.model.decode_step)
+    differs = []
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.prompt, w.prompt)
-        if w.temperature == 0.0:
-            assert g.out_tokens == list(map(int, w.out_tokens)), g.rid
+        if w.temperature != 0.0:
+            continue
+        caches = srv.model.init_caches(1, 128, dtype=jnp.float32)
+        logits, caches = srv.model.prefill(srv.params, jnp.asarray(w.prompt)[None], caches)
+        alone = [int(jnp.argmax(logits[0, -1]))]
+        while len(alone) < serve_lm.MAX_TOKENS:
+            logits, caches = decode(srv.params, jnp.asarray([[alone[-1]]], jnp.int32), caches)
+            alone.append(int(jnp.argmax(logits[0, 0])))
+        assert g.out_tokens == alone, g.rid
+        if list(map(int, w.out_tokens)) != alone:
+            differs.append(w.rid)
+    assert differs == REFERENCE_SERVE_LM_DIFFERS
     assert sum(r.temperature == 0.0 for r in want) == 5
 
 
